@@ -1,0 +1,104 @@
+"""Method / dataset plugin registry.
+
+Port of nerficg_tpu/core/registry.py (reference: src/Implementations.py):
+plugins register themselves when imported, and a lazy import table maps
+names to the modules the port has so far.
+"""
+
+from __future__ import annotations
+
+import importlib
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from nerficg_torch.core.errors import DatasetError, MethodError
+
+__all__ = ['Methods', 'Datasets', 'register_method', 'register_dataset']
+
+
+@dataclass
+class MethodEntry:
+    name: str
+    model_cls: type
+    renderer_cls: type
+
+
+_BUILTIN_METHOD_MODULES = {
+    'InstantNGP': 'nerficg_torch.methods.instant_ngp',
+}
+_BUILTIN_DATASET_MODULES = {
+    'NeRF': 'nerficg_torch.data.loaders.nerf',
+}
+
+_methods: dict[str, MethodEntry] = {}
+_datasets: dict[str, type] = {}
+
+
+def register_method(name: str, model_cls: type, renderer_cls: type) -> None:
+    _methods[name] = MethodEntry(name, model_cls, renderer_cls)
+
+
+def register_dataset(name: str) -> Callable[[type], type]:
+    def decorator(cls: type) -> type:
+        _datasets[name] = cls
+        return cls
+    return decorator
+
+
+def _resolve_method(name: str) -> MethodEntry:
+    if name not in _methods:
+        module = _BUILTIN_METHOD_MODULES.get(name)
+        if module is None:
+            raise MethodError(
+                f'unknown method {name!r} (available: '
+                f'{sorted(set(_methods) | set(_BUILTIN_METHOD_MODULES))})')
+        importlib.import_module(module)
+    if name not in _methods:
+        raise MethodError(f'method module for {name!r} did not register itself')
+    return _methods[name]
+
+
+def _resolve_dataset(name: str) -> type:
+    if name not in _datasets:
+        module = _BUILTIN_DATASET_MODULES.get(name)
+        if module is None:
+            raise DatasetError(
+                f'unknown dataset {name!r} (available: '
+                f'{sorted(set(_datasets) | set(_BUILTIN_DATASET_MODULES))})')
+        importlib.import_module(module)
+    if name not in _datasets:
+        raise DatasetError(f'dataset module for {name!r} did not register itself')
+    return _datasets[name]
+
+
+class Methods:
+    """Method lookup facade (reference: Implementations.Methods, :43-65)."""
+
+    @staticmethod
+    def get_model(config, name: str | None = None,
+                  checkpoint: str | None = None,
+                  device: torch.device | str = 'cpu'):
+        method = config.GLOBAL.METHOD_TYPE if name is None else name
+        entry = _resolve_method(method)
+        if checkpoint is not None:
+            return entry.model_cls.load(checkpoint, config, device=device)
+        model = entry.model_cls(config, device=device)
+        model.build()
+        return model
+
+    @staticmethod
+    def get_renderer(config, model, name: str | None = None):
+        method = config.GLOBAL.METHOD_TYPE if name is None else name
+        return _resolve_method(method).renderer_cls(config, model)
+
+
+class Datasets:
+    """Dataset lookup facade (reference: Implementations.Datasets, :93)."""
+
+    @staticmethod
+    def get_dataset(config, name: str | None = None, path: str | None = None):
+        dataset_type = config.GLOBAL.DATASET_TYPE if name is None else name
+        cls = _resolve_dataset(dataset_type)
+        return cls(config, path=path)

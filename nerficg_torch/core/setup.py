@@ -1,0 +1,66 @@
+"""Framework setup / teardown.
+
+Port of nerficg_tpu/core/setup.py (reference: ``Framework.setup``,
+src/Framework.py:120-160): seeds the python, numpy and torch generators,
+chooses the device, pins the float32 matmul precision and configures logging.
+"""
+
+from __future__ import annotations
+
+import random
+import warnings
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from nerficg_torch.core.config import ConfigNode, load_config
+from nerficg_torch.core.logging import Logger
+
+__all__ = ['FrameworkContext', 'setup', 'teardown']
+
+
+@dataclass
+class FrameworkContext:
+    """Everything ``setup`` provides: explicit, no globals."""
+
+    config: ConfigNode
+    generator: torch.Generator
+    device: torch.device
+
+
+def setup(config_path: str | None = None, overrides=(), *,
+          config: ConfigNode | None = None,
+          device: torch.device | str | None = None) -> FrameworkContext:
+    """Initialize the framework (reference: Framework.setup, Framework.py:120-160).
+
+    ``device`` defaults to the first CUDA card when one is present, else the
+    CPU."""
+    if config is None:
+        config = load_config(config_path, overrides)
+    g = config.GLOBAL
+    Logger.set_level(g.get('LOG_LEVEL', 'NORMAL'))
+    if g.get('FILTER_WARNINGS', True):
+        warnings.filterwarnings('ignore', category=UserWarning)
+    # The JAX package multiplies in bf16 with f32 accumulation and never in
+    # TF32; the port keeps float32 products in full float32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    seed = int(g.get('RANDOM_SEED', 42))
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    generator = torch.Generator().manual_seed(seed)
+    if device is None:
+        device = 'cuda' if torch.cuda.is_available() else 'cpu'
+    device = torch.device(device)
+    name = torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'
+    Logger.info(f'framework setup: device {device} [{name}], seed={seed}')
+    return FrameworkContext(config=config, generator=generator, device=device)
+
+
+def teardown(ctx: FrameworkContext | None = None) -> None:
+    """Wait for pending device work (reference: Framework.teardown, :311-320)."""
+    if ctx is not None and ctx.device.type == 'cuda':
+        torch.cuda.synchronize(ctx.device)

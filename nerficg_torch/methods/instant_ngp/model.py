@@ -1,0 +1,181 @@
+"""Instant-NGP model: windowed hash-grid encode + small MLPs + occupancy grid.
+
+Port of nerficg_tpu/methods/instant_ngp/model.py (reference:
+src/Methods/InstantNGP/Model.py:31-123): a 16-level hash grid (2 features,
+2^14 entries per level, base 16 -> 2048) read by the windowed encode, a
+1x64 density MLP producing [sigma, 15 features], SH degree-4 directions with
+a 2x64 color MLP -> sigmoid RGB, and 128^3 occupancy grids per cascade.
+
+The MLPs multiply as the JAX package does: operands rounded to bf16,
+products accumulated in f32 (``jnp.dot(bf16, bf16, preferred_element_type=
+f32)``). Here the rounded operands are cast back to f32 and multiplied in
+f32 (``torch.matmul`` on bf16 would return bf16), with TF32 off.
+
+Only the ``window`` encoding backend is ported; ``cell`` and ``xbar`` come
+with their kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from nerficg_torch.core.config import Configurable
+from nerficg_torch.core.errors import ModelError
+from nerficg_torch.methods.base.model import BaseModel
+from nerficg_torch.methods.instant_ngp.convert import (params_from_numpy,
+                                                       params_to_numpy)
+from nerficg_torch.ops.encoding import sh_encode
+from nerficg_torch.ops.hash_window import hash_encode_win
+from nerficg_torch.ops.hashgrid import HashGridConfig, init_hash_grid_mxu
+from nerficg_torch.ops.occupancy import num_cascades
+
+__all__ = ['InstantNGPModel', 'InstantNGPField', 'trunc_exp']
+
+
+def trunc_exp(x: torch.Tensor) -> torch.Tensor:
+    """exp with its argument clamped to [-15, 15] (Instant-NGP 'TruncExp')."""
+    return torch.exp(torch.clamp(x, -15.0, 15.0))
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _mlp(layers: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+    """ReLU MLP of bias-free linear layers (last layer linear), bf16
+    operands with f32 accumulation."""
+    for i, layer in enumerate(layers):
+        x = _bf16(x) @ _bf16(layer.weight).T
+        if i + 1 < len(layers):
+            x = torch.relu(x)
+    return x
+
+
+def _mlp_featT(layers: nn.ModuleList, x_t: torch.Tensor) -> torch.Tensor:
+    """_mlp whose input arrives feature-major (F, N), the encode's layout."""
+    x = _bf16(x_t).T @ _bf16(layers[0].weight).T
+    if len(layers) == 1:
+        return x
+    return _mlp(layers[1:], torch.relu(x))
+
+
+class InstantNGPField(nn.Module):
+    """Parameters and field evaluation on unit-cube positions."""
+
+    def __init__(self, hash_config: HashGridConfig, density_width: int,
+                 geo_features: int, color_width: int, sh_degree: int):
+        super().__init__()
+        self.hash_config = hash_config
+        self.sh_degree = sh_degree
+        c = hash_config
+        self.hash_table = nn.Parameter(torch.zeros(
+            c.num_levels, c.features_per_level, c.table_size // 128, 128))
+        self.density_mlp = nn.ModuleList([
+            nn.Linear(c.output_dim, density_width, bias=False),
+            nn.Linear(density_width, 1 + geo_features, bias=False)])
+        self.color_mlp = nn.ModuleList([
+            nn.Linear(sh_degree ** 2 + geo_features, color_width, bias=False),
+            nn.Linear(color_width, color_width, bias=False),
+            nn.Linear(color_width, 3, bias=False)])
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        """tcnn-style init: table U(-1e-4, 1e-4), He-uniform MLPs."""
+        with torch.no_grad():
+            self.hash_table.copy_(init_hash_grid_mxu(self.hash_config,
+                                                     generator))
+            for layer in [*self.density_mlp, *self.color_mlp]:
+                bound = float(np.sqrt(6.0 / layer.in_features))
+                w = torch.rand(layer.weight.shape, generator=generator)
+                layer.weight.copy_(w * (2 * bound) - bound)
+
+    def density(self, unit: torch.Tensor,
+                anchor_keys: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """unit positions (N, 3) -> (density (N,), geo features (N, GEO))."""
+        feats_t = hash_encode_win(self.hash_table, unit, self.hash_config,
+                                  anchor_keys)
+        h = _mlp_featT(self.density_mlp, feats_t)
+        return trunc_exp(h[:, 0]), h[:, 1:]
+
+    def color(self, geo: torch.Tensor, directions: torch.Tensor) -> torch.Tensor:
+        """(N, GEO) features + (N, 3) unit dirs -> (N, 3) rgb."""
+        x = torch.cat([sh_encode(directions, self.sh_degree), geo], dim=-1)
+        return torch.sigmoid(_mlp(self.color_mlp, x))
+
+    def forward(self, unit: torch.Tensor, directions: torch.Tensor,
+                anchor_keys: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        sigma, geo = self.density(unit, anchor_keys)
+        return sigma, self.color(geo, directions)
+
+
+@Configurable.configure(
+    NUM_LEVELS=16,
+    FEATURES_PER_LEVEL=2,
+    LOG2_HASHMAP_SIZE=14,
+    ENCODING_BACKEND='window',
+    STOCHASTIC_CORNERS=4,       # training only: rendering is exact 8-corner
+    ENCODE_ANCHOR_STRIDE=8,     # must match RENDERER.MARCH_BLOCK
+    BASE_RESOLUTION=16,
+    TARGET_RESOLUTION=2048,
+    DENSITY_MLP_WIDTH=64,
+    DENSITY_MLP_LAYERS=1,
+    GEO_FEATURES=15,
+    COLOR_MLP_WIDTH=64,
+    COLOR_MLP_LAYERS=2,
+    SH_DEGREE=4,
+    GRID_RESOLUTION=128,
+    SCALE=0.5,                  # half-extent of the scene box around center
+    CENTER=[0.0, 0.0, 0.0],
+)
+class InstantNGPModel(BaseModel):
+
+    def build(self, generator: Optional[torch.Generator] = None
+              ) -> 'InstantNGPModel':
+        if str(self.ENCODING_BACKEND) != 'window':
+            raise ModelError(f'ENCODING_BACKEND={self.ENCODING_BACKEND!r} is '
+                             "not ported yet; the port has 'window'")
+        self.hash_config = HashGridConfig(
+            num_levels=int(self.NUM_LEVELS),
+            features_per_level=int(self.FEATURES_PER_LEVEL),
+            log2_table_size=int(self.LOG2_HASHMAP_SIZE),
+            base_resolution=int(self.BASE_RESOLUTION),
+            target_resolution=int(self.TARGET_RESOLUTION),
+            anchor_stride=int(self.ENCODE_ANCHOR_STRIDE))
+        field = InstantNGPField(self.hash_config,
+                                int(self.DENSITY_MLP_WIDTH),
+                                int(self.GEO_FEATURES),
+                                int(self.COLOR_MLP_WIDTH),
+                                int(self.SH_DEGREE))
+        field.reset_parameters(generator)
+        self.module = field.to(self.device)
+        # Cascade c covers the box of half-extent SCALE * 2^(c - (C-1))
+        # (reference: InstantNGP/Model.py:53-57).
+        self.cascades = num_cascades(float(self.SCALE))
+        resolution = int(self.GRID_RESOLUTION)
+        self.buffers = {'density_grid': torch.zeros(
+            self.cascades * resolution ** 3, device=self.device)}
+        center = np.asarray(self.CENTER, np.float32)
+        scale = float(self.SCALE)
+        self.center = torch.as_tensor(center, device=self.device)
+        self.aabb_min = torch.as_tensor(center - scale, device=self.device)
+        self.aabb_max = torch.as_tensor(center + scale, device=self.device)
+        return self
+
+    def params_tree(self) -> dict:
+        return params_to_numpy(self.module.state_dict())
+
+    def load_params_tree(self, tree: dict) -> None:
+        self.module.load_state_dict(params_from_numpy(tree))
+
+    def field(self, positions: torch.Tensor, directions: torch.Tensor,
+              anchor_keys: Optional[torch.Tensor] = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """World positions (N, 3) + unit dirs -> (sigma (N,), rgb (N, 3))."""
+        unit = (positions - self.aabb_min) / (self.aabb_max - self.aabb_min)
+        unit = torch.clamp(unit, 0.0, 1.0 - 1e-6)
+        return self.module(unit, directions, anchor_keys)

@@ -1,0 +1,219 @@
+"""Instant-NGP renderer: occupancy-skipping marching + packed compositing.
+
+Port of nerficg_tpu/methods/instant_ngp/renderer.py, inference part
+(reference: src/Methods/InstantNGP/Renderer.py:39-138). An image is rendered
+in fixed-size ray chunks: each chunk is marched through the two-level block
+bitfield at INFERENCE_SAMPLES_PER_RAY samples per ray, its samples are
+encoded and shaded in morton order and composited in ray order; then the
+rays the budget truncated while still transmissive are marched again at
+INFERENCE_REFINE_FACTOR x the budget and merged back (the static-shape
+stand-in for the reference's alive-ray loop).
+
+Occupancy-grid updates and carving belong to training and come with it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from nerficg_torch.core.config import Configurable
+from nerficg_torch.core.errors import RendererError
+from nerficg_torch.data.types import RayBatch, View
+from nerficg_torch.methods.base.renderer import BaseRenderer
+from nerficg_torch.methods.instant_ngp.model import InstantNGPModel
+from nerficg_torch.ops.occupancy import (composite_packed,
+                                         downsample_occupancy_block,
+                                         downsample_occupancy_cascaded_block,
+                                         march_rays,
+                                         occupancy_probe_block_cascaded_xyz,
+                                         occupancy_probe_block_xyz)
+from nerficg_torch.ops.sample_sort import permute_block_channels
+
+__all__ = ['InstantNGPRenderer']
+
+
+@Configurable.configure(
+    MAX_SAMPLES=512,            # marching steps per ray (reference: 1024)
+    MARCH_RESOLUTION=128,       # skip-grid resolution probed by the marcher
+    PROBE_MODE='block',         # two-level rank-compacted block bitfield
+    PROBE_CAP_BLOCKS=0,         # 0 = auto (total_blocks/4, min 256)
+    AVG_SAMPLES_PER_RAY=24,     # training compaction budget per ray
+    INFERENCE_SAMPLES_PER_RAY=128,
+    MARCH_BLOCK=8,              # compaction granularity (steps per block)
+    DENSITY_THRESHOLD=0.01,
+    EARLY_STOP_EPS=1e-4,
+    RAY_BATCH_SIZE=8192,
+    EXPONENTIAL_STEPS=None,     # None = auto (on for multi-cascade scenes)
+    INFERENCE_REFINE=True,
+    INFERENCE_REFINE_FRACTION=0.25,   # max refined rays per chunk
+    INFERENCE_REFINE_FACTOR=4,
+    # Training keys of the JAX renderer, accepted so that its training
+    # configs load unchanged; rendering does not read them.
+    OCCUPANCY_DECAY=0.95,
+    OCCUPANCY_SAMPLES=262144,
+    OCCUPANCY_OCCUPIED_BIAS=0.5,
+    CARVE_OCCUPANCY=True,
+)
+class InstantNGPRenderer(BaseRenderer):
+
+    MODEL_CLASS = InstantNGPModel
+
+    def __init__(self, config, model):
+        super().__init__(config, model)
+        if str(self.PROBE_MODE) != 'block':
+            raise RendererError(f'PROBE_MODE={self.PROBE_MODE!r} is not ported '
+                                "yet; the port has 'block'")
+        # Skip-grid resolution cannot exceed the density grid's.
+        self._march_res = min(int(self.MARCH_RESOLUTION),
+                              int(self.model.GRID_RESOLUTION))
+        # Candidate probes per block, spaced so no cell crossing wider than
+        # one probe gap is missed.
+        self._probes_per_block = max(2, int(np.ceil(
+            int(self.MARCH_BLOCK) * self._march_res * (3.0 ** 0.5) /
+            float(self.MAX_SAMPLES))))
+        self._cascades = int(self.model.cascades)
+        exp = self.EXPONENTIAL_STEPS
+        self._exponential = bool(self._cascades > 1 if exp is None else exp)
+        total_blocks = self._cascades * (self._march_res // 8) ** 3
+        cap = int(self.PROBE_CAP_BLOCKS) or max(256, total_blocks // 4)
+        self._cap_blocks = min(-(-cap // 8) * 8, total_blocks)
+        self._grid_cache_src: Optional[torch.Tensor] = None
+        self._grid_binary_cache: Optional[torch.Tensor] = None
+        self._background = torch.zeros(3, device=self.model.device)
+
+    @property
+    def density_threshold(self) -> float:
+        """Alpha threshold -> density threshold given the mean step length."""
+        extent = 2.0 * float(self.model.SCALE)
+        mean_step = extent * (3.0 ** 0.5) / float(self.MAX_SAMPLES)
+        return float(self.DENSITY_THRESHOLD) / mean_step
+
+    def grid_binary(self) -> torch.Tensor:
+        """The marching skip grid as a packed block bitfield, cached while
+        the density grid tensor stays the same object."""
+        grid = self.model.buffers['density_grid']
+        if self._grid_cache_src is not grid:
+            res = int(self.model.GRID_RESOLUTION)
+            if self._cascades > 1:
+                self._grid_binary_cache = downsample_occupancy_cascaded_block(
+                    grid, res, self._march_res, self.density_threshold,
+                    self._cascades, self._cap_blocks)
+            else:
+                self._grid_binary_cache = downsample_occupancy_block(
+                    grid, res, self._march_res, self.density_threshold,
+                    self._cap_blocks)
+            self._grid_cache_src = grid
+        return self._grid_binary_cache
+
+    def _probe_fn(self, grid_binary: torch.Tensor):
+        res, model = self._march_res, self.model
+        if self._cascades > 1:
+            return lambda px, py, pz: occupancy_probe_block_cascaded_xyz(
+                grid_binary, px, py, pz, model.center, float(model.SCALE),
+                res, self._cascades, self._cap_blocks)
+        amin, amax = model.aabb_min, model.aabb_max
+        return lambda px, py, pz: occupancy_probe_block_xyz(
+            grid_binary, (px - amin[0]) / (amax[0] - amin[0]),
+            (py - amin[1]) / (amax[1] - amin[1]),
+            (pz - amin[2]) / (amax[2] - amin[2]), res, self._cap_blocks)
+
+    def _render_rays_impl(self, grid_binary: torch.Tensor,
+                          origins: torch.Tensor, directions: torch.Tensor,
+                          background: torch.Tensor,
+                          samples_per_ray: int) -> dict:
+        n = origins.shape[0]
+        block = int(self.MARCH_BLOCK)
+        march = march_rays(
+            origins, directions, self.model.aabb_min, self.model.aabb_max,
+            self._probe_fn(grid_binary), max_steps=int(self.MAX_SAMPLES),
+            sample_budget=n * samples_per_ray, block=block,
+            exponential=self._exponential, morton=True,
+            probes_per_block=self._probes_per_block)
+        # The field runs on the morton-ordered stream, so the windowed
+        # encode's per-sub-block table windows stay tight; its outputs
+        # return to ray order as whole blocks.
+        sigma_m, rgb_m = self.model.field(march.positions_m,
+                                          march.directions_m,
+                                          anchor_keys=march.block_keys_m)
+        ch = permute_block_channels(
+            torch.stack([sigma_m, rgb_m[:, 0], rgb_m[:, 1], rgb_m[:, 2]]),
+            block, march.perm_to_ray)
+        sigma = torch.where(march.valid, ch[0], 0.0)
+        out = composite_packed(sigma, ch[1:4], march, n,
+                               background=background,
+                               early_stop_eps=float(self.EARLY_STOP_EPS),
+                               block=block)
+        out['ray_mask'] = march.ray_complete[:, None].float()
+        return out
+
+    def _refine_impl(self, grid_binary: torch.Tensor, origins: torch.Tensor,
+                     directions: torch.Tensor, background: torch.Tensor,
+                     out: dict) -> dict:
+        """Re-march up to a fixed fraction of the chunk's rays, those whose
+        samples the budget truncated while still transmissive, at a larger
+        per-ray budget, and merge them back."""
+        chunk = origins.shape[0]
+        r2 = max(int(chunk * float(self.INFERENCE_REFINE_FRACTION)), 128)
+        unfinished = (out['ray_mask'][:, 0] < 0.5) & \
+            (out['alpha'][:, 0] < 0.995)
+        # jnp.nonzero(size=r2, fill_value=chunk) without a host sync: a
+        # stable sort puts the unfinished rays first, in ray order.
+        order = torch.sort((~unfinished).to(torch.uint8), stable=True).indices
+        order = torch.nn.functional.pad(order, (0, max(r2 - chunk, 0)))[:r2]
+        valid = torch.arange(r2, device=order.device) < unfinished.sum()
+        ids = torch.where(valid, order, chunk)
+        safe = torch.clamp(ids, max=chunk - 1)
+        out2 = self._render_rays_impl(
+            grid_binary, origins[safe], directions[safe], background,
+            samples_per_ray=int(self.INFERENCE_SAMPLES_PER_RAY) *
+            int(self.INFERENCE_REFINE_FACTOR))
+        merged = dict(out)
+        for key in ('rgb', 'depth', 'alpha'):
+            # Only the valid entries are written: padding entries go to a
+            # spare row that is cut off again.
+            dst = torch.cat([out[key], out[key][:1]], 0)
+            dst[ids] = out2[key]
+            merged[key] = dst[:chunk]
+        return merged
+
+    @torch.no_grad()
+    def render_rays(self, rays: RayBatch,
+                    background: Optional[torch.Tensor] = None) -> dict:
+        # Inference chunk: the training batch's sample budget spread over
+        # the larger per-ray inference budget.
+        chunk = max((int(self.RAY_BATCH_SIZE) * int(self.AVG_SAMPLES_PER_RAY))
+                    // int(self.INFERENCE_SAMPLES_PER_RAY), 256)
+        bg = self._background if background is None else background
+        grid = self.grid_binary()
+        n = len(rays)
+        padded = ((n + chunk - 1) // chunk) * chunk
+        rays_p = rays.pad_to(padded)
+        outputs = []
+        for i in range(0, padded, chunk):
+            origins = rays_p.origins[i:i + chunk]
+            directions = rays_p.directions[i:i + chunk]
+            out = self._render_rays_impl(
+                grid, origins, directions, bg,
+                samples_per_ray=int(self.INFERENCE_SAMPLES_PER_RAY))
+            if bool(self.INFERENCE_REFINE):
+                out = self._refine_impl(grid, origins, directions, bg, out)
+            outputs.append({k: out[k] for k in ('rgb', 'depth', 'alpha')})
+        return {k: torch.cat([o[k] for o in outputs], 0)[:n]
+                for k in outputs[0]}
+
+    def render_image(self, view: View,
+                     benchmark: bool = False) -> dict[str, torch.Tensor]:
+        device = self.model.device
+        self._background = torch.as_tensor(view.camera.background_color,
+                                           dtype=torch.float32, device=device)
+        out = self.render_rays(view.get_rays(with_images=False, device=device))
+        h, w = view.camera.height, view.camera.width
+        result = {'rgb': out['rgb'].reshape(h, w, 3),
+                  'depth': out['depth'].reshape(h, w, 1),
+                  'alpha': out['alpha'].reshape(h, w, 1)}
+        if benchmark and device.type == 'cuda':
+            torch.cuda.synchronize(device)
+        return result

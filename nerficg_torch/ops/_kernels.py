@@ -1,0 +1,134 @@
+"""Build and bind the port's CUDA kernel library.
+
+All kernels under ``nerficg_torch/csrc/*.cu`` compile into ONE shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers: a build
+takes seconds instead of the minutes ``torch.utils.cpp_extension`` needs).
+The library is built at first use into ``build/`` at the repository root,
+keyed by a hash of the sources and flags, so a fresh checkout on a machine
+with ``nvcc`` builds it by itself and later calls reuse it.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, C++17 and NO ``--use_fast_math``: the
+hash encode's window wrap and brick math must round exactly as the JAX
+oracle does.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()`` right after the launch; ``check`` raises on a
+non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from nerficg_torch.core.errors import KernelError
+
+__all__ = ['load_library', 'build_library', 'check', 'ptr', 'stream_of',
+           'require_cuda']
+
+_CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+_BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
+_NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
+               '-shared', '-Xcompiler', '-fPIC']
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of every entry point (all return int = cudaError_t).
+_SIGNATURES = {
+    'nerficg_hash_window_fwd': [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _P],
+    'nerficg_block_probe': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    'nerficg_seg_gather': [_P, _P, _P, _I, _I, _I, _I, _P],
+    'nerficg_seg_scatter_add': [_P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    candidate = Path(home) / 'bin' / 'nvcc'
+    if candidate.is_file():
+        return str(candidate)
+    found = shutil.which('nvcc')
+    if found is None:
+        raise KernelError('nvcc not found (CUDA_HOME/bin or PATH); the CUDA '
+                          'kernels can only be built on a machine with the '
+                          'CUDA toolkit')
+    return found
+
+
+def build_library() -> tuple[Path, float]:
+    """Compile csrc/*.cu into build/ unless an identical build exists.
+    Returns (library path, seconds spent compiling; 0.0 when reused)."""
+    sources = sorted(_CSRC.glob('*.cu'))
+    digest = hashlib.sha256(' '.join(_NVCC_FLAGS).encode())
+    for src in sorted(_CSRC.glob('*.cu*')):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out = _BUILD_DIR / f'libnerficg_kernels_{digest.hexdigest()[:16]}.so'
+    if out.is_file():
+        return out, 0.0
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(out.name + f'.{os.getpid()}.tmp')
+    cmd = [_nvcc(), *_NVCC_FLAGS, '-o', str(tmp), *map(str, sources)]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelError(f'nvcc failed ({proc.returncode}):\n{proc.stderr}')
+    os.replace(tmp, out)
+    return out, time.perf_counter() - start
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; bind every entry."""
+    global _lib
+    if _lib is None:
+        path, _ = build_library()
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.nerficg_error_string.argtypes = [_I]
+        lib.nerficg_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(code: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if code != 0:
+        msg = load_library().nerficg_error_string(code).decode()
+        raise KernelError(f'{kernel}: launch failed with CUDA error {code} '
+                          f'({msg})')
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(kernel: str, *tensors: torch.Tensor,
+                 dtypes: tuple[torch.dtype, ...]) -> None:
+    """Every tensor on one CUDA device, contiguous, of the given dtype."""
+    device = tensors[0].device
+    for t, dtype in zip(tensors, dtypes):
+        if t.device != device or t.device.type != 'cuda':
+            raise KernelError(f'{kernel}: all inputs must be on one CUDA '
+                              f'device, got {t.device} and {device}')
+        if t.dtype != dtype:
+            raise KernelError(f'{kernel}: expected {dtype}, got {t.dtype}')
+        if not t.is_contiguous():
+            raise KernelError(f'{kernel}: inputs must be contiguous')

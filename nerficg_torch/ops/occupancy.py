@@ -1,0 +1,406 @@
+"""Occupancy-grid ray marching with static-budget sample compaction, and
+front-to-back compositing on the compacted layout, ported from
+nerficg_tpu/ops/occupancy.py (:126-493, :580-665, :745-760).
+
+The marcher probes a fixed number of candidate points per block of
+``block`` steps against the two-level block bitfield, compacts the occupied
+blocks into a static sample budget with one stable sort of their morton keys
+(which also yields the morton-ordered stream the windowed hash encode
+wants), and expands them back into samples in ray order and in morton
+order. ``composite_packed`` blends the ray-ordered samples with per-block
+prefix sums, a scatter of each ray's prefix offset and a gather back, and
+one 5-channel per-ray scatter (the segment kernels of ops/hash_mxu.py).
+
+Both sorts are stable, as ``jax.lax.sort`` is: equal morton keys keep their
+block order, which fixes the compaction when the budget truncates.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from nerficg_torch.ops.hash_mxu import seg_gather, seg_scatter_add
+from nerficg_torch.ops.hash_window import morton_keys_xyz
+from nerficg_torch.ops.xbar_gather import (block_probe_cells,
+                                           build_block_bitfield)
+
+__all__ = ['MarchResults', 'march_rays', 'composite_packed',
+           'downsample_occupancy_block', 'downsample_occupancy_cascaded_block',
+           'occupancy_probe_block_xyz', 'occupancy_probe_block_cascaded_xyz',
+           'num_cascades', 'cascade_cell_positions']
+
+
+class MarchResults(NamedTuple):
+    """Compacted samples (all static-shaped to the budget B = Bb * block)."""
+    positions: torch.Tensor    # (B, 3) world-space sample positions
+    directions: torch.Tensor   # (B, 3) per-sample ray directions
+    ts: torch.Tensor           # (B,) depth along ray
+    deltas: torch.Tensor       # (B,) step size
+    ray_ids: torch.Tensor      # (B,) owning ray (== num_rays for padding)
+    valid: torch.Tensor        # (B,) bool validity
+    num_valid: torch.Tensor    # () number of real samples
+    ray_complete: torch.Tensor  # (R,) bool: ray's samples all fit the budget
+    num_blocks: torch.Tensor   # () occupied blocks over the whole batch
+    # Morton-ordered view for the windowed encode (``morton=True``).
+    positions_m: Optional[torch.Tensor] = None   # (B, 3)
+    directions_m: Optional[torch.Tensor] = None  # (B, 3)
+    ray_ids_m: Optional[torch.Tensor] = None     # (B,)
+    perm_to_ray: Optional[torch.Tensor] = None   # (Bb,) morton slot of block i
+    perm_to_morton: Optional[torch.Tensor] = None  # (Bb,) block at morton slot
+    block_keys_m: Optional[torch.Tensor] = None  # (Bb,) sorted block keys
+
+
+def _ray_aabb(origins, directions, aabb_min, aabb_max, min_near):
+    tiny = torch.where(directions >= 0, 1e-10, -1e-10)
+    inv = 1.0 / torch.where(directions.abs() < 1e-10, tiny, directions)
+    t0 = (aabb_min - origins) * inv
+    t1 = (aabb_max - origins) * inv
+    t_near = torch.clamp(torch.minimum(t0, t1).amax(-1), min=min_near)
+    t_far = torch.maximum(t0, t1).amin(-1)
+    return t_near, t_far
+
+
+def march_rays(origins: torch.Tensor, directions: torch.Tensor,
+               aabb_min: torch.Tensor, aabb_max: torch.Tensor,
+               probe_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
+                                  torch.Tensor],
+               max_steps: int, sample_budget: int, min_near: float = 0.05,
+               block: int = 32, exponential: bool = False,
+               morton: bool = False,
+               probes_per_block: int = 2) -> MarchResults:
+    """Fixed-step occupancy-skipping ray marcher (replaces CUDA N4).
+
+    origins/directions: (R, 3), directions unit-norm. ``probe_fn`` maps
+    per-axis world-coordinate planes to occupancy. Samples sit at step
+    midpoints (the JAX marcher's inference mode; its training jitter comes
+    with training). ``exponential``: geometric step spacing for
+    multi-cascade scenes. Returns compacted samples with a static budget.
+    """
+    num_rays = origins.shape[0]
+    device = origins.device
+    block = min(block, max_steps)
+    if max_steps % block:
+        raise ValueError('max_steps must divide by the block size')
+    sample_budget = -(-sample_budget // block) * block
+    t_near, t_far = _ray_aabb(origins, directions, aabb_min, aabb_max,
+                              min_near)
+    # Degenerate (zero) directions come from batch padding: misses.
+    nonzero_dir = (directions * directions).sum(-1) > 1e-12
+    hit = (t_near < t_far) & nonzero_dir
+    t_far = torch.where(hit, t_far, t_near + 1.0)
+    if exponential:
+        rate = torch.log(torch.clamp(t_far / t_near, min=1.0 + 1e-6)) \
+            / max_steps
+    else:
+        rate = (t_far - t_near) / max_steps
+
+    # --- block-level candidate pass ---------------------------------------
+    blocks_per_ray = max_steps // block
+    nblocks = num_rays * blocks_per_ray
+    block_budget = sample_budget // block
+    pfrac = (torch.arange(probes_per_block, dtype=torch.float32,
+                          device=device) + 0.5) / probes_per_block
+    bidx = torch.arange(blocks_per_ray, dtype=torch.float32, device=device)
+    step_pos = ((bidx[:, None] + pfrac[None, :]) * block).reshape(-1)
+    if exponential:
+        ts_p = t_near[:, None] * torch.exp(step_pos[None] * rate[:, None])
+    else:
+        ts_p = t_near[:, None] + step_pos[None] * rate[:, None]
+    px = origins[:, 0:1] + directions[:, 0:1] * ts_p
+    py = origins[:, 1:2] + directions[:, 1:2] * ts_p
+    pz = origins[:, 2:3] + directions[:, 2:3] * ts_p
+    ext = aabb_max - aabb_min
+    ux = (px - aabb_min[0]) / ext[0]
+    uy = (py - aabb_min[1]) / ext[1]
+    uz = (pz - aabb_min[2]) / ext[2]
+    in_box = ((ux >= 0.0) & (ux < 1.0) & (uy >= 0.0) & (uy < 1.0) &
+              (uz >= 0.0) & (uz < 1.0))
+    occupied = probe_fn(px, py, pz)
+    block_any2 = (occupied & in_box).reshape(
+        num_rays, blocks_per_ray, probes_per_block).any(2) & hit[:, None]
+
+    # --- block compaction: one stable masked-morton sort ------------------
+    pstride = probes_per_block
+    hi = 1.0 - 1e-6
+    bkeys = morton_keys_xyz(torch.clamp(ux[:, ::pstride], 0.0, hi),
+                            torch.clamp(uy[:, ::pstride], 0.0, hi),
+                            torch.clamp(uz[:, ::pstride], 0.0, hi))
+    inf = 1 << 30
+    key_flat = torch.where(block_any2, bkeys, inf).reshape(-1)
+    k_sorted, blk_sorted = torch.sort(key_flat, stable=True)
+    take = min(block_budget, nblocks)
+    pad_b = block_budget - take
+    pad = torch.nn.functional.pad
+    block_sel_m = pad(blk_sorted[:take], (0, pad_b))          # morton order
+    block_valid_m = pad(k_sorted[:take] < inf, (0, pad_b))
+    # Padding blocks expand at the last valid block's geometry, so the
+    # morton tail stays spatially tight for the windowed encode.
+    nvalid_b = block_any2.sum()
+    last = torch.clamp(nvalid_b - 1, 0, nblocks - 1)
+    last_valid = blk_sorted[last]
+    safe_block_m = torch.where(block_valid_m, block_sel_m, last_valid)
+    # ray-major view (ascending block index)
+    ray_key = torch.where(block_valid_m, block_sel_m, nblocks)
+    rk_sorted, perm_to_ray = torch.sort(ray_key, stable=True)
+    blk_ray = block_sel_m[perm_to_ray]
+    block_valid = rk_sorted < nblocks
+    safe_block = torch.where(block_valid, blk_ray, 0)
+
+    ray_table = torch.stack([t_near, rate, origins[:, 0], origins[:, 1],
+                             origins[:, 2], directions[:, 0], directions[:, 1],
+                             directions[:, 2]], dim=1)          # (R, 8)
+
+    def _expand(safe_blk, blk_valid, probe=True):
+        """Blocks -> samples: positions/ts/deltas/dirs/validity."""
+        ray_of_block = safe_blk // blocks_per_ray
+        block_in_ray = safe_blk - ray_of_block * blocks_per_ray
+        fetched = ray_table[ray_of_block]                      # (Bb, 8)
+        b_tnear, b_rate = fetched[:, 0], fetched[:, 1]
+        offs = torch.arange(block, dtype=torch.float32, device=device)[None]
+        sample_step = block_in_ray[:, None].float() * block + offs
+        s_jitter = 0.5
+        if exponential:
+            out_ts = b_tnear[:, None] * torch.exp(
+                (sample_step + s_jitter) * b_rate[:, None])
+            out_dt = out_ts * (torch.exp(b_rate[:, None]) - 1.0)
+        else:
+            out_ts = b_tnear[:, None] + \
+                (sample_step + s_jitter) * b_rate[:, None]
+            out_dt = b_rate[:, None].expand(out_ts.shape)
+        spx = fetched[:, 2:3] + fetched[:, 5:6] * out_ts
+        spy = fetched[:, 3:4] + fetched[:, 6:7] * out_ts
+        spz = fetched[:, 4:5] + fetched[:, 7:8] * out_ts
+        if probe:
+            # Per-sample validity: re-probe the expanded samples so that
+            # partially filled blocks are masked.
+            sux = (spx - aabb_min[0]) / ext[0]
+            suy = (spy - aabb_min[1]) / ext[1]
+            suz = (spz - aabb_min[2]) / ext[2]
+            in_box_s = ((sux >= 0.0) & (sux < 1.0) & (suy >= 0.0) &
+                        (suy < 1.0) & (suz >= 0.0) & (suz < 1.0))
+            valid_s = probe_fn(spx, spy, spz) & in_box_s & blk_valid[:, None]
+        else:
+            valid_s = blk_valid[:, None].expand(safe_blk.shape[0], block)
+        out_pos = torch.stack([spx, spy, spz], dim=-1)         # (Bb, blk, 3)
+        out_dirs = fetched[:, None, 5:8].expand(out_pos.shape).reshape(-1, 3)
+        return (out_pos.reshape(-1, 3), out_dirs, out_ts.reshape(-1),
+                out_dt.reshape(-1), ray_of_block, valid_s)
+
+    out_pos, out_dirs, out_ts, out_dt, ray_of_block, valid2 = _expand(
+        safe_block, block_valid)
+    valid = valid2.reshape(-1)
+    ray_ids = ray_of_block[:, None].expand(valid2.shape).reshape(-1)
+    num_valid = valid.sum()
+    # A ray is complete iff the running count of occupied blocks up to its
+    # end fits the budget.
+    cum_blocks = torch.cumsum(block_any2.sum(1), 0)
+    ray_complete = cum_blocks <= block_budget
+    num_blocks = cum_blocks[-1]
+    # Only samples of PADDING blocks go to the drop segment R; in-block
+    # invalid samples keep their ray id (their alpha is masked to zero).
+    pad_samples = block_valid[:, None].expand(block_budget, block).reshape(-1)
+    ray_ids = torch.where(pad_samples, ray_ids, num_rays)
+
+    extras = {}
+    if morton:
+        perm_to_morton = torch.empty_like(perm_to_ray)
+        perm_to_morton[perm_to_ray] = torch.arange(
+            block_budget, dtype=perm_to_ray.dtype, device=device)
+        pos_m, dirs_m, _, _, ray_of_block_m, _ = _expand(
+            safe_block_m, block_valid_m, probe=False)
+        ray_ids_m = ray_of_block_m[:, None].expand(
+            block_budget, block).reshape(-1)
+        # Anchor keys for the windowed encode: the invalid tail repeats the
+        # last valid key, so the sequence stays monotone.
+        keys_taken = pad(k_sorted[:take], (0, pad_b))
+        block_keys_m = torch.where(block_valid_m, keys_taken, k_sorted[last])
+        extras = dict(positions_m=pos_m, directions_m=dirs_m,
+                      ray_ids_m=ray_ids_m, perm_to_ray=perm_to_ray,
+                      perm_to_morton=perm_to_morton,
+                      block_keys_m=block_keys_m)
+
+    return MarchResults(positions=out_pos, directions=out_dirs, ts=out_ts,
+                        deltas=out_dt, ray_ids=ray_ids, valid=valid,
+                        num_valid=num_valid, ray_complete=ray_complete,
+                        num_blocks=num_blocks, **extras)
+
+
+def composite_packed(densities: torch.Tensor, rgbs: torch.Tensor,
+                     march: MarchResults, num_rays: int,
+                     background: Optional[torch.Tensor] = None,
+                     early_stop_eps: float = 1e-4,
+                     block: int = 8) -> dict:
+    """Front-to-back compositing on the compacted layout (replaces CUDA
+    N6/N7; nerficg_tpu/ops/occupancy.py:392-493).
+
+    densities: (B,); rgbs: (B, 3) or channel-major (3, B). Samples of a ray
+    are contiguous and depth-ordered. The exclusive transmittance per sample
+    is exp of a global prefix sum of log(1 - alpha) minus the prefix at the
+    ray's first sample; all segment reductions run at block granularity."""
+    b_total = densities.shape[0]
+    if block > 1 and b_total % block != 0:
+        block = 1
+    if rgbs.shape[0] == 3 and rgbs.shape[-1] == b_total and b_total != 3:
+        rgb_r, rgb_g, rgb_b = rgbs[0], rgbs[1], rgbs[2]
+    else:
+        rgb_r, rgb_g, rgb_b = rgbs[:, 0], rgbs[:, 1], rgbs[:, 2]
+
+    alpha = 1.0 - torch.exp(-densities * march.deltas)
+    alpha = torch.where(march.valid, alpha, 0.0)
+    log_t = torch.log1p(-torch.clamp(alpha, 0.0, 1.0 - 1e-7))   # (B,) <= 0
+
+    # Segments padded to a lane multiple; padding rays land in segment
+    # ``num_rays`` and are dropped.
+    seg_pad = ((num_rays + 1 + 127) // 128) * 128
+    seg_rows = seg_pad // 128
+
+    if block > 1:
+        nb = b_total // block
+        lt2 = log_t.reshape(nb, block)
+        csum_in = torch.cumsum(lt2, 1)                           # within-block
+        block_total = csum_in[:, -1]
+        block_excl = torch.cumsum(block_total, 0) - block_total
+        excl = (block_excl[:, None] + csum_in - lt2).reshape(-1)
+        ray_of_block = march.ray_ids.reshape(nb, block)[:, 0]
+        first_vals = block_excl
+    else:
+        csum = torch.cumsum(log_t, 0)
+        excl = csum - log_t
+        ray_of_block = march.ray_ids
+        first_vals = excl
+    seg_ids = ray_of_block.to(torch.int32)[None].contiguous()   # (1, Bb)
+    prev_ids = torch.cat([torch.full_like(ray_of_block[:1], -1),
+                          ray_of_block[:-1]])
+    is_first = (ray_of_block != prev_ids).to(excl.dtype)
+    offsets = seg_scatter_add(seg_ids, (first_vals * is_first)[None, None],
+                              seg_rows)
+    offset_b = seg_gather(seg_ids, offsets)[0, 0]                 # (Bb,)
+    offset_per_sample = offset_b.repeat_interleave(block) if block > 1 \
+        else offset_b
+
+    # Padding samples can carry garbage offsets: clamp the exponent.
+    trans = torch.exp(torch.clamp(excl - offset_per_sample, max=0.0))
+    trans = torch.where(march.valid, trans, 0.0)
+    weights = trans * alpha
+    if early_stop_eps > 0.0:
+        # Zero contributions once transmittance is negligible (the CUDA
+        # early termination at T <= 1e-4, here a mask).
+        weights = torch.where(trans > early_stop_eps, weights, 0.0)
+
+    # One 5-channel segment sum: [rgb, acc, weighted depth].
+    channels = torch.stack([weights * rgb_r, weights * rgb_g,
+                            weights * rgb_b, weights,
+                            weights * march.ts], dim=0)           # (5, B)
+    if block > 1:
+        channels = channels.reshape(5, b_total // block, block).sum(-1)
+    sums = seg_scatter_add(seg_ids, channels[None].contiguous(), seg_rows)
+    sums = sums.reshape(5, seg_pad)[:, :num_rays]
+    rgb = sums[:3].T
+    acc = sums[3][:, None]
+    depth = sums[4][:, None] / torch.clamp(acc, min=1e-10)
+    if background is not None:
+        rgb = rgb + (1.0 - acc) * background.to(rgb.dtype)
+    return {'rgb': rgb, 'depth': depth, 'alpha': acc, 'weights': weights,
+            'sample_ray_ids': march.ray_ids}
+
+
+# ---------------------------------------------------------------------------
+# Occupancy grids: two-level block bitfields over one or more cascades
+# ---------------------------------------------------------------------------
+
+def downsample_occupancy_block(density_grid: torch.Tensor, resolution: int,
+                               march_resolution: int, threshold: float,
+                               cap_blocks: int) -> torch.Tensor:
+    """Max-pool the (res^3,) density grid to the marching resolution and
+    pack it as a two-level block bitfield."""
+    factor = resolution // march_resolution
+    g = density_grid.reshape(march_resolution, factor, march_resolution,
+                             factor, march_resolution, factor)
+    coarse = g.amax(dim=(1, 3, 5))
+    return build_block_bitfield((coarse > threshold).reshape(-1),
+                                march_resolution, cap_blocks)
+
+
+def downsample_occupancy_cascaded_block(density_grid: torch.Tensor,
+                                        resolution: int,
+                                        march_resolution: int,
+                                        threshold: float, cascades: int,
+                                        cap_blocks: int) -> torch.Tensor:
+    """(C*res^3,) density -> one packed block bitfield over all cascades
+    (cascade = grid index; the capacity pool is shared)."""
+    factor = resolution // march_resolution
+    g = density_grid.reshape(cascades, march_resolution, factor,
+                             march_resolution, factor,
+                             march_resolution, factor)
+    coarse = g.amax(dim=(2, 4, 6)) > threshold
+    return build_block_bitfield(coarse.reshape(-1), march_resolution,
+                                cap_blocks, num_grids=cascades)
+
+
+def _cell(u: torch.Tensor, resolution: int) -> torch.Tensor:
+    return torch.clamp((u * resolution).to(torch.int32), 0, resolution - 1)
+
+
+def occupancy_probe_block_xyz(table: torch.Tensor, ux: torch.Tensor,
+                              uy: torch.Tensor, uz: torch.Tensor,
+                              resolution: int,
+                              cap_blocks: int) -> torch.Tensor:
+    """Block-bitfield probe from unit-coordinate planes."""
+    return block_probe_cells(table, _cell(ux, resolution),
+                             _cell(uy, resolution), _cell(uz, resolution),
+                             0, resolution, cap_blocks)
+
+
+def _cascade_cell_coords(px, py, pz, center, max_half, resolution, cascades):
+    """World planes -> (cascade, cx, cy, cz) int32 cell coords in the finest
+    containing cascade (the NGP mip selection, raymarching.cu mip_from_pos)."""
+    rx = px - center[0]
+    ry = py - center[1]
+    rz = pz - center[2]
+    m = torch.maximum(torch.maximum(rx.abs(), ry.abs()), rz.abs())
+    base_half = max_half / (2 ** (cascades - 1))
+    c = torch.clamp(torch.ceil(torch.log2(torch.clamp(m / base_half, min=1.0))
+                               ).to(torch.int32), 0, cascades - 1)
+    inv = 1.0 / ((2.0 * base_half) * torch.exp2(c.float()))
+    return (c, _cell(rx * inv + 0.5, resolution),
+            _cell(ry * inv + 0.5, resolution),
+            _cell(rz * inv + 0.5, resolution))
+
+
+def occupancy_probe_block_cascaded_xyz(table: torch.Tensor, px: torch.Tensor,
+                                       py: torch.Tensor, pz: torch.Tensor,
+                                       center: torch.Tensor, max_half: float,
+                                       resolution: int, cascades: int,
+                                       cap_blocks: int) -> torch.Tensor:
+    """Cascaded block-bitfield probe from world-coordinate planes."""
+    c, cx, cy, cz = _cascade_cell_coords(px, py, pz, center, max_half,
+                                         resolution, cascades)
+    return block_probe_cells(table, cx, cy, cz, c, resolution, cap_blocks,
+                             num_grids=cascades)
+
+
+def num_cascades(scale: float) -> int:
+    """cascades = max(1 + ceil(log2(2*scale)), 1)
+    (reference: InstantNGP/Model.py:53)."""
+    return max(1 + int(math.ceil(math.log2(max(2.0 * scale, 1e-6)))), 1)
+
+
+def cascade_cell_positions(cells: torch.Tensor, offsets: torch.Tensor,
+                           center: torch.Tensor, max_half: float,
+                           resolution: int, cascades: int) -> torch.Tensor:
+    """Flat cascade-grid cell ids (+ intra-cell offsets in [0,1)^3) ->
+    world positions; inverse of the cascaded probe indexing."""
+    res3 = resolution ** 3
+    c = cells // res3
+    local = cells % res3
+    z = local % resolution
+    y = (local // resolution) % resolution
+    x = local // (resolution * resolution)
+    coords = torch.stack([x, y, z], -1).float() + offsets
+    unit = coords / resolution
+    base_half = max_half / (2 ** (cascades - 1))
+    half = base_half * torch.exp2(c.float())
+    return center + (unit - 0.5) * 2.0 * half[..., None]

@@ -74,3 +74,9 @@ def dynamic_dataset(tmp_path_factory):
 def _make_dynamic_scene(root, image_size=24, n_train=10, n_test=3):
     from nerficg_tpu.data.synthetic import make_dynamic_scene
     return make_dynamic_scene(root, image_size, n_train, n_test)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        'markers', 'cuda: runs a nerficg_torch CUDA kernel on a card; '
+        'skipped where torch.cuda.is_available() is false')

@@ -1,0 +1,110 @@
+"""Parity of the port's block bitfield and probe (nerficg_torch/ops/
+xbar_gather.py) with the JAX package's (nerficg_tpu/ops/xbar_gather.py) on
+the CPU, where the JAX probe's crossbar gathers are ``table.reshape(-1)[idx]``.
+Both are integer functions and must agree exactly, including overflow blocks
+and two grids (cascades)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerficg_torch.core.errors import KernelError
+from nerficg_torch.ops import occupancy as tocc
+from nerficg_torch.ops import xbar_gather as txg
+from nerficg_tpu.ops import occupancy as jocc
+from nerficg_tpu.ops import xbar_gather as jxg
+
+
+def _flags(res, grids, seed=0, shell=True):
+    """Shell-shaped occupancy (a few occupied blocks) or random noise (every
+    block occupied, so a small cap overflows)."""
+    rng = np.random.default_rng(seed)
+    if not shell:
+        return rng.uniform(size=grids * res ** 3) < 0.05
+    idx = (np.arange(res) + 0.5) / res - 0.5
+    x, y, z = np.meshgrid(idx, idx, idx, indexing='ij')
+    r = np.sqrt(x * x + y * y + z * z)
+    one = np.abs(r - 0.3) < 1.5 / res
+    return np.concatenate([np.roll(one, g, axis=0).reshape(-1)
+                           for g in range(grids)])
+
+
+CASES = [  # (res, grids, cap_blocks, shell)
+    (32, 1, 64, True), (32, 2, 64, True), (32, 2, 16, True),
+    (16, 2, 8, False), (64, 2, 256, True)]
+
+
+@pytest.mark.parametrize('res,grids,cap,shell', CASES)
+def test_bitfield_matches(res, grids, cap, shell):
+    flags = _flags(res, grids, shell=shell)
+    want = np.asarray(jxg.build_block_bitfield(jnp.asarray(flags), res, cap,
+                                               num_grids=grids))
+    got = txg.build_block_bitfield(torch.from_numpy(flags), res, cap,
+                                   num_grids=grids)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert txg.block_table_rows(res, cap, grids) == \
+        jxg.block_table_rows(res, cap, grids)
+
+
+@pytest.mark.parametrize('res,grids,cap,shell', CASES)
+def test_probe_matches(res, grids, cap, shell):
+    flags = _flags(res, grids, shell=shell)
+    table = np.array(jxg.build_block_bitfield(jnp.asarray(flags), res, cap,
+                                              num_grids=grids))
+    rng = np.random.default_rng(1)
+    m = 20000
+    cells = np.concatenate([rng.choice(np.flatnonzero(flags), m // 2),
+                            rng.integers(0, grids * res ** 3, m - m // 2)])
+    g = (cells // res ** 3).astype(np.int32)
+    local = cells % res ** 3
+    cxyz = [(local // (res * res)).astype(np.int32),
+            ((local // res) % res).astype(np.int32),
+            (local % res).astype(np.int32)]
+    gi_j = jnp.asarray(g) if grids > 1 else 0
+    gi_t = torch.from_numpy(g) if grids > 1 else 0
+    want = np.asarray(jxg.block_probe_cells(
+        jnp.asarray(table), *map(jnp.asarray, cxyz), gi_j, res, cap,
+        num_grids=grids))
+    got = txg.block_probe_cells(torch.from_numpy(table),
+                                *map(torch.from_numpy, cxyz), gi_t, res, cap,
+                                num_grids=grids)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+    # conservative: every occupied cell probes occupied
+    assert got.numpy()[:m // 2].all()
+
+
+def test_popcount_matches_numpy():
+    rng = np.random.default_rng(0)
+    words = np.concatenate([rng.integers(0, 1 << 32, 4096, dtype=np.int64),
+                            [0, 1, (1 << 32) - 1, 1 << 31]])
+    want = np.array([bin(int(w)).count('1') for w in words])
+    np.testing.assert_array_equal(
+        txg._popcount32(torch.from_numpy(words)).numpy(), want)
+
+
+@pytest.mark.parametrize('cascades', [1, 2])
+def test_downsampled_block_grid_matches(cascades):
+    rng = np.random.default_rng(2)
+    res, mres, cap = 32, 16, 64
+    grid = (rng.uniform(size=cascades * res ** 3) ** 8 * 50).astype(np.float32)
+    if cascades > 1:
+        want = jocc.downsample_occupancy_cascaded_block(
+            jnp.asarray(grid), res, mres, 10.0, cascades, cap)
+        got = tocc.downsample_occupancy_cascaded_block(
+            torch.from_numpy(grid), res, mres, 10.0, cascades, cap)
+    else:
+        want = jocc.downsample_occupancy_block(jnp.asarray(grid), res, mres,
+                                               10.0, cap)
+        got = tocc.downsample_occupancy_block(torch.from_numpy(grid), res,
+                                              mres, 10.0, cap)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_wrapper_refuses_non_cpu_tensors_without_a_kernel():
+    table = torch.empty((10, 128), dtype=torch.int32, device='meta')
+    c = torch.empty(64, dtype=torch.int32, device='meta')
+    with pytest.raises(KernelError):
+        txg.block_probe_cells(table, c, c, c, 0, 32, 64)

@@ -1,0 +1,179 @@
+"""Parity of the port's marcher and compositor (nerficg_torch/ops/occupancy.py)
+with the JAX package's (nerficg_tpu/ops/occupancy.py) on the CPU.
+
+The same rays and occupancy grid go through both. The marcher's integer
+outputs (which blocks survive compaction, in which order, the permutations
+between ray and morton order, sample validity) must agree exactly; its float
+outputs are the same f32 expressions and agree to 1e-6 relative.
+``composite_packed`` agrees to 1e-5 (f32 prefix sums in another order). Its
+transmittance is a difference of global prefix sums of log(1 - alpha), so
+f32 rounding grows with the batch's total optical depth: the densities here
+keep that total near 100, where one ulp is 8e-6.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerficg_torch.ops import occupancy as tocc
+from nerficg_tpu.ops import occupancy as jocc
+
+ATOL_COMPOSITE = 1e-5
+
+
+def _rays(n, seed=0):
+    """Rays from a ring of cameras at distance 2.5 toward the unit box."""
+    rng = np.random.default_rng(seed)
+    ang = rng.uniform(0, 2 * np.pi, n)
+    origins = np.stack([2.5 * np.sin(ang), rng.uniform(-0.5, 0.5, n),
+                        2.5 * np.cos(ang)], -1)
+    target = rng.uniform(-0.6, 0.6, (n, 3))
+    d = target - origins
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    origins, d = origins.astype(np.float32), d.astype(np.float32)
+    d[-3:] = 0.0     # padding rays (zero directions) are misses
+    return origins, d
+
+
+def _grid(res, cascades, scale, seed=0):
+    """Occupancy: a shell of radius 0.6 * scale plus sparse noise."""
+    rng = np.random.default_rng(seed)
+    grids = []
+    for c in range(cascades):
+        half = scale / 2 ** (cascades - 1) * 2 ** c
+        ax = ((np.arange(res) + 0.5) / res - 0.5) * 2 * half
+        x, y, z = np.meshgrid(ax, ax, ax, indexing='ij')
+        r = np.sqrt(x * x + y * y + z * z)
+        g = (np.abs(r - 0.6 * scale) < 2.5 * half / res) | \
+            (rng.uniform(size=r.shape) < 0.002)
+        grids.append(g.reshape(-1))
+    return np.concatenate(grids)
+
+
+@functools.lru_cache(maxsize=None)
+def _march_both(scale, num_rays, max_steps, budget, probes):
+    cascades = jocc.num_cascades(scale)
+    assert tocc.num_cascades(scale) == cascades
+    res, cap = 32, 128
+    flags = _grid(res, cascades, scale)
+    grid = flags.astype(np.float32) * 100.0
+    origins, dirs = _rays(num_rays)
+    exponential = cascades > 1
+    amin = np.full(3, -scale, np.float32)
+    amax = np.full(3, scale, np.float32)
+    center = np.zeros(3, np.float32)
+
+    def run(mod, tensor, table):
+        if cascades > 1:
+            probe = lambda px, py, pz: mod.occupancy_probe_block_cascaded_xyz(
+                table, px, py, pz, tensor(center), scale, res, cascades, cap)
+        else:
+            lo, hi = tensor(amin), tensor(amax)
+            probe = lambda px, py, pz: mod.occupancy_probe_block_xyz(
+                table, (px - lo[0]) / (hi[0] - lo[0]),
+                (py - lo[1]) / (hi[1] - lo[1]),
+                (pz - lo[2]) / (hi[2] - lo[2]), res, cap)
+        kw = dict(max_steps=max_steps, sample_budget=budget, block=8,
+                  exponential=exponential, morton=True,
+                  probes_per_block=probes)
+        if mod is jocc:
+            # Eager, op by op: under jit XLA may contract the step and
+            # probe arithmetic into FMAs and move a probe across a cell
+            # boundary, so only the unfused function is an exact reference.
+            return mod.march_rays(tensor(origins), tensor(dirs), tensor(amin),
+                                  tensor(amax), table, res, probe_fn=probe,
+                                  **kw)
+        return mod.march_rays(tensor(origins), tensor(dirs), tensor(amin),
+                              tensor(amax), probe, **kw)
+
+    if cascades > 1:
+        jt = jocc.downsample_occupancy_cascaded_block(
+            jnp.asarray(grid), res, res, 1.0, cascades, cap)
+        tt = tocc.downsample_occupancy_cascaded_block(
+            torch.from_numpy(grid), res, res, 1.0, cascades, cap)
+    else:
+        jt = jocc.downsample_occupancy_block(jnp.asarray(grid), res, res, 1.0,
+                                             cap)
+        tt = tocc.downsample_occupancy_block(torch.from_numpy(grid), res, res,
+                                             1.0, cap)
+    jm = run(jocc, jnp.asarray, jt)
+    tm = run(tocc, torch.from_numpy, tt)
+    return jm, tm
+
+
+# (scale, rays, max steps, sample budget, probes per block): one cascade
+# with linear steps, two cascades with exponential steps, and a budget that
+# truncates so the stable-sort tie order decides which blocks survive.
+MARCH_CASES = [(0.5, 256, 64, 256 * 16, 7), (1.0, 256, 64, 256 * 16, 7),
+               (1.0, 256, 64, 256 * 2, 7)]
+
+
+@pytest.mark.parametrize('case', MARCH_CASES)
+def test_march_rays_matches(case):
+    jm, tm = _march_both(*case)
+    assert int(jm.num_blocks) > 0
+    exact = ('ray_ids', 'valid', 'num_valid', 'ray_complete', 'num_blocks',
+             'ray_ids_m', 'perm_to_ray', 'perm_to_morton', 'block_keys_m')
+    for name in exact:
+        np.testing.assert_array_equal(
+            getattr(tm, name).numpy(), np.asarray(getattr(jm, name)),
+            err_msg=name)
+    for name in ('positions', 'directions', 'ts', 'deltas', 'positions_m',
+                 'directions_m'):
+        np.testing.assert_allclose(
+            getattr(tm, name).numpy(), np.asarray(getattr(jm, name)),
+            rtol=1e-6, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize('case', MARCH_CASES[:3])
+def test_composite_packed_matches(case):
+    jm, tm = _march_both(*case)
+    num_rays = case[1]
+    rng = np.random.default_rng(5)
+    b = jm.valid.shape[0]
+    sigma = rng.uniform(0, 4, b).astype(np.float32)
+    rgb = rng.uniform(0, 1, (3, b)).astype(np.float32)
+    bg = np.array([1.0, 0.5, 0.0], np.float32)
+    want = jocc.composite_packed(jnp.asarray(sigma), jnp.asarray(rgb), jm,
+                                 num_rays, background=jnp.asarray(bg),
+                                 block=8)
+    got = tocc.composite_packed(torch.from_numpy(sigma),
+                                torch.from_numpy(rgb), tm, num_rays,
+                                background=torch.from_numpy(bg), block=8)
+    assert float(np.asarray(want['alpha']).mean()) > 0.05
+    for key in ('rgb', 'alpha', 'depth', 'weights'):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=0, atol=ATOL_COMPOSITE, err_msg=key)
+
+
+def test_composite_packed_sample_granularity_matches():
+    """block=1 (arbitrary sample streams) takes the per-sample prefix path."""
+    jm, tm = _march_both(*MARCH_CASES[0])
+    rng = np.random.default_rng(6)
+    b = jm.valid.shape[0]
+    sigma = rng.uniform(0, 4, b).astype(np.float32)
+    rgb = rng.uniform(0, 1, (b, 3)).astype(np.float32)
+    want = jocc.composite_packed(jnp.asarray(sigma), jnp.asarray(rgb), jm,
+                                 256, block=1)
+    got = tocc.composite_packed(torch.from_numpy(sigma),
+                                torch.from_numpy(rgb), tm, 256, block=1)
+    for key in ('rgb', 'alpha', 'depth'):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=0, atol=ATOL_COMPOSITE, err_msg=key)
+
+
+def test_cascade_cell_positions_match():
+    rng = np.random.default_rng(7)
+    cells = rng.integers(0, 2 * 16 ** 3, 1000).astype(np.int32)
+    offs = rng.uniform(size=(1000, 3)).astype(np.float32)
+    center = np.array([0.1, -0.2, 0.0], np.float32)
+    want = jocc.cascade_cell_positions(jnp.asarray(cells), jnp.asarray(offs),
+                                       jnp.asarray(center), 1.0, 16, 2)
+    got = tocc.cascade_cell_positions(torch.from_numpy(cells).long(),
+                                      torch.from_numpy(offs),
+                                      torch.from_numpy(center), 1.0, 16, 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
