@@ -5,16 +5,29 @@ Phases, each printing its own lines:
   0. environment: refuse to run without a CUDA card; print the card's name
      and power limit (nvidia-smi), the torch and CUDA versions;
   1. build the CUDA kernel library from nerficg_torch/csrc/;
-  2. compare every kernel of the serving path with its plain PyTorch version
-     on the card, at the shapes the main path gives it, and time both;
-  3. main path: write a textured synthetic scene and an Instant-NGP
+  2. compare every kernel of the serving and training paths with its plain
+     PyTorch version on the card, at the shapes its path gives it, and time
+     both;
+  3. serving path: write a textured synthetic scene and an Instant-NGP
      checkpoint at full library width (random weights from a numpy seed,
      a shell-shaped occupancy grid), run the port's inference entry point
      (`python -m nerficg_torch.scripts.inference -d RUN -s test -m -b`) in
      this process, and check that every kernel launched, the renders are
-     finite and the sphere is visible.
-The line before the last is the JSON kernel report; the last line is the
-JSON result. Any failure exits non-zero before either is printed.
+     finite and the sphere is visible;
+  4. one training step with exact corners at a small width, on the card
+     against the CPU plain versions (loss, gradients): the trainer's own
+     code launches the exact backward kernel;
+  5. training path: train configs/ingp_e2e_bench.yaml at full library width
+     on a 400x400 textured scene through the port's training entry point
+     (`python -m nerficg_torch.scripts.train -c ...`) in this process for
+     500 iterations (the config's 2000, cut for the time limit), render and
+     score the test set, and check that the training kernels launched, the
+     loss fell and the test PSNR rose by at least 5 dB over the untrained
+     model's; then profile one warm training step.
+Every kernel's launch count is set to 0 just before the path that runs it
+and read just after. The line before the last is the JSON kernel report; the
+last line is the JSON result. Any failure exits non-zero before either is
+printed.
 
 Usage: python3 chip_smoke.py
 """
@@ -34,6 +47,12 @@ ROOT = Path(__file__).resolve().parent
 KERNELS = {
     'hash_window_fwd': ('cuda', 'nerficg_torch/csrc/hash_window.cu',
                         'nerficg_tpu/ops/hash_window.py:468'),
+    'hash_window_fwd_stoch': ('cuda', 'nerficg_torch/csrc/hash_window.cu',
+                              'nerficg_tpu/ops/hash_window.py:468'),
+    'hash_window_bwd': ('cuda', 'nerficg_torch/csrc/hash_window.cu',
+                        'nerficg_tpu/ops/hash_window.py:526'),
+    'hash_window_bwd_cached': ('cuda', 'nerficg_torch/csrc/hash_window.cu',
+                               'nerficg_tpu/ops/hash_window.py:630'),
     'block_probe': ('cuda', 'nerficg_torch/csrc/block_probe.cu',
                     'nerficg_tpu/ops/xbar_gather.py:36'),
     'seg_gather': ('cuda', 'nerficg_torch/csrc/seg_ops.cu',
@@ -120,18 +139,21 @@ def shell_density_grid(resolution: int, cascades: int, scale: float,
 
 
 def phase2_kernels(card: str) -> dict:
-    """Each kernel against its plain version at the serving path's shapes
-    (configs/ingp_e2e_bench.yaml: 1536-ray chunks, 196,608 samples =
-    24,576 blocks of 8, 32 blocks x 7 probes per ray, 2 cascades)."""
+    """Each kernel against its plain version at its path's shapes
+    (configs/ingp_e2e_bench.yaml; serving: 1536-ray chunks, 196,608 samples =
+    24,576 blocks of 8, 32 blocks x 7 probes per ray, 2 cascades; training:
+    65,536 samples per step)."""
     import numpy as np
     import torch
 
     from nerficg_torch.ops.hash_mxu import (seg_gather, seg_gather_plain,
                                             seg_scatter_add,
                                             seg_scatter_add_plain)
-    from nerficg_torch.ops.hash_window import (hash_window_fwd,
-                                               hash_window_fwd_plain,
-                                               morton_sort_keys, window_bases)
+    from nerficg_torch.ops.hash_window import (
+        hash_window_bwd, hash_window_bwd_cached, hash_window_bwd_cached_plain,
+        hash_window_bwd_plain, hash_window_fwd, hash_window_fwd_plain,
+        hash_window_fwd_stoch, hash_window_fwd_stoch_plain, morton_sort_keys,
+        window_bases)
     from nerficg_torch.ops.hashgrid import HashGridConfig
     from nerficg_torch.ops.xbar_gather import (block_probe_cells,
                                                block_probe_cells_plain,
@@ -217,6 +239,43 @@ def phase2_kernels(card: str) -> dict:
            lambda: seg_scatter_add(idx, vals, rows),
            lambda: seg_scatter_add_plain(idx, vals, rows),
            f'(1,5,{nb}) -> (1,5,{rows},128)')
+
+    # 5.-7. the training encode: one step's 65,536 morton-sorted samples
+    # (TARGET_BATCH_SIZE) on the full-width table, 4 stochastic corners with
+    # saved (16, 4, 65536) streams, and both table gradients. The gradients
+    # sum with atomics in a varying order: rtol 1e-4, atol 1e-5 * max|plain|.
+    n = 65536
+    pos = torch.from_numpy(rng.uniform(0.2, 0.8, (n, 3)).astype(
+        np.float32)).to(dev)
+    pos = pos[torch.sort(morton_sort_keys(pos), stable=True).indices]
+    pos = pos.contiguous()
+    lo, win = window_bases(pos, config)
+    stoch = (table, pos, lo, win, config, 4, 0x9E3779B9)
+    out, s_idx, s_w = hash_window_fwd_stoch(*stoch, save=True)
+    out_p, s_idx_p, s_w_p = hash_window_fwd_stoch_plain(*stoch, save=True)
+    record('hash_window_fwd_stoch', out, out_p,
+           lambda a, b: bool(torch.equal(s_idx, s_idx_p)) and bool(
+               torch.equal(s_w, s_w_p)) and bool(
+               torch.allclose(a, b, rtol=0.0, atol=1e-5)),
+           lambda: hash_window_fwd_stoch(*stoch, save=True),
+           lambda: hash_window_fwd_stoch_plain(*stoch, save=True),
+           f'table (16,2,128,128) x {n} samples, 4 corners + saves')
+    g = torch.from_numpy(rng.normal(size=(32, n)).astype(np.float32)).to(dev)
+
+    def scatter_ok(a, b):
+        return bool(torch.allclose(a, b, rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max())))
+    record('hash_window_bwd', hash_window_bwd(g, pos, lo, win, config, 128),
+           hash_window_bwd_plain(g, pos, lo, win, config, 128), scatter_ok,
+           lambda: hash_window_bwd(g, pos, lo, win, config, 128),
+           lambda: hash_window_bwd_plain(g, pos, lo, win, config, 128),
+           f'g (32,{n}) -> (16,2,128,128), 8 corners')
+    record('hash_window_bwd_cached',
+           hash_window_bwd_cached(g, s_idx, s_w, 128),
+           hash_window_bwd_cached_plain(g, s_idx, s_w, 128), scatter_ok,
+           lambda: hash_window_bwd_cached(g, s_idx, s_w, 128),
+           lambda: hash_window_bwd_cached_plain(g, s_idx, s_w, 128),
+           f'g (32,{n}) + streams (16,4,{n}) -> (16,2,128,128)')
     return report
 
 
@@ -279,26 +338,30 @@ def render_views(run_dir: Path, device: str) -> list[dict]:
             for view in views]
 
 
-def profile_frame(run_dir: Path, card: str) -> None:
-    """torch.profiler over one warm frame: wall time, the card's busy time
-    (sum of kernel and memcpy/memset time), and the largest device-time
-    entries by name."""
+def profile_device(fn, label: str, card: str) -> None:
+    """torch.profiler over one warm call of ``fn``: wall time, the card's
+    busy time (sum of kernel and memcpy/memset time), and the largest
+    device-time entries by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    renderer, views = load_renderer(run_dir, 'cuda')
-    renderer.render_image(views[0], benchmark=True)            # warm-up
+    fn()                                                   # warm-up
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        renderer.render_image(views[0], benchmark=True)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
+    # Device events without the annotation ranges that span other kernels
+    # (e.g. Optimizer.step), which would count their time twice.
     events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, 'is_user_annotation', False)]
     busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
     if busy_ms <= 0.0:
-        print(f'phase 3: profile: frame {wall_ms:.1f} ms wall; device time '
-              f'not measured (the profiler recorded no kernels) [{card}]')
+        print(f'{label}: wall {wall_ms:.1f} ms; device time not measured '
+              f'(the profiler recorded no kernels) [{card}]')
         return
     by_name: dict[str, list] = {}
     for e in events:
@@ -306,11 +369,18 @@ def profile_frame(run_dir: Path, card: str) -> None:
         entry[0] += e.time_range.elapsed_us() / 1e3
         entry[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    print(f'phase 3: profile of one frame: wall {wall_ms:.1f} ms, device busy '
-          f'{busy_ms:.1f} ms ({100 * (1 - busy_ms / wall_ms):.1f}% idle), '
-          f'{len(events)} device ops [{card}]')
+    print(f'{label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms '
+          f'({100 * (1 - busy_ms / wall_ms):.1f}% idle), {len(events)} '
+          f'device ops [{card}]')
     for name, (ms, count) in top:
-        print(f'phase 3:   {ms:9.3f} ms {count:6d}x  {name[:90]}')
+        print(f'{label}:   {ms:9.3f} ms {count:6d}x  {name[:90]}')
+
+
+def profile_frame(run_dir: Path, card: str) -> None:
+    """The profile of one warm frame of the serving path."""
+    renderer, views = load_renderer(run_dir, 'cuda')
+    profile_device(lambda: renderer.render_image(views[0], benchmark=True),
+                   'phase 3: profile of one frame', card)
 
 
 def phase3_main_path(card: str, image_size: int = 400,
@@ -395,6 +465,214 @@ def phase3_main_path(card: str, image_size: int = 400,
     return launches
 
 
+def _training_wrappers() -> dict:
+    from nerficg_torch.ops.hash_mxu import seg_gather, seg_scatter_add
+    from nerficg_torch.ops.hash_window import (hash_window_bwd,
+                                               hash_window_bwd_cached,
+                                               hash_window_fwd,
+                                               hash_window_fwd_stoch)
+    from nerficg_torch.ops.xbar_gather import block_probe_cells
+    return {'hash_window_fwd': hash_window_fwd,
+            'hash_window_fwd_stoch': hash_window_fwd_stoch,
+            'hash_window_bwd': hash_window_bwd,
+            'hash_window_bwd_cached': hash_window_bwd_cached,
+            'block_probe': block_probe_cells, 'seg_gather': seg_gather,
+            'seg_scatter_add': seg_scatter_add}
+
+
+def _small_training_config(scene: Path) -> dict:
+    """The CPU one-step test's config (tests/test_torch_training.py): 6
+    levels at 2^12, 32^3 grids, 2 cascades, exact corners, 256 rays."""
+    return {'GLOBAL': {'METHOD_TYPE': 'InstantNGP', 'DATASET_TYPE': 'NeRF',
+                       'RANDOM_SEED': 0, 'LOG_LEVEL': 'SILENT'},
+            'DATASET': {'PATH': str(scene)},
+            'MODEL': {'NUM_LEVELS': 6, 'LOG2_HASHMAP_SIZE': 12,
+                      'BASE_RESOLUTION': 4, 'TARGET_RESOLUTION': 256,
+                      'GRID_RESOLUTION': 32, 'SCALE': 1.0,
+                      'STOCHASTIC_CORNERS': 0},
+            'RENDERER': {'MAX_SAMPLES': 64, 'RAY_BATCH_SIZE': 1024},
+            'TRAINING': {'INITIAL_RAYS_PER_BATCH': 256,
+                         'TARGET_BATCH_SIZE': 8192}}
+
+
+def phase4_training_step(card: str, card_device: str = 'cuda') -> dict:
+    """One exact-corner training step through the trainer's own code on the
+    card (CUDA kernels) and on the CPU (plain versions), same weights, grid,
+    rays, background and march seed. Tolerances of the CPU one-step test:
+    loss 1e-5 relative; per parameter, gradient norm 1e-3 relative and
+    relative Frobenius error 2e-2 (the bf16 noise floor, see
+    tests/test_torch_training.py). Returns hash_window_bwd's launches."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.core.config import ConfigNode
+    from nerficg_torch.core.logging import Logger
+    from nerficg_torch.core.registry import Datasets, Methods
+    from nerficg_torch.data.synthetic import make_textured_scene
+    from nerficg_torch.methods.instant_ngp.convert import params_to_numpy
+
+    wrappers = _training_wrappers()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_step_') as tmp:
+        scene = make_textured_scene(Path(tmp) / 'scene', image_size=32,
+                                    n_train=8, n_test=1)
+        config = ConfigNode(_small_training_config(scene))
+        Logger.set_level('SILENT')
+        rng = np.random.default_rng(0)
+        trainers, tree = {}, None
+        for role, device in (('card', card_device), ('cpu', 'cpu')):
+            trainer = Methods.get_training_instance(config, device=device)
+            if tree is None:
+                shapes = trainer.model.params_tree()
+
+                def he_uniform(w):
+                    bound = np.sqrt(6.0 / w.shape[0])
+                    return rng.uniform(-bound, bound, w.shape).astype(
+                        np.float32)
+                tree = {'hash_table': rng.uniform(
+                            -0.1, 0.1, shapes['hash_table'].shape).astype(
+                            np.float32),
+                        'density_mlp': [he_uniform(w)
+                                        for w in shapes['density_mlp']],
+                        'color_mlp': [he_uniform(w)
+                                      for w in shapes['color_mlp']]}
+            trainer.model.load_params_tree(tree)
+            trainer.model.buffers['density_grid'] = torch.as_tensor(
+                shell_density_grid(32, 2, 1.0, thickness_cells=6.0),
+                device=device)
+            trainer._init_samplers(Datasets.get_dataset(config))
+            trainers[role] = trainer
+        Logger.set_level('NORMAL')
+        ids = rng.integers(0, trainers['cpu']._pool_size, 256)
+        bg = rng.random(3).astype(np.float32)
+        logs, grads = {}, {}
+        for role, trainer in trainers.items():
+            device = trainer.device
+            if role == 'card':
+                torch.cuda.synchronize()
+                for fn in wrappers.values():
+                    fn.launches = 0
+            logs[role] = trainer.loss_and_grads(
+                torch.as_tensor(ids, device=device),
+                torch.as_tensor(bg, device=device), 0x2545F491, 0)
+            if role == 'card':
+                torch.cuda.synchronize()
+                launches = {k: fn.launches for k, fn in wrappers.items()}
+            grads[role] = params_to_numpy(
+                {k: p.grad for k, p in trainer.model.module.named_parameters()})
+    print(f'phase 4: kernel launches in the exact training step: {launches}')
+    if launches['hash_window_bwd'] <= 0:
+        fail('the exact training step never launched hash_window_bwd')
+    loss_gpu, loss_cpu = (float(logs[d]['total']) for d in ('card', 'cpu'))
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    print(f'phase 4: loss card {loss_gpu:.8f}, CPU {loss_cpu:.8f}, relative '
+          f'error {loss_err:.2e} (limit 1e-5); '
+          f'{int(logs["card"]["num_samples"])} samples [{card}]')
+    worst = []
+    for name in ('hash_table', 'density_mlp', 'color_mlp'):
+        pairs = zip(*(grads[d][name] if name != 'hash_table'
+                      else [grads[d][name]] for d in ('card', 'cpu')))
+        for i, (g, c) in enumerate(pairs):
+            norm = max(float(np.linalg.norm(c)), 1e-30)
+            frob = float(np.linalg.norm(g - c)) / norm
+            norm_err = abs(float(np.linalg.norm(g)) - norm) / norm
+            worst.append((frob, norm_err, f'{name}[{i}]'))
+            print(f'phase 4: gradient {name}[{i}]: relative Frobenius '
+                  f'{frob:.2e} (limit 2e-2), norm {norm_err:.2e} (limit 1e-3)')
+    if not loss_err <= 1e-5:
+        fail(f'training step loss: card and CPU differ by {loss_err:.2e}')
+    bad = [w for w in worst if not (w[0] <= 2e-2 and w[1] <= 1e-3)]
+    if bad:
+        fail(f'training step gradients: card and CPU disagree: {bad}')
+    return {'hash_window_bwd': launches['hash_window_bwd']}
+
+
+def phase5_training(card: str, image_size: int = 400,
+                    iterations: int = 500, overrides: tuple = ()) -> dict:
+    """The port's training entry point on configs/ingp_e2e_bench.yaml at full
+    library width; the only cut is 2000 -> ``iterations`` iterations.
+    Returns the training kernels' launch counts from that run."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.core.setup import Directories
+    from nerficg_torch.data.synthetic import make_textured_scene
+    from nerficg_torch.scripts import train
+
+    wrappers = _training_wrappers()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_train_') as tmp:
+        Directories.base = Path(tmp) / 'output'
+        start = time.perf_counter()
+        scene = make_textured_scene(Path(tmp) / 'scene',
+                                    image_size=image_size, n_train=30,
+                                    n_test=4)
+        print(f'phase 5: {image_size}x{image_size} textured scene (30 train, '
+              f'4 test views) written in {time.perf_counter() - start:.1f} s',
+              flush=True)
+        args = ['-c', str(ROOT / 'configs' / 'ingp_e2e_bench.yaml'),
+                f'DATASET.PATH={scene}', 'TRAINING.RENDER_TESTSET=True',
+                *overrides]
+        before = train.main(args + ['TRAINING.NUM_ITERATIONS=0',
+                                    'TRAINING.MODEL_NAME=untrained'])
+        psnr_before = float(before['metrics']['PSNR'])
+        print(f'phase 5: untrained model (carved, warm-up grid): test PSNR '
+              f'{psnr_before:.3f} dB [{card}]', flush=True)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        start = time.perf_counter()
+        result = train.main(args + [f'TRAINING.NUM_ITERATIONS={iterations}',
+                                    'TRAINING.MODEL_NAME=chip_smoke'])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        trainer = result['trainer']
+        losses = torch.stack(trainer.losses).float().cpu().numpy()
+        psnr = float(result['metrics']['PSNR'])
+        timers = trainer.timers
+        loop = [timers[k] for k in ('training_iteration', '_update_occupancy',
+                                    '_resize_batch', '_log_progress')
+                if k in timers]
+        loop_s = sum(t.total for t in loop)
+        step = timers['training_iteration']
+        print(f'phase 5: train.main -c configs/ingp_e2e_bench.yaml '
+              f'TRAINING.NUM_ITERATIONS={iterations}: whole run {wall:.1f} s, '
+              f'training loop {loop_s:.2f} s = {iterations / loop_s:.2f} '
+              f'it/s, {step.mean * 1e3:.2f} ms per training_iteration, '
+              f'final rays/batch {trainer.rays_per_batch} [{card}]')
+        for line in (Path(result['output_dir']) / 'timings.txt'
+                     ).read_text().splitlines():
+            print(f'phase 5: timings.txt: {line}')
+        print(f'phase 5: peak torch.cuda.max_memory_allocated {peak:.1f} MiB '
+              f'[{card}]')
+        print(f'phase 5: loss mean of iterations 0-49 '
+              f'{losses[:50].mean():.6f}, of the last 50 '
+              f'{losses[-50:].mean():.6f}')
+        print(f'phase 5: test metrics after {iterations} iterations: ' +
+              ', '.join(f'{k}={v:.4f}' for k, v in result['metrics'].items())
+              + f' (untrained {psnr_before:.3f} dB) [{card}]')
+        print(f'phase 5: kernel launches in that run: {launches}', flush=True)
+        missing = [k for k in ('hash_window_fwd_stoch',
+                               'hash_window_bwd_cached', 'block_probe',
+                               'seg_gather', 'seg_scatter_add')
+                   if launches[k] <= 0]
+        if missing:
+            fail(f'kernels never launched while training: {missing}')
+        if len(losses) != iterations or not np.isfinite(losses).all():
+            fail('training loss is missing or not finite')
+        if not losses[-50:].mean() < losses[:50].mean():
+            fail('the training loss did not fall')
+        if not (np.isfinite(psnr) and psnr >= psnr_before + 5.0):
+            fail(f'test PSNR {psnr:.3f} dB is not 5 dB above the untrained '
+                 f'model\'s {psnr_before:.3f} dB')
+        profile_device(lambda: trainer.training_iteration(None, iterations),
+                       'phase 5: profile of one training step', card)
+    return {k: launches[k] for k in ('hash_window_fwd_stoch',
+                                     'hash_window_bwd_cached')}
+
+
 def main() -> None:
     import torch
     sys.path.insert(0, str(ROOT))
@@ -402,6 +680,8 @@ def main() -> None:
     phase1_build(card)
     report = phase2_kernels(card)
     launches = phase3_main_path(card)
+    launches.update(phase4_training_step(card))
+    launches.update(phase5_training(card))
     kernels = [{'name': name, 'route': route, 'source': source,
                 'replaces': replaces, 'launches': launches[name],
                 **report[name]}

@@ -10,7 +10,8 @@ from nerficg_torch.core.logging import Logger
 
 __all__ = [
     'FrameworkError', 'ConfigError', 'CheckpointError', 'DatasetError',
-    'CameraError', 'ModelError', 'RendererError', 'MethodError',
+    'CameraError', 'ModelError', 'RendererError', 'TrainerError',
+    'MethodError',
     'VisualizationError', 'KernelError',
 ]
 
@@ -46,6 +47,10 @@ class ModelError(FrameworkError):
 
 class RendererError(FrameworkError):
     """Renderer failure (wrong model type, invalid outputs)."""
+
+
+class TrainerError(FrameworkError):
+    """Training-loop failure or an option the port does not have."""
 
 
 class MethodError(FrameworkError):

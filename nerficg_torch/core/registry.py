@@ -23,6 +23,7 @@ class MethodEntry:
     name: str
     model_cls: type
     renderer_cls: type
+    trainer_cls: type | None = None
 
 
 _BUILTIN_METHOD_MODULES = {
@@ -36,8 +37,9 @@ _methods: dict[str, MethodEntry] = {}
 _datasets: dict[str, type] = {}
 
 
-def register_method(name: str, model_cls: type, renderer_cls: type) -> None:
-    _methods[name] = MethodEntry(name, model_cls, renderer_cls)
+def register_method(name: str, model_cls: type, renderer_cls: type,
+                    trainer_cls: type | None = None) -> None:
+    _methods[name] = MethodEntry(name, model_cls, renderer_cls, trainer_cls)
 
 
 def register_dataset(name: str) -> Callable[[type], type]:
@@ -92,6 +94,19 @@ class Methods:
     def get_renderer(config, model, name: str | None = None):
         method = config.GLOBAL.METHOD_TYPE if name is None else name
         return _resolve_method(method).renderer_cls(config, model)
+
+    @staticmethod
+    def get_training_instance(config, name: str | None = None,
+                              device: torch.device | str = 'cpu'):
+        """A trainer with a freshly built model and its renderer
+        (reference: Implementations.Methods.get_training_instance)."""
+        method = config.GLOBAL.METHOD_TYPE if name is None else name
+        entry = _resolve_method(method)
+        if entry.trainer_cls is None:
+            raise MethodError(f'method {method!r} has no trainer in the port')
+        model = Methods.get_model(config, method, device=device)
+        renderer = entry.renderer_cls(config, model)
+        return entry.trainer_cls(config, model, renderer)
 
 
 class Datasets:

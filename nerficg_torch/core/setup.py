@@ -7,9 +7,11 @@ chooses the device, pins the float32 matmul precision and configures logging.
 
 from __future__ import annotations
 
+import datetime
 import random
 import warnings
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -17,7 +19,24 @@ import torch
 from nerficg_torch.core.config import ConfigNode, load_config
 from nerficg_torch.core.logging import Logger
 
-__all__ = ['FrameworkContext', 'setup', 'teardown']
+__all__ = ['FrameworkContext', 'setup', 'teardown', 'Directories']
+
+
+class Directories:
+    """Output directory layout (reference: Framework.py:111, Model.py:25):
+    ``<base>/<method>/<run name>_<timestamp>``."""
+
+    base: Path = Path('output')
+
+    @classmethod
+    def output_dir(cls, method: str, run_name: str,
+                   timestamp: bool = True) -> Path:
+        if timestamp:
+            stamp = datetime.datetime.now().strftime('%Y-%m-%d_%H-%M-%S')
+            run_name = f'{run_name}_{stamp}'
+        path = Path(cls.base) / method / run_name
+        path.mkdir(parents=True, exist_ok=True)
+        return path
 
 
 @dataclass

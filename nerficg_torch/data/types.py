@@ -20,7 +20,7 @@ from nerficg_torch.cameras.base import BaseCamera, generate_rays
 from nerficg_torch.core.errors import DatasetError
 from nerficg_torch.data.io import load_image, resize_image
 
-__all__ = ['ImageData', 'View', 'RayBatch']
+__all__ = ['ImageData', 'View', 'RayBatch', 'RayCollection']
 
 
 @dataclass
@@ -37,6 +37,20 @@ class ImageData:
     def exists(self) -> bool:
         return self.data is not None or (self.path is not None and Path(self.path).is_file())
 
+    def prefetch(self) -> 'ImageData':
+        """Decode now and keep the decoded image (reference:
+        ImageData.prefetch)."""
+        if self.data is None and self.path is not None:
+            self.data = self._decode()
+        return self
+
+    def _decode(self) -> np.ndarray:
+        fn = self.load_fn if self.load_fn is not None else load_image
+        out = fn(self.path, None)
+        if self.scale_factor is not None and self.scale_factor != 1.0:
+            out = resize_image(out, self.scale_factor)
+        return out
+
     def load(self) -> Optional[np.ndarray]:
         """Decode (or return eager) image -> HWC float32."""
         if self.data is not None:
@@ -44,10 +58,7 @@ class ImageData:
         else:
             if self.path is None:
                 return None
-            fn = self.load_fn if self.load_fn is not None else load_image
-            out = fn(self.path, None)
-            if self.scale_factor is not None and self.scale_factor != 1.0:
-                out = resize_image(out, self.scale_factor)
+            out = self._decode()
         if self.channels is not None:
             out = out[..., self.channels]
         return out
@@ -105,6 +116,18 @@ class RayBatch:
         return dataclasses.replace(self, **kwargs)
 
 
+@dataclass
+class RayCollection:
+    """RayBatch + per-view slices (reference: Datasets/utils.py:673-690)."""
+
+    rays: RayBatch
+    view_slices: list[tuple[int, int]]
+
+    def rays_of_view(self, view_index: int) -> RayBatch:
+        start, stop = self.view_slices[view_index]
+        return self.rays[start:stop]
+
+
 class View:
     """One observation: camera + pose + lazy image slots
     (reference: Datasets/utils.py:766-1086)."""
@@ -135,6 +158,11 @@ class View:
         if value.shape != (4, 4):
             raise DatasetError(f'c2w must be (4,4) or (3,4), got {value.shape}')
         self._c2w = value
+
+    def prefetch(self) -> 'View':
+        self.rgb_data.prefetch()
+        self.alpha_data.prefetch()
+        return self
 
     @property
     def rgb(self) -> Optional[np.ndarray]:

@@ -11,8 +11,11 @@ products accumulated in f32 (``jnp.dot(bf16, bf16, preferred_element_type=
 f32)``). Here the rounded operands are cast back to f32 and multiplied in
 f32 (``torch.matmul`` on bf16 would return bf16), with TF32 off.
 
-Only the ``window`` encoding backend is ported; ``cell`` and ``xbar`` come
-with their kernels.
+Training evaluates the encode with STOCHASTIC_CORNERS sampled corners per
+(sample, level) when given an encode seed (the TPU's default training path),
+or exactly with STOCHASTIC_CORNERS=0; rendering is always exact. Only the
+``window`` encoding backend is ported; ``cell`` and ``xbar`` come with their
+kernels.
 """
 
 from __future__ import annotations
@@ -29,16 +32,35 @@ from nerficg_torch.methods.base.model import BaseModel
 from nerficg_torch.methods.instant_ngp.convert import (params_from_numpy,
                                                        params_to_numpy)
 from nerficg_torch.ops.encoding import sh_encode
-from nerficg_torch.ops.hash_window import hash_encode_win
+from nerficg_torch.ops.hash_window import (hash_encode_win,
+                                           hash_encode_win_stochastic)
 from nerficg_torch.ops.hashgrid import HashGridConfig, init_hash_grid_mxu
 from nerficg_torch.ops.occupancy import num_cascades
 
 __all__ = ['InstantNGPModel', 'InstantNGPField', 'trunc_exp']
 
 
+class _TruncExp(torch.autograd.Function):
+    """y = exp(clamp(x, -15, 15)) with dy/dx = y everywhere: the JAX
+    ``custom_jvp`` (nerficg_tpu/methods/instant_ngp/model.py:35-45). Autograd
+    of ``clamp`` would zero the gradient outside [-15, 15]."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.exp(torch.clamp(x, -15.0, 15.0))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * y
+
+
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
-    """exp with its argument clamped to [-15, 15] (Instant-NGP 'TruncExp')."""
-    return torch.exp(torch.clamp(x, -15.0, 15.0))
+    """exp with its argument clamped to [-15, 15] and its gradient not
+    (Instant-NGP 'TruncExp')."""
+    return _TruncExp.apply(x)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -93,11 +115,19 @@ class InstantNGPField(nn.Module):
                 layer.weight.copy_(w * (2 * bound) - bound)
 
     def density(self, unit: torch.Tensor,
-                anchor_keys: Optional[torch.Tensor] = None
+                anchor_keys: Optional[torch.Tensor] = None,
+                encode_seed: Optional[int] = None, n_corners: int = 0
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """unit positions (N, 3) -> (density (N,), geo features (N, GEO))."""
-        feats_t = hash_encode_win(self.hash_table, unit, self.hash_config,
-                                  anchor_keys)
+        """unit positions (N, 3) -> (density (N,), geo features (N, GEO)).
+        With an ``encode_seed`` and ``n_corners`` > 0 the encode samples
+        that many corners per (sample, level)."""
+        if encode_seed is not None and n_corners > 0:
+            feats_t = hash_encode_win_stochastic(
+                self.hash_table, unit, encode_seed, self.hash_config,
+                n_corners, anchor_keys)
+        else:
+            feats_t = hash_encode_win(self.hash_table, unit,
+                                      self.hash_config, anchor_keys)
         h = _mlp_featT(self.density_mlp, feats_t)
         return trunc_exp(h[:, 0]), h[:, 1:]
 
@@ -107,9 +137,10 @@ class InstantNGPField(nn.Module):
         return torch.sigmoid(_mlp(self.color_mlp, x))
 
     def forward(self, unit: torch.Tensor, directions: torch.Tensor,
-                anchor_keys: Optional[torch.Tensor] = None
+                anchor_keys: Optional[torch.Tensor] = None,
+                encode_seed: Optional[int] = None, n_corners: int = 0
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        sigma, geo = self.density(unit, anchor_keys)
+        sigma, geo = self.density(unit, anchor_keys, encode_seed, n_corners)
         return sigma, self.color(geo, directions)
 
 
@@ -172,10 +203,32 @@ class InstantNGPModel(BaseModel):
     def load_params_tree(self, tree: dict) -> None:
         self.module.load_state_dict(params_from_numpy(tree))
 
+    def _unit(self, positions: torch.Tensor) -> torch.Tensor:
+        unit = (positions - self.aabb_min) / (self.aabb_max - self.aabb_min)
+        return torch.clamp(unit, 0.0, 1.0 - 1e-6)
+
+    def density(self, positions: torch.Tensor,
+                encode_seed: Optional[int] = None,
+                anchor_keys: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """World positions (N, 3) -> (density (N,), geo features). With an
+        ``encode_seed`` (a uint32, training) and STOCHASTIC_CORNERS > 0 the
+        encode is stochastic, else exact
+        (nerficg_tpu/methods/instant_ngp/model.py:192-241)."""
+        return self.module.density(self._unit(positions), anchor_keys,
+                                   encode_seed, int(self.STOCHASTIC_CORNERS))
+
     def field(self, positions: torch.Tensor, directions: torch.Tensor,
+              encode_seed: Optional[int] = None,
               anchor_keys: Optional[torch.Tensor] = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
         """World positions (N, 3) + unit dirs -> (sigma (N,), rgb (N, 3))."""
-        unit = (positions - self.aabb_min) / (self.aabb_max - self.aabb_min)
-        unit = torch.clamp(unit, 0.0, 1.0 - 1e-6)
-        return self.module(unit, directions, anchor_keys)
+        return self.module(self._unit(positions), directions, anchor_keys,
+                           encode_seed, int(self.STOCHASTIC_CORNERS))
+
+    def mlp_weight_squares(self) -> torch.Tensor:
+        """Mean of the squared MLP weights, the weight-decay term
+        (nerficg_tpu/methods/instant_ngp/model.py:276-284)."""
+        layers = [*self.module.density_mlp, *self.module.color_mlp]
+        total = sum((layer.weight.float() ** 2).sum() for layer in layers)
+        return total / max(sum(layer.weight.numel() for layer in layers), 1)

@@ -1,7 +1,7 @@
 """Instant-NGP renderer: occupancy-skipping marching + packed compositing.
 
-Port of nerficg_tpu/methods/instant_ngp/renderer.py, inference part
-(reference: src/Methods/InstantNGP/Renderer.py:39-138). An image is rendered
+Port of nerficg_tpu/methods/instant_ngp/renderer.py (reference:
+src/Methods/InstantNGP/Renderer.py:39-272). An image is rendered
 in fixed-size ray chunks: each chunk is marched through the two-level block
 bitfield at INFERENCE_SAMPLES_PER_RAY samples per ray, its samples are
 encoded and shaded in morton order and composited in ray order; then the
@@ -9,7 +9,10 @@ rays the budget truncated while still transmissive are marched again at
 INFERENCE_REFINE_FACTOR x the budget and merged back (the static-shape
 stand-in for the reference's alive-ray loop).
 
-Occupancy-grid updates and carving belong to training and come with it.
+Training renders one ray batch per step through ``_render_rays_impl`` with
+jittered samples and the stochastic encode, and keeps the density grid up to
+date: ``carve_occupancy_grid`` once before training, ``update_occupancy_grid``
+every few steps. Their random draws come from a CPU ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -21,15 +24,18 @@ import torch
 
 from nerficg_torch.core.config import Configurable
 from nerficg_torch.core.errors import RendererError
+from nerficg_torch.core.logging import Logger
 from nerficg_torch.data.types import RayBatch, View
 from nerficg_torch.methods.base.renderer import BaseRenderer
 from nerficg_torch.methods.instant_ngp.model import InstantNGPModel
-from nerficg_torch.ops.occupancy import (composite_packed,
+from nerficg_torch.ops.occupancy import (cascade_cell_positions,
+                                         composite_packed,
                                          downsample_occupancy_block,
                                          downsample_occupancy_cascaded_block,
-                                         march_rays,
+                                         draw_grid_update, march_rays,
                                          occupancy_probe_block_cascaded_xyz,
-                                         occupancy_probe_block_xyz)
+                                         occupancy_probe_block_xyz,
+                                         update_density_grid)
 from nerficg_torch.ops.sample_sort import permute_block_channels
 
 __all__ = ['InstantNGPRenderer']
@@ -50,12 +56,10 @@ __all__ = ['InstantNGPRenderer']
     INFERENCE_REFINE=True,
     INFERENCE_REFINE_FRACTION=0.25,   # max refined rays per chunk
     INFERENCE_REFINE_FACTOR=4,
-    # Training keys of the JAX renderer, accepted so that its training
-    # configs load unchanged; rendering does not read them.
     OCCUPANCY_DECAY=0.95,
-    OCCUPANCY_SAMPLES=262144,
-    OCCUPANCY_OCCUPIED_BIAS=0.5,
-    CARVE_OCCUPANCY=True,
+    OCCUPANCY_SAMPLES=262144,   # cells refreshed per update
+    OCCUPANCY_OCCUPIED_BIAS=0.5,  # share of updates aimed at occupied bins
+    CARVE_OCCUPANCY=True,       # frustum-carve the grid from training views
 )
 class InstantNGPRenderer(BaseRenderer):
 
@@ -122,8 +126,12 @@ class InstantNGPRenderer(BaseRenderer):
 
     def _render_rays_impl(self, grid_binary: torch.Tensor,
                           origins: torch.Tensor, directions: torch.Tensor,
-                          background: torch.Tensor,
-                          samples_per_ray: int) -> dict:
+                          background: torch.Tensor, samples_per_ray: int,
+                          jitter_seed: Optional[int] = None,
+                          encode_seed: Optional[int] = None) -> dict:
+        """One ray batch. Training passes ``jitter_seed`` (sample jitter)
+        and ``encode_seed`` (stochastic corners), both uint32; without them
+        samples sit at step midpoints and the encode is exact."""
         n = origins.shape[0]
         block = int(self.MARCH_BLOCK)
         march = march_rays(
@@ -131,22 +139,25 @@ class InstantNGPRenderer(BaseRenderer):
             self._probe_fn(grid_binary), max_steps=int(self.MAX_SAMPLES),
             sample_budget=n * samples_per_ray, block=block,
             exponential=self._exponential, morton=True,
-            probes_per_block=self._probes_per_block)
+            probes_per_block=self._probes_per_block, seed=jitter_seed)
         # The field runs on the morton-ordered stream, so the windowed
         # encode's per-sub-block table windows stay tight; its outputs
         # return to ray order as whole blocks.
         sigma_m, rgb_m = self.model.field(march.positions_m,
                                           march.directions_m,
+                                          encode_seed=encode_seed,
                                           anchor_keys=march.block_keys_m)
         ch = permute_block_channels(
             torch.stack([sigma_m, rgb_m[:, 0], rgb_m[:, 1], rgb_m[:, 2]]),
-            block, march.perm_to_ray)
+            block, march.perm_to_ray, march.perm_to_morton)
         sigma = torch.where(march.valid, ch[0], 0.0)
         out = composite_packed(sigma, ch[1:4], march, n,
                                background=background,
                                early_stop_eps=float(self.EARLY_STOP_EPS),
                                block=block)
         out['ray_mask'] = march.ray_complete[:, None].float()
+        out['num_samples'] = march.num_valid
+        out['num_blocks'] = march.num_blocks
         return out
 
     def _refine_impl(self, grid_binary: torch.Tensor, origins: torch.Tensor,
@@ -178,6 +189,86 @@ class InstantNGPRenderer(BaseRenderer):
             dst[ids] = out2[key]
             merged[key] = dst[:chunk]
         return merged
+
+    # -- density grid --------------------------------------------------------
+    @torch.no_grad()
+    def _update_grid_impl(self, density_grid: torch.Tensor, draws,
+                          encode_seed: int,
+                          carve_mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+        """One grid refresh (nerficg_tpu renderer.py:253-278): the slab's
+        cells are queried with the stochastic encode (forward only)."""
+        model = self.model
+        position_fn = None
+        if self._cascades > 1:
+            position_fn = lambda cells, offs: cascade_cell_positions(
+                cells, offs, model.center, float(model.SCALE),
+                int(model.GRID_RESOLUTION), self._cascades)
+        return update_density_grid(
+            density_grid,
+            lambda positions: model.density(positions,
+                                            encode_seed=encode_seed)[0],
+            model.aabb_min, model.aabb_max, int(model.GRID_RESOLUTION),
+            draws, decay=float(self.OCCUPANCY_DECAY),
+            position_fn=position_fn, carve_mask=carve_mask,
+            occupied_threshold=self.density_threshold)
+
+    def update_occupancy_grid(self, generator: torch.Generator,
+                              warmup: bool = False) -> None:
+        """Refresh the density grid with draws from ``generator``
+        (reference: Renderer.py:245-272)."""
+        grid = self.model.buffers['density_grid']
+        draws = draw_grid_update(generator, grid.shape[0],
+                                 int(self.OCCUPANCY_SAMPLES), warmup=warmup,
+                                 occupied_bias=float(
+                                     self.OCCUPANCY_OCCUPIED_BIAS))
+        encode_seed = int(torch.randint(0, 2 ** 32, (1,),
+                                        generator=generator))
+        self.model.buffers['density_grid'] = self._update_grid_impl(
+            grid, draws, encode_seed, self.model.buffers.get('carve_mask'))
+
+    @torch.no_grad()
+    def carve_occupancy_grid(self, views, dilate: int = 1) -> None:
+        """Frustum carving: cells outside every training camera's frustum
+        (with a 10% margin) stay empty; the visible set is dilated by
+        ``dilate`` cells (6-neighbourhood) on the host (reference:
+        InstantNGP/Renderer.py:207-243; nerficg_tpu renderer.py:321-384).
+        Stores the {0, 1} mask buffer that the grid updates read."""
+        model = self.model
+        res = int(model.GRID_RESOLUTION)
+        cascades = self._cascades
+        total = cascades * res ** 3
+        device = model.device
+        cells = torch.arange(total, device=device)
+        centers = cascade_cell_positions(
+            cells, torch.full((total, 3), 0.5, device=device), model.center,
+            float(model.SCALE), res, cascades)
+        visible = torch.zeros(total, dtype=torch.bool, device=device)
+        for view in views:
+            camera = view.camera
+            # World-to-camera inverted in float64 on the host, as the JAX
+            # package's View.w2c does.
+            rot_inv = view.c2w[:3, :3].T
+            w2c = np.concatenate([rot_inv, -rot_inv @ view.c2w[:3, 3:]], 1)
+            w2c = torch.as_tensor(w2c, dtype=torch.float32, device=device)
+            pix = camera.cam_to_screen(centers @ w2c[:, :3].T + w2c[:, 3])
+            margin = 0.1 * max(camera.width, camera.height)
+            visible |= ((pix[:, 2] > 0) & (pix[:, 0] > -margin) &
+                        (pix[:, 0] < camera.width + margin) &
+                        (pix[:, 1] > -margin) &
+                        (pix[:, 1] < camera.height + margin))
+        mask = visible.cpu().numpy().reshape(cascades, res, res, res)
+        mask = mask.astype(np.float32)
+        for _ in range(max(dilate, 0)):
+            m = mask
+            for axis in (1, 2, 3):
+                m = np.maximum(m, np.roll(mask, 1, axis))
+                m = np.maximum(m, np.roll(mask, -1, axis))
+            mask = m
+        model.buffers['carve_mask'] = torch.as_tensor(mask.reshape(-1),
+                                                      device=device)
+        Logger.verbose(f'occupancy carve: {mask.mean() * 100:.1f}% of cells '
+                       'visible')
 
     @torch.no_grad()
     def render_rays(self, rays: RayBatch,

@@ -3,6 +3,8 @@
 All kernels under ``nerficg_torch/csrc/*.cu`` compile into ONE shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers: a build
 takes seconds instead of the minutes ``torch.utils.cpp_extension`` needs).
+Each source compiles in its own ``nvcc`` process, all started together; one
+more ``nvcc`` links the objects.
 The library is built at first use into ``build/`` at the repository root,
 keyed by a hash of the sources and flags, so a fresh checkout on a machine
 with ``nvcc`` builds it by itself and later calls reuse it.
@@ -41,10 +43,16 @@ _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 # C signature of every entry point (all return int = cudaError_t).
 _SIGNATURES = {
     'nerficg_hash_window_fwd': [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _P],
+    'nerficg_hash_window_fwd_stoch': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _P, _I, _I, _I, _I, _I, _U, _P],
+    'nerficg_hash_window_bwd': [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _P],
+    'nerficg_hash_window_bwd_cached': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     'nerficg_block_probe': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     'nerficg_seg_gather': [_P, _P, _P, _I, _I, _I, _I, _P],
     'nerficg_seg_scatter_add': [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -79,11 +87,34 @@ def build_library() -> tuple[Path, float]:
         return out, 0.0
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(out.name + f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *_NVCC_FLAGS, '-o', str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
+    compile_flags = [f for f in _NVCC_FLAGS if f != '-shared']
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelError(f'nvcc failed ({proc.returncode}):\n{proc.stderr}')
+    # One nvcc per source, all started together, then one link.
+    objects, procs = [], []
+    for src in sources:
+        obj = tmp.with_name(f'{tmp.name}.{src.stem}.o')
+        objects.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *compile_flags, '-c', '-o', str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    errors = []
+    for src, proc in zip(sources, procs):
+        _, stderr = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f'{src.name} ({proc.returncode}):\n{stderr}')
+    try:
+        if errors:
+            raise KernelError('nvcc failed: ' + '\n'.join(errors))
+        link = subprocess.run([nvcc, *_NVCC_FLAGS, '-o', str(tmp),
+                               *map(str, objects)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise KernelError(f'nvcc link failed ({link.returncode}):\n'
+                              f'{link.stderr}')
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out, time.perf_counter() - start
 

@@ -8,8 +8,11 @@ with idx (L, M) int32, table (L, F, R, 128) f32, g (L, F, M) f32. The TPU
 builds one-hot matrices for its MXU (``_gather_kernel`` :65 and
 ``_scatter_kernel`` :144) because it has no vector gather and no atomics;
 the CUDA kernels in ``nerficg_torch/csrc/seg_ops.cu`` index directly and
-scatter with fp32 atomics. CPU tensors take the plain versions. Only the
-forward directions are ported: rendering needs no gradient.
+scatter with fp32 atomics. CPU tensors take the plain versions.
+
+``gather_d`` and ``scatter_add_d`` are the differentiable forms
+(nerficg_tpu/ops/hash_mxu.py:234-267): each is the other's transpose, so the
+backward of either launches the other's kernel.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from nerficg_torch.core.errors import KernelError
 from nerficg_torch.ops import _kernels
 
 __all__ = ['seg_gather', 'seg_scatter_add', 'seg_gather_plain',
-           'seg_scatter_add_plain']
+           'seg_scatter_add_plain', 'gather_d', 'scatter_add_d']
 
 LANES = 128
 
@@ -98,3 +101,41 @@ def seg_scatter_add(idx: torch.Tensor, g: torch.Tensor,
 
 seg_gather.launches = 0
 seg_scatter_add.launches = 0
+
+
+class _GatherD(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, idx, table):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[2]
+        return seg_gather(idx, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return None, seg_scatter_add(idx, g.contiguous(), ctx.rows)
+
+
+class _ScatterAddD(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, idx, g, rows):
+        ctx.save_for_backward(idx)
+        return seg_scatter_add(idx, g, rows)
+
+    @staticmethod
+    def backward(ctx, cot):
+        (idx,) = ctx.saved_tensors
+        return None, seg_gather(idx, cot.contiguous()), None
+
+
+def gather_d(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Differentiable ``seg_gather`` (gradient to ``table``)."""
+    return _GatherD.apply(idx, table)
+
+
+def scatter_add_d(idx: torch.Tensor, g: torch.Tensor,
+                  rows: int) -> torch.Tensor:
+    """Differentiable ``seg_scatter_add`` (gradient to ``g``)."""
+    return _ScatterAddD.apply(idx, g, rows)

@@ -1,4 +1,4 @@
-"""Sorted-stream windowed hash encode (forward), ported from
+"""Sorted-stream windowed hash encode and its table gradients, ported from
 nerficg_tpu/ops/hash_window.py.
 
 The table layout is part of the function and is ported exactly: dense
@@ -9,11 +9,19 @@ the table window ``[lo, lo + win)`` of its 8192-sample sub-block
 (``window_bases``), and the table is read rounded to bf16. See the JAX module
 for why the layout looks like this.
 
-``hash_window_fwd`` is the kernel wrapper: for CUDA tensors it launches the
-CUDA kernel in ``nerficg_torch/csrc/hash_window.cu`` (which replaces the TPU
-kernel ``_fwd_kernel``, nerficg_tpu/ops/hash_window.py:468); for CPU tensors
-it runs ``hash_window_fwd_plain``, the same function in plain PyTorch. Only
-the forward is ported: rendering needs no table gradient.
+Kernel wrappers (CUDA tensors launch the kernels of
+``nerficg_torch/csrc/hash_window.cu``; CPU tensors take the plain version
+beside each, the same function in plain PyTorch):
+  * ``hash_window_fwd``: exact 8 corners (TPU kernel #1 ``_fwd_kernel``,
+    nerficg_tpu/ops/hash_window.py:468);
+  * ``hash_window_fwd_stoch``: #1 in stochastic-corner mode, optionally
+    saving each corner's flat index and weight;
+  * ``hash_window_bwd``: the exact table gradient (#2 ``_bwd_kernel`` :526);
+  * ``hash_window_bwd_cached``: the table gradient from the saved streams
+    (#3 ``_bwd_kernel_cached`` :630).
+``hash_encode_win`` and ``hash_encode_win_stochastic`` are the
+differentiable entry points (``torch.autograd.Function``s), gradients to the
+table only.
 """
 
 from __future__ import annotations
@@ -26,18 +34,24 @@ import torch
 
 from nerficg_torch.core.errors import KernelError
 from nerficg_torch.ops import _kernels
+from nerficg_torch.ops.counter_rng import M32, corner_bits
+from nerficg_torch.ops.hash_xbar import _stoch_corners, _trilinear_w
 from nerficg_torch.ops.hashgrid import HashGridConfig
 
 __all__ = ['WindowLayout', 'window_layout', 'morton_keys_xyz',
            'morton_sort_keys', 'window_bases', 'hash_encode_win',
-           'hash_window_fwd', 'hash_window_fwd_plain', 'SUB_BLOCK']
+           'hash_encode_win_stochastic', 'hash_window_fwd',
+           'hash_window_fwd_plain', 'hash_window_fwd_stoch',
+           'hash_window_fwd_stoch_plain', 'hash_window_bwd',
+           'hash_window_bwd_plain', 'hash_window_bwd_cached',
+           'hash_window_bwd_cached_plain', 'SUB_BLOCK']
 
 _LANES = 128
 SUB_BLOCK = 64              # sublanes per window sub-block (64*128 = 8192)
 _SB_N = SUB_BLOCK * _LANES
 _P1 = 2654435761
 _P2 = 805459861
-_M32 = 0xFFFFFFFF
+_M32 = M32
 _CORNERS = tuple((i, j, k) for i in (0, 1) for j in (0, 1) for k in (0, 1))
 _BRICK_BITS_MAX = 5
 _DENSE_MAX = 1 << 18
@@ -200,40 +214,83 @@ def window_bases(positions: torch.Tensor, config: HashGridConfig,
 
 
 # ---------------------------------------------------------------------------
-# the encode: plain version and kernel wrapper
+# corners of one level: plain versions
 # ---------------------------------------------------------------------------
 
-def hash_window_fwd_plain(table: torch.Tensor, positions: torch.Tensor,
-                          lo: torch.Tensor, win: torch.Tensor,
-                          config: HashGridConfig) -> torch.Tensor:
-    """Plain-PyTorch windowed encode, the jnp oracle ``_fwd_jnp``
-    (nerficg_tpu/ops/hash_window.py:379): table (L, 2, R, 128) f32,
-    positions (N, 3) sub-block padded, lo/win (L, N/8192) -> (L*2, N)."""
-    lay = window_layout(config)
-    levels = table.shape[0]
+def _level_frac(positions: torch.Tensor, res: int):
+    scaled = positions * (res - 1)
+    floor = torch.floor(scaled)
+    return floor.long(), scaled - floor
+
+
+def _windowed_index(lay: WindowLayout, lv: int, cc: torch.Tensor,
+                    lo: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
+    """Corner vertices cc (N, C, 3) int64 of level ``lv`` -> absolute flat
+    indices (N, C) into the level's (rows * 128) feature plane."""
+    n = cc.shape[0]
+    sb_of = torch.arange(n, device=cc.device) // _SB_N
+    row, lane = _row_lane(cc[..., 0], cc[..., 1], cc[..., 2], lay.res[lv],
+                          lay.dense[lv], lay.bscale[lv], max(lay.rpb[lv], 1))
+    lo_s = lo[lv].long()[sb_of][:, None]
+    win_s = win[lv].long()[sb_of][:, None]
+    return (lo_s + _wrap_rel(row - lo_s, win_s)) * _LANES + lane
+
+
+def _exact_corners(positions: torch.Tensor, lay: WindowLayout, lv: int,
+                   lo: torch.Tensor, win: torch.Tensor):
+    """The 8 trilinear corners: (idx (N, 8) int64, weights (N, 8) f32), the
+    weights multiplied in the kernel's order ((wx * wy) * wz)."""
+    base, frac = _level_frac(positions, lay.res[lv])
+    frac3 = tuple(frac.unbind(-1))
+    corners = torch.tensor(_CORNERS, dtype=torch.int64,
+                           device=positions.device)
+    w = torch.stack([_trilinear_w(frac3, c) for c in _CORNERS], 1)
+    return _windowed_index(lay, lv, base[:, None, :] + corners[None], lo,
+                           win), w
+
+
+def _stochastic_corners(positions: torch.Tensor, lay: WindowLayout, lv: int,
+                        lo: torch.Tensor, win: torch.Tensor, n_corners: int,
+                        seed: int):
+    """``n_corners`` stochastic corners from the counter-hash words of
+    (seed, level, sample index, dim): (idx (N, nc) int64, weights (N, nc))."""
+    base, frac = _level_frac(positions, lay.res[lv])
+    index = torch.arange(positions.shape[0], device=positions.device)
+    bits = [corner_bits(seed, lv, index, d) for d in range(3)]
+    offs, weights = _stoch_corners(tuple(frac.unbind(-1)), bits, n_corners)
+    cc = base[:, None, :] + torch.stack([torch.stack(o, -1) for o in offs], 1)
+    return _windowed_index(lay, lv, cc, lo, win), torch.stack(weights, 1)
+
+
+def _gather_sum(flat: torch.Tensor, idx: torch.Tensor,
+                w: torch.Tensor) -> torch.Tensor:
+    """flat (2, P) bf16-rounded plane; idx/w (N, C) -> (2, N) sum over C."""
+    n, c = idx.shape
+    g = flat[:, idx.reshape(-1)].reshape(2, n, c)
+    return (g * w[None]).sum(-1)
+
+
+def _check_table(name: str, table: torch.Tensor, positions: torch.Tensor,
+                 lo: torch.Tensor, win: torch.Tensor,
+                 config: HashGridConfig) -> None:
+    levels, feats, rows, lanes = table.shape
+    if feats != 2 or lanes != _LANES or levels != config.num_levels:
+        raise KernelError(f'{name}: table must be (L, 2, R, 128), got '
+                          f'{tuple(table.shape)}')
+    _check_windows(name, positions, lo, win, levels)
+    if rows < window_layout(config).r_max:
+        raise KernelError(f'{name}: table has {rows} rows, layout needs '
+                          f'{window_layout(config).r_max}')
+
+
+def _check_windows(name: str, positions: torch.Tensor, lo: torch.Tensor,
+                   win: torch.Tensor, levels: int) -> None:
     n = positions.shape[0]
-    device = positions.device
-    sb_of = torch.arange(n, device=device) // _SB_N
-    corners = torch.tensor(_CORNERS, dtype=torch.int64, device=device)
-    flat = table.reshape(levels, 2, -1).to(torch.bfloat16).float()
-    outs = []
-    for lv in range(levels):
-        res = lay.res[lv]
-        scaled = positions * (res - 1)
-        floor = torch.floor(scaled)
-        frac = scaled - floor
-        cc = floor.long()[:, None, :] + corners[None]             # (N, 8, 3)
-        w = torch.where(corners[None] > 0, frac[:, None, :],
-                        1.0 - frac[:, None, :]).prod(-1)           # (N, 8)
-        row, lane = _row_lane(cc[..., 0], cc[..., 1], cc[..., 2], res,
-                              lay.dense[lv], lay.bscale[lv],
-                              max(lay.rpb[lv], 1))
-        lo_s = lo[lv].long()[sb_of][:, None]
-        win_s = win[lv].long()[sb_of][:, None]
-        idx = (lo_s + _wrap_rel(row - lo_s, win_s)) * _LANES + lane
-        g = flat[lv][:, idx.reshape(-1)].reshape(2, n, 8)
-        outs.append((g * w[None]).sum(-1))
-    return torch.cat(outs, 0)
+    if positions.shape != (n, 3) or n % _SB_N != 0:
+        raise KernelError(f'{name}: positions must be (N, 3) with N a '
+                          f'multiple of {_SB_N}, got {tuple(positions.shape)}')
+    if lo.shape != (levels, n // _SB_N) or win.shape != lo.shape:
+        raise KernelError(f'{name}: lo/win must be ({levels}, {n // _SB_N})')
 
 
 @functools.lru_cache(maxsize=8)
@@ -244,6 +301,23 @@ def _layout_tensors(config: HashGridConfig, device: torch.device):
             torch.tensor(lay.bscale, dtype=torch.float32, device=device),
             torch.tensor([max(r, 1) for r in lay.rpb], dtype=torch.int32,
                          device=device))
+
+
+# ---------------------------------------------------------------------------
+# #1 forward: exact and stochastic
+# ---------------------------------------------------------------------------
+
+def hash_window_fwd_plain(table: torch.Tensor, positions: torch.Tensor,
+                          lo: torch.Tensor, win: torch.Tensor,
+                          config: HashGridConfig) -> torch.Tensor:
+    """Plain-PyTorch windowed encode, the jnp oracle ``_fwd_jnp``
+    (nerficg_tpu/ops/hash_window.py:379): table (L, 2, R, 128) f32,
+    positions (N, 3) sub-block padded, lo/win (L, N/8192) -> (L*2, N)."""
+    lay = window_layout(config)
+    levels = table.shape[0]
+    flat = table.reshape(levels, 2, -1).to(torch.bfloat16).float()
+    return torch.cat([_gather_sum(flat[lv], *_exact_corners(
+        positions, lay, lv, lo, win)) for lv in range(levels)], 0)
 
 
 def hash_window_fwd(table: torch.Tensor, positions: torch.Tensor,
@@ -259,19 +333,9 @@ def hash_window_fwd(table: torch.Tensor, positions: torch.Tensor,
     _kernels.require_cuda(name, table, positions, lo, win,
                           dtypes=(torch.float32, torch.float32, torch.int32,
                                   torch.int32))
-    levels, feats, rows, lanes = table.shape
+    _check_table(name, table, positions, lo, win, config)
+    levels, _, rows, _ = table.shape
     n = positions.shape[0]
-    if feats != 2 or lanes != _LANES or levels != config.num_levels:
-        raise KernelError(f'{name}: table must be (L, 2, R, 128), got '
-                          f'{tuple(table.shape)}')
-    if positions.shape != (n, 3) or n % _SB_N != 0:
-        raise KernelError(f'{name}: positions must be (N, 3) with N a '
-                          f'multiple of {_SB_N}, got {tuple(positions.shape)}')
-    if lo.shape != (levels, n // _SB_N) or win.shape != lo.shape:
-        raise KernelError(f'{name}: lo/win must be ({levels}, {n // _SB_N})')
-    if rows < window_layout(config).r_max:
-        raise KernelError(f'{name}: table has {rows} rows, layout needs '
-                          f'{window_layout(config).r_max}')
     res, dense, bscale, rpb = _layout_tensors(config, positions.device)
     out = torch.empty((levels * 2, n), dtype=torch.float32,
                       device=positions.device)
@@ -287,6 +351,194 @@ def hash_window_fwd(table: torch.Tensor, positions: torch.Tensor,
 
 hash_window_fwd.launches = 0
 
+StochOutput = tuple[torch.Tensor, Optional[torch.Tensor],
+                    Optional[torch.Tensor]]
+
+
+def hash_window_fwd_stoch_plain(table: torch.Tensor, positions: torch.Tensor,
+                                lo: torch.Tensor, win: torch.Tensor,
+                                config: HashGridConfig, n_corners: int,
+                                seed: int, save: bool = False) -> StochOutput:
+    """Plain stochastic-corner encode: (out (L*2, N), and with ``save`` the
+    corners' absolute flat indices (L, nc, N) int32 and weights (L, nc, N)
+    f32, else None, None)."""
+    lay = window_layout(config)
+    levels = table.shape[0]
+    flat = table.reshape(levels, 2, -1).to(torch.bfloat16).float()
+    outs, idxs, ws = [], [], []
+    for lv in range(levels):
+        idx, w = _stochastic_corners(positions, lay, lv, lo, win, n_corners,
+                                     seed)
+        outs.append(_gather_sum(flat[lv], idx, w))
+        idxs.append(idx.T)
+        ws.append(w.T)
+    out = torch.cat(outs, 0)
+    if not save:
+        return out, None, None
+    return (out, torch.stack(idxs).to(torch.int32).contiguous(),
+            torch.stack(ws).contiguous())
+
+
+def hash_window_fwd_stoch(table: torch.Tensor, positions: torch.Tensor,
+                          lo: torch.Tensor, win: torch.Tensor,
+                          config: HashGridConfig, n_corners: int, seed: int,
+                          save: bool = False) -> StochOutput:
+    """Windowed encode with ``n_corners`` in {1, 2, 4} stochastic corners
+    drawn from the uint32 ``seed`` (#1 in stochastic mode); ``save`` also
+    returns the per-corner streams the cached backward consumes.
+
+    CUDA tensors launch the hand-written kernel; CPU tensors take
+    ``hash_window_fwd_stoch_plain``."""
+    if n_corners not in (1, 2, 4):
+        raise ValueError(f'n_corners must be 1, 2 or 4, got {n_corners}')
+    seed = int(seed) & M32
+    if positions.device.type == 'cpu':
+        return hash_window_fwd_stoch_plain(table, positions, lo, win, config,
+                                           n_corners, seed, save)
+    name = 'hash_window_fwd_stoch'
+    _kernels.require_cuda(name, table, positions, lo, win,
+                          dtypes=(torch.float32, torch.float32, torch.int32,
+                                  torch.int32))
+    _check_table(name, table, positions, lo, win, config)
+    levels, _, rows, _ = table.shape
+    n = positions.shape[0]
+    device = positions.device
+    res, dense, bscale, rpb = _layout_tensors(config, device)
+    out = torch.empty((levels * 2, n), dtype=torch.float32, device=device)
+    idx = w = None
+    if save:
+        idx = torch.empty((levels, n_corners, n), dtype=torch.int32,
+                          device=device)
+        w = torch.empty((levels, n_corners, n), dtype=torch.float32,
+                        device=device)
+    code = _kernels.load_library().nerficg_hash_window_fwd_stoch(
+        table.data_ptr(), positions.data_ptr(), lo.data_ptr(),
+        win.data_ptr(), res.data_ptr(), dense.data_ptr(), bscale.data_ptr(),
+        rpb.data_ptr(), out.data_ptr(), _kernels.ptr(idx), _kernels.ptr(w),
+        levels, n, n // _SB_N, rows, n_corners, seed,
+        _kernels.stream_of(positions))
+    _kernels.check(code, name)
+    hash_window_fwd_stoch.launches += 1
+    return out, idx, w
+
+
+hash_window_fwd_stoch.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# #2 / #3 table gradients
+# ---------------------------------------------------------------------------
+
+def _scatter_planes(levels: int, rows: int, idx_l, vals_l,
+                    like: torch.Tensor) -> torch.Tensor:
+    """Per level, index_add_ of (2, K) values at (K,) flat indices into a
+    zero (L, 2, rows, 128) table."""
+    out = torch.zeros((levels, 2, rows * _LANES), dtype=torch.float32,
+                      device=like.device)
+    for lv in range(levels):
+        out[lv].index_add_(1, idx_l[lv], vals_l[lv])
+    return out.reshape(levels, 2, rows, _LANES)
+
+
+def hash_window_bwd_plain(g: torch.Tensor, positions: torch.Tensor,
+                          lo: torch.Tensor, win: torch.Tensor,
+                          config: HashGridConfig, rows: int) -> torch.Tensor:
+    """Plain table gradient of the exact encode, the oracle ``_bwd_jnp``
+    (nerficg_tpu/ops/hash_window.py:395): g (L*2, N) f32 -> (L, 2, rows,
+    128), the f32 products g * w scatter-added at every corner."""
+    lay = window_layout(config)
+    levels = g.shape[0] // 2
+    idx_l, vals_l = [], []
+    for lv in range(levels):
+        idx, w = _exact_corners(positions, lay, lv, lo, win)
+        idx_l.append(idx.reshape(-1))
+        vals_l.append((g[2 * lv:2 * lv + 2, :, None] * w[None]).reshape(2, -1))
+    return _scatter_planes(levels, rows, idx_l, vals_l, g)
+
+
+def hash_window_bwd(g: torch.Tensor, positions: torch.Tensor,
+                    lo: torch.Tensor, win: torch.Tensor,
+                    config: HashGridConfig, rows: int) -> torch.Tensor:
+    """Table gradient of the exact windowed encode (#2): g (L*2, N)
+    feature-major cotangent -> (L, 2, rows, 128). The position cotangent is
+    zero, as in the JAX package.
+
+    CUDA tensors launch the hand-written kernel; CPU tensors take
+    ``hash_window_bwd_plain``."""
+    if g.device.type == 'cpu':
+        return hash_window_bwd_plain(g, positions, lo, win, config, rows)
+    name = 'hash_window_bwd'
+    _kernels.require_cuda(name, g, positions, lo, win,
+                          dtypes=(torch.float32, torch.float32, torch.int32,
+                                  torch.int32))
+    levels = config.num_levels
+    _check_windows(name, positions, lo, win, levels)
+    n = positions.shape[0]
+    if g.shape != (levels * 2, n):
+        raise KernelError(f'{name}: g must be ({levels * 2}, {n}), got '
+                          f'{tuple(g.shape)}')
+    if rows < window_layout(config).r_max:
+        raise KernelError(f'{name}: {rows} rows, layout needs '
+                          f'{window_layout(config).r_max}')
+    res, dense, bscale, rpb = _layout_tensors(config, g.device)
+    dtab = torch.empty((levels, 2, rows, _LANES), dtype=torch.float32,
+                       device=g.device)
+    code = _kernels.load_library().nerficg_hash_window_bwd(
+        g.data_ptr(), positions.data_ptr(), lo.data_ptr(), win.data_ptr(),
+        res.data_ptr(), dense.data_ptr(), bscale.data_ptr(), rpb.data_ptr(),
+        dtab.data_ptr(), levels, n, n // _SB_N, rows, _kernels.stream_of(g))
+    _kernels.check(code, name)
+    hash_window_bwd.launches += 1
+    return dtab
+
+
+hash_window_bwd.launches = 0
+
+
+def hash_window_bwd_cached_plain(g: torch.Tensor, idx: torch.Tensor,
+                                 w: torch.Tensor, rows: int) -> torch.Tensor:
+    """Plain table gradient from saved corner streams: idx (L, nc, N) flat
+    indices, w (L, nc, N) weights, g (L*2, N) -> (L, 2, rows, 128)."""
+    levels, nc, n = idx.shape
+    g3 = g.reshape(levels, 2, 1, n)
+    idx_l = [idx[lv].reshape(-1).long() for lv in range(levels)]
+    vals_l = [(g3[lv] * w[lv][None]).reshape(2, nc * n)
+              for lv in range(levels)]
+    return _scatter_planes(levels, rows, idx_l, vals_l, g)
+
+
+def hash_window_bwd_cached(g: torch.Tensor, idx: torch.Tensor,
+                           w: torch.Tensor, rows: int) -> torch.Tensor:
+    """Table gradient from the stochastic forward's saved streams (#3).
+
+    CUDA tensors launch the hand-written kernel; CPU tensors take
+    ``hash_window_bwd_cached_plain``."""
+    if g.device.type == 'cpu':
+        return hash_window_bwd_cached_plain(g, idx, w, rows)
+    name = 'hash_window_bwd_cached'
+    _kernels.require_cuda(name, g, idx, w,
+                          dtypes=(torch.float32, torch.int32, torch.float32))
+    levels, nc, n = idx.shape
+    if w.shape != idx.shape or g.shape != (levels * 2, n):
+        raise KernelError(f'{name}: need idx/w (L, nc, N) and g (2L, N), got '
+                          f'{tuple(idx.shape)}, {tuple(w.shape)}, '
+                          f'{tuple(g.shape)}')
+    dtab = torch.empty((levels, 2, rows, _LANES), dtype=torch.float32,
+                       device=g.device)
+    code = _kernels.load_library().nerficg_hash_window_bwd_cached(
+        g.data_ptr(), idx.data_ptr(), w.data_ptr(), dtab.data_ptr(), levels,
+        n, nc, rows, _kernels.stream_of(g))
+    _kernels.check(code, name)
+    hash_window_bwd_cached.launches += 1
+    return dtab
+
+
+hash_window_bwd_cached.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# differentiable entry points
+# ---------------------------------------------------------------------------
 
 def _prep(positions: torch.Tensor) -> tuple[torch.Tensor, int]:
     """Pad to the 8192-sample sub-block multiple by edge replication
@@ -318,13 +570,79 @@ def _prep_anchors(anchor_keys: Optional[torch.Tensor], n_raw: int,
     return anchor_keys
 
 
+def _windows(positions: torch.Tensor, config: HashGridConfig,
+             anchor_keys: Optional[torch.Tensor]):
+    """(padded positions, real count, lo, win) of a sorted batch."""
+    pos_p, n = _prep(positions.detach())
+    ak = _prep_anchors(anchor_keys, n, pos_p.shape[0])
+    lo, win = window_bases(pos_p, config, anchor_keys=ak)
+    return pos_p, n, lo, win
+
+
+def _pad_cotangent(g: torch.Tensor, n_padded: int) -> torch.Tensor:
+    """Zero cotangent for the padding samples, contiguous for the kernels."""
+    return torch.nn.functional.pad(g, (0, n_padded - g.shape[1])).contiguous()
+
+
+class _HashEncodeWin(torch.autograd.Function):
+    """Exact encode; backward is #2 (corners recomputed)."""
+
+    @staticmethod
+    def forward(ctx, table, positions, config, anchor_keys):
+        pos_p, n, lo, win = _windows(positions, config, anchor_keys)
+        ctx.save_for_backward(pos_p, lo, win)
+        ctx.config, ctx.rows = config, table.shape[2]
+        return hash_window_fwd(table, pos_p, lo, win, config)[:, :n]
+
+    @staticmethod
+    def backward(ctx, g):
+        pos_p, lo, win = ctx.saved_tensors
+        dtab = hash_window_bwd(_pad_cotangent(g, pos_p.shape[0]), pos_p, lo,
+                               win, ctx.config, ctx.rows)
+        return dtab, None, None, None
+
+
+class _HashEncodeWinStochastic(torch.autograd.Function):
+    """Stochastic encode with saved corner streams; backward is #3."""
+
+    @staticmethod
+    def forward(ctx, table, positions, seed, config, n_corners, anchor_keys):
+        pos_p, n, lo, win = _windows(positions, config, anchor_keys)
+        out, idx, w = hash_window_fwd_stoch(table, pos_p, lo, win, config,
+                                            n_corners, seed, save=True)
+        ctx.save_for_backward(idx, w)
+        ctx.rows = table.shape[2]
+        return out[:, :n]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, w = ctx.saved_tensors
+        dtab = hash_window_bwd_cached(_pad_cotangent(g, idx.shape[2]), idx, w,
+                                      ctx.rows)
+        return dtab, None, None, None, None, None
+
+
 def hash_encode_win(table: torch.Tensor, positions: torch.Tensor,
                     config: HashGridConfig,
                     anchor_keys: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Exact 8-corner windowed encode of morton-sorted positions in [0, 1)
-    (nerficg_tpu/ops/hash_window.py:901). Returns feature-major (L*2, N)."""
-    pos_p, n = _prep(positions)
-    ak = _prep_anchors(anchor_keys, positions.shape[0], pos_p.shape[0])
-    lo, win = window_bases(pos_p, config, anchor_keys=ak)
-    return hash_window_fwd(table, pos_p, lo, win, config)[:, :n]
+    (nerficg_tpu/ops/hash_window.py:901). Returns feature-major (L*2, N);
+    differentiable in ``table``."""
+    return _HashEncodeWin.apply(table, positions, config, anchor_keys)
+
+
+def hash_encode_win_stochastic(table: torch.Tensor, positions: torch.Tensor,
+                               seed: int, config: HashGridConfig,
+                               n_corners: int = 2,
+                               anchor_keys: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Stochastic-corner windowed encode (nerficg_tpu/ops/hash_window.py:
+    949), the training path. A call that records no gradient (the occupancy
+    update) skips the saved streams, as the JAX primal path does."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _HashEncodeWinStochastic.apply(table, positions, seed, config,
+                                              n_corners, anchor_keys)
+    pos_p, n, lo, win = _windows(positions, config, anchor_keys)
+    return hash_window_fwd_stoch(table, pos_p, lo, win, config, n_corners,
+                                 seed)[0][:, :n]

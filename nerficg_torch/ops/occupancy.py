@@ -1,6 +1,7 @@
-"""Occupancy-grid ray marching with static-budget sample compaction, and
-front-to-back compositing on the compacted layout, ported from
-nerficg_tpu/ops/occupancy.py (:126-493, :580-665, :745-760).
+"""Occupancy-grid ray marching with static-budget sample compaction,
+front-to-back compositing on the compacted layout, and the density-grid
+update, ported from nerficg_tpu/ops/occupancy.py (:62-73, :126-573,
+:580-665, :745-760).
 
 The marcher probes a fixed number of candidate points per block of
 ``block`` steps against the two-level block bitfield, compacts the occupied
@@ -9,7 +10,9 @@ blocks into a static sample budget with one stable sort of their morton keys
 wants), and expands them back into samples in ray order and in morton
 order. ``composite_packed`` blends the ray-ordered samples with per-block
 prefix sums, a scatter of each ray's prefix offset and a gather back, and
-one 5-channel per-ray scatter (the segment kernels of ops/hash_mxu.py).
+one 5-channel per-ray scatter (the segment kernels of ops/hash_mxu.py, in
+their differentiable forms). Training samples are jittered along the ray by
+a counter hash of their flat (ray, step) index (``_hash_jitter``).
 
 Both sorts are stable, as ``jax.lax.sort`` is: equal morton keys keep their
 block order, which fixes the compaction when the budget truncates.
@@ -22,12 +25,14 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from nerficg_torch.ops.hash_mxu import seg_gather, seg_scatter_add
+from nerficg_torch.ops.counter_rng import M32, mul32
+from nerficg_torch.ops.hash_mxu import gather_d, scatter_add_d
 from nerficg_torch.ops.hash_window import morton_keys_xyz
 from nerficg_torch.ops.xbar_gather import (block_probe_cells,
                                            build_block_bitfield)
 
-__all__ = ['MarchResults', 'march_rays', 'composite_packed',
+__all__ = ['MarchResults', 'march_rays', 'composite_packed', 'GridDraws',
+           'draw_grid_update', 'update_density_grid',
            'downsample_occupancy_block', 'downsample_occupancy_cascaded_block',
            'occupancy_probe_block_xyz', 'occupancy_probe_block_cascaded_xyz',
            'num_cascades', 'cascade_cell_positions']
@@ -53,6 +58,16 @@ class MarchResults(NamedTuple):
     block_keys_m: Optional[torch.Tensor] = None  # (Bb,) sorted block keys
 
 
+def _hash_jitter(flat_ids: torch.Tensor, seed: int) -> torch.Tensor:
+    """Per-sample jitter in [0, 1) from a counter hash of the flat sample
+    index (uint32 arithmetic in int64)."""
+    h = mul32(flat_ids & M32, 2654435761) ^ (int(seed) & M32)
+    h = h ^ (h >> 16)
+    h = mul32(h, 0x45D9F3B)
+    h = h ^ (h >> 16)
+    return (h >> 8).to(torch.float32) / 16777216.0
+
+
 def _ray_aabb(origins, directions, aabb_min, aabb_max, min_near):
     tiny = torch.where(directions >= 0, 1e-10, -1e-10)
     inv = 1.0 / torch.where(directions.abs() < 1e-10, tiny, directions)
@@ -70,14 +85,16 @@ def march_rays(origins: torch.Tensor, directions: torch.Tensor,
                max_steps: int, sample_budget: int, min_near: float = 0.05,
                block: int = 32, exponential: bool = False,
                morton: bool = False,
-               probes_per_block: int = 2) -> MarchResults:
+               probes_per_block: int = 2,
+               seed: Optional[int] = None) -> MarchResults:
     """Fixed-step occupancy-skipping ray marcher (replaces CUDA N4).
 
     origins/directions: (R, 3), directions unit-norm. ``probe_fn`` maps
-    per-axis world-coordinate planes to occupancy. Samples sit at step
-    midpoints (the JAX marcher's inference mode; its training jitter comes
-    with training). ``exponential``: geometric step spacing for
-    multi-cascade scenes. Returns compacted samples with a static budget.
+    per-axis world-coordinate planes to occupancy. ``seed`` (uint32) jitters
+    each sample within its step (training; the JAX marcher's
+    ``jax.random.bits(rng, uint32)``); without it samples sit at step
+    midpoints. ``exponential``: geometric step spacing for multi-cascade
+    scenes. Returns compacted samples with a static budget.
     """
     num_rays = origins.shape[0]
     device = origins.device
@@ -159,9 +176,13 @@ def march_rays(origins: torch.Tensor, directions: torch.Tensor,
         block_in_ray = safe_blk - ray_of_block * blocks_per_ray
         fetched = ray_table[ray_of_block]                      # (Bb, 8)
         b_tnear, b_rate = fetched[:, 0], fetched[:, 1]
-        offs = torch.arange(block, dtype=torch.float32, device=device)[None]
-        sample_step = block_in_ray[:, None].float() * block + offs
-        s_jitter = 0.5
+        offs = torch.arange(block, device=device)[None]
+        step_id = block_in_ray[:, None] * block + offs
+        sample_step = step_id.float()
+        # Training jitters each sample within its step; rendering takes the
+        # step midpoint.
+        s_jitter = 0.5 if seed is None else _hash_jitter(
+            ray_of_block[:, None] * max_steps + step_id, seed)
         if exponential:
             out_ts = b_tnear[:, None] * torch.exp(
                 (sample_step + s_jitter) * b_rate[:, None])
@@ -275,9 +296,9 @@ def composite_packed(densities: torch.Tensor, rgbs: torch.Tensor,
     prev_ids = torch.cat([torch.full_like(ray_of_block[:1], -1),
                           ray_of_block[:-1]])
     is_first = (ray_of_block != prev_ids).to(excl.dtype)
-    offsets = seg_scatter_add(seg_ids, (first_vals * is_first)[None, None],
-                              seg_rows)
-    offset_b = seg_gather(seg_ids, offsets)[0, 0]                 # (Bb,)
+    offsets = scatter_add_d(seg_ids, (first_vals * is_first)[None, None],
+                            seg_rows)
+    offset_b = gather_d(seg_ids, offsets)[0, 0]                   # (Bb,)
     offset_per_sample = offset_b.repeat_interleave(block) if block > 1 \
         else offset_b
 
@@ -296,7 +317,7 @@ def composite_packed(densities: torch.Tensor, rgbs: torch.Tensor,
                             weights * march.ts], dim=0)           # (5, B)
     if block > 1:
         channels = channels.reshape(5, b_total // block, block).sum(-1)
-    sums = seg_scatter_add(seg_ids, channels[None].contiguous(), seg_rows)
+    sums = scatter_add_d(seg_ids, channels[None].contiguous(), seg_rows)
     sums = sums.reshape(5, seg_pad)[:, :num_rays]
     rgb = sums[:3].T
     acc = sums[3][:, None]
@@ -305,6 +326,90 @@ def composite_packed(densities: torch.Tensor, rgbs: torch.Tensor,
         rgb = rgb + (1.0 - acc) * background.to(rgb.dtype)
     return {'rgb': rgb, 'depth': depth, 'alpha': acc, 'weights': weights,
             'sample_ray_ids': march.ray_ids}
+
+
+# ---------------------------------------------------------------------------
+# Density-grid update
+# ---------------------------------------------------------------------------
+
+class GridDraws(NamedTuple):
+    """The random draws of one density-grid update, made on the host so
+    that no update waits on the card (and a test can hand in the draws the
+    JAX function makes from its key)."""
+    start: int               # uniform slab start cell
+    biased: bool             # take the occupancy-weighted start instead
+    bin_u: float             # uniform in [0, 1): categorical over the bins
+    shift: int               # offset of the weighted start, +-half a slab
+    offsets: torch.Tensor    # (num_samples, 3) in-cell offsets in [0, 1)
+
+
+_GRID_BINS = 256
+
+
+def draw_grid_update(generator: torch.Generator, total: int,
+                     num_samples: int, warmup: bool = False,
+                     occupied_bias: float = 0.5) -> GridDraws:
+    """All draws of one ``update_density_grid`` call from a CPU generator.
+    During warm-up every cell is refreshed."""
+    num = total if warmup else min(num_samples, total)
+    start = int(torch.randint(0, total, (1,), generator=generator))
+    biased, bin_u, shift = False, 0.0, 0
+    if occupied_bias > 0.0 and not warmup:
+        bin_u = float(torch.rand(1, generator=generator, dtype=torch.float64))
+        shift = int(torch.randint(-(num // 2), num // 2 + 1, (1,),
+                                  generator=generator))
+        biased = float(torch.rand(1, generator=generator)) < occupied_bias
+    offsets = torch.rand((num, 3), generator=generator)
+    return GridDraws(start, biased, bin_u, shift, offsets)
+
+
+def update_density_grid(density_grid: torch.Tensor,
+                        query_fn: Callable[[torch.Tensor], torch.Tensor],
+                        aabb_min: torch.Tensor, aabb_max: torch.Tensor,
+                        resolution: int, draws: GridDraws,
+                        decay: float = 0.95,
+                        position_fn: Optional[Callable] = None,
+                        carve_mask: Optional[torch.Tensor] = None,
+                        occupied_threshold: float = 0.0) -> torch.Tensor:
+    """EMA-decay max-update of a contiguous (circular) slab of the density
+    grid (nerficg_tpu/ops/occupancy.py:496-573; reference:
+    InstantNGP/Renderer.py:245-272).
+
+    density_grid: (C * res^3,). The slab starts at a uniform cell, or, when
+    ``draws.biased``, at a bin drawn with probability proportional to its
+    occupied-cell count (+1e-3) plus ``draws.shift``. The slab's cells are
+    queried at in-cell ``draws.offsets``; carved cells stay empty. Returns
+    the new grid (the old one is not modified)."""
+    total = density_grid.shape[0]
+    device = density_grid.device
+    num = draws.offsets.shape[0]
+    if draws.biased:
+        bin_size = -(-total // _GRID_BINS)
+        padded = torch.nn.functional.pad(density_grid,
+                                         (0, _GRID_BINS * bin_size - total))
+        occ = (padded > occupied_threshold).reshape(_GRID_BINS, bin_size)
+        cdf = torch.cumsum(occ.sum(1).double() + 1e-3, 0)
+        chosen = torch.searchsorted(cdf, (draws.bin_u * cdf[-1]).reshape(1),
+                                    right=True).clamp(max=_GRID_BINS - 1)
+        start = (chosen * bin_size + draws.shift) % total
+    else:
+        start = draws.start
+    cells = (start + torch.arange(num, device=device)) % total
+    offsets = draws.offsets.to(device)
+    if position_fn is not None:
+        positions = position_fn(cells, offsets)
+    else:
+        z = cells % resolution
+        y = (cells // resolution) % resolution
+        x = cells // (resolution * resolution)
+        unit = (torch.stack([x, y, z], -1).float() + offsets) / resolution
+        positions = aabb_min + unit * (aabb_max - aabb_min)
+    new_density = query_fn(positions)
+    if carve_mask is not None:
+        new_density = new_density * carve_mask[cells].to(new_density.dtype)
+    grid = density_grid * decay
+    grid[cells] = torch.maximum(grid[cells], new_density)
+    return grid
 
 
 # ---------------------------------------------------------------------------

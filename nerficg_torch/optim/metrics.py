@@ -8,7 +8,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ['psnr', 'ssim', 'compute_all_metrics']
+__all__ = ['mse_to_psnr', 'psnr', 'ssim', 'compute_all_metrics']
+
+
+def mse_to_psnr(mse: torch.Tensor) -> torch.Tensor:
+    return -10.0 * torch.log10(torch.clamp(mse, min=1e-12))
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor,

@@ -14,6 +14,7 @@ from nerficg_torch.ops import occupancy as tocc
 from nerficg_torch.ops import xbar_gather as txg
 from nerficg_tpu.ops import occupancy as jocc
 from nerficg_tpu.ops import xbar_gather as jxg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _flags(res, grids, seed=0, shell=True):

@@ -1,4 +1,4 @@
-"""The port's four CUDA kernels against their plain PyTorch versions, on a
+"""The port's CUDA kernels against their plain PyTorch versions, on a
 card. Marked ``cuda``: without a card every test here skips. On a machine
 with one: ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``
 (chip_smoke.py runs the same comparisons at the serving path's shapes)."""
@@ -20,19 +20,36 @@ def cuda():
     return torch.device('cuda')
 
 
-def test_hash_window_fwd(cuda):
-    """atol 1e-5: f32 FMA contraction and sum order in the kernel."""
-    cfg = HashGridConfig(num_levels=16, features_per_level=2,
-                         log2_table_size=14, base_resolution=16,
-                         target_resolution=2048, anchor_stride=8)
-    rng = np.random.default_rng(0)
+CFG = HashGridConfig(num_levels=16, features_per_level=2, log2_table_size=14,
+                     base_resolution=16, target_resolution=2048,
+                     anchor_stride=8)
+
+
+def _encode_inputs(cuda, seed=0):
+    """Library-width table and 16,384 morton-sorted samples with windows."""
+    rng = np.random.default_rng(seed)
     table = torch.tensor(rng.uniform(-1, 1, (16, 2, 128, 128)),
                          dtype=torch.float32, device=cuda)
     pos = torch.tensor(rng.uniform(0, 1, (16384, 3)), dtype=torch.float32,
                        device=cuda)
     pos = pos[torch.sort(hash_window.morton_sort_keys(pos)).indices]
     pos = pos.contiguous()
-    lo, win = hash_window.window_bases(pos, cfg)
+    lo, win = hash_window.window_bases(pos, CFG)
+    g = torch.tensor(rng.normal(size=(32, 16384)), dtype=torch.float32,
+                     device=cuda)
+    return table, pos, lo, win, g
+
+
+def _close_to_scatter(got, want):
+    """rtol 1e-4, atol 1e-5 * max|want|: atomic adds in another order."""
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_hash_window_fwd(cuda):
+    """atol 1e-5: f32 FMA contraction and sum order in the kernel."""
+    table, pos, lo, win, _ = _encode_inputs(cuda)
+    cfg = CFG
     got = hash_window.hash_window_fwd(table, pos, lo, win, cfg)
     want = hash_window.hash_window_fwd_plain(table, pos, lo, win, cfg)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
@@ -68,3 +85,36 @@ def test_seg_gather_and_scatter_add(cuda):
     torch.testing.assert_close(hash_mxu.seg_scatter_add(idx, g, 13),
                                hash_mxu.seg_scatter_add_plain(idx, g, 13),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize('n_corners', [1, 2, 4])
+def test_hash_window_fwd_stoch(cuda, n_corners):
+    """Corners and weights exact (same counter words, _rn arithmetic);
+    features atol 1e-5."""
+    table, pos, lo, win, _ = _encode_inputs(cuda, seed=3)
+    args = (table, pos, lo, win, CFG, n_corners, 0xDEADBEEF)
+    out, idx, w = hash_window.hash_window_fwd_stoch(*args, save=True)
+    out_p, idx_p, w_p = hash_window.hash_window_fwd_stoch_plain(*args,
+                                                                save=True)
+    assert torch.equal(idx, idx_p)
+    assert torch.equal(w, w_p)
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5)
+    alone, none_idx, none_w = hash_window.hash_window_fwd_stoch(*args)
+    assert none_idx is None and none_w is None
+    assert torch.equal(alone, out)
+
+
+def test_hash_window_bwd(cuda):
+    table, pos, lo, win, g = _encode_inputs(cuda, seed=4)
+    _close_to_scatter(
+        hash_window.hash_window_bwd(g, pos, lo, win, CFG, 128),
+        hash_window.hash_window_bwd_plain(g, pos, lo, win, CFG, 128))
+
+
+def test_hash_window_bwd_cached(cuda):
+    table, pos, lo, win, g = _encode_inputs(cuda, seed=5)
+    _, idx, w = hash_window.hash_window_fwd_stoch(table, pos, lo, win, CFG,
+                                                  4, 7, save=True)
+    _close_to_scatter(hash_window.hash_window_bwd_cached(g, idx, w, 128),
+                      hash_window.hash_window_bwd_cached_plain(g, idx, w,
+                                                               128))

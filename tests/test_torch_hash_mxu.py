@@ -12,6 +12,7 @@ import torch
 from nerficg_torch.core.errors import KernelError
 from nerficg_torch.ops import hash_mxu as tmx
 from nerficg_tpu.ops import hash_mxu as jmx
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL_SCATTER = 1e-5
 

@@ -33,6 +33,7 @@ from nerficg_tpu.core.registry import Datasets as JDatasets
 from nerficg_tpu.core.registry import Methods as JMethods
 from nerficg_tpu.methods.instant_ngp import model as jmodel
 from nerficg_tpu.ops import encoding as jencoding
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 MIN_PSNR_DB = 45.0

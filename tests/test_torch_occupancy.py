@@ -9,10 +9,16 @@ outputs are the same f32 expressions and agree to 1e-6 relative.
 transmittance is a difference of global prefix sums of log(1 - alpha), so
 f32 rounding grows with the batch's total optical depth: the densities here
 keep that total near 100, where one ulp is 8e-6.
+
+Training adds the jittered marcher (the port is handed the uint32 seed that
+``jax.random.bits`` draws from the JAX marcher's key), the composite's
+gradients, and the density-grid update given the draws JAX makes from its
+key.
 """
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +26,7 @@ import torch
 
 from nerficg_torch.ops import occupancy as tocc
 from nerficg_tpu.ops import occupancy as jocc
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL_COMPOSITE = 1e-5
 
@@ -54,7 +61,7 @@ def _grid(res, cascades, scale, seed=0):
 
 
 @functools.lru_cache(maxsize=None)
-def _march_both(scale, num_rays, max_steps, budget, probes):
+def _march_both(scale, num_rays, max_steps, budget, probes, key=None):
     cascades = jocc.num_cascades(scale)
     assert tocc.num_cascades(scale) == cascades
     res, cap = 32, 128
@@ -79,15 +86,17 @@ def _march_both(scale, num_rays, max_steps, budget, probes):
         kw = dict(max_steps=max_steps, sample_budget=budget, block=8,
                   exponential=exponential, morton=True,
                   probes_per_block=probes)
+        rng = None if key is None else jax.random.PRNGKey(key)
         if mod is jocc:
             # Eager, op by op: under jit XLA may contract the step and
             # probe arithmetic into FMAs and move a probe across a cell
             # boundary, so only the unfused function is an exact reference.
             return mod.march_rays(tensor(origins), tensor(dirs), tensor(amin),
                                   tensor(amax), table, res, probe_fn=probe,
-                                  **kw)
+                                  rng=rng, **kw)
+        seed = None if rng is None else int(jax.random.bits(rng, dtype=jnp.uint32))
         return mod.march_rays(tensor(origins), tensor(dirs), tensor(amin),
-                              tensor(amax), probe, **kw)
+                              tensor(amax), probe, seed=seed, **kw)
 
     if cascades > 1:
         jt = jocc.downsample_occupancy_cascaded_block(
@@ -111,9 +120,12 @@ MARCH_CASES = [(0.5, 256, 64, 256 * 16, 7), (1.0, 256, 64, 256 * 16, 7),
                (1.0, 256, 64, 256 * 2, 7)]
 
 
+@pytest.mark.parametrize('key', [None, 3])
 @pytest.mark.parametrize('case', MARCH_CASES)
-def test_march_rays_matches(case):
-    jm, tm = _march_both(*case)
+def test_march_rays_matches(case, key):
+    """``key`` set: jittered samples (training), the port handed the seed
+    ``jax.random.bits(key, uint32)`` that the JAX marcher draws."""
+    jm, tm = _march_both(*case, key=key)
     assert int(jm.num_blocks) > 0
     exact = ('ray_ids', 'valid', 'num_valid', 'ray_complete', 'num_blocks',
              'ray_ids_m', 'perm_to_ray', 'perm_to_morton', 'block_keys_m')
@@ -177,3 +189,112 @@ def test_cascade_cell_positions_match():
                                       torch.from_numpy(center), 1.0, 16, 2)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-6)
+
+
+def test_hash_jitter_matches():
+    ids = np.arange(0, 1 << 20, 37, dtype=np.uint32)
+    want = np.asarray(jocc._hash_jitter(jnp.asarray(ids),
+                                        jnp.uint32(0xC0FFEE11)))
+    got = tocc._hash_jitter(torch.from_numpy(ids.astype(np.int64)),
+                            0xC0FFEE11)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_composite_packed_grads_match():
+    """Gradients of the composite (through the segment gather and
+    scatter-add Functions) against jax.grad, on jittered samples."""
+    case = MARCH_CASES[1]
+    jm, tm = _march_both(*case, key=5)
+    num_rays = case[1]
+    rng = np.random.default_rng(8)
+    b = jm.valid.shape[0]
+    sigma = rng.uniform(0, 4, b).astype(np.float32)
+    rgb = rng.uniform(0, 1, (3, b)).astype(np.float32)
+    bg = np.array([1.0, 0.5, 0.0], np.float32)
+    cot = rng.normal(size=(num_rays, 3)).astype(np.float32)
+
+    def loss(s, c):
+        out = jocc.composite_packed(s, c, jm, num_rays,
+                                    background=jnp.asarray(bg), block=8)
+        return jnp.sum(out['rgb'] * cot) + jnp.sum(out['depth'])
+    want = jax.grad(loss, argnums=(0, 1))(jnp.asarray(sigma),
+                                          jnp.asarray(rgb))
+    s_t = torch.from_numpy(sigma).requires_grad_()
+    c_t = torch.from_numpy(rgb).requires_grad_()
+    out = tocc.composite_packed(s_t, c_t, tm, num_rays,
+                                background=torch.from_numpy(bg), block=8)
+    ((out['rgb'] * torch.from_numpy(cot)).sum() + out['depth'].sum()
+     ).backward()
+    for got, ref in zip((s_t.grad, c_t.grad), want):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(ref).max()))
+
+
+def _jax_grid_draws(key, total, num, warmup, bias, grid, threshold):
+    """The draws nerficg_tpu's update_density_grid makes from ``key``
+    (occupancy.py:516-550), as the port's GridDraws. The categorical's bin
+    becomes the uniform at the middle of that bin's probability interval."""
+    k_cells, k_jitter, k_stream, k_bin = jax.random.split(key, 4)
+    num = total if warmup else min(num, total)
+    start = int(jax.random.randint(k_cells, (), 0, total, jnp.int32))
+    offsets = np.array(jax.random.uniform(k_jitter, (num, 3)))
+    biased, bin_u, shift = False, 0.0, 0
+    if bias > 0.0 and not warmup:
+        bins = 256
+        bin_size = -(-total // bins)
+        occ = (np.pad(grid, (0, bins * bin_size - total)) > threshold
+               ).reshape(bins, bin_size).sum(1)
+        logits = jnp.log(jnp.asarray(occ, jnp.float32) + 1e-3)
+        chosen = int(jax.random.categorical(k_bin, logits))
+        shift = int(jax.random.randint(k_bin, (), -(num // 2),
+                                       num // 2 + 1, jnp.int32))
+        biased = bool(jax.random.uniform(k_stream) < bias)
+        cdf = np.cumsum(occ.astype(np.float64) + 1e-3)
+        lo = cdf[chosen - 1] if chosen else 0.0
+        bin_u = 0.5 * (lo + cdf[chosen]) / cdf[-1]
+    return tocc.GridDraws(start, biased, bin_u, shift,
+                          torch.from_numpy(offsets))
+
+
+@pytest.mark.parametrize('warmup,key', [(True, 0), (False, 1), (False, 3)])
+@pytest.mark.parametrize('cascades', [1, 2])
+def test_update_density_grid_matches(warmup, key, cascades):
+    """Warm-up (every cell) and later updates (key 1 takes the uniform
+    start, key 3 the occupancy-biased one) with a carve mask, given the JAX
+    draws: grids agree to 1e-6."""
+    res, scale = 16, 1.0
+    total = cascades * res ** 3
+    rng = np.random.default_rng(10 + key)
+    grid = np.where(rng.uniform(size=total) < 0.3,
+                    rng.uniform(0, 2, total), 0.0).astype(np.float32)
+    carve = (rng.uniform(size=total) < 0.9).astype(np.float32)
+    center = np.zeros(3, np.float32)
+    amin, amax = np.full(3, -scale, np.float32), np.full(3, scale, np.float32)
+
+    def density(p, mod):
+        return 3.0 * mod.exp(-4.0 * ((p - 0.2) ** 2).sum(-1))
+
+    def position_fn(mod, tensor):
+        if cascades == 1:
+            return None
+        return lambda cells, offs: mod.cascade_cell_positions(
+            cells, offs, tensor(center), scale, res, cascades)
+
+    jkey = jax.random.PRNGKey(key)
+    want = jocc.update_density_grid(
+        jnp.asarray(grid), lambda p: density(p, jnp), jnp.asarray(amin),
+        jnp.asarray(amax), res, jkey, num_samples=1000, decay=0.95,
+        warmup=warmup, position_fn=position_fn(jocc, jnp.asarray),
+        carve_mask=jnp.asarray(carve), occupied_bias=0.5,
+        occupied_threshold=0.5)
+    draws = _jax_grid_draws(jkey, total, 1000, warmup, 0.5, grid, 0.5)
+    assert draws.biased == (key == 3)
+    got = tocc.update_density_grid(
+        torch.from_numpy(grid), lambda p: density(p, torch),
+        torch.from_numpy(amin), torch.from_numpy(amax), res, draws,
+        decay=0.95, position_fn=position_fn(tocc, torch.from_numpy),
+        carve_mask=torch.from_numpy(carve), occupied_threshold=0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    assert not np.array_equal(np.asarray(want), grid * 0.95)
