@@ -14,6 +14,7 @@ from typing import Callable
 import torch
 
 from nerficg_torch.core.errors import DatasetError, MethodError
+from nerficg_torch.core.setup import resolve_device
 
 __all__ = ['Methods', 'Datasets', 'register_method', 'register_dataset']
 
@@ -76,12 +77,16 @@ def _resolve_dataset(name: str) -> type:
 
 
 class Methods:
-    """Method lookup facade (reference: Implementations.Methods, :43-65)."""
+    """Method lookup facade (reference: Implementations.Methods, :43-65).
+
+    Models and trainers go on the first CUDA card unless the caller passes
+    ``device='cpu'``; without a card they raise (``KernelError``)."""
 
     @staticmethod
     def get_model(config, name: str | None = None,
                   checkpoint: str | None = None,
-                  device: torch.device | str = 'cpu'):
+                  device: torch.device | str = 'cuda'):
+        device = resolve_device(device, "device='cpu'")
         method = config.GLOBAL.METHOD_TYPE if name is None else name
         entry = _resolve_method(method)
         if checkpoint is not None:
@@ -97,9 +102,10 @@ class Methods:
 
     @staticmethod
     def get_training_instance(config, name: str | None = None,
-                              device: torch.device | str = 'cpu'):
+                              device: torch.device | str = 'cuda'):
         """A trainer with a freshly built model and its renderer
         (reference: Implementations.Methods.get_training_instance)."""
+        device = resolve_device(device, "device='cpu'")
         method = config.GLOBAL.METHOD_TYPE if name is None else name
         entry = _resolve_method(method)
         if entry.trainer_cls is None:

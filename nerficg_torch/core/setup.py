@@ -17,9 +17,11 @@ import numpy as np
 import torch
 
 from nerficg_torch.core.config import ConfigNode, load_config
+from nerficg_torch.core.errors import KernelError
 from nerficg_torch.core.logging import Logger
 
-__all__ = ['FrameworkContext', 'setup', 'teardown', 'Directories']
+__all__ = ['FrameworkContext', 'setup', 'teardown', 'Directories',
+           'resolve_device']
 
 
 class Directories:
@@ -39,6 +41,18 @@ class Directories:
         return path
 
 
+def resolve_device(device: torch.device | str,
+                   cpu_hint: str = '--device cpu') -> torch.device:
+    """``device`` as a torch.device; a CUDA device without a card raises
+    rather than fall back to the CPU, which runs the kernels' plain
+    versions and must be asked for (``cpu_hint`` says how)."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise KernelError(f'no CUDA card is available; pass {cpu_hint} to '
+                          f'run on the CPU with the plain PyTorch versions')
+    return device
+
+
 @dataclass
 class FrameworkContext:
     """Everything ``setup`` provides: explicit, no globals."""
@@ -50,11 +64,13 @@ class FrameworkContext:
 
 def setup(config_path: str | None = None, overrides=(), *,
           config: ConfigNode | None = None,
-          device: torch.device | str | None = None) -> FrameworkContext:
+          device: torch.device | str = 'cuda') -> FrameworkContext:
     """Initialize the framework (reference: Framework.setup, Framework.py:120-160).
 
-    ``device`` defaults to the first CUDA card when one is present, else the
-    CPU."""
+    ``device`` defaults to the first CUDA card. Without one, setup raises
+    rather than carry on on the CPU: the CPU runs the kernels' plain
+    versions and must be asked for (``--device cpu``)."""
+    device = resolve_device(device)
     if config is None:
         config = load_config(config_path, overrides)
     g = config.GLOBAL
@@ -71,9 +87,6 @@ def setup(config_path: str | None = None, overrides=(), *,
     np.random.seed(seed)
     torch.manual_seed(seed)
     generator = torch.Generator().manual_seed(seed)
-    if device is None:
-        device = 'cuda' if torch.cuda.is_available() else 'cpu'
-    device = torch.device(device)
     name = torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'
     Logger.info(f'framework setup: device {device} [{name}], seed={seed}')
     return FrameworkContext(config=config, generator=generator, device=device)

@@ -49,44 +49,17 @@
 // contract them into FMAs: they must equal the plain version's f32 results
 // bit for bit (a one-ulp difference moves a corner across a row). Only the
 // final weighted sum may contract; it is compared with a tolerance.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "hash_common.cuh"
+
 namespace {
 
-constexpr int kLanes = 128;
-constexpr int kBrickBitsMax = 5;
+using nerficg::kLanes;
+
 constexpr int kSubBlockN = 64 * 128;  // samples per window sub-block
-constexpr uint32_t kP1 = 2654435761u;
-constexpr uint32_t kP2 = 805459861u;
-constexpr uint32_t kGolden = 0x9E3779B9u;
-
-__device__ __forceinline__ int morton3(int x, int y, int z) {
-  int m = 0;
-#pragma unroll
-  for (int i = 0; i < kBrickBitsMax; ++i) {
-    m |= ((x >> i) & 1) << (3 * i + 2);
-    m |= ((y >> i) & 1) << (3 * i + 1);
-    m |= ((z >> i) & 1) << (3 * i);
-  }
-  return m;
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// lowbias32 finalizer (nerficg_torch/ops/counter_rng.py mix32).
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
 
 struct LevelLayout {
   int res;
@@ -120,14 +93,8 @@ __device__ __forceinline__ SampleLevel sample_level(
     const int* __restrict__ win, const LevelLayout& lay, int i, int lvl,
     int nsb) {
   SampleLevel s;
-  const float res_m1 = static_cast<float>(lay.res - 1);
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    const float scaled = __fmul_rn(pos[3 * i + d], res_m1);
-    const float f = floorf(scaled);
-    s.frac[d] = __fsub_rn(scaled, f);
-    s.base[d] = static_cast<int>(f);
-  }
+  nerficg::level_coords(pos, i, static_cast<float>(lay.res - 1), s.base,
+                        s.frac);
   const int sb = i / kSubBlockN;
   s.w_lo = lo[lvl * nsb + sb];
   s.w_win = win[lvl * nsb + sb];
@@ -150,84 +117,13 @@ __device__ __forceinline__ int corner_index(const LevelLayout& lay,
     const int bx = static_cast<int>(__fmul_rn(static_cast<float>(vx), lay.bscale));
     const int by = static_cast<int>(__fmul_rn(static_cast<float>(vy), lay.bscale));
     const int bz = static_cast<int>(__fmul_rn(static_cast<float>(vz), lay.bscale));
-    const uint32_t h = static_cast<uint32_t>(vx) ^
-                       (static_cast<uint32_t>(vy) * kP1) ^
-                       (static_cast<uint32_t>(vz) * kP2);
-    row = morton3(bx, by, bz) * static_cast<int>(lay.rpb) +
+    const uint32_t h = nerficg::ngp_hash(vx, vy, vz);
+    row = nerficg::morton3(bx, by, bz) * static_cast<int>(lay.rpb) +
           static_cast<int>((h >> 7) & (lay.rpb - 1u));
     lane = static_cast<int>(h & (kLanes - 1));
   }
-  // _wrap_rel: float-division modulo into [0, win), clamped.
-  const int rel = row - s.w_lo;
-  const float q = floorf(__fmul_rn(static_cast<float>(rel), s.inv));
-  int r = rel - static_cast<int>(q) * s.w_win;
-  r = min(max(r, 0), s.w_win - 1);
-  return (s.w_lo + r) * kLanes + lane;
-}
-
-__device__ __forceinline__ float exact_weight(const SampleLevel& s, int cx,
-                                              int cy, int cz) {
-  const float wx = cx ? s.frac[0] : __fsub_rn(1.0f, s.frac[0]);
-  const float wy = cy ? s.frac[1] : __fsub_rn(1.0f, s.frac[1]);
-  const float wz = cz ? s.frac[2] : __fsub_rn(1.0f, s.frac[2]);
-  return __fmul_rn(__fmul_rn(wx, wy), wz);
-}
-
-// `_stoch_corners` for one (sample, level): NC corner offsets and weights.
-template <int NC>
-__device__ __forceinline__ void stoch_corners(const SampleLevel& s,
-                                              uint32_t seed, int lvl, int i,
-                                              int (*off)[3], float* w) {
-  int draw[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    const uint32_t key =
-        mix32(seed ^ (static_cast<uint32_t>(lvl * 3 + d + 1) * kGolden));
-    const uint32_t bits = mix32(static_cast<uint32_t>(i) ^ key);
-    const float u = static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
-    draw[d] = u < s.frac[d] ? 1 : 0;
-  }
-  if (NC == 1) {
-    off[0][0] = draw[0];
-    off[0][1] = draw[1];
-    off[0][2] = draw[2];
-    w[0] = 1.0f;
-    return;
-  }
-  float m[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) m[d] = fminf(s.frac[d], __fsub_rn(1.0f, s.frac[d]));
-  bool exact[3];
-  if (NC == 2) {  // exact dim = argmax m
-    const bool k0 = (m[0] >= m[1]) && (m[0] >= m[2]);
-    const bool k1 = !k0 && (m[1] >= m[2]);
-    exact[0] = k0;
-    exact[1] = k1;
-    exact[2] = !k0 && !k1;
-  } else {  // NC == 4: stochastic dim = argmin m
-    const bool s0 = (m[0] <= m[1]) && (m[0] <= m[2]);
-    const bool s1 = !s0 && (m[1] <= m[2]);
-    exact[0] = !s0;
-    exact[1] = !s1;
-    exact[2] = s0 || s1;
-  }
-  const bool first[3] = {exact[0], exact[1] && !exact[0],
-                         exact[2] && !exact[0] && !exact[1]};
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int bit0 = c & 1;
-    const int bit_n = NC == 2 ? bit0 : (c >> 1) & 1;
-    float wc = 1.0f;
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const int o = exact[d] ? (first[d] ? bit0 : bit_n) : draw[d];
-      off[c][d] = o;
-      if (exact[d]) {
-        wc = __fmul_rn(wc, o ? s.frac[d] : __fsub_rn(1.0f, s.frac[d]));
-      }
-    }
-    w[c] = wc;
-  }
+  return (s.w_lo + nerficg::wrap_rel(row - s.w_lo, s.w_win, s.inv)) * kLanes +
+         lane;
 }
 
 // NC == 0: exact 8 corners; NC in {1, 2, 4}: stochastic corners, with
@@ -254,20 +150,20 @@ __global__ void hash_window_fwd_kernel(
     for (int c = 0; c < 8; ++c) {
       const int cx = (c >> 2) & 1, cy = (c >> 1) & 1, cz = c & 1;
       const int idx = corner_index(lay, s, cx, cy, cz);
-      const float w = exact_weight(s, cx, cy, cz);
-      acc0 += w * bf16_round(__ldg(tab0 + idx));
-      acc1 += w * bf16_round(__ldg(tab1 + idx));
+      const float w = nerficg::trilinear_weight(s.frac, cx, cy, cz);
+      acc0 += w * nerficg::bf16_round(__ldg(tab0 + idx));
+      acc1 += w * nerficg::bf16_round(__ldg(tab1 + idx));
     }
   } else {
     constexpr int kNC = NC == 0 ? 1 : NC;
     int off[kNC][3];
     float w[kNC];
-    stoch_corners<kNC>(s, seed, lvl, i, off, w);
+    nerficg::stoch_corners<kNC>(s.frac, seed, lvl, i, off, w);
 #pragma unroll
     for (int c = 0; c < kNC; ++c) {
       const int idx = corner_index(lay, s, off[c][0], off[c][1], off[c][2]);
-      acc0 += w[c] * bf16_round(__ldg(tab0 + idx));
-      acc1 += w[c] * bf16_round(__ldg(tab1 + idx));
+      acc0 += w[c] * nerficg::bf16_round(__ldg(tab0 + idx));
+      acc1 += w[c] * nerficg::bf16_round(__ldg(tab1 + idx));
       if (save_idx != nullptr) {
         const size_t at = (static_cast<size_t>(lvl) * kNC + c) * n + i;
         save_idx[at] = idx;
@@ -299,7 +195,7 @@ __global__ void hash_window_bwd_kernel(
   for (int c = 0; c < 8; ++c) {
     const int cx = (c >> 2) & 1, cy = (c >> 1) & 1, cz = c & 1;
     const int idx = corner_index(lay, s, cx, cy, cz);
-    const float w = exact_weight(s, cx, cy, cz);
+    const float w = nerficg::trilinear_weight(s.frac, cx, cy, cz);
     atomicAdd(d0 + idx, __fmul_rn(g0, w));
     atomicAdd(d1 + idx, __fmul_rn(g1, w));
   }

@@ -1,5 +1,5 @@
-"""Dataset base class: views in subsets and the training ray pool, ported
-from nerficg_tpu/data/base.py (reference: src/Datasets/Base.py:29-244).
+"""Dataset base class: views in subsets and the training ray pool, a port
+of nerficg_tpu/data/base.py (reference: src/Datasets/Base.py:29-244).
 Scene normalization and bounding boxes are not ported yet."""
 
 from __future__ import annotations

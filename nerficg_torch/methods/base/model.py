@@ -3,7 +3,8 @@
 Port of nerficg_tpu/methods/base/model.py (reference: src/Methods/Base/
 Model.py:15-111). A model is a host object holding (a) the MODEL config
 section, (b) an ``nn.Module`` with the trainable parameters and (c) a dict of
-non-trained buffers such as the occupancy grid, all on ``self.device``.
+non-trained buffers such as the occupancy grid, all on ``self.device``: the
+first CUDA card unless the caller passes ``device='cpu'``.
 Checkpoints store the parameters in the JAX package's tree layout, so the
 two packages read each other's files; each method converts between that
 tree and its module (``params_tree`` / ``load_params_tree``).
@@ -20,6 +21,7 @@ import torch
 from nerficg_torch.core.checkpoint import load_checkpoint, save_checkpoint
 from nerficg_torch.core.config import ConfigNode, Configurable, recursive_update
 from nerficg_torch.core.errors import ModelError
+from nerficg_torch.core.setup import resolve_device
 
 __all__ = ['BaseModel']
 
@@ -27,13 +29,13 @@ __all__ = ['BaseModel']
 class BaseModel(Configurable):
 
     def __init__(self, config: ConfigNode | None, name: str | None = None,
-                 device: torch.device | str = 'cpu'):
+                 device: torch.device | str = 'cuda'):
         super().__init__(config, 'MODEL')
         self._config = config
         self.model_name = name or (
             config.get_path('TRAINING.MODEL_NAME') if config is not None else None
         ) or type(self).__name__
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "device='cpu'")
         self.module: Optional[torch.nn.Module] = None
         self.buffers: dict[str, torch.Tensor] = {}
         self.num_iterations_trained: int = 0
@@ -70,7 +72,7 @@ class BaseModel(Configurable):
 
     @classmethod
     def load(cls, path: str | Path, config: ConfigNode | None = None,
-             device: torch.device | str = 'cpu') -> 'BaseModel':
+             device: torch.device | str = 'cuda') -> 'BaseModel':
         """Rebuild from a checkpoint; the saved MODEL configuration applies,
         overridden by ``config``'s MODEL section (reference: Model.py:60-101)."""
         payload = load_checkpoint(path)

@@ -1,10 +1,17 @@
-"""Instant-NGP model: windowed hash-grid encode + small MLPs + occupancy grid.
+"""Instant-NGP model: hash-grid encode + small MLPs + occupancy grid.
 
 Port of nerficg_tpu/methods/instant_ngp/model.py (reference:
 src/Methods/InstantNGP/Model.py:31-123): a 16-level hash grid (2 features,
-2^14 entries per level, base 16 -> 2048) read by the windowed encode, a
-1x64 density MLP producing [sigma, 15 features], SH degree-4 directions with
-a 2x64 color MLP -> sigmoid RGB, and 128^3 occupancy grids per cascade.
+2^14 entries per level by default, base 16 -> 2048), a 1x64 density MLP
+producing [sigma, 15 features], SH degree-4 directions with a 2x64 color
+MLP -> sigmoid RGB, and 128^3 occupancy grids per cascade.
+
+ENCODING_BACKEND picks the encode of the (L, 2, R, 128) table, as the JAX
+model does (:206-257): 'window' (vertex-shared corners, windowed over the
+morton-sorted stream; ops/hash_window.py), 'cell' (cell-packed corners, one
+window address per sample, always exact; ops/hash_cell.py) or 'xbar' (the
+full-table encode on the ray-ordered stream; ops/hash_xbar.py). The first
+two are feature-major and feed ``_mlp_featT``; 'xbar' is sample-major.
 
 The MLPs multiply as the JAX package does: operands rounded to bf16,
 products accumulated in f32 (``jnp.dot(bf16, bf16, preferred_element_type=
@@ -13,9 +20,8 @@ f32 (``torch.matmul`` on bf16 would return bf16), with TF32 off.
 
 Training evaluates the encode with STOCHASTIC_CORNERS sampled corners per
 (sample, level) when given an encode seed (the TPU's default training path),
-or exactly with STOCHASTIC_CORNERS=0; rendering is always exact. Only the
-``window`` encoding backend is ported; ``cell`` and ``xbar`` come with their
-kernels.
+or exactly with STOCHASTIC_CORNERS=0; rendering is always exact. The cell
+encode is always exact and ignores the seed.
 """
 
 from __future__ import annotations
@@ -32,12 +38,18 @@ from nerficg_torch.methods.base.model import BaseModel
 from nerficg_torch.methods.instant_ngp.convert import (params_from_numpy,
                                                        params_to_numpy)
 from nerficg_torch.ops.encoding import sh_encode
+from nerficg_torch.ops.hash_cell import hash_encode_cell
 from nerficg_torch.ops.hash_window import (hash_encode_win,
                                            hash_encode_win_stochastic)
+from nerficg_torch.ops.hash_xbar import (hash_encode_xbar,
+                                         hash_encode_xbar_stochastic)
 from nerficg_torch.ops.hashgrid import HashGridConfig, init_hash_grid_mxu
 from nerficg_torch.ops.occupancy import num_cascades
 
-__all__ = ['InstantNGPModel', 'InstantNGPField', 'trunc_exp']
+__all__ = ['InstantNGPModel', 'InstantNGPField', 'trunc_exp',
+           'ENCODING_BACKENDS']
+
+ENCODING_BACKENDS = ('window', 'cell', 'xbar')
 
 
 class _TruncExp(torch.autograd.Function):
@@ -89,9 +101,11 @@ class InstantNGPField(nn.Module):
     """Parameters and field evaluation on unit-cube positions."""
 
     def __init__(self, hash_config: HashGridConfig, density_width: int,
-                 geo_features: int, color_width: int, sh_degree: int):
+                 geo_features: int, color_width: int, sh_degree: int,
+                 backend: str = 'window'):
         super().__init__()
         self.hash_config = hash_config
+        self.backend = backend
         self.sh_degree = sh_degree
         c = hash_config
         self.hash_table = nn.Parameter(torch.zeros(
@@ -119,16 +133,25 @@ class InstantNGPField(nn.Module):
                 encode_seed: Optional[int] = None, n_corners: int = 0
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """unit positions (N, 3) -> (density (N,), geo features (N, GEO)).
-        With an ``encode_seed`` and ``n_corners`` > 0 the encode samples
-        that many corners per (sample, level)."""
-        if encode_seed is not None and n_corners > 0:
-            feats_t = hash_encode_win_stochastic(
-                self.hash_table, unit, encode_seed, self.hash_config,
-                n_corners, anchor_keys)
+        With an ``encode_seed`` and ``n_corners`` > 0 the window and
+        crossbar encodes sample that many corners per (sample, level)."""
+        table, config = self.hash_table, self.hash_config
+        stochastic = encode_seed is not None and n_corners > 0
+        if self.backend == 'cell':
+            h = _mlp_featT(self.density_mlp,
+                           hash_encode_cell(table, unit, config, anchor_keys))
+        elif self.backend == 'window':
+            if stochastic:
+                feats_t = hash_encode_win_stochastic(
+                    table, unit, encode_seed, config, n_corners, anchor_keys)
+            else:
+                feats_t = hash_encode_win(table, unit, config, anchor_keys)
+            h = _mlp_featT(self.density_mlp, feats_t)
         else:
-            feats_t = hash_encode_win(self.hash_table, unit,
-                                      self.hash_config, anchor_keys)
-        h = _mlp_featT(self.density_mlp, feats_t)
+            feats = hash_encode_xbar_stochastic(
+                table, unit, encode_seed, config, n_corners) \
+                if stochastic else hash_encode_xbar(table, unit, config)
+            h = _mlp(self.density_mlp, feats)
         return trunc_exp(h[:, 0]), h[:, 1:]
 
     def color(self, geo: torch.Tensor, directions: torch.Tensor) -> torch.Tensor:
@@ -167,21 +190,25 @@ class InstantNGPModel(BaseModel):
 
     def build(self, generator: Optional[torch.Generator] = None
               ) -> 'InstantNGPModel':
-        if str(self.ENCODING_BACKEND) != 'window':
-            raise ModelError(f'ENCODING_BACKEND={self.ENCODING_BACKEND!r} is '
-                             "not ported yet; the port has 'window'")
+        backend = str(self.ENCODING_BACKEND)
+        if backend not in ENCODING_BACKENDS:
+            raise ModelError(f'unknown ENCODING_BACKEND {backend!r}; one of '
+                             f'{ENCODING_BACKENDS}')
+        # The windowed encodes take their windows over one anchor per
+        # march block; the crossbar runs on the ray-ordered stream.
         self.hash_config = HashGridConfig(
             num_levels=int(self.NUM_LEVELS),
             features_per_level=int(self.FEATURES_PER_LEVEL),
             log2_table_size=int(self.LOG2_HASHMAP_SIZE),
             base_resolution=int(self.BASE_RESOLUTION),
             target_resolution=int(self.TARGET_RESOLUTION),
-            anchor_stride=int(self.ENCODE_ANCHOR_STRIDE))
+            anchor_stride=int(self.ENCODE_ANCHOR_STRIDE)
+            if backend in ('window', 'cell') else 1)
         field = InstantNGPField(self.hash_config,
                                 int(self.DENSITY_MLP_WIDTH),
                                 int(self.GEO_FEATURES),
                                 int(self.COLOR_MLP_WIDTH),
-                                int(self.SH_DEGREE))
+                                int(self.SH_DEGREE), backend)
         field.reset_parameters(generator)
         self.module = field.to(self.device)
         # Cascade c covers the box of half-extent SCALE * 2^(c - (C-1))
@@ -213,8 +240,8 @@ class InstantNGPModel(BaseModel):
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """World positions (N, 3) -> (density (N,), geo features). With an
         ``encode_seed`` (a uint32, training) and STOCHASTIC_CORNERS > 0 the
-        encode is stochastic, else exact
-        (nerficg_tpu/methods/instant_ngp/model.py:192-241)."""
+        window and crossbar encodes are stochastic, else exact
+        (nerficg_tpu/methods/instant_ngp/model.py:192-257)."""
         return self.module.density(self._unit(positions), anchor_keys,
                                    encode_seed, int(self.STOCHASTIC_CORNERS))
 

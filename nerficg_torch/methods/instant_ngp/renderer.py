@@ -4,7 +4,8 @@ Port of nerficg_tpu/methods/instant_ngp/renderer.py (reference:
 src/Methods/InstantNGP/Renderer.py:39-272). An image is rendered
 in fixed-size ray chunks: each chunk is marched through the two-level block
 bitfield at INFERENCE_SAMPLES_PER_RAY samples per ray, its samples are
-encoded and shaded in morton order and composited in ray order; then the
+encoded and shaded (in morton order for the windowed encodes, 'window' and
+'cell'; in ray order for 'xbar') and composited in ray order; then the
 rays the budget truncated while still transmissive are marched again at
 INFERENCE_REFINE_FACTOR x the budget and merged back (the static-shape
 stand-in for the reference's alive-ray loop).
@@ -134,24 +135,30 @@ class InstantNGPRenderer(BaseRenderer):
         samples sit at step midpoints and the encode is exact."""
         n = origins.shape[0]
         block = int(self.MARCH_BLOCK)
+        windowed = str(self.model.ENCODING_BACKEND) in ('window', 'cell')
         march = march_rays(
             origins, directions, self.model.aabb_min, self.model.aabb_max,
             self._probe_fn(grid_binary), max_steps=int(self.MAX_SAMPLES),
             sample_budget=n * samples_per_ray, block=block,
-            exponential=self._exponential, morton=True,
+            exponential=self._exponential, morton=windowed,
             probes_per_block=self._probes_per_block, seed=jitter_seed)
-        # The field runs on the morton-ordered stream, so the windowed
-        # encode's per-sub-block table windows stay tight; its outputs
-        # return to ray order as whole blocks.
-        sigma_m, rgb_m = self.model.field(march.positions_m,
-                                          march.directions_m,
-                                          encode_seed=encode_seed,
-                                          anchor_keys=march.block_keys_m)
-        ch = permute_block_channels(
-            torch.stack([sigma_m, rgb_m[:, 0], rgb_m[:, 1], rgb_m[:, 2]]),
-            block, march.perm_to_ray, march.perm_to_morton)
-        sigma = torch.where(march.valid, ch[0], 0.0)
-        out = composite_packed(sigma, ch[1:4], march, n,
+        if windowed:
+            # The field runs on the morton-ordered stream, so the windowed
+            # encode's per-sub-block table windows stay tight; its outputs
+            # return to ray order as whole blocks.
+            sigma_m, rgb_m = self.model.field(march.positions_m,
+                                              march.directions_m,
+                                              encode_seed=encode_seed,
+                                              anchor_keys=march.block_keys_m)
+            ch = permute_block_channels(
+                torch.stack([sigma_m, rgb_m[:, 0], rgb_m[:, 1], rgb_m[:, 2]]),
+                block, march.perm_to_ray, march.perm_to_morton)
+            sigma, rgb = ch[0], ch[1:4]      # rgb channel-major (3, B)
+        else:
+            sigma, rgb = self.model.field(march.positions, march.directions,
+                                          encode_seed=encode_seed)
+        sigma = torch.where(march.valid, sigma, 0.0)
+        out = composite_packed(sigma, rgb, march, n,
                                background=background,
                                early_stop_eps=float(self.EARLY_STOP_EPS),
                                block=block)

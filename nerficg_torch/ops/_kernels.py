@@ -1,6 +1,7 @@
 """Build and bind the port's CUDA kernel library.
 
-All kernels under ``nerficg_torch/csrc/*.cu`` compile into ONE shared library
+All kernels under ``nerficg_torch/csrc/*.cu`` (with the shared device helpers
+of ``csrc/hash_common.cuh``) compile into ONE shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers: a build
 takes seconds instead of the minutes ``torch.utils.cpp_extension`` needs).
 Each source compiles in its own ``nvcc`` process, all started together; one
@@ -53,6 +54,10 @@ _SIGNATURES = {
     'nerficg_hash_window_bwd': [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _P],
     'nerficg_hash_window_bwd_cached': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    'nerficg_hash_cell_fwd': [_P] * 10 + [_I, _I, _I, _I, _P],
+    'nerficg_hash_cell_bwd': [_P] * 10 + [_I, _I, _I, _I, _P],
+    'nerficg_hash_xbar_fwd': [_P] * 8 + [_I, _I, _I, _I, _U, _P],
+    'nerficg_hash_xbar_bwd': [_P] * 6 + [_I, _I, _I, _I, _U, _P],
     'nerficg_block_probe': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     'nerficg_seg_gather': [_P, _P, _P, _I, _I, _I, _I, _P],
     'nerficg_seg_scatter_add': [_P, _P, _P, _I, _I, _I, _I, _P],

@@ -34,8 +34,15 @@ import torch
 
 from nerficg_torch.core.errors import KernelError
 from nerficg_torch.ops import _kernels
-from nerficg_torch.ops.counter_rng import M32, corner_bits
-from nerficg_torch.ops.hash_xbar import _stoch_corners, _trilinear_w
+from nerficg_torch.ops._hash_common import (BRICK_BITS_MAX, DIV_MAX, LANES,
+                                            MID_LOAD, bf16_planes,
+                                            check_windows, corner_set,
+                                            gather_sum, morton3_static,
+                                            morton_keys_xyz, ngp_hash,
+                                            pad_anchors, pad_cotangent,
+                                            pad_positions, pow2_floor,
+                                            scatter_planes, wrap_rel)
+from nerficg_torch.ops.counter_rng import M32
 from nerficg_torch.ops.hashgrid import HashGridConfig
 
 __all__ = ['WindowLayout', 'window_layout', 'morton_keys_xyz',
@@ -46,17 +53,9 @@ __all__ = ['WindowLayout', 'window_layout', 'morton_keys_xyz',
            'hash_window_bwd_plain', 'hash_window_bwd_cached',
            'hash_window_bwd_cached_plain', 'SUB_BLOCK']
 
-_LANES = 128
 SUB_BLOCK = 64              # sublanes per window sub-block (64*128 = 8192)
-_SB_N = SUB_BLOCK * _LANES
-_P1 = 2654435761
-_P2 = 805459861
-_M32 = M32
-_CORNERS = tuple((i, j, k) for i in (0, 1) for j in (0, 1) for k in (0, 1))
-_BRICK_BITS_MAX = 5
+_SB_N = SUB_BLOCK * LANES
 _DENSE_MAX = 1 << 18
-_DIV_MAX = 0.105
-_MID_LOAD = 8
 
 
 class WindowLayout(NamedTuple):
@@ -78,85 +77,44 @@ def window_layout(config: HashGridConfig) -> WindowLayout:
     for r in config.level_resolutions():
         pts = r ** 3 if r < 4096 else cap + 1
         if pts <= min(cap, _DENSE_MAX):
-            rows = (pts + _LANES - 1) // _LANES
+            rows = (pts + LANES - 1) // LANES
             res_l.append(r); rows_l.append(rows); dense_l.append(1)
             bscale_l.append(0.0); rpb_l.append(0)
         else:
-            rows = cap // _LANES
+            rows = cap // LANES
             row_bits = int(math.log2(rows))
             b = max(min(int(math.floor(math.log2(max(
-                        _DIV_MAX * r / 3.0, 1.0)))),
-                        row_bits // 3, _BRICK_BITS_MAX), 0)
+                        DIV_MAX * r / 3.0, 1.0)))),
+                        row_bits // 3, BRICK_BITS_MAX), 0)
             if b == 0:
-                size = min(cap, max(1 << 12, _pow2_floor(r ** 3 // _MID_LOAD)))
-                rows = size // _LANES
+                size = min(cap, max(1 << 12, pow2_floor(r ** 3 // MID_LOAD)))
+                rows = size // LANES
             res_l.append(r); rows_l.append(rows); dense_l.append(0)
             bscale_l.append((1 << b) / r)
             rpb_l.append(rows >> (3 * b))
     r_max = max(rows_l)
-    r_pad = -(-r_max // _LANES) * _LANES + _LANES
+    r_pad = -(-r_max // LANES) * LANES + LANES
     return WindowLayout(tuple(res_l), tuple(rows_l), tuple(dense_l),
                         tuple(bscale_l), tuple(rpb_l), r_max, r_pad)
-
-
-def _pow2_floor(x: int) -> int:
-    return 1 << max(int(math.floor(math.log2(max(x, 1)))), 0)
 
 
 # ---------------------------------------------------------------------------
 # index math (integer tensors; int64 holds the uint32 hash exactly)
 # ---------------------------------------------------------------------------
 
-def _morton3_static(x, y, z):
-    """Generalized 3D morton over <= _BRICK_BITS_MAX bits per dim."""
-    m = torch.zeros_like(x)
-    for i in range(_BRICK_BITS_MAX):
-        m = m | (((x >> i) & 1) << (3 * i + 2))
-        m = m | (((y >> i) & 1) << (3 * i + 1))
-        m = m | (((z >> i) & 1) << (3 * i))
-    return m
-
-
-def _ngp_hash(vx, vy, vz):
-    """uint32 Instant-NGP hash, held in int64."""
-    return (vx ^ ((vy * _P1) & _M32) ^ ((vz * _P2) & _M32)) & _M32
-
-
 def _row_lane(vx, vy, vz, res: int, dense: int, bscale: float, rpb: int):
     """Vertex integer coords (int64) -> (row, lane) for one level."""
     if dense:
         lin = vx * (res * res) + vy * res + vz
-        return lin >> 7, lin & (_LANES - 1)
+        return lin >> 7, lin & (LANES - 1)
     # Brick at binary fractions: floor(v * 2^b / res) in f32, as the oracle.
     bs = torch.tensor(bscale, dtype=torch.float32, device=vx.device)
     bx = (vx.float() * bs).long()
     by = (vy.float() * bs).long()
     bz = (vz.float() * bs).long()
-    h = _ngp_hash(vx, vy, vz)
-    row = _morton3_static(bx, by, bz) * rpb + ((h >> 7) & (rpb - 1))
-    return row, h & (_LANES - 1)
-
-
-def _wrap_rel(rel, win):
-    """Fold a row offset into [0, win): floor(rel * (1/win)) in f32, then
-    clamp — bit-identical to the oracle (nerficg_tpu hash_window.py:216)."""
-    q = torch.floor(rel.float() * torch.reciprocal(win.float()))
-    out = rel - q.long() * win
-    return torch.minimum(torch.clamp(out, min=0), win - 1)
-
-
-def morton_keys_xyz(ux: torch.Tensor, uy: torch.Tensor,
-                    uz: torch.Tensor) -> torch.Tensor:
-    """Per-axis unit coordinate planes -> int32 morton keys at 2^10."""
-    x = torch.clamp((ux * 1024.0).to(torch.int32), 0, 1023)
-    y = torch.clamp((uy * 1024.0).to(torch.int32), 0, 1023)
-    z = torch.clamp((uz * 1024.0).to(torch.int32), 0, 1023)
-    m = torch.zeros_like(x)
-    for i in range(10):
-        m = m | (((x >> i) & 1) << (3 * i + 2))
-        m = m | (((y >> i) & 1) << (3 * i + 1))
-        m = m | (((z >> i) & 1) << (3 * i))
-    return m
+    h = ngp_hash(vx, vy, vz)
+    row = morton3_static(bx, by, bz) * rpb + ((h >> 7) & (rpb - 1))
+    return row, h & (LANES - 1)
 
 
 def morton_sort_keys(positions_unit: torch.Tensor) -> torch.Tensor:
@@ -196,7 +154,7 @@ def window_bases(positions: torch.Tensor, config: HashGridConfig,
             v = torch.clamp((positions * (res - 1)).long(), 0, res - 1)
             row, _ = _row_lane(v[:, 0], v[:, 1], v[:, 2], res, 1, 0.0, 1)
             rb = row.reshape(nsb, _SB_N)
-            pad = (res * res + res + 1) // _LANES + 1
+            pad = (res * res + res + 1) // LANES + 1
             lo = rb.amin(1)
             hi = rb.amax(1) + pad
         else:
@@ -217,12 +175,6 @@ def window_bases(positions: torch.Tensor, config: HashGridConfig,
 # corners of one level: plain versions
 # ---------------------------------------------------------------------------
 
-def _level_frac(positions: torch.Tensor, res: int):
-    scaled = positions * (res - 1)
-    floor = torch.floor(scaled)
-    return floor.long(), scaled - floor
-
-
 def _windowed_index(lay: WindowLayout, lv: int, cc: torch.Tensor,
                     lo: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
     """Corner vertices cc (N, C, 3) int64 of level ``lv`` -> absolute flat
@@ -233,20 +185,15 @@ def _windowed_index(lay: WindowLayout, lv: int, cc: torch.Tensor,
                           lay.dense[lv], lay.bscale[lv], max(lay.rpb[lv], 1))
     lo_s = lo[lv].long()[sb_of][:, None]
     win_s = win[lv].long()[sb_of][:, None]
-    return (lo_s + _wrap_rel(row - lo_s, win_s)) * _LANES + lane
+    return (lo_s + wrap_rel(row - lo_s, win_s)) * LANES + lane
 
 
 def _exact_corners(positions: torch.Tensor, lay: WindowLayout, lv: int,
                    lo: torch.Tensor, win: torch.Tensor):
     """The 8 trilinear corners: (idx (N, 8) int64, weights (N, 8) f32), the
     weights multiplied in the kernel's order ((wx * wy) * wz)."""
-    base, frac = _level_frac(positions, lay.res[lv])
-    frac3 = tuple(frac.unbind(-1))
-    corners = torch.tensor(_CORNERS, dtype=torch.int64,
-                           device=positions.device)
-    w = torch.stack([_trilinear_w(frac3, c) for c in _CORNERS], 1)
-    return _windowed_index(lay, lv, base[:, None, :] + corners[None], lo,
-                           win), w
+    cc, w = corner_set(positions, lay.res[lv], lv)
+    return _windowed_index(lay, lv, cc, lo, win), w
 
 
 def _stochastic_corners(positions: torch.Tensor, lay: WindowLayout, lv: int,
@@ -254,43 +201,21 @@ def _stochastic_corners(positions: torch.Tensor, lay: WindowLayout, lv: int,
                         seed: int):
     """``n_corners`` stochastic corners from the counter-hash words of
     (seed, level, sample index, dim): (idx (N, nc) int64, weights (N, nc))."""
-    base, frac = _level_frac(positions, lay.res[lv])
-    index = torch.arange(positions.shape[0], device=positions.device)
-    bits = [corner_bits(seed, lv, index, d) for d in range(3)]
-    offs, weights = _stoch_corners(tuple(frac.unbind(-1)), bits, n_corners)
-    cc = base[:, None, :] + torch.stack([torch.stack(o, -1) for o in offs], 1)
-    return _windowed_index(lay, lv, cc, lo, win), torch.stack(weights, 1)
-
-
-def _gather_sum(flat: torch.Tensor, idx: torch.Tensor,
-                w: torch.Tensor) -> torch.Tensor:
-    """flat (2, P) bf16-rounded plane; idx/w (N, C) -> (2, N) sum over C."""
-    n, c = idx.shape
-    g = flat[:, idx.reshape(-1)].reshape(2, n, c)
-    return (g * w[None]).sum(-1)
+    cc, w = corner_set(positions, lay.res[lv], lv, n_corners, seed)
+    return _windowed_index(lay, lv, cc, lo, win), w
 
 
 def _check_table(name: str, table: torch.Tensor, positions: torch.Tensor,
                  lo: torch.Tensor, win: torch.Tensor,
                  config: HashGridConfig) -> None:
     levels, feats, rows, lanes = table.shape
-    if feats != 2 or lanes != _LANES or levels != config.num_levels:
+    if feats != 2 or lanes != LANES or levels != config.num_levels:
         raise KernelError(f'{name}: table must be (L, 2, R, 128), got '
                           f'{tuple(table.shape)}')
-    _check_windows(name, positions, lo, win, levels)
+    check_windows(name, positions, lo, win, levels, _SB_N)
     if rows < window_layout(config).r_max:
         raise KernelError(f'{name}: table has {rows} rows, layout needs '
                           f'{window_layout(config).r_max}')
-
-
-def _check_windows(name: str, positions: torch.Tensor, lo: torch.Tensor,
-                   win: torch.Tensor, levels: int) -> None:
-    n = positions.shape[0]
-    if positions.shape != (n, 3) or n % _SB_N != 0:
-        raise KernelError(f'{name}: positions must be (N, 3) with N a '
-                          f'multiple of {_SB_N}, got {tuple(positions.shape)}')
-    if lo.shape != (levels, n // _SB_N) or win.shape != lo.shape:
-        raise KernelError(f'{name}: lo/win must be ({levels}, {n // _SB_N})')
 
 
 @functools.lru_cache(maxsize=8)
@@ -315,8 +240,8 @@ def hash_window_fwd_plain(table: torch.Tensor, positions: torch.Tensor,
     positions (N, 3) sub-block padded, lo/win (L, N/8192) -> (L*2, N)."""
     lay = window_layout(config)
     levels = table.shape[0]
-    flat = table.reshape(levels, 2, -1).to(torch.bfloat16).float()
-    return torch.cat([_gather_sum(flat[lv], *_exact_corners(
+    flat = bf16_planes(table)
+    return torch.cat([gather_sum(flat[lv], *_exact_corners(
         positions, lay, lv, lo, win)) for lv in range(levels)], 0)
 
 
@@ -364,12 +289,12 @@ def hash_window_fwd_stoch_plain(table: torch.Tensor, positions: torch.Tensor,
     f32, else None, None)."""
     lay = window_layout(config)
     levels = table.shape[0]
-    flat = table.reshape(levels, 2, -1).to(torch.bfloat16).float()
+    flat = bf16_planes(table)
     outs, idxs, ws = [], [], []
     for lv in range(levels):
         idx, w = _stochastic_corners(positions, lay, lv, lo, win, n_corners,
                                      seed)
-        outs.append(_gather_sum(flat[lv], idx, w))
+        outs.append(gather_sum(flat[lv], idx, w))
         idxs.append(idx.T)
         ws.append(w.T)
     out = torch.cat(outs, 0)
@@ -429,17 +354,6 @@ hash_window_fwd_stoch.launches = 0
 # #2 / #3 table gradients
 # ---------------------------------------------------------------------------
 
-def _scatter_planes(levels: int, rows: int, idx_l, vals_l,
-                    like: torch.Tensor) -> torch.Tensor:
-    """Per level, index_add_ of (2, K) values at (K,) flat indices into a
-    zero (L, 2, rows, 128) table."""
-    out = torch.zeros((levels, 2, rows * _LANES), dtype=torch.float32,
-                      device=like.device)
-    for lv in range(levels):
-        out[lv].index_add_(1, idx_l[lv], vals_l[lv])
-    return out.reshape(levels, 2, rows, _LANES)
-
-
 def hash_window_bwd_plain(g: torch.Tensor, positions: torch.Tensor,
                           lo: torch.Tensor, win: torch.Tensor,
                           config: HashGridConfig, rows: int) -> torch.Tensor:
@@ -453,7 +367,7 @@ def hash_window_bwd_plain(g: torch.Tensor, positions: torch.Tensor,
         idx, w = _exact_corners(positions, lay, lv, lo, win)
         idx_l.append(idx.reshape(-1))
         vals_l.append((g[2 * lv:2 * lv + 2, :, None] * w[None]).reshape(2, -1))
-    return _scatter_planes(levels, rows, idx_l, vals_l, g)
+    return scatter_planes(levels, rows, idx_l, vals_l, g)
 
 
 def hash_window_bwd(g: torch.Tensor, positions: torch.Tensor,
@@ -472,7 +386,7 @@ def hash_window_bwd(g: torch.Tensor, positions: torch.Tensor,
                           dtypes=(torch.float32, torch.float32, torch.int32,
                                   torch.int32))
     levels = config.num_levels
-    _check_windows(name, positions, lo, win, levels)
+    check_windows(name, positions, lo, win, levels, _SB_N)
     n = positions.shape[0]
     if g.shape != (levels * 2, n):
         raise KernelError(f'{name}: g must be ({levels * 2}, {n}), got '
@@ -481,7 +395,7 @@ def hash_window_bwd(g: torch.Tensor, positions: torch.Tensor,
         raise KernelError(f'{name}: {rows} rows, layout needs '
                           f'{window_layout(config).r_max}')
     res, dense, bscale, rpb = _layout_tensors(config, g.device)
-    dtab = torch.empty((levels, 2, rows, _LANES), dtype=torch.float32,
+    dtab = torch.empty((levels, 2, rows, LANES), dtype=torch.float32,
                        device=g.device)
     code = _kernels.load_library().nerficg_hash_window_bwd(
         g.data_ptr(), positions.data_ptr(), lo.data_ptr(), win.data_ptr(),
@@ -504,7 +418,7 @@ def hash_window_bwd_cached_plain(g: torch.Tensor, idx: torch.Tensor,
     idx_l = [idx[lv].reshape(-1).long() for lv in range(levels)]
     vals_l = [(g3[lv] * w[lv][None]).reshape(2, nc * n)
               for lv in range(levels)]
-    return _scatter_planes(levels, rows, idx_l, vals_l, g)
+    return scatter_planes(levels, rows, idx_l, vals_l, g)
 
 
 def hash_window_bwd_cached(g: torch.Tensor, idx: torch.Tensor,
@@ -523,7 +437,7 @@ def hash_window_bwd_cached(g: torch.Tensor, idx: torch.Tensor,
         raise KernelError(f'{name}: need idx/w (L, nc, N) and g (2L, N), got '
                           f'{tuple(idx.shape)}, {tuple(w.shape)}, '
                           f'{tuple(g.shape)}')
-    dtab = torch.empty((levels, 2, rows, _LANES), dtype=torch.float32,
+    dtab = torch.empty((levels, 2, rows, LANES), dtype=torch.float32,
                        device=g.device)
     code = _kernels.load_library().nerficg_hash_window_bwd_cached(
         g.data_ptr(), idx.data_ptr(), w.data_ptr(), dtab.data_ptr(), levels,
@@ -540,48 +454,13 @@ hash_window_bwd_cached.launches = 0
 # differentiable entry points
 # ---------------------------------------------------------------------------
 
-def _prep(positions: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """Pad to the 8192-sample sub-block multiple by edge replication
-    (padding repeats the last real sample, so windows stay tight). The JAX
-    package also rounds batches above 65536 up to its TPU grid tile; the
-    extra all-padding sub-blocks change no real sample's window."""
-    n = positions.shape[0]
-    pad = (-n) % _SB_N
-    if pad:
-        positions = torch.cat([positions, positions[-1:].expand(pad, 3)], 0)
-    return positions.contiguous(), n
-
-
-def _prep_anchors(anchor_keys: Optional[torch.Tensor], n_raw: int,
-                  n_padded: int) -> Optional[torch.Tensor]:
-    """Pad the per-block anchor keys like _prep pads the samples; None when
-    they do not evenly tile the sample count."""
-    if anchor_keys is None:
-        return None
-    nb = anchor_keys.shape[0]
-    if nb == 0 or n_raw % nb != 0:
-        return None
-    stride = n_raw // nb
-    if n_padded % stride != 0:
-        return None
-    pad = n_padded // stride - nb
-    if pad:
-        anchor_keys = torch.cat([anchor_keys, anchor_keys[-1:].expand(pad)])
-    return anchor_keys
-
-
 def _windows(positions: torch.Tensor, config: HashGridConfig,
              anchor_keys: Optional[torch.Tensor]):
     """(padded positions, real count, lo, win) of a sorted batch."""
-    pos_p, n = _prep(positions.detach())
-    ak = _prep_anchors(anchor_keys, n, pos_p.shape[0])
+    pos_p, n = pad_positions(positions.detach(), _SB_N)
+    ak = pad_anchors(anchor_keys, n, pos_p.shape[0])
     lo, win = window_bases(pos_p, config, anchor_keys=ak)
     return pos_p, n, lo, win
-
-
-def _pad_cotangent(g: torch.Tensor, n_padded: int) -> torch.Tensor:
-    """Zero cotangent for the padding samples, contiguous for the kernels."""
-    return torch.nn.functional.pad(g, (0, n_padded - g.shape[1])).contiguous()
 
 
 class _HashEncodeWin(torch.autograd.Function):
@@ -597,7 +476,7 @@ class _HashEncodeWin(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         pos_p, lo, win = ctx.saved_tensors
-        dtab = hash_window_bwd(_pad_cotangent(g, pos_p.shape[0]), pos_p, lo,
+        dtab = hash_window_bwd(pad_cotangent(g, pos_p.shape[0]), pos_p, lo,
                                win, ctx.config, ctx.rows)
         return dtab, None, None, None
 
@@ -617,7 +496,7 @@ class _HashEncodeWinStochastic(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         idx, w = ctx.saved_tensors
-        dtab = hash_window_bwd_cached(_pad_cotangent(g, idx.shape[2]), idx, w,
+        dtab = hash_window_bwd_cached(pad_cotangent(g, idx.shape[2]), idx, w,
                                       ctx.rows)
         return dtab, None, None, None, None, None
 

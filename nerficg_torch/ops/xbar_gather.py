@@ -1,5 +1,5 @@
-"""Two-level rank-compacted block bitfield and its occupancy probe, ported
-from nerficg_tpu/ops/xbar_gather.py (:204-328).
+"""Two-level rank-compacted block bitfield and its occupancy probe: a port
+of nerficg_tpu/ops/xbar_gather.py (:204-328).
 
 The skip grid is split into 8^3-cell blocks; only occupied blocks keep their
 16 fine words, packed in block-rank order. One (rows, 128) int32 table holds

@@ -7,7 +7,11 @@ truth), and with -b run the online FPS benchmark (a warm-up render, then
 repeated test-set renders timed to the last device sync) into
 ``performance_<iters>.txt``. Camera trajectories are not ported yet.
 
-  python -m nerficg_torch.scripts.inference -d RUN_DIR -s test -m -b --repeats N
+  python -m nerficg_torch.scripts.inference -d RUN_DIR -s test -m -b --repeats N \
+      [--device cpu]
+
+It runs on the first CUDA card and refuses to start without one, unless
+``--device cpu`` asks for the CPU (the kernels' plain versions).
 """
 
 from __future__ import annotations
@@ -63,11 +67,14 @@ def main(argv: list[str] | None = None) -> dict:
     parser.add_argument('-m', '--metrics', action='store_true')
     parser.add_argument('-b', '--benchmark', action='store_true')
     parser.add_argument('--repeats', type=int, default=100)
+    parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda',
+                        help='cuda (default: the first card) or cpu')
     parser.add_argument('overrides', nargs='*', default=[])
     args = parser.parse_args(argv)
 
     run_dir = Path(args.run_dir)
-    ctx = setup(run_dir / 'training_config.yaml', args.overrides)
+    ctx = setup(run_dir / 'training_config.yaml', args.overrides,
+                device=args.device)
     dataset = Datasets.get_dataset(ctx.config)
     ckpt = run_dir / 'checkpoints' / 'final.ckpt'
     model = Methods.get_model(ctx.config, checkpoint=str(ckpt),

@@ -7,7 +7,10 @@ config, checkpoints/final.ckpt, the test renders with metrics_8bit.txt,
 timings.txt and vram_stats.txt.
 
   python -m nerficg_torch.scripts.train -c configs/ingp_e2e_bench.yaml \
-      [KEY.SUBKEY=value ...]
+      [--device cpu] [KEY.SUBKEY=value ...]
+
+It runs on the first CUDA card and refuses to start without one, unless
+``--device cpu`` asks for the CPU (the kernels' plain versions).
 """
 
 from __future__ import annotations
@@ -28,10 +31,12 @@ def main(argv: list[str] | None = None) -> dict:
                                                  'method')
     parser.add_argument('-c', '--config', type=str, default=None,
                         help='path to YAML config file')
+    parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda',
+                        help='cuda (default: the first card) or cpu')
     parser.add_argument('overrides', nargs='*', default=[],
                         help='KEY.SUBKEY=value config overrides')
     args = parser.parse_args(argv)
-    ctx = setup(args.config, args.overrides)
+    ctx = setup(args.config, args.overrides, device=args.device)
     trainer = Methods.get_training_instance(ctx.config, device=ctx.device)
     dataset = Datasets.get_dataset(ctx.config)
     resume = ctx.config.get_path('TRAINING.LOAD_CHECKPOINT')

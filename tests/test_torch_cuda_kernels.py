@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from nerficg_torch.ops import hash_mxu, hash_window, xbar_gather
+from nerficg_torch.ops import (hash_cell, hash_mxu, hash_window, hash_xbar,
+                               xbar_gather)
 from nerficg_torch.ops.hashgrid import HashGridConfig
 
 pytestmark = pytest.mark.cuda
@@ -118,3 +119,74 @@ def test_hash_window_bwd_cached(cuda):
     _close_to_scatter(hash_window.hash_window_bwd_cached(g, idx, w, 128),
                       hash_window.hash_window_bwd_cached_plain(g, idx, w,
                                                                128))
+
+
+# The cell encode at the reference's 2^19 entries (configs/ingp_parity.yaml)
+# and the crossbar at the library's 2^14.
+CELL_CFG = HashGridConfig(num_levels=16, features_per_level=2,
+                          log2_table_size=19, base_resolution=16,
+                          target_resolution=2048, anchor_stride=8)
+
+
+def _cell_inputs(cuda, seed=0):
+    """(16, 2, 4096, 128) table and 16,384 morton-sorted samples."""
+    rng = np.random.default_rng(seed)
+    table = torch.tensor(rng.uniform(-1, 1, (16, 2, 4096, 128)),
+                         dtype=torch.float32, device=cuda)
+    pos = torch.tensor(rng.uniform(0.1, 0.9, (16384, 3)),
+                       dtype=torch.float32, device=cuda)
+    pos = pos[torch.sort(hash_window.morton_sort_keys(pos)).indices]
+    pos = pos.contiguous()
+    lo, win = hash_cell.cell_window_bases(pos, CELL_CFG)
+    g = torch.tensor(rng.normal(size=(32, 16384)), dtype=torch.float32,
+                     device=cuda)
+    return table, pos, lo, win, g
+
+
+def test_hash_cell_fwd(cuda):
+    """atol 1e-5: f32 FMA contraction of the weighted sum."""
+    table, pos, lo, win, _ = _cell_inputs(cuda)
+    torch.testing.assert_close(
+        hash_cell.hash_cell_fwd(table, pos, lo, win, CELL_CFG),
+        hash_cell.hash_cell_fwd_plain(table, pos, lo, win, CELL_CFG),
+        rtol=0, atol=1e-5)
+
+
+def test_hash_cell_bwd(cuda):
+    _, pos, lo, win, g = _cell_inputs(cuda, seed=1)
+    _close_to_scatter(
+        hash_cell.hash_cell_bwd(g, pos, lo, win, CELL_CFG, 4096),
+        hash_cell.hash_cell_bwd_plain(g, pos, lo, win, CELL_CFG, 4096))
+
+
+def _xbar_inputs(cuda, seed=0):
+    rng = np.random.default_rng(seed)
+    table = torch.tensor(rng.uniform(-1, 1, (16, 2, 128, 128)),
+                         dtype=torch.float32, device=cuda)
+    pos = torch.tensor(rng.uniform(0, 1 - 1e-6, (16384, 3)),
+                       dtype=torch.float32, device=cuda)
+    g = torch.tensor(rng.normal(size=(16384, 32)), dtype=torch.float32,
+                     device=cuda)
+    return table, pos, g
+
+
+@pytest.mark.parametrize('n_corners', [0, 1, 2, 4])
+def test_hash_xbar_fwd(cuda, n_corners):
+    """Corner indices and weights exact (same counter words, _rn
+    arithmetic); features atol 1e-5."""
+    table, pos, _ = _xbar_inputs(cuda, seed=2)
+    args = (table, pos, CFG, n_corners, 0xDEADBEEF)
+    out, idx, w = hash_xbar.hash_xbar_fwd(*args, save=True)
+    out_p, idx_p, w_p = hash_xbar.hash_xbar_fwd_plain(*args, save=True)
+    assert torch.equal(idx, idx_p)
+    assert torch.equal(w, w_p)
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5)
+    assert torch.equal(hash_xbar.hash_xbar_fwd(*args), out)
+
+
+@pytest.mark.parametrize('n_corners', [0, 4])
+def test_hash_xbar_bwd(cuda, n_corners):
+    _, pos, g = _xbar_inputs(cuda, seed=3)
+    _close_to_scatter(
+        hash_xbar.hash_xbar_bwd(g, pos, CFG, 128, n_corners, 99),
+        hash_xbar.hash_xbar_bwd_plain(g, pos, CFG, 128, n_corners, 99))

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from nerficg_torch.core.errors import KernelError
+from nerficg_torch.ops import _hash_common as tcommon
 from nerficg_torch.ops import hash_window as thw
 from nerficg_torch.ops.hashgrid import HashGridConfig as TConfig
 from nerficg_tpu.ops import hash_window as jhw
@@ -110,7 +111,8 @@ def test_wrap_rel_matches_at_window_multiples():
     rel = np.concatenate([rel, rel + 1, rel - 1]).astype(np.int32)
     w = np.tile(win, rel.size // win.size)
     want = np.asarray(jhw._wrap_rel(jnp.asarray(rel), jnp.asarray(w)))
-    got = thw._wrap_rel(torch.from_numpy(rel).long(), torch.from_numpy(w).long())
+    got = tcommon.wrap_rel(torch.from_numpy(rel).long(),
+                          torch.from_numpy(w).long())
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -251,7 +253,7 @@ def test_stochastic_encode_grad_is_its_streams(n_corners):
         size=(2 * jcfg.num_levels, 10000)).astype(np.float32))
     out = thw.hash_encode_win_stochastic(table, pos, 77, tcfg, n_corners)
     (out * cot).sum().backward()
-    pos_p, n = thw._prep(pos)
+    pos_p, n = tcommon.pad_positions(pos, thw.SUB_BLOCK * 128)
     lo, win = thw.window_bases(pos_p, tcfg)
     _, idx, w = thw.hash_window_fwd_stoch(table.detach(), pos_p, lo, win,
                                           tcfg, n_corners, 77, save=True)

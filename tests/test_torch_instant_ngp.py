@@ -47,13 +47,14 @@ def scene(tmp_path_factory):
     return make_textured_scene(root, image_size=24, n_train=2, n_test=2)
 
 
-def _config(scene, scale):
+def _config(scene, scale, backend='window'):
     return {'GLOBAL': {'METHOD_TYPE': 'InstantNGP', 'DATASET_TYPE': 'NeRF',
                        'RANDOM_SEED': 0, 'LOG_LEVEL': 'SILENT'},
             'DATASET': {'PATH': str(scene)},
             'MODEL': {'NUM_LEVELS': 6, 'LOG2_HASHMAP_SIZE': 12,
                       'BASE_RESOLUTION': 4, 'TARGET_RESOLUTION': 256,
-                      'GRID_RESOLUTION': 32, 'SCALE': scale},
+                      'GRID_RESOLUTION': 32, 'SCALE': scale,
+                      'ENCODING_BACKEND': backend},
             'RENDERER': {'MAX_SAMPLES': 64, 'RAY_BATCH_SIZE': 1024}}
 
 
@@ -90,9 +91,10 @@ def _jax_model(cfg, seed=0):
     return model
 
 
-@pytest.mark.parametrize('scale', [0.5, 1.0])
-def test_render_matches_jax(scene, tmp_path, scale):
-    cfg = _config(scene, scale)
+def check_render(scene, tmp_path, scale, backend):
+    """A test view rendered by both packages from one JAX checkpoint agrees
+    to MIN_PSNR_DB in rgb and alpha."""
+    cfg = _config(scene, scale, backend)
     jm = _jax_model(cfg)
     ckpt = tmp_path / 'final.ckpt'
     jm.save(ckpt)
@@ -100,7 +102,8 @@ def test_render_matches_jax(scene, tmp_path, scale):
     want = jr.render_image(JDatasets.get_dataset(JConfigNode(cfg))
                            .subsets['test'][0])
 
-    tm = TMethods.get_model(TConfigNode(cfg), checkpoint=str(ckpt))
+    tm = TMethods.get_model(TConfigNode(cfg), checkpoint=str(ckpt),
+                         device='cpu')
     assert tm.cascades == jm.cascades == (1 if scale == 0.5 else 2)
     tr = TMethods.get_renderer(TConfigNode(cfg), tm)
     assert tr._exponential == (scale == 1.0)
@@ -114,10 +117,15 @@ def test_render_matches_jax(scene, tmp_path, scale):
         assert psnr >= MIN_PSNR_DB, f'{key}: {psnr:.1f} dB'
 
 
+@pytest.mark.parametrize('scale', [0.5, 1.0])
+def test_render_matches_jax(scene, tmp_path, scale):
+    check_render(scene, tmp_path, scale, 'window')
+
+
 def test_port_checkpoint_loads_in_jax(scene, tmp_path):
     """Weights survive port -> npz -> nerficg_tpu exactly, in its layout."""
     cfg = _config(scene, 1.0)
-    tm = TMethods.get_model(TConfigNode(cfg))
+    tm = TMethods.get_model(TConfigNode(cfg), device='cpu')
     tm.buffers['density_grid'] = torch.from_numpy(_shell_grid(32, 2, 1.0))
     ckpt = tmp_path / 'port.ckpt'
     tm.save(ckpt)
@@ -141,7 +149,7 @@ def test_mlp_and_sh_match(scene):
     """bf16-operand, f32-accumulate MLP and the SH basis against JAX."""
     cfg = _config(scene, 1.0)
     jm = _jax_model(cfg, seed=3)
-    tm = TMethods.get_model(TConfigNode(cfg))
+    tm = TMethods.get_model(TConfigNode(cfg), device='cpu')
     tm.load_params_tree({k: (np.asarray(v) if k == 'hash_table' else
                              [np.asarray(w) for w in v])
                          for k, v in jm.params.items()})
@@ -167,7 +175,7 @@ def test_inference_main_end_to_end(scene, tmp_path):
     save_config(TConfigNode(cfg), run / 'training_config.yaml')
     _jax_model(cfg).save(run / 'checkpoints' / 'final.ckpt')
     result = inference.main(['-d', str(run), '-s', 'test', '-m', '-b',
-                             '--repeats', '1'])
+                             '--repeats', '1', '--device', 'cpu'])
     metrics = result['metrics']['test']
     assert np.isfinite(metrics['PSNR']) and np.isfinite(metrics['SSIM'])
     assert result['fps'] > 0
@@ -199,7 +207,7 @@ from nerficg_torch.core.logging import Logger
 from nerficg_torch.core.registry import Datasets, Methods
 Logger.set_level('SILENT')
 cfg = ConfigNode({_config(scene, 1.0)!r})
-model = Methods.get_model(cfg)
+model = Methods.get_model(cfg, device='cpu')
 model.buffers['density_grid'] = torch.full_like(model.buffers['density_grid'], 1e3)
 renderer = Methods.get_renderer(cfg, model)
 out = renderer.render_image(Datasets.get_dataset(cfg).subsets['test'][0])

@@ -61,7 +61,8 @@ def _grid(res, cascades, scale, seed=0):
 
 
 @functools.lru_cache(maxsize=None)
-def _march_both(scale, num_rays, max_steps, budget, probes, key=None):
+def _march_both(scale, num_rays, max_steps, budget, probes, key=None,
+                morton=True):
     cascades = jocc.num_cascades(scale)
     assert tocc.num_cascades(scale) == cascades
     res, cap = 32, 128
@@ -84,7 +85,7 @@ def _march_both(scale, num_rays, max_steps, budget, probes, key=None):
                 (py - lo[1]) / (hi[1] - lo[1]),
                 (pz - lo[2]) / (hi[2] - lo[2]), res, cap)
         kw = dict(max_steps=max_steps, sample_budget=budget, block=8,
-                  exponential=exponential, morton=True,
+                  exponential=exponential, morton=morton,
                   probes_per_block=probes)
         rng = None if key is None else jax.random.PRNGKey(key)
         if mod is jocc:
@@ -135,6 +136,23 @@ def test_march_rays_matches(case, key):
             err_msg=name)
     for name in ('positions', 'directions', 'ts', 'deltas', 'positions_m',
                  'directions_m'):
+        np.testing.assert_allclose(
+            getattr(tm, name).numpy(), np.asarray(getattr(jm, name)),
+            rtol=1e-6, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize('case', MARCH_CASES)
+def test_march_rays_ray_order_matches(case):
+    """``morton=False``, the crossbar encode's marcher: the ray-ordered
+    stream equals JAX's, jittered, and no morton view is built."""
+    jm, tm = _march_both(*case, key=5, morton=False)
+    assert tm.positions_m is None and jm.positions_m is None
+    for name in ('ray_ids', 'valid', 'num_valid', 'ray_complete',
+                 'num_blocks'):
+        np.testing.assert_array_equal(
+            getattr(tm, name).numpy(), np.asarray(getattr(jm, name)),
+            err_msg=name)
+    for name in ('positions', 'directions', 'ts', 'deltas'):
         np.testing.assert_allclose(
             getattr(tm, name).numpy(), np.asarray(getattr(jm, name)),
             rtol=1e-6, atol=1e-6, err_msg=name)

@@ -5,7 +5,7 @@ has only on the TPU; the port draws them from its own counter hash
 (nerficg_torch/ops/counter_rng.py). So the two cannot draw the same bits.
 What is compared instead:
   * the corner logic: JAX ``_stoch_corners`` (with ``pltpu`` stubbed to hand
-    it the test's words) and the port's ``_stoch_corners`` on the same bits
+    it the test's words) and the port's ``stoch_corners`` on the same bits
     choose equal corners, with weights equal to 1e-7;
   * the distribution: the port's stochastic encode is unbiased, its mean over
     512 seeds within 5 standard errors of the exact encode.
@@ -19,9 +19,9 @@ import numpy as np
 import pytest
 import torch
 
+from nerficg_torch.ops import _hash_common as tcommon
 from nerficg_torch.ops import counter_rng
 from nerficg_torch.ops import hash_window as thw
-from nerficg_torch.ops import hash_xbar as txbar
 from nerficg_torch.ops.hashgrid import HashGridConfig
 from nerficg_tpu.ops import hash_xbar as jxbar
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -50,7 +50,7 @@ def test_stoch_corners_match_jax_on_the_same_bits(monkeypatch, n_corners):
     monkeypatch.setattr(jxbar, 'pltpu', _pltpu_stub(words))
     j_corners, j_weights = jxbar._stoch_corners(
         tuple(jnp.asarray(f) for f in frac), n_corners)
-    t_corners, t_weights = txbar._stoch_corners(
+    t_corners, t_weights = tcommon.stoch_corners(
         tuple(torch.from_numpy(f) for f in frac),
         tuple(torch.from_numpy(w.astype(np.int64)) for w in words),
         n_corners)

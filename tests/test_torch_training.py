@@ -60,7 +60,7 @@ def scene(tmp_path_factory):
     return make_textured_scene(root, image_size=32, n_train=8, n_test=2)
 
 
-def _config(scene, iterations=200, seed=0):
+def _config(scene, iterations=200, seed=0, backend='window'):
     return {'GLOBAL': {'METHOD_TYPE': 'InstantNGP', 'DATASET_TYPE': 'NeRF',
                        'RANDOM_SEED': seed, 'LOG_LEVEL': 'SILENT',
                        'NUM_DEVICES': 1},
@@ -68,7 +68,7 @@ def _config(scene, iterations=200, seed=0):
             'MODEL': {'NUM_LEVELS': 6, 'LOG2_HASHMAP_SIZE': 12,
                       'BASE_RESOLUTION': 4, 'TARGET_RESOLUTION': 256,
                       'GRID_RESOLUTION': 32, 'SCALE': 1.0,
-                      'STOCHASTIC_CORNERS': 0},
+                      'STOCHASTIC_CORNERS': 0, 'ENCODING_BACKEND': backend},
             'RENDERER': {'MAX_SAMPLES': 64, 'RAY_BATCH_SIZE': 1024,
                          'OCCUPANCY_SAMPLES': 4096},
             'TRAINING': {'NUM_ITERATIONS': iterations,
@@ -91,12 +91,12 @@ def _shell_grid(resolution, cascades, scale):
     return np.concatenate(grids).astype(np.float32)
 
 
-def _trainers(scene):
+def _trainers(scene, backend='window'):
     """A JAX and a port trainer with the same weights (table U(-0.1, 0.1),
     He-uniform MLPs from a numpy seed) and density grid, ray pools built."""
-    cfg = _config(scene)
+    cfg = _config(scene, backend=backend)
     jt = JMethods.get_training_instance(JConfigNode(cfg))
-    tt = TMethods.get_training_instance(TConfigNode(cfg))
+    tt = TMethods.get_training_instance(TConfigNode(cfg), device='cpu')
     rng = np.random.default_rng(0)
 
     def he_uniform(w):
@@ -144,8 +144,11 @@ def _batch(trainer):
     return ids, bg
 
 
-def test_one_step_matches_jax(scene):
-    jt, tt = _trainers(scene)
+def check_one_step(scene, backend):
+    """One exact training step of each package's trainer with the given
+    encoding backend: loss to LOSS_RTOL, gradients to FROBENIUS_RTOL and
+    their norms to NORM_RTOL."""
+    jt, tt = _trainers(scene, backend)
     key = jax.random.PRNGKey(11)
     ids, bg = _batch(jt)
     jr = jt.renderer
@@ -182,6 +185,10 @@ def test_one_step_matches_jax(scene):
                         norm_rtol=NORM_RTOL)
 
 
+def test_one_step_matches_jax(scene):
+    check_one_step(scene, 'window')
+
+
 def test_five_adam_steps_match_jax(scene):
     jt, tt = _trainers(scene)
     step = jt._get_train_step(256)
@@ -213,7 +220,8 @@ def test_trainer_matches_jax_psnr(scene, tmp_path, monkeypatch):
     jax_psnr = float(jax_line.split('PSNR=')[1].split()[0])
 
     save_config(TConfigNode(cfg), tmp_path / 'port.yaml')
-    result = train.main(['-c', str(tmp_path / 'port.yaml')])
+    result = train.main(['-c', str(tmp_path / 'port.yaml'), '--device',
+                         'cpu'])
     run = Path(result['output_dir'])
     port_psnr = result['metrics']['PSNR']
     assert np.isfinite(port_psnr)
@@ -242,12 +250,12 @@ def test_training_state_round_trip(scene, tmp_path, monkeypatch):
     monkeypatch.setattr(TDirectories, 'base', tmp_path)
     cfg = TConfigNode(_config(scene, iterations=20))
     cfg.TRAINING.RENDER_TESTSET = False
-    first = TMethods.get_training_instance(cfg)
+    first = TMethods.get_training_instance(cfg, device='cpu')
     first.run(TDatasets.get_dataset(cfg))
     first.save_training_state(tmp_path / 'latest.train', iteration=20)
 
     cfg.TRAINING.NUM_ITERATIONS = 24
-    resumed = TMethods.get_training_instance(cfg)
+    resumed = TMethods.get_training_instance(cfg, device='cpu')
     resumed.load_training_state(tmp_path / 'latest.train')
     assert resumed.iteration == 20
     for (name, p), (_, q) in zip(first.model.module.named_parameters(),
@@ -274,7 +282,7 @@ def test_scan_steps_run_back_to_back(scene, tmp_path, monkeypatch):
     cfg = TConfigNode(_config(scene, iterations=8))
     cfg.TRAINING.RENDER_TESTSET = False
     cfg.TRAINING.SCAN_STEPS = 4
-    trainer = TMethods.get_training_instance(cfg)
+    trainer = TMethods.get_training_instance(cfg, device='cpu')
     trainer.run(TDatasets.get_dataset(cfg))
     assert trainer.updates == len(trainer.losses) == 8
     assert trainer.timers['training_iteration'].count == 8
