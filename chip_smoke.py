@@ -36,16 +36,31 @@ Phases, each printing its own lines:
      (`python -m nerficg_torch.scripts.inference -d RUN -s test -m -b`);
   7. the crossbar encode: configs/ingp_e2e_bench.yaml with
      MODEL.ENCODING_BACKEND=xbar (2^14 entries, 4 stochastic corners in
-     training), trained for 500 iterations and served the same way.
+     training), trained for 500 iterations and served the same way;
+  8. 3D Gaussian Splatting serving at full width: a checkpoint of bench.py's
+     100k-Gaussian model (numpy seed 0, SH degree 4 with all four bands
+     active) served through the inference entry point on the textured
+     scene, then bench.py's 1080p protocol through `render_image` (8 orbit
+     poses, 64 frames after a warm-up), a profile of one frame and the card
+     against the CPU on a small frame;
+  9. 3DGS training: nerficg_torch/configs/gaussian_splatting.yaml (the
+     library's defaults, 100k random points in the scene's box) through the
+     training entry point for 6000 of its 30,000 iterations (densification
+     every 100 from 600, the SH increases at 1000-3000, the first opacity
+     reset at 3000), test PSNR against the untrained model's, a profile of
+     one step, then served;
+ 10. one 3DGS training step at a small width, card against CPU.
 Every kernel's launch count is set to 0 just before the run that drives it
 and read just after. Each kernel's line reports its time against the least
 time the card could take for the same work (`bound_ms`: each input read once
 and each output written once at 3.35 TB/s, or its f32 operations at 67
-TFLOP/s, whichever is larger; an encode reads only the table entries its
-samples reach) and, where one PyTorch call computes the same
-function, that call's time (`library_ms`; the port never calls it). The line
-before the last is the JSON kernel report; the last line is the JSON result.
-Any failure exits non-zero before either is printed.
+TFLOP/s with each expf at the special-function units' 4.18 T/s, whichever
+is larger; an encode reads only the table entries its samples reach, a
+compositor counts only the (entry, pixel) pairs its tiles composite) and,
+where one PyTorch call computes the same function, that call's time
+(`library_ms`; the port never calls it). The line before the last is the
+JSON kernel report; the last line is the JSON result. Any failure exits
+non-zero before either is printed.
 
 Usage: python3 chip_smoke.py
 """
@@ -85,12 +100,21 @@ KERNELS = {
                       'nerficg_tpu/ops/hash_xbar.py:303'),
     'hash_xbar_bwd': ('cuda', 'nerficg_torch/csrc/hash_xbar.cu',
                       'nerficg_tpu/ops/hash_xbar.py:394'),
+    'gs_composite_fwd': ('cuda', 'nerficg_torch/csrc/gs_tiles.cu',
+                         'nerficg_tpu/ops/gs_tiles_kernel.py:414'),
+    'gs_composite_fwd_packed': ('cuda', 'nerficg_torch/csrc/gs_tiles.cu',
+                                'nerficg_tpu/ops/gs_tiles_kernel.py:414'),
+    'gs_composite_bwd': ('cuda', 'nerficg_torch/csrc/gs_tiles.cu',
+                         'nerficg_tpu/ops/gs_tiles_kernel.py:481'),
 }
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32
-# operations/s outside the tensor cores.
+# operations/s outside the tensor cores; and the special-function units'
+# rate (ex2 of expf): 16 per clock per SM (CUDA C++ Programming Guide,
+# throughput table, compute capability 9.0) x 132 SMs x 1.98 GHz boost.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 
 def fail(message: str) -> None:
@@ -147,11 +171,12 @@ def cuda_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, sfu: float = 0.0) -> tuple[float, str]:
     """(least ms the card could take, what bounds it): ``nbytes`` moved at
-    the HBM rate or ``ops`` f32 operations at the peak rate."""
+    the HBM rate, or ``ops`` f32 operations at the peak rate and ``sfu``
+    special-function operations at theirs, two pipes that overlap."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / F32_OPS_PER_S
+    t_ops = max(ops / F32_OPS_PER_S, sfu / SFU_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else \
         'operations'
 
@@ -228,16 +253,17 @@ def phase2_kernels(card: str) -> dict:
     report = {}
 
     def record(name, got, want, tol_ok, kernel_fn, plain_fn, shape, moved,
-               ops, library_fn=None):
+               ops, library_fn=None, sfu=0.0, plain_iters=50):
         """Check, then time the kernel, its plain version and the library
-        call; ``moved`` bytes and ``ops`` f32 operations give the bound."""
+        call; ``moved`` bytes, ``ops`` f32 operations and ``sfu``
+        special-function operations give the bound."""
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         ok = tol_ok(got, want)
         ms = cuda_ms(kernel_fn)
-        plain_ms = cuda_ms(plain_fn)
+        plain_ms = cuda_ms(plain_fn, plain_iters)
         library_ms = None if library_fn is None else cuda_ms(library_fn)
-        bound_ms, bound_by = bound(moved, ops)
+        bound_ms, bound_by = bound(moved, ops, sfu)
         print(f'phase 2: {name} {shape}: max_abs_err={err:.3e} '
               f'{"ok" if ok else "MISMATCH"}; kernel {ms:.4f} ms, plain '
               f'{plain_ms:.4f} ms, library '
@@ -442,7 +468,172 @@ def phase2_kernels(card: str) -> dict:
     # rides along.
     for name, line in stochastic.items():
         report[name]['stochastic_4_corners'] = line
+    phase2_gs_kernels(record, rng)
     return report
+
+
+# The least f32 work per valid (entry, pixel) pair of the composite and its
+# gradient, counted from nerficg_torch/csrc/gs_tiles.cu as (on every pair,
+# on each pair whose alpha passes 1/255; an FMA is 2). Every pair: its alpha,
+# 2 for dx, dy, 9 for the power, its clamp, a_raw and the threshold test,
+# and one expf at the special-function rate. Forward, passing pairs: alpha,
+# the weight, 3 color FMAs, acc, the depth FMA and the transmittance step.
+# Backward, passing pairs (elsewhere every gradient term is zero): the
+# transmittance step (2), alpha and the weight (2), g (8), the upper test,
+# d_alpha (4), the suffix FMA, d_op, d_pow (3), the 10 channel products
+# (21) and 10 adds of the pixel sums. The kernel's second pass over a
+# chunk's alphas is not counted: one pass with the alphas kept would do.
+GS_FWD_OPS = (14, 13)
+GS_BWD_OPS = (14, 54)
+
+
+def gs_model(device: str, n: int = 100_000, seed: int = 0):
+    """bench.py's ``_make_gs_model`` protocol on the port: n points
+    U(-1, 1)^3 with colors U(0, 1) from numpy seed 0, at the library's GS
+    defaults (SH degree 4, 16,384-slot capacity steps)."""
+    import numpy as np
+
+    from nerficg_torch.core.config import ConfigNode
+    from nerficg_torch.data.types import BasicPointCloud
+    from nerficg_torch.methods.gaussian_splatting.model import \
+        GaussianSplattingModel
+    model = GaussianSplattingModel(ConfigNode({'MODEL': {}}), device=device)
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n, 3)).astype(np.float32) * 2.0 - 1.0
+    cols = rng.random((n, 3)).astype(np.float32)
+    model.init_from_point_cloud(BasicPointCloud(pts, cols))
+    return model
+
+
+def orbit_view(angle: float, width: int, height: int):
+    """bench.py's orbit pose (radius 3, looking at the origin) as a View with
+    focal 0.8 * width and a black background."""
+    import numpy as np
+
+    from nerficg_torch.cameras.perspective import PerspectiveCamera
+    from nerficg_torch.data.types import View
+    eye = np.array([3 * np.sin(angle), 0.0, 3 * np.cos(angle)])
+    fwd = -eye / np.linalg.norm(eye)
+    right = np.cross(np.array([0.0, 1.0, 0.0]), fwd)
+    right /= np.linalg.norm(right)
+    c2w = np.eye(4)
+    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = (
+        right, np.cross(fwd, right), fwd, eye)
+    return View(PerspectiveCamera(width, height, 0.8 * width, 0.8 * width,
+                                  width / 2.0, height / 2.0), c2w)
+
+
+def gs_pairs(args) -> tuple[int, int]:
+    """(valid (entry, pixel) pairs, pairs whose alpha passes 1/255) of a
+    composite of ``args`` = (sorted_mat, starts, counts, tiles_x,
+    num_tiles, k), by the plain version's geometry."""
+    import torch
+
+    from nerficg_torch.ops import gs_tiles_kernel as gtk
+    sorted_mat, starts, counts, tiles_x, num_tiles, k = args
+    counts = torch.clamp(counts, max=k)
+    passing = 0
+    with torch.no_grad():
+        for first in range(0, num_tiles, 256):
+            last = min(first + 256, num_tiles)
+            slots, _ = gtk._slots(sorted_mat, starts, tiles_x, k, first, last)
+            origins = gtk._tile_origins(last, tiles_x,
+                                        sorted_mat.device)[first:]
+            passing += int((gtk._alpha_plain(slots, counts[first:last],
+                                             origins) > 0).sum())
+    return int(counts.sum()) * gtk.P, passing
+
+
+def phase2_gs_kernels(record, rng) -> None:
+    """#15 (both layouts) and #16 at bench.py's frame: the streams
+    ``rasterize_gaussians`` builds from the 100k-Gaussian model at orbit
+    pose 0, 1920x1080 (8160 tiles, k = 256, D = 6), SH degree 1 as
+    bench.py renders it; a random d out for the backward."""
+    import torch
+
+    from nerficg_torch.core.config import ConfigNode
+    from nerficg_torch.methods.gaussian_splatting.renderer import \
+        GaussianSplattingRenderer
+    from nerficg_torch.ops import gs_tiles_kernel as gtk
+    from nerficg_torch.ops.gs_rasterize import entry_stream
+
+    model = gs_model('cuda')
+    renderer = GaussianSplattingRenderer(ConfigNode({}), model)
+    intrinsics, w2c, cam_pos = renderer.view_constants(
+        orbit_view(0.0, 1920, 1080))
+    with torch.no_grad():
+        inputs = renderer.frontend(model.params, w2c, cam_pos, intrinsics,
+                                   int(model.active_sh_degree))
+        streams = {packed: entry_stream(**inputs, width=1920, height=1080,
+                                        max_tiles_per_gaussian=6,
+                                        max_per_tile=256,
+                                        packed_inference=packed)
+                   for packed in (True, False)}
+
+    def stream_args(packed):
+        s = streams[packed]
+        return (s['sorted_mat'], s['starts'], s['counts'], s['tiles_x'],
+                s['num_tiles'], 256)
+
+    def forward_close(a, b):
+        return bool(torch.allclose(a, b, rtol=0.0, atol=1e-5))
+
+    args8, args16 = stream_args(True), stream_args(False)
+    num_tiles = args16[4]
+    pairs, passing = gs_pairs(args16)
+    entries = pairs // gtk.P
+    # The transmittance chunks the tiles composite: the kernel writes, and
+    # the backward reads, only these.
+    live = gtk.live_chunks(args16[2], 256)
+    tacc_bytes = int(live.sum()) * gtk.P * 4
+    out_bytes = num_tiles * gtk.OUT_ROWS * gtk.P * 4
+    print(f'phase 2: 3DGS stream at 1920x1080: {num_tiles} tiles, '
+          f'{int(args16[2].sum())} entries ({entries} within k), '
+          f'{pairs} valid (entry, pixel) pairs, {passing} with alpha > '
+          f'1/255', flush=True)
+    seg = (args16[1].numel() + args16[2].numel()) * 4    # starts, counts
+    fwd_ops = GS_FWD_OPS[0] * pairs + GS_FWD_OPS[1] * passing
+    got = gtk.gs_composite_fwd_packed(*args8)
+    record('gs_composite_fwd_packed', got,
+           gtk.gs_composite_fwd_plain(*args8, save_tacc=False),
+           forward_close, lambda: gtk.gs_composite_fwd_packed(*args8),
+           lambda: gtk.gs_composite_fwd_plain(*args8, save_tacc=False),
+           f'packed stream (8,{args8[0].shape[1]}) -> ({num_tiles},5,256)',
+           entries * 5 * 4 + seg + out_bytes, fwd_ops, sfu=pairs,
+           plain_iters=5)
+
+    out, tacc = gtk.gs_composite_fwd(*args16)
+    out_p, tacc_p = gtk.gs_composite_fwd_plain(*args16)
+    record('gs_composite_fwd', out, out_p,
+           lambda a, b: forward_close(a, b) and forward_close(tacc[live],
+                                                              tacc_p[live]),
+           lambda: gtk.gs_composite_fwd(*args16),
+           lambda: gtk.gs_composite_fwd_plain(*args16),
+           f'stream (16,{args16[0].shape[1]}) -> ({num_tiles},5,256) + '
+           f'tacc {tuple(tacc.shape)}, {int(live.sum())} chunks live',
+           entries * 10 * 4 + seg + out_bytes + tacc_bytes,
+           fwd_ops, sfu=pairs, plain_iters=5)
+
+    dout = torch.from_numpy(rng.normal(
+        size=(num_tiles, gtk.OUT_ROWS, gtk.P)).astype('float32')).cuda()
+    bwd = (*args16[:3], tacc, dout, *args16[3:])
+    got = gtk.gs_composite_bwd(*bwd)
+    # Gradients: the JAX package's own 2e-3 / 1e-3 (sums over 256 pixels in
+    # another order than autograd's).
+    record('gs_composite_bwd', got,
+           gtk.gs_composite_bwd_plain(*args16[:3], dout, *args16[3:]),
+           lambda a, b: bool(torch.allclose(a, b, rtol=1e-3, atol=2e-3)),
+           lambda: gtk.gs_composite_bwd(*bwd),
+           lambda: gtk.gs_composite_bwd_plain(*args16[:3], dout,
+                                              *args16[3:]),
+           f'd out ({num_tiles},5,256) + tacc -> d stream '
+           f'(16,{args16[0].shape[1]})',
+           # d stream: the 10 attribute rows; rows 10-15 are the layout's
+           # padding.
+           entries * 10 * 4 + seg + tacc_bytes + out_bytes +
+           10 * got.shape[1] * 4,
+           GS_BWD_OPS[0] * pairs + GS_BWD_OPS[1] * passing, sfu=pairs,
+           plain_iters=3)
 
 
 def make_run_dir(run_dir: Path, image_size: int, n_test: int,
@@ -881,6 +1072,296 @@ def phase_training(card: str, phase: int, scene: Path, config: str,
         return counts
 
 
+def _gs_wrappers() -> dict:
+    from nerficg_torch.ops.gs_tiles_kernel import (gs_composite_bwd,
+                                                   gs_composite_fwd,
+                                                   gs_composite_fwd_packed)
+    return {'gs_composite_fwd': gs_composite_fwd,
+            'gs_composite_fwd_packed': gs_composite_fwd_packed,
+            'gs_composite_bwd': gs_composite_bwd}
+
+
+def _gs_config_path() -> Path:
+    return ROOT / 'nerficg_torch' / 'configs' / 'gaussian_splatting.yaml'
+
+
+def _psnr_db(a, b) -> float:
+    import numpy as np
+    mse = float(((a - b) ** 2).mean())
+    return -10.0 * float(np.log10(max(mse, 1e-20)))
+
+
+def phase8_gs_serving(card: str, scene: Path) -> dict:
+    """3DGS serving at full width: bench.py's 100k-Gaussian model with all
+    four SH bands active (the higher bands N(0, 0.1) from numpy seed 1, so
+    that they change the colors) as a checkpoint, served on the textured
+    scene's test views through the inference entry point; then bench.py's
+    protocol through ``render_image`` and the card against the CPU.
+    Returns the packed compositor's launches in the inference run."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.core.config import load_config, save_config
+    from nerficg_torch.scripts import inference
+
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_gs_') as tmp:
+        run_dir = Path(tmp) / 'run'
+        config = load_config(_gs_config_path())
+        config.DATASET.PATH = str(scene)
+        save_config(config, run_dir / 'training_config.yaml')
+        start = time.perf_counter()
+        model = gs_model('cuda')
+        rest = np.random.default_rng(1).normal(
+            size=tuple(model.params['features_rest'].shape)) * 0.1
+        with torch.no_grad():
+            model.params['features_rest'].copy_(torch.as_tensor(rest))
+        model.active_sh_degree = int(model.SH_DEGREE)
+        model.save(run_dir / 'checkpoints' / 'final.ckpt')
+        print(f'phase 8: 3DGS checkpoint ({model.num_active} Gaussians in '
+              f'{model.capacity} slots, SH degree {model.active_sh_degree}) '
+              f'written in {time.perf_counter() - start:.1f} s', flush=True)
+        wrappers = _gs_wrappers()
+        torch.cuda.reset_peak_memory_stats()
+        result, launches = _launches_of(lambda: inference.main(
+            ['-d', str(run_dir), '-s', 'test', '-m', '-b', '--repeats', '1']),
+            wrappers)
+        metrics = result['metrics']['test']
+        print(f'phase 8: inference -s test -m -b --repeats 1: '
+              f'{result["fps"]:.3f} FPS at 400x400, test metrics (random '
+              f'Gaussians, so only finiteness matters): ' + ', '.join(
+                  f'{k}={v:.4f}' for k, v in metrics.items()) +
+              f', peak torch.cuda.max_memory_allocated '
+              f'{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB '
+              f'[{card}]')
+        print(f'phase 8: kernel launches in that run: {launches}', flush=True)
+        if launches['gs_composite_fwd_packed'] <= 0:
+            fail('phase 8: gs_composite_fwd_packed never launched')
+        if not all(np.isfinite(v) for v in (metrics['PSNR'], metrics['SSIM'],
+                                              result['fps'])):
+            fail(f'phase 8: non-finite served metrics: {metrics}')
+
+        # bench.py's protocol: 1920x1080, focal 0.8 w, 8 orbit poses at
+        # radius 3, 64 frames after a warm-up of each pose, timed to the
+        # last device sync.
+        renderer, _ = load_renderer(run_dir, 'cuda')
+        views = [orbit_view(2 * np.pi * i / 8, 1920, 1080) for i in range(8)]
+        for view in views:
+            renderer.render_image(view)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for i in range(64):
+            out = renderer.render_image(views[i % 8])
+        torch.cuda.synchronize()
+        fps = 64 / (time.perf_counter() - start)
+        with torch.no_grad():
+            intrinsics, w2c, cam_pos = renderer.view_constants(views[0])
+            probe = renderer.render_impl(
+                model.params, torch.zeros((model.capacity, 2), device='cuda'),
+                w2c, cam_pos, intrinsics, torch.zeros(3, device='cuda'),
+                model.active_sh_degree, packed_inference=True)
+        print(f'phase 8: 3DGS 1920x1080, 64 frames over 8 orbit poses: '
+              f'{fps:.2f} FPS; pose 0: {int(probe["counts"].sum())} stream '
+              f'entries, overflow_gaussians '
+              f'{int(probe["overflow_gaussians"])}, overflow_entries '
+              f'{int(probe["overflow_entries"])} [{card}]', flush=True)
+        if out['rgb'].shape != (1080, 1920, 3) or not all(
+                bool(torch.isfinite(v).all()) for v in out.values()):
+            fail('phase 8: 1080p frames have the wrong shape or non-finite '
+                 'values')
+        profile_device(lambda: renderer.render_image(views[0],
+                                                     benchmark=True),
+                       'phase 8: profile of one 1080p frame', card)
+        # The card against the CPU plain versions on a small frame.
+        cpu_renderer, _ = load_renderer(run_dir, 'cpu')
+        small = orbit_view(0.0, 192, 108)
+        gpu = {k: v.cpu() for k, v in renderer.render_image(small).items()}
+        cpu = cpu_renderer.render_image(small)
+        for key in ('rgb', 'alpha'):
+            db = _psnr_db(gpu[key], cpu[key])
+            print(f'phase 8: 192x108 {key}, CUDA kernels vs CPU plain '
+                  f'versions: PSNR {db:.1f} dB (limit 45)')
+            if db < 45.0:
+                fail(f'phase 8: card and CPU renders disagree on {key}: '
+                     f'{db:.1f} dB')
+    return launches
+
+
+def phase9_gs_training(card: str, scene: Path,
+                       iterations: int = 6000) -> dict:
+    """The GS config through the training entry point on the 400x400
+    textured scene for ``iterations`` of its 30,000 iterations, after an
+    untrained run (0 iterations: the random init) for the baseline PSNR;
+    then a profile of one warm step and the run served through the
+    inference entry point. 6000 and not fewer: the random init fills the
+    cameras' whole box, and its floaters go only at the first opacity
+    reset (iteration 3000); on an H100, 1200 iterations raised the test
+    PSNR by 1.0 dB, 6000 by 8.4 dB. Returns the GS kernels' launch counts
+    of the training run (forward and backward) and the serving run
+    (packed)."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.core.registry import Datasets
+    from nerficg_torch.core.setup import Directories
+    from nerficg_torch.scripts import inference, train
+
+    wrappers = _gs_wrappers()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_gs_train_') as tmp:
+        Directories.base = Path(tmp) / 'output'
+        args = ['-c', str(_gs_config_path()), f'DATASET.PATH={scene}',
+                'TRAINING.RENDER_TESTSET=True']
+        before = train.main(args + ['TRAINING.NUM_ITERATIONS=0',
+                                    'TRAINING.MODEL_NAME=untrained'])
+        psnr_before = float(before['metrics']['PSNR'])
+        print(f'phase 9: untrained 3DGS (100k random points in the box): '
+              f'test PSNR {psnr_before:.3f} dB [{card}]', flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        result, launches = _launches_of(lambda: train.main(
+            args + [f'TRAINING.NUM_ITERATIONS={iterations}',
+                    'TRAINING.MODEL_NAME=chip_smoke']), wrappers)
+        wall = time.perf_counter() - start
+        trainer = result['trainer']
+        losses = torch.stack(trainer.losses).float().cpu().numpy()
+        psnr = float(result['metrics']['PSNR'])
+        step = trainer.timers['training_iteration']
+        loop_s = sum(t.total for name, t in trainer.timers.items()
+                     if name in ('training_iteration', '_densify',
+                                 '_reset_opacity', '_increase_sh_degree',
+                                 '_log_progress'))
+        print(f'phase 9: train.main gaussian_splatting.yaml '
+              f'TRAINING.NUM_ITERATIONS={iterations}: whole run {wall:.1f} s,'
+              f' training loop {loop_s:.2f} s = {iterations / loop_s:.2f} '
+              f'it/s, {step.mean * 1e3:.2f} ms per training_iteration, '
+              f'{trainer.model.num_active} Gaussians after the bake '
+              f'(100000 at init) [{card}]')
+        for line in (Path(result['output_dir']) / 'timings.txt'
+                     ).read_text().splitlines():
+            print(f'phase 9: timings.txt: {line}')
+        print(f'phase 9: peak torch.cuda.max_memory_allocated of the training '
+              f'run {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB '
+              f'[{card}]')
+        print(f'phase 9: loss mean of iterations 0-49 {losses[:50].mean():.6f}'
+              f', of the last 50 {losses[-50:].mean():.6f}')
+        print(f'phase 9: test metrics after {iterations} iterations: ' +
+              ', '.join(f'{k}={v:.4f}' for k, v in result['metrics'].items())
+              + f' (untrained {psnr_before:.3f} dB) [{card}]')
+        print(f'phase 9: kernel launches in the training run: {launches}',
+              flush=True)
+        for name in ('gs_composite_fwd', 'gs_composite_bwd'):
+            if launches[name] != iterations:
+                fail(f'phase 9: {name} launched {launches[name]} times in '
+                     f'{iterations} iterations')
+        if len(losses) != iterations or not np.isfinite(losses).all():
+            fail('phase 9: training loss is missing or not finite')
+        if not losses[-50:].mean() < losses[:50].mean():
+            fail('phase 9: the training loss did not fall')
+        if trainer.model.num_active == 100_000:
+            fail('phase 9: the Gaussian count never changed')
+        if not (np.isfinite(psnr) and psnr >= psnr_before + 5.0):
+            fail(f'phase 9: test PSNR {psnr:.3f} dB is not 5 dB above the '
+                 f'untrained model\'s {psnr_before:.3f} dB')
+        # One warm step on the baked model, with a fresh optimizer.
+        trainer._build_optimizer()
+        trainer._reset_densify_stats()
+        dataset = Datasets.get_dataset(trainer._config)
+        profile_device(lambda: trainer.training_iteration(dataset,
+                                                          iterations),
+                       'phase 9: profile of one training step', card)
+
+        served, served_launches = _launches_of(lambda: inference.main(
+            ['-d', str(result['output_dir']), '-s', 'test', '-m', '-b',
+             '--repeats', '1']), wrappers)
+        metrics = served['metrics']['test']
+        print(f'phase 9: inference -d RUN -s test -m -b --repeats 1: '
+              f'{served["fps"]:.3f} FPS at 400x400, served test metrics: ' +
+              ', '.join(f'{k}={v:.4f}' for k, v in metrics.items()) +
+              f'; launches {served_launches} [{card}]', flush=True)
+        if served_launches['gs_composite_fwd_packed'] <= 0:
+            fail('phase 9: serving never launched gs_composite_fwd_packed')
+        if not float(metrics['PSNR']) >= psnr_before + 5.0:
+            fail(f'phase 9: the served test PSNR {metrics["PSNR"]:.3f} dB is '
+                 f'not 5 dB above the untrained model\'s '
+                 f'{psnr_before:.3f} dB')
+    return {'gs_composite_fwd': launches['gs_composite_fwd'],
+            'gs_composite_bwd': launches['gs_composite_bwd'],
+            'gs_composite_fwd_packed':
+                served_launches['gs_composite_fwd_packed']}
+
+
+def _rel_frobenius(got, want) -> float:
+    import numpy as np
+    return float(np.linalg.norm(got - want) /
+                 max(float(np.linalg.norm(want)), 1e-30))
+
+
+def phase10_gs_step(card: str) -> None:
+    """One GS training step at a small width (4000 random points in the
+    box of a 128x128 textured scene, SH degree 1) through the trainer's own
+    code on the card and on the CPU, from the same init and view. Loss
+    within 1e-5 relative; the six parameter gradients and the viewspace
+    gradient norm within 1e-3 relative Frobenius (sums in another order:
+    the kernel's pixel sums, cuBLAS's small products)."""
+    import torch
+
+    from nerficg_torch.core.config import ConfigNode
+    from nerficg_torch.core.logging import Logger
+    from nerficg_torch.core.registry import Datasets, Methods
+    from nerficg_torch.data.synthetic import make_textured_scene
+
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_gs_step_') as tmp:
+        scene = make_textured_scene(Path(tmp) / 'scene', image_size=128,
+                                    n_train=4, n_test=1)
+        config = ConfigNode({
+            'GLOBAL': {'METHOD_TYPE': 'GaussianSplatting',
+                       'DATASET_TYPE': 'NeRF', 'RANDOM_SEED': 0,
+                       'LOG_LEVEL': 'SILENT'},
+            'DATASET': {'PATH': str(scene)},
+            'TRAINING': {'RANDOM_POINTS': 4000}})
+        Logger.set_level('SILENT')
+        results = {}
+        for role, device in (('card', 'cuda'), ('cpu', 'cpu')):
+            trainer = Methods.get_training_instance(config, device=device)
+            dataset = Datasets.get_dataset(config)
+            trainer._setup_gaussians(dataset)
+            view = dataset.subsets['train'][1]
+            intrinsics, w2c, cam_pos = trainer.renderer.view_constants(view)
+            background = torch.zeros(3, device=device)
+
+            def step():
+                return trainer.loss_and_grads(w2c, cam_pos, intrinsics,
+                                              background,
+                                              trainer._target(1, view))
+            if role == 'card':
+                logs, launches = _launches_of(step, _gs_wrappers())
+            else:
+                logs = step()
+            results[role] = (
+                float(logs['total']),
+                {k: p.grad.cpu().numpy()
+                 for k, p in trainer.model.params.items()},
+                logs['viewspace_grad_norm'].cpu().numpy())
+        Logger.set_level('NORMAL')
+    (loss_g, grads_g, vs_g), (loss_c, grads_c, vs_c) = \
+        results['card'], results['cpu']
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    print(f'phase 10: 3DGS step at 128x128 (4000 Gaussians): loss card '
+          f'{loss_g:.8f}, CPU {loss_c:.8f}, relative error {loss_err:.2e} '
+          f'(limit 1e-5); launches {launches} [{card}]')
+    errors = {k: _rel_frobenius(grads_g[k], grads_c[k]) for k in grads_c}
+    errors['viewspace_grad_norm'] = _rel_frobenius(vs_g, vs_c)
+    for name, err in errors.items():
+        print(f'phase 10: {name}: relative Frobenius {err:.2e} (limit 1e-3)')
+    if launches['gs_composite_fwd'] != 1 or launches['gs_composite_bwd'] != 1:
+        fail(f'phase 10: the step did not launch #15 and #16 once each: '
+             f'{launches}')
+    if not loss_err <= 1e-5:
+        fail(f'phase 10: card and CPU losses differ by {loss_err:.2e}')
+    bad = {k: v for k, v in errors.items() if not v <= 1e-3}
+    if bad:
+        fail(f'phase 10: card and CPU gradients disagree: {bad}')
+
+
 def main() -> None:
     import torch
     sys.path.insert(0, str(ROOT))
@@ -895,7 +1376,7 @@ def main() -> None:
         start = time.perf_counter()
         scene = make_textured_scene(Path(tmp) / 'scene', image_size=400,
                                     n_train=30, n_test=4)
-        print(f'phases 5-7: 400x400 textured scene (30 train, 4 test views) '
+        print(f'phases 5-9: 400x400 textured scene (30 train, 4 test views) '
               f'written in {time.perf_counter() - start:.1f} s', flush=True)
         phase5 = phase_training(
             card, 5, scene, 'ingp_e2e_bench.yaml', (),
@@ -926,6 +1407,11 @@ def main() -> None:
             ('hash_xbar_fwd', *marcher))
         launches.update({k: phase7[k] for k in ('hash_xbar_fwd',
                                                 'hash_xbar_bwd')})
+        served = phase8_gs_serving(card, scene)
+        launches.update(phase9_gs_training(card, scene))
+        launches['gs_composite_fwd_packed'] += \
+            served['gs_composite_fwd_packed']
+    phase10_gs_step(card)
     kernels = [{'name': name, 'route': route, 'source': source,
                 'replaces': replaces, 'launches': launches[name],
                 **report[name]}

@@ -29,6 +29,7 @@ class MethodEntry:
 
 _BUILTIN_METHOD_MODULES = {
     'InstantNGP': 'nerficg_torch.methods.instant_ngp',
+    'GaussianSplatting': 'nerficg_torch.methods.gaussian_splatting',
 }
 _BUILTIN_DATASET_MODULES = {
     'NeRF': 'nerficg_torch.data.loaders.nerf',

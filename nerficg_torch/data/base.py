@@ -1,6 +1,7 @@
-"""Dataset base class: views in subsets and the training ray pool, a port
-of nerficg_tpu/data/base.py (reference: src/Datasets/Base.py:29-244).
-Scene normalization and bounding boxes are not ported yet."""
+"""Dataset base class: views in subsets, the training ray pool, the point
+cloud and the scene's bounding box, a port of nerficg_tpu/data/base.py
+(reference: src/Datasets/Base.py:29-244). Scene normalization is not ported
+yet."""
 
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from nerficg_torch.cameras.base import SharedCameraSettings
 from nerficg_torch.core.config import ConfigNode, Configurable
 from nerficg_torch.core.errors import DatasetError
 from nerficg_torch.core.logging import Logger
-from nerficg_torch.data.types import RayBatch, RayCollection, View
+from nerficg_torch.data.types import (AxisAlignedBox, BasicPointCloud,
+                                      RayBatch, RayCollection, View)
 
 __all__ = ['BaseDataset']
 
@@ -44,6 +46,8 @@ class BaseDataset(Configurable):
             background_color=np.asarray(self.BACKGROUND_COLOR, np.float32),
             near=float(self.NEAR_PLANE), far=float(self.FAR_PLANE))
         self.subsets: dict[str, list[View]] = {s: [] for s in self.SUBSETS}
+        self.point_cloud: BasicPointCloud | None = None
+        self.bounding_box: AxisAlignedBox | None = None
 
         start = time.perf_counter()
         self.load()
@@ -52,6 +56,8 @@ class BaseDataset(Configurable):
                     f'{time.perf_counter() - start:.2f}s')
         for i, view in enumerate(self.all_views()):
             view.global_frame_idx = i
+        if self.bounding_box is None:
+            self.bounding_box = self.estimate_bounding_box()
 
     def load(self) -> None:
         """Populate ``self.subsets`` (reference: Datasets/Base.py:76-79)."""
@@ -59,6 +65,27 @@ class BaseDataset(Configurable):
 
     def all_views(self) -> list[View]:
         return [v for s in self.SUBSETS for v in self.subsets[s]]
+
+    def estimate_bounding_box(self) -> AxisAlignedBox:
+        """From the point cloud if there is one, else from the cameras'
+        positions and far-plane frustum corners (reference:
+        Datasets/Base.py:144-170; nerficg_tpu/data/base.py:108-126)."""
+        if self.point_cloud is not None and len(self.point_cloud) > 0:
+            return self.point_cloud.filter_outliers().get_aabb()
+        views = self.all_views()
+        if not views:
+            return AxisAlignedBox(np.array([[-1.0, -1.0, -1.0],
+                                            [1.0, 1.0, 1.0]]))
+        points = []
+        for view in views:
+            points.append(view.position)
+            cam = view.camera
+            corners = np.array([[0, 0], [cam.width, 0], [0, cam.height],
+                                [cam.width, cam.height]], np.float32)
+            points.append(view.unproject_points(
+                corners, np.full(4, cam.far, np.float32)))
+        points = np.concatenate([np.atleast_2d(p) for p in points], axis=0)
+        return AxisAlignedBox(np.stack([points.min(0), points.max(0)]))
 
     def preload(self) -> None:
         """Decode every image now (reference: Trainer.py:122-161)."""

@@ -1,9 +1,10 @@
-"""Core data model: lazy images, views, ray batches.
+"""Core data model: lazy images, views, ray batches, point clouds, boxes.
 
-Port of nerficg_tpu/data/types.py (the part the serving path uses;
+Port of nerficg_tpu/data/types.py (the part the ported methods use;
 reference: src/Datasets/utils.py ImageData :693-763, View :766-1086,
-RayBatch :536-670). Images stay numpy HWC on the host until a step
-consumes them; rays are generated on the requested device.
+RayBatch :536-670, BasicPointCloud :300-403, AxisAlignedBox :406-457).
+Images stay numpy HWC on the host until a step consumes them; rays are
+generated on the requested device.
 """
 
 from __future__ import annotations
@@ -17,10 +18,12 @@ import numpy as np
 import torch
 
 from nerficg_torch.cameras.base import BaseCamera, generate_rays
+from nerficg_torch.cameras.pose import invert_3d_affine
 from nerficg_torch.core.errors import DatasetError
 from nerficg_torch.data.io import load_image, resize_image
 
-__all__ = ['ImageData', 'View', 'RayBatch', 'RayCollection']
+__all__ = ['ImageData', 'View', 'RayBatch', 'RayCollection',
+           'BasicPointCloud', 'AxisAlignedBox']
 
 
 @dataclass
@@ -159,6 +162,24 @@ class View:
             raise DatasetError(f'c2w must be (4,4) or (3,4), got {value.shape}')
         self._c2w = value
 
+    @property
+    def w2c(self) -> np.ndarray:
+        return invert_3d_affine(self._c2w)
+
+    @property
+    def position(self) -> np.ndarray:
+        return self._c2w[:3, 3]
+
+    def cam_to_world(self, points: np.ndarray) -> np.ndarray:
+        return points @ self._c2w[:3, :3].T + self._c2w[:3, 3]
+
+    def unproject_points(self, pixels: np.ndarray,
+                         depth: np.ndarray) -> np.ndarray:
+        """Pixels (M, 2) at depths (M,) -> world points (M, 3)."""
+        cam_pts = np.asarray(self.camera.screen_to_cam(
+            np.asarray(pixels, np.float32), np.asarray(depth, np.float32)))
+        return self.cam_to_world(cam_pts)
+
     def prefetch(self) -> 'View':
         self.rgb_data.prefetch()
         self.alpha_data.prefetch()
@@ -196,3 +217,64 @@ class View:
             view_ids=torch.full((n, 1), self.global_frame_idx,
                                 dtype=torch.int32, device=device))
 
+
+
+@dataclass
+class BasicPointCloud:
+    """Positions + colors (reference: Datasets/utils.py:300-403)."""
+
+    positions: np.ndarray                       # (N, 3) float
+    colors: Optional[np.ndarray] = None         # (N, 3) float in [0, 1]
+    normals: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        self.positions = np.asarray(self.positions,
+                                    dtype=np.float32).reshape(-1, 3)
+        if self.colors is not None:
+            self.colors = np.asarray(self.colors,
+                                     dtype=np.float32).reshape(-1, 3)
+
+    def __len__(self) -> int:
+        return self.positions.shape[0]
+
+    def filter_outliers(self, quantile: float = 0.97) -> 'BasicPointCloud':
+        """Drop points far from the median (reference: utils.py:352-367)."""
+        center = np.median(self.positions, axis=0)
+        dist = np.linalg.norm(self.positions - center, axis=-1)
+        keep = dist <= np.quantile(dist, quantile)
+        return BasicPointCloud(
+            self.positions[keep],
+            None if self.colors is None else self.colors[keep],
+            None if self.normals is None else self.normals[keep])
+
+    def get_aabb(self) -> 'AxisAlignedBox':
+        return AxisAlignedBox(np.stack([self.positions.min(0),
+                                        self.positions.max(0)]))
+
+
+@dataclass
+class AxisAlignedBox:
+    """(2, 3) min/max box (reference: Datasets/utils.py:406-457)."""
+
+    bounds: np.ndarray
+
+    def __post_init__(self):
+        self.bounds = np.asarray(self.bounds, dtype=np.float32).reshape(2, 3)
+        if np.any(self.bounds[0] > self.bounds[1]):
+            raise DatasetError(f'invalid AABB: min > max in {self.bounds}')
+
+    @property
+    def min(self) -> np.ndarray:
+        return self.bounds[0]
+
+    @property
+    def max(self) -> np.ndarray:
+        return self.bounds[1]
+
+    @property
+    def center(self) -> np.ndarray:
+        return 0.5 * (self.bounds[0] + self.bounds[1])
+
+    @property
+    def size(self) -> np.ndarray:
+        return self.bounds[1] - self.bounds[0]

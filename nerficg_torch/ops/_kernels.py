@@ -11,8 +11,8 @@ keyed by a hash of the sources and flags, so a fresh checkout on a machine
 with ``nvcc`` builds it by itself and later calls reuse it.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, C++17 and NO ``--use_fast_math``: the
-hash encode's window wrap and brick math must round exactly as the JAX
-oracle does.
+hash encode's window wrap and brick math, and the 3DGS compositor's
+alpha > 1/255 test, must round exactly as the plain versions do.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()`` right after the launch; ``check`` raises on a
@@ -61,6 +61,9 @@ _SIGNATURES = {
     'nerficg_block_probe': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     'nerficg_seg_gather': [_P, _P, _P, _I, _I, _I, _I, _P],
     'nerficg_seg_scatter_add': [_P, _P, _P, _I, _I, _I, _I, _P],
+    'nerficg_gs_composite_fwd': [_P] * 5 + [_I] * 4 + [_P],
+    'nerficg_gs_composite_fwd_packed': [_P] * 4 + [_I] * 4 + [_P],
+    'nerficg_gs_composite_bwd': [_P] * 6 + [_I] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,12 +1,12 @@
-"""Real spherical-harmonics direction encoding, ported from
-nerficg_tpu/ops/encoding.py (tcnn / 3DGS convention, reference:
+"""Real spherical-harmonics direction encoding and the 3DGS SH color,
+ported from nerficg_tpu/ops/encoding.py (tcnn / 3DGS convention, reference:
 GaussianSplatting/utils.py:21-59). Elementwise PyTorch, no kernel."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ['sh_encode', 'SH_C0']
+__all__ = ['sh_encode', 'eval_sh', 'SH_C0']
 
 SH_C0 = 0.28209479177387814
 _SH_C1 = 0.4886025119029199
@@ -38,3 +38,13 @@ def sh_encode(directions: torch.Tensor, degree: int = 4) -> torch.Tensor:
                 _SH_C3[5] * z * (xx - yy),
                 _SH_C3[6] * x * (xx - 3.0 * yy)]
     return torch.stack(out, dim=-1)
+
+
+def eval_sh(sh_coeffs: torch.Tensor, directions: torch.Tensor,
+            degree: int) -> torch.Tensor:
+    """SH color: coefficients (..., K, C) x basis (..., K) -> (..., C) over
+    the first degree^2 coefficients; the caller adds the 3DGS +0.5."""
+    basis = sh_encode(directions, degree)
+    k = degree * degree
+    return torch.einsum('...kc,...k->...c', sh_coeffs[..., :k, :],
+                        basis[..., :k])

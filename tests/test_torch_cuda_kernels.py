@@ -7,8 +7,9 @@ import numpy as np
 import pytest
 import torch
 
-from nerficg_torch.ops import (hash_cell, hash_mxu, hash_window, hash_xbar,
-                               xbar_gather)
+from nerficg_torch.core.errors import KernelError
+from nerficg_torch.ops import (gs_rasterize, gs_tiles_kernel, hash_cell,
+                               hash_mxu, hash_window, hash_xbar, xbar_gather)
 from nerficg_torch.ops.hashgrid import HashGridConfig
 
 pytestmark = pytest.mark.cuda
@@ -190,3 +191,62 @@ def test_hash_xbar_bwd(cuda, n_corners):
     _close_to_scatter(
         hash_xbar.hash_xbar_bwd(g, pos, CFG, 128, n_corners, 99),
         hash_xbar.hash_xbar_bwd_plain(g, pos, CFG, 128, n_corners, 99))
+
+
+def _gs_stream(cuda, packed, seed=4):
+    """The rasterizer's stream of 6000 projected Gaussians over a 160x120
+    frame (many tiles past k = 256), either layout."""
+    rng = np.random.default_rng(seed)
+    n = 6000
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(a, dtype=dtype, device=cuda)
+
+    stream = gs_rasterize.entry_stream(
+        t(np.stack([rng.uniform(-20, 180, n), rng.uniform(-20, 140, n)], -1)),
+        t(rng.uniform(0.5, 5.0, n)),
+        t(np.stack([rng.uniform(0.01, 0.3, n), rng.uniform(-0.01, 0.01, n),
+                    rng.uniform(0.01, 0.3, n)], -1)),
+        t(np.ceil(rng.uniform(1, 30, n))), t(rng.uniform(0, 1, (n, 3))),
+        t(rng.uniform(0.05, 0.99, n)), t(rng.random(n) > 0.05, torch.bool),
+        160, 120, 6, 256, packed_inference=packed)
+    args = (stream['sorted_mat'], stream['starts'], stream['counts'],
+            stream['tiles_x'], stream['num_tiles'], 256)
+    assert int(stream['counts'].max()) > 256
+    return args
+
+
+def test_gs_composite_fwd(cuda):
+    """Composite and saved transmittance (the chunks each tile composites,
+    the only ones the kernel writes) atol 1e-5: the alpha test sees the
+    plain version's bits; sums run in another order."""
+    args = _gs_stream(cuda, packed=False)
+    out, tacc = gs_tiles_kernel.gs_composite_fwd(*args)
+    out_p, tacc_p = gs_tiles_kernel.gs_composite_fwd_plain(*args)
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5)
+    live = gs_tiles_kernel.live_chunks(args[2], args[5])
+    torch.testing.assert_close(tacc[live], tacc_p[live], rtol=0, atol=1e-5)
+
+
+def test_gs_composite_fwd_packed(cuda):
+    args = _gs_stream(cuda, packed=True)
+    torch.testing.assert_close(
+        gs_tiles_kernel.gs_composite_fwd_packed(*args),
+        gs_tiles_kernel.gs_composite_fwd_plain(*args, save_tacc=False),
+        rtol=0, atol=1e-5)
+    with pytest.raises(KernelError):
+        gs_tiles_kernel.gs_composite_fwd(*args)
+
+
+def test_gs_composite_bwd(cuda):
+    """Within the JAX package's 2e-3 / 1e-3 of autograd of the plain
+    version, and bit-equal between two launches (no atomics)."""
+    args = _gs_stream(cuda, packed=False, seed=5)
+    _, tacc = gs_tiles_kernel.gs_composite_fwd(*args)
+    dout = torch.tensor(np.random.default_rng(6).normal(
+        size=(args[4], 5, 256)), dtype=torch.float32, device=cuda)
+    got = gs_tiles_kernel.gs_composite_bwd(*args[:3], tacc, dout, *args[3:])
+    want = gs_tiles_kernel.gs_composite_bwd_plain(*args[:3], dout, *args[3:])
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
+    assert torch.equal(got, gs_tiles_kernel.gs_composite_bwd(
+        *args[:3], tacc, dout, *args[3:]))
