@@ -20,13 +20,13 @@ Phases, each printing its own lines:
   5. training path: train configs/ingp_e2e_bench.yaml at full library width
      on a 400x400 textured scene through the port's training entry point
      (`python -m nerficg_torch.scripts.train -c ...`) in this process for
-     500 iterations (the config's 2000, cut for the time limit), render and
+     300 iterations (the config's 2000, cut for the time limit), render and
      score the test set, and check that the training kernels launched, the
      loss fell and the test PSNR rose by at least 5 dB over the untrained
      model's; then profile one warm training step;
   6. the cell encode at the reference's size: configs/ingp_parity.yaml
      (16 levels x 2^19 entries, ENCODING_BACKEND cell, 262,144 samples per
-     step) trained the same way for 500 iterations (its 30,000 cut; its
+     step) trained the same way for 300 iterations (its 30,000 cut; its
      scene, which the repository does not hold, replaced by the textured
      one; MODEL.SCALE=1.0 so the box holds that scene; and
      RENDERER.MAX_SAMPLES=256, a quarter of the config's occupancy
@@ -36,7 +36,7 @@ Phases, each printing its own lines:
      (`python -m nerficg_torch.scripts.inference -d RUN -s test -m -b`);
   7. the crossbar encode: configs/ingp_e2e_bench.yaml with
      MODEL.ENCODING_BACKEND=xbar (2^14 entries, 4 stochastic corners in
-     training), trained for 500 iterations and served the same way;
+     training), trained for 300 iterations and served the same way;
   8. 3D Gaussian Splatting serving at full width: a checkpoint of bench.py's
      100k-Gaussian model (numpy seed 0, SH degree 4 with all four bands
      active) served through the inference entry point on the textured
@@ -45,11 +45,25 @@ Phases, each printing its own lines:
      against the CPU on a small frame;
   9. 3DGS training: nerficg_torch/configs/gaussian_splatting.yaml (the
      library's defaults, 100k random points in the scene's box) through the
-     training entry point for 6000 of its 30,000 iterations (densification
+     training entry point for 4500 of its 30,000 iterations (densification
      every 100 from 600, the SH increases at 1000-3000, the first opacity
      reset at 3000), test PSNR against the untrained model's, a profile of
      one step, then served;
- 10. one 3DGS training step at a small width, card against CPU.
+ 10. one 3DGS training step at a small width, card against CPU;
+ 11. D-NeRF: nerficg_torch/configs/dnerf.yaml (16 levels x 2^14 on the
+     crossbar, exact corners, a 48 -> 128 x 3 -> 3 deformation MLP, 262,144
+     samples per step) on a 400x400 make_dynamic_textured_scene through the
+     training entry point for 2000 of its 30,000 iterations (#12 once per
+     iteration, loss falls, the deformation trains, test PSNR at least 5 dB
+     above the untrained model's), a profile of one step, served through the
+     inference entry point, and Instant-NGP with the same config on the same
+     scene as the static control (printed, not checked);
+ 12. one D-NeRF training step at a small width, card against CPU;
+ 13. the op API's kernels without a caller among the methods, as a user
+     calls them: composite_tiles (forward and, through autograd, backward)
+     on the slot windows of bench.py's 1080p frame, held to the stream
+     compositor's image, and xbar_permute of a 262,144 x 4 sample stream,
+     held to permute_block_channels.
 Every kernel's launch count is set to 0 just before the run that drives it
 and read just after. Each kernel's line reports its time against the least
 time the card could take for the same work (`bound_ms`: each input read once
@@ -106,6 +120,14 @@ KERNELS = {
                                 'nerficg_tpu/ops/gs_tiles_kernel.py:414'),
     'gs_composite_bwd': ('cuda', 'nerficg_torch/csrc/gs_tiles.cu',
                          'nerficg_tpu/ops/gs_tiles_kernel.py:481'),
+    'hash_xbar_bwd_pos': ('cuda', 'nerficg_torch/csrc/hash_xbar.cu',
+                          'nerficg_tpu/ops/hash_xbar.py:537'),
+    'gs_tiles_fwd': ('cuda', 'nerficg_torch/csrc/gs_tiles.cu',
+                     'nerficg_tpu/ops/gs_tiles_kernel.py:164'),
+    'gs_tiles_bwd': ('cuda', 'nerficg_torch/csrc/gs_tiles.cu',
+                     'nerficg_tpu/ops/gs_tiles_kernel.py:200'),
+    'xbar_permute': ('cuda', 'nerficg_torch/csrc/block_probe.cu',
+                     'nerficg_tpu/ops/xbar_gather.py:88'),
 }
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32
@@ -241,12 +263,16 @@ def phase2_kernels(card: str) -> dict:
         window_layout)
     from nerficg_torch.ops.hash_xbar import (hash_xbar_bwd,
                                              hash_xbar_bwd_plain,
+                                             hash_xbar_bwd_pos,
+                                             hash_xbar_bwd_pos_plain,
                                              hash_xbar_fwd,
                                              hash_xbar_fwd_plain)
     from nerficg_torch.ops.hashgrid import HashGridConfig
     from nerficg_torch.ops.xbar_gather import (block_probe_cells,
                                                block_probe_cells_plain,
-                                               build_block_bitfield)
+                                               build_block_bitfield,
+                                               xbar_permute,
+                                               xbar_permute_plain)
 
     dev = torch.device('cuda')
     rng = np.random.default_rng(1)
@@ -468,6 +494,54 @@ def phase2_kernels(card: str) -> dict:
     # rides along.
     for name, line in stochastic.items():
         report[name]['stochastic_4_corners'] = line
+
+    # #12: the D-NeRF step's 262,144 samples (TARGET_BATCH_SIZE) on the
+    # full-width table, exact (D-NeRF's default) and 4 corners, against the
+    # plain version on the same bits (the kernel keeps its order of
+    # operations): rtol 1e-5. Bytes: positions, cotangent and dpos, and the
+    # table entries the samples reach; operations per (sample, level,
+    # corner): g . v (3), the other dims' factor products (3), 3 per dim
+    # for the product and 1 for the sum (12).
+    n = 262144
+    pos = torch.from_numpy(rng.uniform(0.2, 0.8, (n, 3)).astype(
+        np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(n, 32)).astype(np.float32)).to(dev)
+    for nc in (4, 0):
+        args = (table, pos, g, config, nc, 0x5EED)
+        got = hash_xbar_bwd_pos(*args)
+        _, x_idx, _ = hash_xbar_fwd(table, pos, config, nc, 0x5EED,
+                                    save=True)
+        mode = 'exact' if nc == 0 else f'{nc} corners'
+        line = record(
+            'hash_xbar_bwd_pos', got, hash_xbar_bwd_pos_plain(*args),
+            lambda a, b: bool(torch.allclose(
+                a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))),
+            lambda: hash_xbar_bwd_pos(*args),
+            lambda: hash_xbar_bwd_pos_plain(*args),
+            f'g ({n},32) -> dpos ({n},3), {mode}',
+            nbytes(pos, g, got) + entry_bytes(x_idx), 16 * n * (nc or 8) * 18,
+            plain_iters=5)
+        if nc:
+            pos_4_corners = dict(line)
+    report['hash_xbar_bwd_pos']['stochastic_4_corners'] = pos_4_corners
+
+    # #5: the (262,144 x 4) f32 sample stream (sigma, rgb) permuted by
+    # whole blocks of 8, as permute_block_channels moves it; bit-exact.
+    blocks = n // 8
+    perm = torch.from_numpy(rng.permutation(blocks)).to(dev)
+    idx = (perm[:, None] * 8 + torch.arange(8, device=dev)).reshape(-1).to(
+        torch.int32)
+    stream = torch.from_numpy(rng.normal(size=(n, 4)).astype(
+        np.float32)).to(dev)
+    got = xbar_permute(stream, idx)
+    record('xbar_permute', got, xbar_permute_plain(stream, idx),
+           lambda a, b: bool(torch.equal(a.view(torch.int32),
+                                         b.view(torch.int32))),
+           lambda: xbar_permute(stream, idx),
+           lambda: xbar_permute_plain(stream, idx),
+           f'({n},4) f32 rows by a block permutation', nbytes(stream, idx,
+                                                               got), 0,
+           lambda: torch.index_select(stream, 0, idx))
     phase2_gs_kernels(record, rng)
     return report
 
@@ -635,6 +709,45 @@ def phase2_gs_kernels(record, rng) -> None:
            GS_BWD_OPS[0] * pairs + GS_BWD_OPS[1] * passing, sfu=pairs,
            plain_iters=3)
 
+    # #13/#14: the same frame as per-tile slot windows (T, 256, 10), the
+    # layout of composite_tiles, with row-major origins; the same valid and
+    # passing pairs. #13's rows 0-4 must equal #15's composite of the same
+    # tiles. Bytes: the slots within each count, counts and origins; the
+    # (T, 8, 256) output (#13) or the 5 d out rows the gradient reads and
+    # the whole (T, 256, 10) d slots (#14).
+    slots, counts, origins = slot_windows(args16)
+    got = gtk.gs_tiles_fwd(slots, counts, origins)
+    slot_in = entries * 10 * 4 + nbytes(counts, origins)
+    record('gs_tiles_fwd', got, gtk.gs_tiles_fwd_plain(slots, counts,
+                                                       origins),
+           lambda a, b: forward_close(a, b) and forward_close(a[:, :5], out)
+           and not bool(a[:, 5:].any()),
+           lambda: gtk.gs_tiles_fwd(slots, counts, origins),
+           lambda: gtk.gs_tiles_fwd_plain(slots, counts, origins),
+           f'slots {tuple(slots.shape)} -> ({num_tiles},8,256)',
+           slot_in + nbytes(got), fwd_ops, sfu=pairs, plain_iters=5)
+    dout8 = torch.nn.functional.pad(dout, (0, 0, 0, 3))
+    got = gtk.gs_tiles_bwd(slots, counts, origins, dout8)
+    record('gs_tiles_bwd', got,
+           gtk.gs_tiles_bwd_plain(slots, counts, origins, dout8),
+           lambda a, b: bool(torch.allclose(a, b, rtol=1e-3, atol=2e-3)),
+           lambda: gtk.gs_tiles_bwd(slots, counts, origins, dout8),
+           lambda: gtk.gs_tiles_bwd_plain(slots, counts, origins, dout8),
+           f'd out ({num_tiles},8,256) -> d slots {tuple(slots.shape)}',
+           slot_in + out_bytes + nbytes(got),
+           GS_BWD_OPS[0] * pairs + GS_BWD_OPS[1] * passing, sfu=pairs,
+           plain_iters=3)
+
+
+def slot_windows(args16):
+    """(slots (T, k, 10), counts (T,) int32, row-major origins (T, 2)) of a
+    16-wide stream's tiles, as ``composite_tiles`` takes them."""
+    from nerficg_torch.ops import gs_tiles_kernel as gtk
+    sorted_mat, starts, counts, tiles_x, num_tiles, k = args16
+    slots, _ = gtk._slots(sorted_mat, starts, tiles_x, k, 0, num_tiles)
+    origins = gtk._tile_origins(num_tiles, tiles_x, sorted_mat.device)
+    return slots.contiguous(), counts, origins
+
 
 def make_run_dir(run_dir: Path, image_size: int, n_test: int,
                  device: str, seed: int = 0) -> dict:
@@ -704,8 +817,10 @@ def profile_device(fn, label: str, card: str) -> None:
 
     fn()                                                   # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # The card's activity only: the wall time is the host clock's, and
+    # recording every host-side operation as well cost ~70 s of event
+    # processing on a serving frame's 165,398 device operations.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -741,7 +856,7 @@ def profile_frame(run_dir: Path, card: str) -> None:
 
 
 def phase3_main_path(card: str, image_size: int = 400,
-                     repeats: int = 3) -> dict:
+                     repeats: int = 1) -> dict:
     """The port's inference entry point on the e2e config; returns the
     kernels' launch counts from that run."""
     import numpy as np
@@ -830,7 +945,9 @@ def _training_wrappers() -> dict:
                                                hash_window_bwd_cached,
                                                hash_window_fwd,
                                                hash_window_fwd_stoch)
-    from nerficg_torch.ops.hash_xbar import hash_xbar_bwd, hash_xbar_fwd
+    from nerficg_torch.ops.hash_xbar import (hash_xbar_bwd,
+                                             hash_xbar_bwd_pos,
+                                             hash_xbar_fwd)
     from nerficg_torch.ops.xbar_gather import block_probe_cells
     return {'hash_window_fwd': hash_window_fwd,
             'hash_window_fwd_stoch': hash_window_fwd_stoch,
@@ -838,6 +955,7 @@ def _training_wrappers() -> dict:
             'hash_window_bwd_cached': hash_window_bwd_cached,
             'hash_cell_fwd': hash_cell_fwd, 'hash_cell_bwd': hash_cell_bwd,
             'hash_xbar_fwd': hash_xbar_fwd, 'hash_xbar_bwd': hash_xbar_bwd,
+            'hash_xbar_bwd_pos': hash_xbar_bwd_pos,
             'block_probe': block_probe_cells, 'seg_gather': seg_gather,
             'seg_scatter_add': seg_scatter_add}
 
@@ -962,7 +1080,7 @@ def _launches_of(run, wrappers: dict) -> tuple:
 
 def phase_training(card: str, phase: int, scene: Path, config: str,
                    overrides: tuple, trained: tuple, served: tuple = (),
-                   iterations: int = 500, repeats: int = 1) -> dict:
+                   iterations: int = 300, repeats: int = 1) -> dict:
     """The port's training entry point on ``config`` with ``overrides`` for
     ``iterations`` iterations on the 400x400 textured ``scene``, after an
     untrained run (0 iterations: carving and the warm-up grid) for the
@@ -1187,15 +1305,15 @@ def phase8_gs_serving(card: str, scene: Path) -> dict:
 
 
 def phase9_gs_training(card: str, scene: Path,
-                       iterations: int = 6000) -> dict:
+                       iterations: int = 4500) -> dict:
     """The GS config through the training entry point on the 400x400
     textured scene for ``iterations`` of its 30,000 iterations, after an
     untrained run (0 iterations: the random init) for the baseline PSNR;
     then a profile of one warm step and the run served through the
-    inference entry point. 6000 and not fewer: the random init fills the
+    inference entry point. 4500 and not fewer: the random init fills the
     cameras' whole box, and its floaters go only at the first opacity
     reset (iteration 3000); on an H100, 1200 iterations raised the test
-    PSNR by 1.0 dB, 6000 by 8.4 dB. Returns the GS kernels' launch counts
+    PSNR by 1.0 dB and 6000 by 8.4. Returns the GS kernels' launch counts
     of the training run (forward and backward) and the serving run
     (packed)."""
     import numpy as np
@@ -1362,10 +1480,328 @@ def phase10_gs_step(card: str) -> None:
         fail(f'phase 10: card and CPU gradients disagree: {bad}')
 
 
+def _dnerf_config_path() -> Path:
+    return ROOT / 'nerficg_torch' / 'configs' / 'dnerf.yaml'
+
+
+def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
+    """D-NeRF: nerficg_torch/configs/dnerf.yaml through the training entry
+    point on the 400x400 dynamic scene for ``iterations`` of its 30,000
+    (which also compresses the deformation rate's decay, tied to
+    NUM_ITERATIONS, into the cut), after an untrained run for the baseline
+    PSNR. Checks that #12 launched once per iteration, the loss fell, the
+    deformation's output layer left zero and moves points differently at
+    t = 1/4 and 3/4, and the test PSNR, trained and served through the
+    inference entry point, is at least 5 dB above the untrained model's.
+    Prints, without a check, the static control: Instant-NGP with the same
+    config (crossbar, exact corners) on the same scene and iterations.
+    Returns #12's launch count of the training run."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.core.setup import Directories
+    from nerficg_torch.scripts import inference, train
+
+    wrappers = _training_wrappers()
+    tag = 'phase 11'
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_dnerf_') as tmp:
+        Directories.base = Path(tmp) / 'output'
+        args = ['-c', str(_dnerf_config_path()), f'DATASET.PATH={scene}']
+        before = train.main(args + ['TRAINING.NUM_ITERATIONS=0',
+                                    'TRAINING.MODEL_NAME=untrained'])
+        psnr_before = float(before['metrics']['PSNR'])
+        print(f'{tag}: untrained D-NeRF (carved, warm-up grid): test PSNR '
+              f'{psnr_before:.3f} dB [{card}]', flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        result, launches = _launches_of(lambda: train.main(
+            args + [f'TRAINING.NUM_ITERATIONS={iterations}',
+                    'TRAINING.MODEL_NAME=chip_smoke']), wrappers)
+        wall = time.perf_counter() - start
+        trainer = result['trainer']
+        losses = torch.stack(trainer.losses).float().cpu().numpy()
+        psnr = float(result['metrics']['PSNR'])
+        timers = trainer.timers
+        loop_s = sum(timers[k].total for k in (
+            'training_iteration', '_update_occupancy', '_resize_batch',
+            '_log_progress') if k in timers)
+        print(f'{tag}: train.main dnerf.yaml TRAINING.NUM_ITERATIONS='
+              f'{iterations}: whole run {wall:.1f} s, training loop '
+              f'{loop_s:.2f} s = {iterations / loop_s:.2f} it/s, '
+              f'{timers["training_iteration"].mean * 1e3:.2f} ms per '
+              f'training_iteration, final rays/batch '
+              f'{trainer.rays_per_batch} [{card}]')
+        for line in (Path(result['output_dir']) / 'timings.txt'
+                     ).read_text().splitlines():
+            print(f'{tag}: timings.txt: {line}')
+        print(f'{tag}: peak torch.cuda.max_memory_allocated of the training '
+              f'run {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB '
+              f'[{card}]')
+        print(f'{tag}: loss mean of iterations 0-49 {losses[:50].mean():.6f}'
+              f', of the last 50 {losses[-50:].mean():.6f}')
+        print(f'{tag}: test metrics after {iterations} iterations: ' +
+              ', '.join(f'{k}={v:.4f}' for k, v in result['metrics'].items())
+              + f' (untrained {psnr_before:.3f} dB) [{card}]')
+        shown = {k: launches[k] for k in ('hash_xbar_bwd_pos', 'hash_xbar_fwd',
+                                          'hash_xbar_bwd', 'block_probe')}
+        print(f'{tag}: kernel launches in the training run: {shown}',
+              flush=True)
+        if launches['hash_xbar_bwd_pos'] != iterations:
+            fail(f'{tag}: hash_xbar_bwd_pos launched '
+                 f'{launches["hash_xbar_bwd_pos"]} times in {iterations} '
+                 'iterations')
+        if len(losses) != iterations or not np.isfinite(losses).all():
+            fail(f'{tag}: training loss is missing or not finite')
+        if not losses[-50:].mean() < losses[:50].mean():
+            fail(f'{tag}: the training loss did not fall')
+        model = trainer.model
+        out_layer = float(model.module.deform_mlp[-1].weight.abs().max())
+        points = torch.rand((4096, 3), generator=torch.Generator().manual_seed(
+            0)).to(model.device) * 1.6 - 0.8
+        with torch.no_grad():
+            offsets = [model.deform(points, torch.full((4096,), t,
+                                                       device=model.device))
+                       - points for t in (0.25, 0.75)]
+        moved = float((offsets[0] - offsets[1]).abs().max())
+        print(f'{tag}: deformation output layer max |w| {out_layer:.3e}; '
+              f'offsets at t = 1/4 and 3/4 differ by up to {moved:.4f} '
+              f'(mean |offset| {float(offsets[0].norm(dim=-1).mean()):.4f},'
+              f' {float(offsets[1].norm(dim=-1).mean()):.4f})')
+        if not out_layer > 0.0 or not moved > 1e-3:
+            fail(f'{tag}: the deformation field did not train')
+        if not (np.isfinite(psnr) and psnr >= psnr_before + 5.0):
+            fail(f'{tag}: test PSNR {psnr:.3f} dB is not 5 dB above the '
+                 f'untrained model\'s {psnr_before:.3f} dB')
+        profile_device(lambda: trainer.training_iteration(None, iterations),
+                       f'{tag}: profile of one training step', card)
+
+        served, served_launches = _launches_of(lambda: inference.main(
+            ['-d', str(result['output_dir']), '-s', 'test', '-m', '-b',
+             '--repeats', '1']), wrappers)
+        metrics = served['metrics']['test']
+        shown = {k: served_launches[k] for k in ('hash_xbar_fwd',
+                                                 'block_probe')}
+        print(f'{tag}: inference -d RUN -s test -m -b --repeats 1: '
+              f'{served["fps"]:.3f} FPS at 400x400, served test metrics: ' +
+              ', '.join(f'{k}={v:.4f}' for k, v in metrics.items()) +
+              f'; launches {shown} [{card}]', flush=True)
+        if served_launches['hash_xbar_fwd'] <= 0:
+            fail(f'{tag}: serving never launched hash_xbar_fwd')
+        if not float(metrics['PSNR']) >= psnr_before + 5.0:
+            fail(f'{tag}: the served test PSNR {metrics["PSNR"]:.3f} dB is '
+                 f'not 5 dB above the untrained model\'s {psnr_before:.3f} dB')
+
+        control = train.main(args + ['GLOBAL.METHOD_TYPE=InstantNGP',
+                                     f'TRAINING.NUM_ITERATIONS={iterations}',
+                                     'TRAINING.MODEL_NAME=static_control'])
+        step = control['trainer'].timers['training_iteration']
+        print(f'{tag}: static control, Instant-NGP (crossbar, exact corners) '
+              f'with the same config on the same scene, {iterations} '
+              f'iterations: test PSNR {control["metrics"]["PSNR"]:.3f} dB, '
+              f'{step.mean * 1e3:.2f} ms per training_iteration (D-NeRF '
+              f'{psnr:.3f} dB) [{card}]', flush=True)
+    return {'hash_xbar_bwd_pos': launches['hash_xbar_bwd_pos']}
+
+
+# The deformation MLP learns through the position gradient, a sum over
+# corners of +-(g . v_c) terms that mostly cancel, so the bf16 noise of the
+# cotangent g is amplified there: the JAX package's own jitted and eager
+# gradients of the CPU tests' D-NeRF step differ by up to 2.9e-2 relative
+# Frobenius in the deformation's first layer over seeds 7-16 (1.2e-2 at
+# most in the field), and the card against the CPU gave 1.3e-2 to 4.4e-2
+# over seeds 0-5 on an H100 (the card's atomic sums vary from run to run).
+DEFORM_FROBENIUS_RTOL = 1e-1
+
+
+def phase12_dnerf_step(card: str, seed: int = 0) -> None:
+    """One exact D-NeRF training step at a small width (the CPU tests'
+    config: 4 levels at 2^11, a 32 x 2 deformation MLP, 32x32 dynamic
+    scene) through the trainer's own code on the card and on the CPU: same
+    weights (the deformation's output layer non-zero, so every layer has a
+    gradient), grid, rays, background, march seed and offset-prior points.
+    Loss 1e-5 relative; the field's gradients 2e-2 relative Frobenius (the
+    bf16 noise floor), the deformation MLP's DEFORM_FROBENIUS_RTOL, all
+    non-zero; #12 launched once."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.core.config import ConfigNode
+    from nerficg_torch.core.logging import Logger
+    from nerficg_torch.core.registry import Datasets, Methods
+    from nerficg_torch.data.synthetic import make_dynamic_textured_scene
+    from nerficg_torch.methods.instant_ngp.convert import params_to_numpy
+
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_dnerf_step_') as tmp:
+        scene = make_dynamic_textured_scene(Path(tmp) / 'scene',
+                                            image_size=32, n_train=8,
+                                            n_test=1)
+        config = ConfigNode({
+            'GLOBAL': {'METHOD_TYPE': 'DNeRF', 'DATASET_TYPE': 'DNeRF',
+                       'RANDOM_SEED': 0, 'LOG_LEVEL': 'SILENT'},
+            'DATASET': {'PATH': str(scene)},
+            'MODEL': {'NUM_LEVELS': 4, 'LOG2_HASHMAP_SIZE': 11,
+                      'BASE_RESOLUTION': 4, 'TARGET_RESOLUTION': 64,
+                      'GRID_RESOLUTION': 32, 'SCALE': 1.0,
+                      'DEFORM_WIDTH': 32, 'DEFORM_LAYERS': 2},
+            'RENDERER': {'MAX_SAMPLES': 64, 'RAY_BATCH_SIZE': 1024},
+            'TRAINING': {'INITIAL_RAYS_PER_BATCH': 256,
+                         'TARGET_BATCH_SIZE': 8192}})
+        Logger.set_level('SILENT')
+        rng = np.random.default_rng(seed)
+        points = rng.uniform(-1, 1, (4096, 3)).astype(np.float32)
+        times = rng.uniform(0, 1, 4096).astype(np.float32)
+        trainers, tree = {}, None
+        for role, device in (('card', 'cuda'), ('cpu', 'cpu')):
+            trainer = Methods.get_training_instance(config, device=device)
+            if tree is None:
+                shapes = trainer.model.params_tree()
+
+                def he_uniform(w, bound=None):
+                    bound = np.sqrt(6.0 / w.shape[0]) if bound is None \
+                        else bound
+                    return rng.uniform(-bound, bound, w.shape).astype(
+                        np.float32)
+                tree = {'hash_table': he_uniform(shapes['hash_table'], 0.1)}
+                for name in ('density_mlp', 'color_mlp', 'deform_mlp'):
+                    tree[name] = [he_uniform(w) for w in shapes[name]]
+                tree['deform_mlp'][-1] = he_uniform(tree['deform_mlp'][-1],
+                                                    0.05)
+            trainer.model.load_params_tree(tree)
+            trainer.model.buffers['density_grid'] = torch.as_tensor(
+                shell_density_grid(32, 2, 1.0, thickness_cells=6.0),
+                device=device)
+            trainer._init_samplers(Datasets.get_dataset(config))
+            fixed = (torch.as_tensor(points, device=device),
+                     torch.as_tensor(times, device=device))
+            trainer._draw_offset_points = lambda _, fixed=fixed: fixed
+            trainers[role] = trainer
+        Logger.set_level('NORMAL')
+        ids = rng.integers(0, trainers['cpu']._pool_size, 256)
+        bg = rng.random(3).astype(np.float32)
+        logs, grads = {}, {}
+        for role, trainer in trainers.items():
+            device = trainer.device
+
+            def step():
+                return trainer.loss_and_grads(
+                    torch.as_tensor(ids, device=device),
+                    torch.as_tensor(bg, device=device), 0x2545F491, 0)
+            if role == 'card':
+                logs[role], launches = _launches_of(step,
+                                                    _training_wrappers())
+            else:
+                logs[role] = step()
+            grads[role] = params_to_numpy(
+                {k: p.grad for k, p in trainer.model.module.named_parameters()})
+    loss_g, loss_c = (float(logs[r]['total']) for r in ('card', 'cpu'))
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    print(f'phase 12: D-NeRF step, loss card {loss_g:.8f}, CPU {loss_c:.8f}, '
+          f'relative error {loss_err:.2e} (limit 1e-5); '
+          f'{int(logs["card"]["num_samples"])} samples; hash_xbar_bwd_pos '
+          f'launched {launches["hash_xbar_bwd_pos"]} time(s) [{card}]')
+    bad = []
+    for name in ('hash_table', 'density_mlp', 'color_mlp', 'deform_mlp'):
+        pairs = zip(*(grads[r][name] if name != 'hash_table'
+                      else [grads[r][name]] for r in ('card', 'cpu')))
+        limit = DEFORM_FROBENIUS_RTOL if name == 'deform_mlp' else 2e-2
+        for i, (g, c) in enumerate(pairs):
+            frob = _rel_frobenius(g, c)
+            print(f'phase 12: gradient {name}[{i}]: relative Frobenius '
+                  f'{frob:.2e} (limit {limit:.0e}), norm '
+                  f'{np.linalg.norm(c):.3e}')
+            if not (frob <= limit and np.linalg.norm(c) > 0.0):
+                bad.append(f'{name}[{i}]')
+    if launches['hash_xbar_bwd_pos'] != 1:
+        fail('phase 12: the step did not launch hash_xbar_bwd_pos once')
+    if not loss_err <= 1e-5:
+        fail(f'phase 12: card and CPU losses differ by {loss_err:.2e}')
+    if bad:
+        fail(f'phase 12: card and CPU gradients disagree or vanish: {bad}')
+
+
+def phase13_op_api(card: str) -> dict:
+    """The op API's entry points with no caller among the methods, as a user
+    calls them: ``composite_tiles`` (#13, #14 through autograd) on the slot
+    windows of bench.py's 1080p frame, and ``xbar_permute`` (#5) on a
+    262,144-sample stream permuted by blocks of 8. Checks: the composite's
+    rows 0-4 equal the stream compositor's (#15) image of the frame (atol
+    1e-5), its three padding rows and the gradient past each count are
+    zero, the gradient is finite; the permutation equals
+    ``permute_block_channels`` bit for bit. Returns their launch counts."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.core.config import ConfigNode
+    from nerficg_torch.methods.gaussian_splatting.renderer import \
+        GaussianSplattingRenderer
+    from nerficg_torch.ops import gs_tiles_kernel as gtk
+    from nerficg_torch.ops.gs_rasterize import entry_stream
+    from nerficg_torch.ops.sample_sort import permute_block_channels
+    from nerficg_torch.ops.xbar_gather import xbar_permute
+
+    model = gs_model('cuda')
+    renderer = GaussianSplattingRenderer(ConfigNode({}), model)
+    intrinsics, w2c, cam_pos = renderer.view_constants(
+        orbit_view(0.0, 1920, 1080))
+    with torch.no_grad():
+        inputs = renderer.frontend(model.params, w2c, cam_pos, intrinsics,
+                                   int(model.active_sh_degree))
+        s = entry_stream(**inputs, width=1920, height=1080,
+                         max_tiles_per_gaussian=6, max_per_tile=256)
+        args16 = (s['sorted_mat'], s['starts'], s['counts'], s['tiles_x'],
+                  s['num_tiles'], 256)
+        image, _ = gtk.gs_composite_fwd(*args16)
+        slots, counts, origins = slot_windows(args16)
+    rng = np.random.default_rng(13)
+    dout = torch.from_numpy(rng.normal(size=(s['num_tiles'], 8, gtk.P))
+                            .astype(np.float32)).cuda()
+    n, block = 262144, 8
+    perm = torch.from_numpy(rng.permutation(n // block)).cuda()
+    perm_inv = torch.argsort(perm)
+    idx = (perm[:, None] * block + torch.arange(block, device='cuda')
+           ).reshape(-1).to(torch.int32)
+    channels = torch.from_numpy(rng.normal(size=(4, n)).astype(
+        np.float32)).cuda()
+    wrappers = {'gs_tiles_fwd': gtk.gs_tiles_fwd,
+                'gs_tiles_bwd': gtk.gs_tiles_bwd,
+                'xbar_permute': xbar_permute}
+
+    def run():
+        x = slots.detach().requires_grad_(True)
+        out = gtk.composite_tiles(x, counts, origins)
+        (out * dout).sum().backward()
+        return out.detach(), x.grad, xbar_permute(channels.T.contiguous(),
+                                                  idx)
+    (out, grad, permuted), launches = _launches_of(run, wrappers)
+    past = torch.arange(slots.shape[1], device='cuda')[None] >= \
+        counts[:, None].long()
+    err = float((out[:, :5] - image).abs().max())
+    want = permute_block_channels(channels, block, perm, perm_inv).T
+    print(f'phase 13: composite_tiles on the 1080p frame\'s slots '
+          f'{tuple(slots.shape)}: rows 0-4 vs the stream compositor max '
+          f'|diff| {err:.3e} (limit 1e-5); d slots finite '
+          f'{bool(torch.isfinite(grad).all())}, max |d slots| '
+          f'{float(grad.abs().max()):.3e}; xbar_permute of ({n},4) rows '
+          f'bit-equal to permute_block_channels '
+          f'{bool(torch.equal(permuted, want))}; launches {launches} '
+          f'[{card}]', flush=True)
+    if not err <= 1e-5 or bool(out[:, 5:].any()):
+        fail('phase 13: composite_tiles disagrees with the stream compositor')
+    if not bool(torch.isfinite(grad).all()) or bool(grad[past].any()):
+        fail('phase 13: the slot gradient is not finite or not zero past '
+             'each count')
+    if not torch.equal(permuted.view(torch.int32), want.view(torch.int32)):
+        fail('phase 13: xbar_permute disagrees with permute_block_channels')
+    if any(v != 1 for v in launches.values()):
+        fail(f'phase 13: each op-API kernel should launch once: {launches}')
+    return launches
+
+
 def main() -> None:
     import torch
     sys.path.insert(0, str(ROOT))
-    from nerficg_torch.data.synthetic import make_textured_scene
+    from nerficg_torch.data.synthetic import (make_dynamic_textured_scene,
+                                              make_textured_scene)
     card = phase0_environment()
     phase1_build(card)
     report = phase2_kernels(card)
@@ -1412,6 +1848,17 @@ def main() -> None:
         launches['gs_composite_fwd_packed'] += \
             served['gs_composite_fwd_packed']
     phase10_gs_step(card)
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_dynamic_') as tmp:
+        start = time.perf_counter()
+        scene = make_dynamic_textured_scene(Path(tmp) / 'scene',
+                                            image_size=400, n_train=40,
+                                            n_test=4)
+        print(f'phase 11: 400x400 dynamic textured scene (40 train, 4 test '
+              f'views) written in {time.perf_counter() - start:.1f} s',
+              flush=True)
+        launches.update(phase11_dnerf(card, scene))
+    phase12_dnerf_step(card)
+    launches.update(phase13_op_api(card))
     kernels = [{'name': name, 'route': route, 'source': source,
                 'replaces': replaces, 'launches': launches[name],
                 **report[name]}

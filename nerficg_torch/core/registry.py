@@ -30,9 +30,11 @@ class MethodEntry:
 _BUILTIN_METHOD_MODULES = {
     'InstantNGP': 'nerficg_torch.methods.instant_ngp',
     'GaussianSplatting': 'nerficg_torch.methods.gaussian_splatting',
+    'DNeRF': 'nerficg_torch.methods.dnerf',
 }
 _BUILTIN_DATASET_MODULES = {
     'NeRF': 'nerficg_torch.data.loaders.nerf',
+    'DNeRF': 'nerficg_torch.data.loaders.dnerf',
 }
 
 _methods: dict[str, MethodEntry] = {}

@@ -1,4 +1,4 @@
-// Two-level block-bitfield occupancy probe.
+// Two-level block-bitfield occupancy probe, and the row permutation.
 //
 // Replaces the TPU kernel nerficg_tpu/ops/xbar_gather.py `_gather_kernel`
 // (:36, launched by `xbar_gather` :52) where the marcher reaches it: the
@@ -11,6 +11,15 @@
 // table of a few hundred 128-word rows (130 KiB at 2 cascades of 128^3 with
 // cap 2048), which stays in L1/L2; the kernel is latency-bound on that
 // chain, so a probe of an empty block returns after the first read.
+//
+// Row permutation. `xbar_permute` replaces `_permute_kernel` (:88, launched
+// by `xbar_permute` :111): out = mat[idx] for an (N, C) matrix of any 32-bit
+// type, the bits moved exactly. The TPU scans every 128-lane row of the
+// matrix per channel through its lane crossbar (~N/128 x C x 3 vector
+// operations); a GPU reads each source row directly. One thread per (output
+// row, 32-bit word): consecutive threads write consecutive words, and the C
+// words of one source row are read by neighbouring threads. Bound by bytes:
+// the index and the output once, and each source row that is read once.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -52,6 +61,18 @@ __global__ void block_probe_kernel(const int* __restrict__ table,
   out[i] = (fine || overflow) ? 1 : 0;
 }
 
+__global__ void xbar_permute_kernel(const uint32_t* __restrict__ mat,
+                                    const int* __restrict__ idx,
+                                    uint32_t* __restrict__ out, int64_t total,
+                                    int cols) {
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (k >= total) return;
+  const int64_t r = k / cols;
+  const int c = static_cast<int>(k - r * cols);
+  out[k] = __ldg(mat + static_cast<int64_t>(__ldg(idx + r)) * cols + c);
+}
+
 }  // namespace
 
 // table (rows, 128) i32 = [coarse | rank | compact]; cx/cy/cz (N,) i32 cell
@@ -69,5 +90,19 @@ extern "C" int nerficg_block_probe(const void* table, const void* cx,
       static_cast<const int*>(cy), static_cast<const int*>(cz),
       static_cast<const int*>(grid_index), static_cast<uint8_t*>(out), n, res,
       cap_blocks, coarse_rows, rank_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mat (N, C) of 32-bit words; idx (M,) i32 in [0, N); out (M, C).
+extern "C" int nerficg_xbar_permute(const void* mat, const void* idx,
+                                    void* out, int m, int cols,
+                                    void* stream) {
+  const int64_t total = static_cast<int64_t>(m) * cols;
+  if (total == 0) return static_cast<int>(cudaGetLastError());
+  const int block = 256;
+  xbar_permute_kernel<<<static_cast<unsigned int>((total + block - 1) / block),
+                        block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(mat), static_cast<const int*>(idx),
+      static_cast<uint32_t*>(out), total, cols);
   return static_cast<int>(cudaGetLastError());
 }

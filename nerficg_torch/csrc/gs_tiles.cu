@@ -1,10 +1,23 @@
 // 3D Gaussian Splatting: per-tile front-to-back compositing over the
-// (tile, depth)-sorted, channel-major entry stream, and its backward.
+// (tile, depth)-sorted, channel-major entry stream, or over per-tile slot
+// windows, and the backward of each.
 //
 // Replace the TPU kernels nerficg_tpu/ops/gs_tiles_kernel.py
 // `_fused_fwd_kernel` (#15, :414; 16-wide with saved per-chunk
 // transmittance in training, 8-wide packed in serving) and
-// `_fused_bwd_stream_kernel` (#16, :481). The TPU kernels stage three
+// `_fused_bwd_stream_kernel` (#16, :481) on the stream, and `_fwd_kernel`
+// (#13, :164) and `_bwd_kernel` (#14, :200) on the slots of
+// `composite_tiles` (:361): slots (T, K, 10) f32 entry-major, each tile's
+// first min(count, K) composited, pixel origins read from `origins` (T, 2)
+// (the TPU kernel derives them from tiles_x; the oracle `_composite_jnp`
+// :322 reads them; the two agree on row-major origins). The slot kernels
+// are the stream kernels with another source: the same per-chunk staging,
+// front-to-back loop and reverse walk. Their output is (T, 8, 256), the
+// function's, with three zero rows; their backward has no saved
+// transmittance, so it first walks the tile forward to record each chunk's
+// starting transmittance into a scratch (T, ceil(K / CH), 256) buffer, as
+// the TPU kernel's first pass does, and writes d slots (T, K, 10), zero past
+// each count. The TPU kernels stage three
 // k-aligned blocks of the stream per tile, composite 128-entry chunks with
 // Hillis-Steele scans and take the backward's suffix sums with tril
 // matmuls, all for Mosaic's lane alignment. None of that carries over:
@@ -41,11 +54,13 @@
 // alpha > 1/255 test then sees the plain version's bits on the card, and no
 // entry flips across the threshold (a flip would move a pixel by ~0.004).
 //
-// The function's least work on an H100 (chip_smoke.py's bound): each valid
+// The functions' least work on an H100 (chip_smoke.py's bound): each valid
 // (entry, pixel) pair costs 14 f32 operations and one expf for its alpha;
 // only where alpha passes 1/255 come 13 more forward, 54 more backward.
 // Bytes: 20 (packed) or 40 per entry within k, the 5 output rows and, for
-// training, the live transmittance chunks. The design keeps every per-pair
+// training, the live transmittance chunks; for the slots, the 40 bytes of
+// each slot within its count, 8 output rows, and 40 bytes of d slots per
+// slot. The design keeps every per-pair
 // intermediate in registers and shared memory: device memory sees each
 // entry once per tile, the output and the transmittance.
 #include <cuda_runtime.h>
@@ -65,25 +80,78 @@ constexpr float kAlphaMax = static_cast<float>(0.99);
 constexpr float kMeansStep = 1.0f / 32.0f;   // 1 / MEANS_FP_SCALE
 constexpr float kMeansBias = 1024.0f;
 
-// Stage chunk entries [j0, j0 + m) of the segment at `seg` into s[attr][j]
-// as f32 attributes with ABSOLUTE means.
-template <bool kPacked>
-__device__ __forceinline__ void stage(const float* __restrict__ mat,
-                                      size_t e_pad, int seg, int j0, int m,
-                                      float ox, float oy,
+// Where a tile's entries come from.
+enum Layout {
+  kStream = 0,   // (16, E_pad) channel-major stream, tile segments
+  kPacked = 1,   // (8, E_pad) packed stream (serving)
+  kSlots = 2,    // (T, K, 10) slots, entry-major, origins given
+};
+
+struct Tiles {
+  const float* mat;       // the stream or the slots
+  const int* starts;      // streams: each tile's first entry
+  const int* counts;      // (T,)
+  const float* origins;   // slots: (T, 2) pixel origins
+  size_t e_pad;           // streams: entries per row
+  int tiles_x;            // streams: tiles per image row
+  int k;                  // entries composited per tile at most (K)
+};
+
+// Output rows per tile: the stream path writes rgb, acc, depth; the slot
+// path writes the function's (T, 8, 256) with three zero rows.
+template <int L>
+__host__ __device__ constexpr int out_rows() {
+  return L == kSlots ? 8 : kOut;
+}
+
+template <int L>
+__device__ __forceinline__ void tile_origin(const Tiles& tl, int t, float* ox,
+                                            float* oy) {
+  if (L == kSlots) {
+    *ox = tl.origins[2 * t];
+    *oy = tl.origins[2 * t + 1];
+  } else {
+    *ox = static_cast<float>((t % tl.tiles_x) * kTile);
+    *oy = static_cast<float>((t / tl.tiles_x) * kTile);
+  }
+}
+
+// Index of the tile's first entry: in the stream, or in the slots' rows.
+template <int L>
+__device__ __forceinline__ size_t tile_start(const Tiles& tl, int t) {
+  return L == kSlots ? static_cast<size_t>(t) * tl.k
+                     : static_cast<size_t>(tl.starts[t]);
+}
+
+// Stage chunk entries [j0, j0 + m) of the tile's entries from `seg` into
+// s[attr][j] as f32 attributes with ABSOLUTE means.
+template <int L>
+__device__ __forceinline__ void stage(const Tiles& tl, size_t seg, int j0,
+                                      int m, float ox, float oy,
                                       float (*s)[kCH]) {
-  if (!kPacked) {
+  const float* __restrict__ mat = tl.mat;
+  const size_t e_pad = tl.e_pad;
+  if (L == kSlots) {
+    // Entry-major rows: consecutive threads read consecutive words.
+    const float* rows = mat + (seg + j0) * kAttrs;
+    for (int i = threadIdx.x; i < kAttrs * kCH; i += kP) {
+      const int j = i / kAttrs;
+      s[i - j * kAttrs][j] = j < m ? __ldg(rows + i) : 0.0f;
+    }
+    return;
+  }
+  if (L == kStream) {
     for (int i = threadIdx.x; i < kAttrs * kCH; i += kP) {
       const int a = i / kCH;
       const int j = i - a * kCH;
-      const size_t e = static_cast<size_t>(seg) + j0 + j;
+      const size_t e = seg + j0 + j;
       s[a][j] = (j < m && e < e_pad) ? __ldg(mat + a * e_pad + e) : 0.0f;
     }
     return;
   }
   const int j = threadIdx.x;
   if (j >= kCH) return;
-  const size_t e = static_cast<size_t>(seg) + j0 + j;
+  const size_t e = seg + j0 + j;
   uint32_t w[5] = {0u, 0u, 0u, 0u, 0u};
   if (j < m && e < e_pad) {
 #pragma unroll
@@ -109,21 +177,26 @@ __device__ __forceinline__ float raw_power(float ca, float cb, float cc,
   return __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(cb, dx), dy));
 }
 
-template <bool kPacked, bool kSave>
+// Pixel centre of thread p: origin + (p % 16 + 0.5), the plain version's
+// order (exact for the streams' integer origins).
+__device__ __forceinline__ void pixel(float ox, float oy, int p, float* px,
+                                      float* py) {
+  *px = __fadd_rn(ox, static_cast<float>(p % kTile) + 0.5f);
+  *py = __fadd_rn(oy, static_cast<float>(p / kTile) + 0.5f);
+}
+
+template <int L, bool kSave>
 __global__ void __launch_bounds__(kP)
-gs_fwd_kernel(const float* __restrict__ mat, const int* __restrict__ starts,
-              const int* __restrict__ counts, float* __restrict__ out,
-              float* __restrict__ tacc, size_t e_pad, int tiles_x, int k,
+gs_fwd_kernel(Tiles tl, float* __restrict__ out, float* __restrict__ tacc,
               int nc) {
   __shared__ float s[kAttrs][kCH];
   const int t = blockIdx.x;
   const int p = threadIdx.x;
-  const int seg = starts[t];
-  const int n = min(max(counts[t], 0), k);
-  const float ox = static_cast<float>((t % tiles_x) * kTile);
-  const float oy = static_cast<float>((t / tiles_x) * kTile);
-  const float px = ox + static_cast<float>(p % kTile) + 0.5f;   // exact
-  const float py = oy + static_cast<float>(p / kTile) + 0.5f;
+  const size_t seg = tile_start<L>(tl, t);
+  const int n = min(max(tl.counts[t], 0), tl.k);
+  float ox, oy, px, py;
+  tile_origin<L>(tl, t, &ox, &oy);
+  pixel(ox, oy, p, &px, &py);
   float trans = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f, acc = 0.0f,
         dep = 0.0f;
   const int n_chunks = (n + kCH - 1) / kCH;
@@ -132,7 +205,7 @@ gs_fwd_kernel(const float* __restrict__ mat, const int* __restrict__ starts,
     const int j0 = c * kCH;
     const int m = min(kCH, n - j0);
     __syncthreads();
-    stage<kPacked>(mat, e_pad, seg, j0, m, ox, oy, s);
+    stage<L>(tl, seg, j0, m, ox, oy, s);
     __syncthreads();
     for (int j = 0; j < m; ++j) {
       const float dx = __fsub_rn(px, s[0][j]);
@@ -151,12 +224,14 @@ gs_fwd_kernel(const float* __restrict__ mat, const int* __restrict__ starts,
       trans = trans * (1.0f - alpha);
     }
   }
-  float* o = out + static_cast<size_t>(t) * kOut * kP + p;
+  float* o = out + static_cast<size_t>(t) * out_rows<L>() * kP + p;
   o[0 * kP] = cr;
   o[1 * kP] = cg;
   o[2 * kP] = cb;
   o[3 * kP] = acc;
   o[4 * kP] = dep;
+#pragma unroll
+  for (int r = kOut; r < out_rows<L>(); ++r) o[r * kP] = 0.0f;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -165,11 +240,24 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Alpha of staged entry j at pixel (px, py), 0 where a_raw <= 1/255.
+__device__ __forceinline__ float staged_alpha(float (*s)[kCH], int j,
+                                              float px, float py) {
+  const float dx = __fsub_rn(px, s[0][j]);
+  const float dy = __fsub_rn(py, s[1][j]);
+  const float power = fminf(raw_power(s[2][j], s[3][j], s[4][j], dx, dy),
+                            0.0f);
+  const float a_raw = __fmul_rn(s[5][j], expf(power));
+  return a_raw > kAlphaMin ? fminf(a_raw, kAlphaMax) : 0.0f;
+}
+
+// The stream backward reads the forward's saved transmittance; the slot
+// backward (kSlots) first records it into `tacc` itself.
+template <int L>
 __global__ void __launch_bounds__(kP)
-gs_bwd_kernel(const float* __restrict__ mat, const int* __restrict__ starts,
-              const int* __restrict__ counts, const float* __restrict__ tacc,
+gs_bwd_kernel(Tiles tl, float* __restrict__ tacc,
               const float* __restrict__ dout, float* __restrict__ dmat,
-              size_t e_pad, int tiles_x, int k, int nc) {
+              int nc) {
   __shared__ float s[kAttrs][kCH];
   __shared__ float s_trans[kCH][kP];             // T before entry j, per pixel
   __shared__ float s_part[kWarps][kCH][kAttrs];  // per-warp entry gradients
@@ -177,22 +265,36 @@ gs_bwd_kernel(const float* __restrict__ mat, const int* __restrict__ starts,
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
-  const int seg = starts[t];
-  const int n = min(max(counts[t], 0), k);
-  const float ox = static_cast<float>((t % tiles_x) * kTile);
-  const float oy = static_cast<float>((t / tiles_x) * kTile);
-  const float px = ox + static_cast<float>(p % kTile) + 0.5f;
-  const float py = oy + static_cast<float>(p / kTile) + 0.5f;
-  const float* g_out = dout + static_cast<size_t>(t) * kOut * kP + p;
+  const size_t seg = tile_start<L>(tl, t);
+  const int n = min(max(tl.counts[t], 0), tl.k);
+  float ox, oy, px, py;
+  tile_origin<L>(tl, t, &ox, &oy);
+  pixel(ox, oy, p, &px, &py);
+  const float* g_out = dout + static_cast<size_t>(t) * out_rows<L>() * kP + p;
   const float d_r = g_out[0 * kP], d_g = g_out[1 * kP], d_b = g_out[2 * kP];
   const float d_acc = g_out[3 * kP], d_dep = g_out[4 * kP];
   float suffix = 0.0f;                           // S: sum of g * w after j
   const int n_chunks = (n + kCH - 1) / kCH;
+  if (L == kSlots) {
+    // Pass 1: each chunk's starting transmittance, as the forward has it.
+    float trans = 1.0f;
+    for (int c = 0; c < n_chunks; ++c) {
+      tacc[(static_cast<size_t>(t) * nc + c) * kP + p] = trans;
+      const int j0 = c * kCH;
+      const int m = min(kCH, n - j0);
+      __syncthreads();
+      stage<L>(tl, seg, j0, m, ox, oy, s);
+      __syncthreads();
+      for (int j = 0; j < m; ++j) {
+        trans = trans * (1.0f - staged_alpha(s, j, px, py));
+      }
+    }
+  }
   for (int c = n_chunks - 1; c >= 0; --c) {
     const int j0 = c * kCH;
     const int m = min(kCH, n - j0);
     __syncthreads();
-    stage<false>(mat, e_pad, seg, j0, m, ox, oy, s);
+    stage<L>(tl, seg, j0, m, ox, oy, s);
     __syncthreads();
     // Forward through the chunk from its saved starting transmittance.
     float trans = tacc[(static_cast<size_t>(t) * nc + c) * kP + p];
@@ -251,31 +353,55 @@ gs_bwd_kernel(const float* __restrict__ mat, const int* __restrict__ starts,
     }
     __syncthreads();
     for (int i = p; i < kAttrs * kCH; i += kP) {
-      const int a = i / kCH;
-      const int j = i - a * kCH;
-      const size_t e = static_cast<size_t>(seg) + j0 + j;
-      if (j < m && e < e_pad) {
+      // Slots: a fastest, so consecutive threads write consecutive words.
+      const int a = L == kSlots ? i % kAttrs : i / kCH;
+      const int j = L == kSlots ? i / kAttrs : i - a * kCH;
+      const size_t e = seg + j0 + j;
+      if (j < m && (L == kSlots || e < tl.e_pad)) {
         float sum = 0.0f;
 #pragma unroll
         for (int wi = 0; wi < kWarps; ++wi) sum += s_part[wi][j][a];
-        dmat[a * e_pad + e] = sum;
+        dmat[L == kSlots ? e * kAttrs + a : a * tl.e_pad + e] = sum;
       }
     }
   }
 }
 
-template <bool kPacked, bool kSave>
-int launch_fwd(const void* mat, const void* starts, const void* counts,
-               void* out, void* tacc, int e_pad, int num_tiles, int tiles_x,
-               int k, void* stream) {
+Tiles stream_tiles(const void* mat, const void* starts, const void* counts,
+                   int e_pad, int tiles_x, int k) {
+  return Tiles{static_cast<const float*>(mat), static_cast<const int*>(starts),
+               static_cast<const int*>(counts), nullptr,
+               static_cast<size_t>(e_pad), tiles_x, k};
+}
+
+Tiles slot_tiles(const void* slots, const void* counts, const void* origins,
+                 int k) {
+  return Tiles{static_cast<const float*>(slots), nullptr,
+               static_cast<const int*>(counts),
+               static_cast<const float*>(origins), 0, 0, k};
+}
+
+template <int L, bool kSave>
+int launch_fwd(const Tiles& tl, void* out, void* tacc, int num_tiles,
+               void* stream) {
   if (num_tiles == 0) return static_cast<int>(cudaGetLastError());
-  const int nc = (k + kCH - 1) / kCH;
-  gs_fwd_kernel<kPacked, kSave>
+  const int nc = (tl.k + kCH - 1) / kCH;
+  gs_fwd_kernel<L, kSave>
       <<<num_tiles, kP, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(mat), static_cast<const int*>(starts),
-          static_cast<const int*>(counts), static_cast<float*>(out),
-          static_cast<float*>(tacc), static_cast<size_t>(e_pad), tiles_x, k,
-          nc);
+          tl, static_cast<float*>(out), static_cast<float*>(tacc), nc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int L>
+int launch_bwd(const Tiles& tl, void* tacc, const void* dout, void* dmat,
+               size_t dmat_bytes, int num_tiles, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(dmat, 0, dmat_bytes, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_tiles == 0) return static_cast<int>(cudaGetLastError());
+  gs_bwd_kernel<L><<<num_tiles, kP, 0, s>>>(
+      tl, static_cast<float*>(tacc), static_cast<const float*>(dout),
+      static_cast<float*>(dmat), (tl.k + kCH - 1) / kCH);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -287,8 +413,9 @@ extern "C" int nerficg_gs_composite_fwd(const void* mat, const void* starts,
                                         const void* counts, void* out,
                                         void* tacc, int e_pad, int num_tiles,
                                         int tiles_x, int k, void* stream) {
-  return launch_fwd<false, true>(mat, starts, counts, out, tacc, e_pad,
-                                 num_tiles, tiles_x, k, stream);
+  return launch_fwd<kStream, true>(
+      stream_tiles(mat, starts, counts, e_pad, tiles_x, k), out, tacc,
+      num_tiles, stream);
 }
 
 // mat (8, E_pad) packed words; out (T, 5, 256) f32.
@@ -298,8 +425,9 @@ extern "C" int nerficg_gs_composite_fwd_packed(const void* mat,
                                                int e_pad, int num_tiles,
                                                int tiles_x, int k,
                                                void* stream) {
-  return launch_fwd<true, false>(mat, starts, counts, out, nullptr, e_pad,
-                                 num_tiles, tiles_x, k, stream);
+  return launch_fwd<kPacked, false>(
+      stream_tiles(mat, starts, counts, e_pad, tiles_x, k), out, nullptr,
+      num_tiles, stream);
 }
 
 // mat (16, E_pad) f32; tacc from the forward; dout (T, 5, 256) f32;
@@ -309,15 +437,29 @@ extern "C" int nerficg_gs_composite_bwd(const void* mat, const void* starts,
                                         const void* dout, void* dmat,
                                         int e_pad, int num_tiles, int tiles_x,
                                         int k, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(
-      dmat, 0, static_cast<size_t>(16) * e_pad * sizeof(float), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (num_tiles == 0) return static_cast<int>(cudaGetLastError());
-  gs_bwd_kernel<<<num_tiles, kP, 0, s>>>(
-      static_cast<const float*>(mat), static_cast<const int*>(starts),
-      static_cast<const int*>(counts), static_cast<const float*>(tacc),
-      static_cast<const float*>(dout), static_cast<float*>(dmat),
-      static_cast<size_t>(e_pad), tiles_x, k, (k + kCH - 1) / kCH);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bwd<kStream>(
+      stream_tiles(mat, starts, counts, e_pad, tiles_x, k),
+      const_cast<void*>(tacc), dout, dmat,
+      static_cast<size_t>(16) * e_pad * sizeof(float), num_tiles, stream);
+}
+
+// slots (T, K, 10) f32; counts (T,) i32; origins (T, 2) f32; out (T, 8, 256)
+// f32 (rows r, g, b, acc, depth, 0, 0, 0).
+extern "C" int nerficg_gs_tiles_fwd(const void* slots, const void* counts,
+                                    const void* origins, void* out,
+                                    int num_tiles, int k, void* stream) {
+  return launch_fwd<kSlots, false>(slot_tiles(slots, counts, origins, k), out,
+                                   nullptr, num_tiles, stream);
+}
+
+// slots, counts, origins as for the forward; tacc (T, ceil(K / 32), 256) f32
+// scratch; dout (T, 8, 256) f32; dslots (T, K, 10) f32, zeroed here.
+extern "C" int nerficg_gs_tiles_bwd(const void* slots, const void* counts,
+                                    const void* origins, void* tacc,
+                                    const void* dout, void* dslots,
+                                    int num_tiles, int k, void* stream) {
+  return launch_bwd<kSlots>(
+      slot_tiles(slots, counts, origins, k), tacc, dout, dslots,
+      static_cast<size_t>(num_tiles) * k * kAttrs * sizeof(float), num_tiles,
+      stream);
 }

@@ -98,11 +98,13 @@ __device__ __forceinline__ uint32_t corner_word(uint32_t seed, int lvl, int i,
 // `_stoch_corners` (nerficg_tpu/ops/hash_xbar.py :176) for one (sample,
 // level): NC in {1, 2, 4} corner offsets and their weights. log2(NC) dims,
 // those with the largest min(f, 1-f), are interpolated exactly; the others
-// take corner ~ Bernoulli(f) from the counter-hash words.
+// take corner ~ Bernoulli(f) from the counter-hash words. With `exact_out`,
+// also which dims were interpolated (none for NC == 1).
 template <int NC>
 __device__ __forceinline__ void stoch_corners(const float frac[3],
                                               uint32_t seed, int lvl, int i,
-                                              int (*off)[3], float* w) {
+                                              int (*off)[3], float* w,
+                                              bool* exact_out = nullptr) {
   int draw[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
@@ -115,6 +117,9 @@ __device__ __forceinline__ void stoch_corners(const float frac[3],
     off[0][1] = draw[1];
     off[0][2] = draw[2];
     w[0] = 1.0f;
+    if (exact_out != nullptr) {
+      exact_out[0] = exact_out[1] = exact_out[2] = false;
+    }
     return;
   }
   float m[3];
@@ -133,6 +138,11 @@ __device__ __forceinline__ void stoch_corners(const float frac[3],
     exact[0] = !s0;
     exact[1] = !s1;
     exact[2] = s0 || s1;
+  }
+  if (exact_out != nullptr) {
+    exact_out[0] = exact[0];
+    exact_out[1] = exact[1];
+    exact_out[2] = exact[2];
   }
   const bool first[3] = {exact[0], exact[1] && !exact[0],
                          exact[2] && !exact[0] && !exact[1]};

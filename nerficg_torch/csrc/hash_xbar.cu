@@ -27,6 +27,24 @@
 // product g * w_c at each, as `_bwd_jnp` (:721) does, with fp32 atomicAdd
 // into a table zeroed by cudaMemsetAsync on the stream.
 //
+// Position gradient. `hash_xbar_bwd_pos` replaces `_bwd_pos_kernel` (:537,
+// `_bwd_pos_pallas` :599), the d(encode)/d(position) that a deformation
+// field (D-NeRF) trains through. Per sample and level, with g the sample's
+// two cotangents and v_c the bf16-rounded features of corner c, it adds
+//   ((g . v_c) * dfactor_{c,d}) * (prod_{e != d} factor_{c,e}) * (res - 1)
+// over the corners in order into a per-level sum, and the levels' sums in
+// order into dpos (N, 3), d/d(unit position) as the oracle `_dpos_jnp`
+// (:642) differentiates the bf16 trilinear encode. Exact corners: factor f
+// or 1 - f, dfactor +-1. Stochastic corners (the same draws as the forward):
+// the interpolated dims likewise, the Bernoulli-sampled dims factor 1 and
+// dfactor 0 (`_corner_set` :236, straight-through). One thread per sample
+// loops over the levels and keeps the three sums in registers: no atomics,
+// and every sum in the plain version's order with _rn intrinsics, so the
+// result is the plain version's, bit for bit, from run to run. Not fused with
+// the table gradient (the TPU launches them apart; a fused kernel would
+// share the gather). A level whose two cotangents are 0 adds exact zeros and
+// is skipped.
+//
 // What bounds them on an H100: 2 * C random 4-byte reads (forward) or atomic
 // adds (backward) per (sample, level), C = 8 exact or 1/2/4 stochastic,
 // against 8 bytes written or read per (sample, level). At the library's 2^14
@@ -167,6 +185,72 @@ __global__ void hash_xbar_bwd_kernel(
 }
 
 template <int NC>
+__global__ void hash_xbar_bwd_pos_kernel(
+    const float* __restrict__ table, const float* __restrict__ pos,
+    const float* __restrict__ g, const float* __restrict__ res_m1_l,
+    const int* __restrict__ lrows_l, const int* __restrict__ dense_l,
+    float* __restrict__ dpos, int n, int levels, int rows, uint32_t seed) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  constexpr int kMax = NC == 0 ? 8 : NC;
+  float d[3] = {0.0f, 0.0f, 0.0f};
+  for (int lvl = 0; lvl < levels; ++lvl) {
+    const float* gi = g + static_cast<size_t>(i) * (2 * levels) + 2 * lvl;
+    const float g0 = gi[0];
+    const float g1 = gi[1];
+    if (g0 == 0.0f && g1 == 0.0f) continue;
+    const XbarLevel lay = xbar_level(res_m1_l, lrows_l, dense_l, lvl);
+    int base[3];
+    float frac[3];
+    nerficg::level_coords(pos, i, lay.res_m1, base, frac);
+    int off[kMax][3];
+    float unused_w[kMax];
+    bool exact[3] = {true, true, true};
+    if constexpr (NC == 0) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        off[c][0] = (c >> 2) & 1;
+        off[c][1] = (c >> 1) & 1;
+        off[c][2] = c & 1;
+      }
+    } else {
+      nerficg::stoch_corners<NC>(frac, seed, lvl, i, off, unused_w, exact);
+    }
+    const float* tab0 = table + static_cast<size_t>(2 * lvl) * rows * kLanes;
+    const float* tab1 = tab0 + static_cast<size_t>(rows) * kLanes;
+    float acc[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int c = 0; c < kMax; ++c) {
+      const int idx = xbar_index(lay, base, off[c][0], off[c][1], off[c][2]);
+      const float v0 = nerficg::bf16_round(__ldg(tab0 + idx));
+      const float v1 = nerficg::bf16_round(__ldg(tab1 + idx));
+      const float gp = __fadd_rn(__fmul_rn(g0, v0), __fmul_rn(g1, v1));
+      float f[3], df[3];
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        f[e] = exact[e] ? (off[c][e] ? frac[e] : __fsub_rn(1.0f, frac[e]))
+                        : 1.0f;
+        df[e] = exact[e] ? (off[c][e] ? 1.0f : -1.0f) : 0.0f;
+      }
+      const float other[3] = {__fmul_rn(f[1], f[2]), __fmul_rn(f[0], f[2]),
+                              __fmul_rn(f[0], f[1])};
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        acc[e] = __fadd_rn(
+            acc[e], __fmul_rn(__fmul_rn(__fmul_rn(gp, df[e]), other[e]),
+                              lay.res_m1));
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 3; ++e) d[e] = __fadd_rn(d[e], acc[e]);
+  }
+  float* o = dpos + static_cast<size_t>(i) * 3;
+  o[0] = d[0];
+  o[1] = d[1];
+  o[2] = d[2];
+}
+
+template <int NC>
 cudaError_t launch_fwd(const void* table, const void* pos, const void* res_m1,
                        const void* lrows, const void* dense, void* out,
                        void* save_idx, void* save_w, int levels, int n,
@@ -196,6 +280,21 @@ cudaError_t launch_bwd(const void* g, const void* pos, const void* res_m1,
       static_cast<const float*>(res_m1), static_cast<const int*>(lrows),
       static_cast<const int*>(dense), static_cast<float*>(dtab), n, levels,
       rows, seed);
+  return cudaGetLastError();
+}
+
+template <int NC>
+cudaError_t launch_bwd_pos(const void* table, const void* pos, const void* g,
+                           const void* res_m1, const void* lrows,
+                           const void* dense, void* dpos, int levels, int n,
+                           int rows, uint32_t seed, cudaStream_t stream) {
+  if (n == 0) return cudaGetLastError();
+  const int block = 128;
+  hash_xbar_bwd_pos_kernel<NC><<<(n + block - 1) / block, block, 0, stream>>>(
+      static_cast<const float*>(table), static_cast<const float*>(pos),
+      static_cast<const float*>(g), static_cast<const float*>(res_m1),
+      static_cast<const int*>(lrows), static_cast<const int*>(dense),
+      static_cast<float*>(dpos), n, levels, rows, seed);
   return cudaGetLastError();
 }
 
@@ -260,6 +359,37 @@ extern "C" int nerficg_hash_xbar_bwd(const void* g, const void* pos,
     case 4:
       return static_cast<int>(launch_bwd<4>(g, pos, res_m1, lrows, dense,
                                             dtab, levels, n, rows, seed, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// table (L, 2, rows, 128) f32; pos (N, 3) f32 in [0, 1); g (N, L*2) f32;
+// the layout, n_corners and seed as for the forward; dpos (N, 3) f32.
+extern "C" int nerficg_hash_xbar_bwd_pos(const void* table, const void* pos,
+                                         const void* g, const void* res_m1,
+                                         const void* lrows, const void* dense,
+                                         void* dpos, int levels, int n,
+                                         int rows, int n_corners,
+                                         unsigned int seed, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n_corners) {
+    case 0:
+      return static_cast<int>(launch_bwd_pos<0>(table, pos, g, res_m1, lrows,
+                                                dense, dpos, levels, n, rows,
+                                                seed, s));
+    case 1:
+      return static_cast<int>(launch_bwd_pos<1>(table, pos, g, res_m1, lrows,
+                                                dense, dpos, levels, n, rows,
+                                                seed, s));
+    case 2:
+      return static_cast<int>(launch_bwd_pos<2>(table, pos, g, res_m1, lrows,
+                                                dense, dpos, levels, n, rows,
+                                                seed, s));
+    case 4:
+      return static_cast<int>(launch_bwd_pos<4>(table, pos, g, res_m1, lrows,
+                                                dense, dpos, levels, n, rows,
+                                                seed, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -22,6 +22,10 @@ Training evaluates the encode with STOCHASTIC_CORNERS sampled corners per
 (sample, level) when given an encode seed (the TPU's default training path),
 or exactly with STOCHASTIC_CORNERS=0; rendering is always exact. The cell
 encode is always exact and ignores the seed.
+
+A model class with ``NEEDS_POS_GRAD`` (D-NeRF's deformation field) needs
+d(encode)/d(position): only the crossbar has it (``hash_encode_xbar_posgrad``
+and its stochastic form), and the other backends refuse to build.
 """
 
 from __future__ import annotations
@@ -41,8 +45,9 @@ from nerficg_torch.ops.encoding import sh_encode
 from nerficg_torch.ops.hash_cell import hash_encode_cell
 from nerficg_torch.ops.hash_window import (hash_encode_win,
                                            hash_encode_win_stochastic)
-from nerficg_torch.ops.hash_xbar import (hash_encode_xbar,
-                                         hash_encode_xbar_stochastic)
+from nerficg_torch.ops.hash_xbar import (
+    hash_encode_xbar, hash_encode_xbar_posgrad, hash_encode_xbar_stochastic,
+    hash_encode_xbar_stochastic_posgrad)
 from nerficg_torch.ops.hashgrid import HashGridConfig, init_hash_grid_mxu
 from nerficg_torch.ops.occupancy import num_cascades
 
@@ -102,10 +107,11 @@ class InstantNGPField(nn.Module):
 
     def __init__(self, hash_config: HashGridConfig, density_width: int,
                  geo_features: int, color_width: int, sh_degree: int,
-                 backend: str = 'window'):
+                 backend: str = 'window', pos_grad: bool = False):
         super().__init__()
         self.hash_config = hash_config
         self.backend = backend
+        self.pos_grad = pos_grad
         self.sh_degree = sh_degree
         c = hash_config
         self.hash_table = nn.Parameter(torch.zeros(
@@ -147,11 +153,15 @@ class InstantNGPField(nn.Module):
             else:
                 feats_t = hash_encode_win(table, unit, config, anchor_keys)
             h = _mlp_featT(self.density_mlp, feats_t)
+        elif stochastic:
+            encode = hash_encode_xbar_stochastic_posgrad if self.pos_grad \
+                else hash_encode_xbar_stochastic
+            h = _mlp(self.density_mlp,
+                     encode(table, unit, encode_seed, config, n_corners))
         else:
-            feats = hash_encode_xbar_stochastic(
-                table, unit, encode_seed, config, n_corners) \
-                if stochastic else hash_encode_xbar(table, unit, config)
-            h = _mlp(self.density_mlp, feats)
+            encode = hash_encode_xbar_posgrad if self.pos_grad \
+                else hash_encode_xbar
+            h = _mlp(self.density_mlp, encode(table, unit, config))
         return trunc_exp(h[:, 0]), h[:, 1:]
 
     def color(self, geo: torch.Tensor, directions: torch.Tensor) -> torch.Tensor:
@@ -188,12 +198,20 @@ class InstantNGPField(nn.Module):
 )
 class InstantNGPModel(BaseModel):
 
+    # Dynamic methods (deformation fields) set this so that the encode's
+    # backward also gives the position gradient (ops/hash_xbar.py).
+    NEEDS_POS_GRAD = False
+
     def build(self, generator: Optional[torch.Generator] = None
               ) -> 'InstantNGPModel':
         backend = str(self.ENCODING_BACKEND)
         if backend not in ENCODING_BACKENDS:
             raise ModelError(f'unknown ENCODING_BACKEND {backend!r}; one of '
                              f'{ENCODING_BACKENDS}')
+        if self.NEEDS_POS_GRAD and backend != 'xbar':
+            raise ValueError(
+                f'ENCODING_BACKEND={backend} has no position-gradient kernel; '
+                "deformation methods must set ENCODING_BACKEND='xbar'")
         # The windowed encodes take their windows over one anchor per
         # march block; the crossbar runs on the ray-ordered stream.
         self.hash_config = HashGridConfig(
@@ -208,7 +226,8 @@ class InstantNGPModel(BaseModel):
                                 int(self.DENSITY_MLP_WIDTH),
                                 int(self.GEO_FEATURES),
                                 int(self.COLOR_MLP_WIDTH),
-                                int(self.SH_DEGREE), backend)
+                                int(self.SH_DEGREE), backend,
+                                self.NEEDS_POS_GRAD)
         field.reset_parameters(generator)
         self.module = field.to(self.device)
         # Cascade c covers the box of half-extent SCALE * 2^(c - (C-1))

@@ -14,6 +14,10 @@ Training renders one ray batch per step through ``_render_rays_impl`` with
 jittered samples and the stochastic encode, and keeps the density grid up to
 date: ``carve_occupancy_grid`` once before training, ``update_occupancy_grid``
 every few steps. Their random draws come from a CPU ``torch.Generator``.
+
+A time-conditioned subclass (D-NeRF) sets ``TIME_CONDITIONED``: rays then
+carry their timestamps into ``_render_rays_impl``, which hands each sample
+its ray's time through the ``_field`` hook. Static models skip that work.
 """
 
 from __future__ import annotations
@@ -65,6 +69,8 @@ __all__ = ['InstantNGPRenderer']
 class InstantNGPRenderer(BaseRenderer):
 
     MODEL_CLASS = InstantNGPModel
+    # Whether the field reads the rays' timestamps (methods/dnerf).
+    TIME_CONDITIONED = False
 
     def __init__(self, config, model):
         super().__init__(config, model)
@@ -129,10 +135,12 @@ class InstantNGPRenderer(BaseRenderer):
                           origins: torch.Tensor, directions: torch.Tensor,
                           background: torch.Tensor, samples_per_ray: int,
                           jitter_seed: Optional[int] = None,
-                          encode_seed: Optional[int] = None) -> dict:
+                          encode_seed: Optional[int] = None,
+                          timestamps: Optional[torch.Tensor] = None) -> dict:
         """One ray batch. Training passes ``jitter_seed`` (sample jitter)
         and ``encode_seed`` (stochastic corners), both uint32; without them
-        samples sit at step midpoints and the encode is exact."""
+        samples sit at step midpoints and the encode is exact. With
+        ``timestamps`` (one per ray) every sample gets its ray's time."""
         n = origins.shape[0]
         block = int(self.MARCH_BLOCK)
         windowed = str(self.model.ENCODING_BACKEND) in ('window', 'cell')
@@ -142,21 +150,31 @@ class InstantNGPRenderer(BaseRenderer):
             sample_budget=n * samples_per_ray, block=block,
             exponential=self._exponential, morton=windowed,
             probes_per_block=self._probes_per_block, seed=jitter_seed)
+        sample_times = None
+        if timestamps is not None:
+            # Ray ids are constant over a block: the owning ray's time is
+            # gathered once per block (padding blocks take the drop slot's
+            # 0) and broadcast (nerficg_tpu renderer.py:204-215).
+            ids = march.ray_ids_m if windowed else march.ray_ids
+            t_flat = torch.nn.functional.pad(timestamps.reshape(-1), (0, 1))
+            block_ids = torch.clamp(ids.reshape(-1, block)[:, 0], max=n)
+            sample_times = t_flat[block_ids][:, None].expand(
+                -1, block).reshape(-1)
         if windowed:
             # The field runs on the morton-ordered stream, so the windowed
             # encode's per-sub-block table windows stay tight; its outputs
             # return to ray order as whole blocks.
-            sigma_m, rgb_m = self.model.field(march.positions_m,
-                                              march.directions_m,
-                                              encode_seed=encode_seed,
-                                              anchor_keys=march.block_keys_m)
+            sigma_m, rgb_m = self._field(march.positions_m,
+                                         march.directions_m, encode_seed,
+                                         sample_times,
+                                         anchor_keys=march.block_keys_m)
             ch = permute_block_channels(
                 torch.stack([sigma_m, rgb_m[:, 0], rgb_m[:, 1], rgb_m[:, 2]]),
                 block, march.perm_to_ray, march.perm_to_morton)
             sigma, rgb = ch[0], ch[1:4]      # rgb channel-major (3, B)
         else:
-            sigma, rgb = self.model.field(march.positions, march.directions,
-                                          encode_seed=encode_seed)
+            sigma, rgb = self._field(march.positions, march.directions,
+                                     encode_seed, sample_times)
         sigma = torch.where(march.valid, sigma, 0.0)
         out = composite_packed(sigma, rgb, march, n,
                                background=background,
@@ -167,9 +185,20 @@ class InstantNGPRenderer(BaseRenderer):
         out['num_blocks'] = march.num_blocks
         return out
 
+    def _field(self, positions: torch.Tensor, directions: torch.Tensor,
+               encode_seed: Optional[int],
+               sample_times: Optional[torch.Tensor],
+               anchor_keys: Optional[torch.Tensor] = None):
+        """Field-evaluation hook; time-conditioned methods override it to
+        read the per-sample times (methods/dnerf)."""
+        return self.model.field(positions, directions,
+                                encode_seed=encode_seed,
+                                anchor_keys=anchor_keys)
+
     def _refine_impl(self, grid_binary: torch.Tensor, origins: torch.Tensor,
                      directions: torch.Tensor, background: torch.Tensor,
-                     out: dict) -> dict:
+                     out: dict,
+                     timestamps: Optional[torch.Tensor] = None) -> dict:
         """Re-march up to a fixed fraction of the chunk's rays, those whose
         samples the budget truncated while still transmissive, at a larger
         per-ray budget, and merge them back."""
@@ -187,7 +216,8 @@ class InstantNGPRenderer(BaseRenderer):
         out2 = self._render_rays_impl(
             grid_binary, origins[safe], directions[safe], background,
             samples_per_ray=int(self.INFERENCE_SAMPLES_PER_RAY) *
-            int(self.INFERENCE_REFINE_FACTOR))
+            int(self.INFERENCE_REFINE_FACTOR),
+            timestamps=None if timestamps is None else timestamps[safe])
         merged = dict(out)
         for key in ('rgb', 'depth', 'alpha'):
             # Only the valid entries are written: padding entries go to a
@@ -205,6 +235,17 @@ class InstantNGPRenderer(BaseRenderer):
                           ) -> torch.Tensor:
         """One grid refresh (nerficg_tpu renderer.py:253-278): the slab's
         cells are queried with the stochastic encode (forward only)."""
+        return self._refresh_grid(
+            density_grid, draws,
+            lambda positions: self.model.density(
+                positions, encode_seed=encode_seed)[0], carve_mask,
+            self.density_threshold)
+
+    def _refresh_grid(self, density_grid: torch.Tensor, draws, query,
+                      carve_mask: Optional[torch.Tensor],
+                      occupied_threshold: float) -> torch.Tensor:
+        """``update_density_grid`` with the density ``query``; the biased
+        slab starts count the cells above ``occupied_threshold``."""
         model = self.model
         position_fn = None
         if self._cascades > 1:
@@ -212,13 +253,11 @@ class InstantNGPRenderer(BaseRenderer):
                 cells, offs, model.center, float(model.SCALE),
                 int(model.GRID_RESOLUTION), self._cascades)
         return update_density_grid(
-            density_grid,
-            lambda positions: model.density(positions,
-                                            encode_seed=encode_seed)[0],
+            density_grid, query,
             model.aabb_min, model.aabb_max, int(model.GRID_RESOLUTION),
             draws, decay=float(self.OCCUPANCY_DECAY),
             position_fn=position_fn, carve_mask=carve_mask,
-            occupied_threshold=self.density_threshold)
+            occupied_threshold=occupied_threshold)
 
     def update_occupancy_grid(self, generator: torch.Generator,
                               warmup: bool = False) -> None:
@@ -232,7 +271,13 @@ class InstantNGPRenderer(BaseRenderer):
         encode_seed = int(torch.randint(0, 2 ** 32, (1,),
                                         generator=generator))
         self.model.buffers['density_grid'] = self._update_grid_impl(
-            grid, draws, encode_seed, self.model.buffers.get('carve_mask'))
+            grid, draws, encode_seed, self.model.buffers.get('carve_mask'),
+            **self._grid_draws(generator))
+
+    def _grid_draws(self, generator: torch.Generator) -> dict:
+        """Further random arguments of ``_update_grid_impl``, drawn after
+        the cells and the encode seed (D-NeRF: the refresh's time)."""
+        return {}
 
     @torch.no_grad()
     def carve_occupancy_grid(self, views, dilate: int = 1) -> None:
@@ -289,15 +334,19 @@ class InstantNGPRenderer(BaseRenderer):
         n = len(rays)
         padded = ((n + chunk - 1) // chunk) * chunk
         rays_p = rays.pad_to(padded)
+        timed = self.TIME_CONDITIONED and rays_p.timestamps is not None
         outputs = []
         for i in range(0, padded, chunk):
             origins = rays_p.origins[i:i + chunk]
             directions = rays_p.directions[i:i + chunk]
+            times = rays_p.timestamps[i:i + chunk] if timed else None
             out = self._render_rays_impl(
                 grid, origins, directions, bg,
-                samples_per_ray=int(self.INFERENCE_SAMPLES_PER_RAY))
+                samples_per_ray=int(self.INFERENCE_SAMPLES_PER_RAY),
+                timestamps=times)
             if bool(self.INFERENCE_REFINE):
-                out = self._refine_impl(grid, origins, directions, bg, out)
+                out = self._refine_impl(grid, origins, directions, bg, out,
+                                        timestamps=times)
             outputs.append({k: out[k] for k in ('rgb', 'depth', 'alpha')})
         return {k: torch.cat([o[k] for o in outputs], 0)[:n]
                 for k in outputs[0]}

@@ -6,7 +6,8 @@ x0.33 at the milestones, the ray count resized every 16 iterations toward
 TARGET_BATCH_SIZE samples per step (snapped to power-of-two buckets, as the
 JAX package does), occupancy updates every 16 iterations with full-grid
 refreshes during warm-up, a random background per batch, and
-loss = masked MSE + WEIGHT_DECAY * mean squared MLP weight.
+loss = masked MSE + WEIGHT_DECAY * mean squared MLP weight + the method's
+``_loss_extras`` term (D-NeRF: its offset prior).
 
 Ray ids and backgrounds are drawn from ``np.random.default_rng(RANDOM_SEED)``
 in the JAX trainer's order, so both trainers see the same batches; the march
@@ -109,7 +110,8 @@ class InstantNGPTrainer(BaseTrainer):
     def _init_samplers(self, dataset) -> None:
         rays = dataset.precompute_rays('train', device=self.device).rays
         self._pool = {'origins': rays.origins, 'directions': rays.directions,
-                      'rgb': rays.rgb, 'alpha': rays.alpha}
+                      'rgb': rays.rgb, 'alpha': rays.alpha,
+                      'timestamps': rays.timestamps}
         self._pool_size = int(rays.origins.shape[0])
         self._np_rng = np.random.default_rng(self.seed)
         self._bg_static = torch.as_tensor(
@@ -146,24 +148,33 @@ class InstantNGPTrainer(BaseTrainer):
             alpha = pool['alpha'][ids]
             target = target * alpha + background * (1.0 - alpha)
         n = ids.shape[0]
+        times = pool['timestamps'][ids] \
+            if self.renderer.TIME_CONDITIONED else None
         out = self.renderer._render_rays_impl(
             self.renderer.grid_binary(), pool['origins'][ids],
             pool['directions'][ids], background, self.samples_per_ray(n),
-            jitter_seed=jitter_seed, encode_seed=encode_seed)
+            jitter_seed=jitter_seed, encode_seed=encode_seed,
+            timestamps=times)
         # Rays whose samples the budget truncated are left out: they would
         # otherwise train toward black.
         mask = out['ray_mask']
         err = (out['rgb'] - target) ** 2 * mask
         color = err.sum() / torch.clamp(mask.sum() * 3.0, min=1.0)
         wd = self.model.mlp_weight_squares()
-        loss = color + float(self.WEIGHT_DECAY) * wd
+        extra, extra_logs = self._loss_extras()
+        loss = color + float(self.WEIGHT_DECAY) * wd + extra
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         return {'color': color.detach(), 'weight_decay': wd.detach(),
                 'total': loss.detach(), 'psnr': mse_to_psnr(color.detach()),
                 'num_samples': out['num_samples'],
                 'num_blocks': out['num_blocks'],
-                'ray_mask_frac': mask.mean()}
+                'ray_mask_frac': mask.mean(), **extra_logs}
+
+    def _loss_extras(self) -> tuple:
+        """A method's further loss term and its logs (D-NeRF: the offset
+        prior), added to the loss of every step."""
+        return 0.0, {}
 
     def apply_update(self) -> None:
         """Adam with the schedule's rate at the step count before the

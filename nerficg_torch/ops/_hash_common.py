@@ -104,19 +104,7 @@ def stoch_corners(frac, bits, n_corners: int):
              < frac[d]).long() for d in range(3)]
     if n_corners == 1:
         return [tuple(offs)], [torch.ones_like(frac[0])]
-    m = [torch.minimum(f, 1.0 - f) for f in frac]
-    if n_corners == 2:
-        # exact dim = argmax m
-        k0 = (m[0] >= m[1]) & (m[0] >= m[2])
-        k1 = ~k0 & (m[1] >= m[2])
-        exact = [k0, k1, ~k0 & ~k1]
-    elif n_corners == 4:
-        # stochastic dim = argmin m; exact = the other two
-        s0 = (m[0] <= m[1]) & (m[0] <= m[2])
-        s1 = ~s0 & (m[1] <= m[2])
-        exact = [~s0, ~s1, s0 | s1]
-    else:
-        raise ValueError(f'n_corners must be 1, 2 or 4, got {n_corners}')
+    exact = exact_dims(frac, n_corners)
     # Each exact dim takes the enumeration bit of its rank among the exact
     # dims (0 = lowest dim index).
     first = [exact[0], exact[1] & ~exact[0],
@@ -135,6 +123,24 @@ def stoch_corners(frac, bits, n_corners: int):
         corners.append(tuple(corner))
         weights.append(w)
     return corners, weights
+
+
+def exact_dims(frac, n_corners: int):
+    """The three (...) bool masks of the dims a stochastic corner set
+    interpolates exactly: none for 1 corner, argmax m_d for 2, all but
+    argmin m_d for 4 (m_d = min(f_d, 1 - f_d), ties to the lowest dim)."""
+    if n_corners == 1:
+        return [torch.zeros_like(frac[0], dtype=torch.bool)] * 3
+    m = [torch.minimum(f, 1.0 - f) for f in frac]
+    if n_corners == 2:
+        k0 = (m[0] >= m[1]) & (m[0] >= m[2])
+        k1 = ~k0 & (m[1] >= m[2])
+        return [k0, k1, ~k0 & ~k1]
+    if n_corners == 4:
+        s0 = (m[0] <= m[1]) & (m[0] <= m[2])
+        s1 = ~s0 & (m[1] <= m[2])
+        return [~s0, ~s1, s0 | s1]
+    raise ValueError(f'n_corners must be 1, 2 or 4, got {n_corners}')
 
 
 def _level_frac(positions: torch.Tensor, res: int):
@@ -164,6 +170,29 @@ def corner_set(positions: torch.Tensor, res: int, level: int,
         offs = torch.stack([torch.stack(c, -1) for c in corners], 1)
         w = torch.stack(weights, 1)
     return base[:, None, :] + offs, w
+
+
+def corner_factors(positions: torch.Tensor, res: int, level: int,
+                   n_corners: int = 0, seed: int = 0):
+    """The corners of one level with their per-dim lerp factors and the
+    factors' derivatives in the fraction (``_corner_set``, nerficg_tpu/ops/
+    hash_xbar.py:236-296): (vertices (N, C, 3) int64, factors (N, C, 3),
+    dfactors (N, C, 3)). Exact corners: factor f or 1 - f, dfactor +1 or -1.
+    Stochastic corners (the draws of ``corner_set``): the interpolated dims
+    likewise, the Bernoulli-sampled dims factor 1 and dfactor 0 (the
+    straight-through position gradient)."""
+    verts, _ = corner_set(positions, res, level, n_corners, seed)
+    base, frac = _level_frac(positions, res)
+    upper = (verts - base[:, None, :]) == 1                  # (N, C, 3)
+    f = frac[:, None, :]
+    factors = torch.where(upper, f, 1.0 - f)
+    dfactors = torch.where(upper, 1.0, -1.0)
+    if n_corners:
+        exact = torch.stack(exact_dims(tuple(frac.unbind(-1)), n_corners),
+                            -1)[:, None, :]
+        factors = torch.where(exact, factors, 1.0)
+        dfactors = torch.where(exact, dfactors, 0.0)
+    return verts, factors, dfactors
 
 
 # ---------------------------------------------------------------------------

@@ -58,12 +58,16 @@ _SIGNATURES = {
     'nerficg_hash_cell_bwd': [_P] * 10 + [_I, _I, _I, _I, _P],
     'nerficg_hash_xbar_fwd': [_P] * 8 + [_I, _I, _I, _I, _U, _P],
     'nerficg_hash_xbar_bwd': [_P] * 6 + [_I, _I, _I, _I, _U, _P],
+    'nerficg_hash_xbar_bwd_pos': [_P] * 7 + [_I, _I, _I, _I, _U, _P],
     'nerficg_block_probe': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     'nerficg_seg_gather': [_P, _P, _P, _I, _I, _I, _I, _P],
     'nerficg_seg_scatter_add': [_P, _P, _P, _I, _I, _I, _I, _P],
     'nerficg_gs_composite_fwd': [_P] * 5 + [_I] * 4 + [_P],
     'nerficg_gs_composite_fwd_packed': [_P] * 4 + [_I] * 4 + [_P],
     'nerficg_gs_composite_bwd': [_P] * 6 + [_I] * 4 + [_P],
+    'nerficg_gs_tiles_fwd': [_P] * 4 + [_I, _I, _P],
+    'nerficg_gs_tiles_bwd': [_P] * 6 + [_I, _I, _P],
+    'nerficg_xbar_permute': [_P] * 3 + [_I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

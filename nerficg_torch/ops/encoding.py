@@ -1,12 +1,16 @@
-"""Real spherical-harmonics direction encoding and the 3DGS SH color,
-ported from nerficg_tpu/ops/encoding.py (tcnn / 3DGS convention, reference:
+"""Input encodings, ported from nerficg_tpu/ops/encoding.py: the NeRF
+frequency encoding (reference: NeRF/utils.py:12-37), real spherical harmonics
+and the 3DGS SH color (tcnn / 3DGS convention, reference:
 GaussianSplatting/utils.py:21-59). Elementwise PyTorch, no kernel."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ['sh_encode', 'eval_sh', 'SH_C0']
+__all__ = ['frequency_encode', 'frequency_encoding_dim', 'sh_encode',
+           'eval_sh', 'SH_C0']
 
 SH_C0 = 0.28209479177387814
 _SH_C1 = 0.4886025119029199
@@ -15,6 +19,28 @@ _SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
 _SH_C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
           0.3731763325901154, -0.4570457994644658, 1.445305721320277,
           -0.5900435899266435)
+
+
+def frequency_encode(x: torch.Tensor, num_frequencies: int,
+                     include_input: bool = True) -> torch.Tensor:
+    """NeRF positional encoding (..., D) -> [x, sin(2^k pi x), cos(2^k pi x)]
+    with, per frequency k, the D sines then the D cosines, as the JAX
+    reshape orders them."""
+    if num_frequencies == 0:
+        return x
+    freqs = (2.0 ** torch.arange(num_frequencies, dtype=torch.float32,
+                                 device=x.device)) * math.pi
+    scaled = x[..., None, :] * freqs[:, None]               # (..., F, D)
+    enc = torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1)
+    enc = enc.reshape(*x.shape[:-1], -1)
+    if include_input:
+        enc = torch.cat([x, enc], dim=-1)
+    return enc
+
+
+def frequency_encoding_dim(input_dim: int, num_frequencies: int,
+                           include_input: bool = True) -> int:
+    return input_dim * (2 * num_frequencies + (1 if include_input else 0))
 
 
 def sh_encode(directions: torch.Tensor, degree: int = 4) -> torch.Tensor:

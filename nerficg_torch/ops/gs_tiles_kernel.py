@@ -31,6 +31,16 @@ pixels instead (:424-427); the two give the same bits, because every
 quantity involved is a multiple of 1/32 px below 4096 px, exact in f32.
 
 The packed layout is not differentiable (nerficg_tpu :816-819).
+
+``composite_tiles`` (nerficg_tpu :361) composites per-tile slot windows
+instead of the stream: slots (T, K, 10) f32, counts (T,) int32, origins
+(T, 2) f32 -> (T, 8, P) with rows [r, g, b, acc, depth, 0, 0, 0],
+differentiable in the slots. On CUDA tensors ``gs_tiles_fwd`` and
+``gs_tiles_bwd`` launch the kernels of the same file that replace the TPU's
+``_fwd_kernel`` (#13, :164) and ``_bwd_kernel`` (#14, :200); CPU tensors take
+``_composite_plain`` and autograd through it, as the JAX package's CPU path
+does (:398-399). Nothing in the JAX methods calls it: it is part of the op
+API.
 """
 
 from __future__ import annotations
@@ -42,14 +52,16 @@ from nerficg_torch.ops import _kernels
 
 __all__ = ['composite_sorted', 'gs_composite_fwd', 'gs_composite_fwd_packed',
            'gs_composite_bwd', 'gs_composite_fwd_plain',
-           'gs_composite_bwd_plain', 'live_chunks', 'TILE', 'P', 'CH',
-           'OUT_ROWS', 'ALPHA_MIN', 'ALPHA_MAX', 'MEANS_FP_SCALE',
-           'MEANS_FP_BIAS']
+           'gs_composite_bwd_plain', 'composite_tiles', 'gs_tiles_fwd',
+           'gs_tiles_bwd', 'gs_tiles_fwd_plain', 'gs_tiles_bwd_plain',
+           'live_chunks', 'TILE', 'P', 'CH', 'OUT_ROWS', 'SLOT_OUT_ROWS',
+           'ALPHA_MIN', 'ALPHA_MAX', 'MEANS_FP_SCALE', 'MEANS_FP_BIAS']
 
 TILE = 16
 P = TILE * TILE             # pixels per tile: one CUDA thread each
 CH = 32                     # entries per chunk (the port's own; see tacc)
 OUT_ROWS = 5                # r, g, b, acc, depth
+SLOT_OUT_ROWS = 8           # composite_tiles: the same and three zero rows
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 # Packed means (nerficg_tpu/ops/gs_rasterize.py:130-131): u16 fixed point in
@@ -371,3 +383,129 @@ def composite_sorted(sorted_mat: torch.Tensor, starts: torch.Tensor,
                                   starts.to(torch.int32).contiguous(),
                                   counts.to(torch.int32).contiguous(),
                                   tiles_x, num_tiles, k)
+
+
+# ---------------------------------------------------------------------------
+# composite_tiles: the slot compositor (#13, #14)
+# ---------------------------------------------------------------------------
+
+def gs_tiles_fwd_plain(slots: torch.Tensor, counts: torch.Tensor,
+                       origins: torch.Tensor) -> torch.Tensor:
+    """Plain slot composite, ``_composite_plain`` tile block by tile block:
+    (T, 8, P), rows 5-7 zero (the oracle ``_composite_jnp`` :322)."""
+    outs = []
+    with torch.no_grad():
+        for first in range(0, slots.shape[0], _PLAIN_TILES):
+            last = first + _PLAIN_TILES
+            out, _ = _composite_plain(slots[first:last], counts[first:last],
+                                      origins[first:last])
+            outs.append(out)
+    out = torch.cat(outs) if outs else slots.new_zeros((0, OUT_ROWS, P))
+    return torch.nn.functional.pad(out, (0, 0, 0, SLOT_OUT_ROWS - OUT_ROWS))
+
+
+def gs_tiles_bwd_plain(slots: torch.Tensor, counts: torch.Tensor,
+                       origins: torch.Tensor,
+                       dout: torch.Tensor) -> torch.Tensor:
+    """d slots (T, K, 10) by autograd of ``_composite_plain``, tile block by
+    tile block (``jax.vjp`` of the oracle, :398-399)."""
+    grads = []
+    for first in range(0, slots.shape[0], _PLAIN_TILES):
+        last = first + _PLAIN_TILES
+        block = slots[first:last].detach().requires_grad_(True)
+        with torch.enable_grad():
+            out, _ = _composite_plain(block, counts[first:last],
+                                      origins[first:last])
+            (d_block,) = torch.autograd.grad(out, block,
+                                             dout[first:last, :OUT_ROWS])
+        grads.append(d_block)
+    return torch.cat(grads) if grads else torch.zeros_like(slots)
+
+
+def _check_slots(name: str, slots: torch.Tensor, counts: torch.Tensor,
+                 origins: torch.Tensor) -> None:
+    _kernels.require_cuda(name, slots, counts, origins,
+                          dtypes=(torch.float32, torch.int32, torch.float32))
+    t = slots.shape[0]
+    if slots.ndim != 3 or slots.shape[2] != 10 or counts.shape != (t,) or \
+            origins.shape != (t, 2):
+        raise KernelError(f'{name}: slots must be (T, K, 10), counts (T,) '
+                          f'and origins (T, 2), got {tuple(slots.shape)}, '
+                          f'{tuple(counts.shape)}, {tuple(origins.shape)}')
+
+
+def gs_tiles_fwd(slots: torch.Tensor, counts: torch.Tensor,
+                 origins: torch.Tensor) -> torch.Tensor:
+    """Slot composite (T, 8, P) (#13). CUDA tensors launch the kernel, CPU
+    tensors take ``gs_tiles_fwd_plain``."""
+    if slots.device.type == 'cpu':
+        return gs_tiles_fwd_plain(slots, counts, origins)
+    name = 'gs_tiles_fwd'
+    _check_slots(name, slots, counts, origins)
+    num_tiles, k, _ = slots.shape
+    out = torch.empty((num_tiles, SLOT_OUT_ROWS, P), dtype=torch.float32,
+                      device=slots.device)
+    code = _kernels.load_library().nerficg_gs_tiles_fwd(
+        slots.data_ptr(), counts.data_ptr(), origins.data_ptr(),
+        out.data_ptr(), num_tiles, k, _kernels.stream_of(slots))
+    _kernels.check(code, name)
+    gs_tiles_fwd.launches += 1
+    return out
+
+
+def gs_tiles_bwd(slots: torch.Tensor, counts: torch.Tensor,
+                 origins: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """d slots (T, K, 10) from d out (T, 8, P) (#14), zero past each count.
+    CUDA tensors launch the kernel (which recomputes each chunk's starting
+    transmittance into a scratch buffer first), CPU tensors take
+    ``gs_tiles_bwd_plain``."""
+    if slots.device.type == 'cpu':
+        return gs_tiles_bwd_plain(slots, counts, origins, dout)
+    name = 'gs_tiles_bwd'
+    _check_slots(name, slots, counts, origins)
+    num_tiles, k, _ = slots.shape
+    _kernels.require_cuda(name, slots, dout, dtypes=(torch.float32,) * 2)
+    if dout.shape != (num_tiles, SLOT_OUT_ROWS, P):
+        raise KernelError(f'{name}: dout must be ({num_tiles}, '
+                          f'{SLOT_OUT_ROWS}, {P}), got {tuple(dout.shape)}')
+    tacc = torch.empty((num_tiles, num_chunks(k), P), dtype=torch.float32,
+                       device=slots.device)
+    d_slots = torch.empty_like(slots)
+    code = _kernels.load_library().nerficg_gs_tiles_bwd(
+        slots.data_ptr(), counts.data_ptr(), origins.data_ptr(),
+        tacc.data_ptr(), dout.data_ptr(), d_slots.data_ptr(), num_tiles, k,
+        _kernels.stream_of(slots))
+    _kernels.check(code, name)
+    gs_tiles_bwd.launches += 1
+    return d_slots
+
+
+gs_tiles_fwd.launches = 0
+gs_tiles_bwd.launches = 0
+
+
+class _CompositeTiles(torch.autograd.Function):
+    """``composite_tiles`` (nerficg_tpu :361-403): #13 forward, #14
+    backward."""
+
+    @staticmethod
+    def forward(ctx, slots, counts, origins):
+        ctx.save_for_backward(slots, counts, origins)
+        return gs_tiles_fwd(slots, counts, origins)
+
+    @staticmethod
+    def backward(ctx, dout):
+        slots, counts, origins = ctx.saved_tensors
+        return gs_tiles_bwd(slots, counts, origins, dout.contiguous()), \
+            None, None
+
+
+def composite_tiles(slots: torch.Tensor, counts: torch.Tensor,
+                    origins: torch.Tensor) -> torch.Tensor:
+    """Per-tile compositing of slot windows: slots (T, K, 10) f32 rows [mx,
+    my, ca, cb, cc, op, r, g, b, depth], counts (T,) (a tile composites its
+    first min(count, K) slots), origins (T, 2) f32 pixel origins -> (T, 8,
+    P) rows [r, g, b, acc, depth, 0, 0, 0]; differentiable in ``slots``."""
+    return _CompositeTiles.apply(slots.contiguous(),
+                                 counts.to(torch.int32).contiguous(),
+                                 origins.to(torch.float32).contiguous())

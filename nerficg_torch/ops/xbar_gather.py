@@ -16,6 +16,11 @@ grid only has to be conservative).
 ``nerficg_torch/csrc/block_probe.cu``, which replaces the TPU crossbar gather
 ``_gather_kernel`` (nerficg_tpu/ops/xbar_gather.py:36) at its three calls in
 the JAX probe; for CPU tensors it runs ``block_probe_cells_plain``.
+
+``xbar_permute`` (:111) is the row permutation ``mat[idx]`` of a matrix of
+32-bit words, bit-exact; on CUDA tensors it launches the kernel of the same
+file that replaces ``_permute_kernel`` (:88). Nothing in the JAX methods
+calls it: it is part of the op API.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ from nerficg_torch.core.errors import KernelError
 from nerficg_torch.ops import _kernels
 
 __all__ = ['build_block_bitfield', 'block_probe_cells',
-           'block_probe_cells_plain', 'block_table_rows']
+           'block_probe_cells_plain', 'block_table_rows', 'xbar_permute',
+           'xbar_permute_plain']
 
 _LANES = 128
 _BLOCK = 8                      # cells per block side (512 bits = 16 words)
@@ -176,3 +182,36 @@ def block_probe_cells(table: torch.Tensor, cx: torch.Tensor,
 
 
 block_probe_cells.launches = 0
+
+
+def xbar_permute_plain(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``mat[idx]``: rows of an (N, C) matrix picked by idx (M,)."""
+    return mat[idx.long()]
+
+
+def xbar_permute(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row permutation or gather ``mat[idx]`` of an (N, C) matrix of any
+    32-bit dtype by int32 indices (M,) in [0, N) -> (M, C), the bits moved
+    exactly (nerficg_tpu/ops/xbar_gather.py:111, #5).
+
+    CUDA tensors launch the hand-written kernel; CPU tensors take
+    ``xbar_permute_plain``."""
+    if mat.device.type == 'cpu':
+        return xbar_permute_plain(mat, idx)
+    name = 'xbar_permute'
+    if mat.ndim != 2 or idx.ndim != 1 or mat.element_size() != 4:
+        raise KernelError(f'{name}: mat must be (N, C) of a 32-bit dtype and '
+                          f'idx (M,), got {tuple(mat.shape)} {mat.dtype} and '
+                          f'{tuple(idx.shape)}')
+    _kernels.require_cuda(name, mat, idx, dtypes=(mat.dtype, torch.int32))
+    out = torch.empty((idx.shape[0], mat.shape[1]), dtype=mat.dtype,
+                      device=mat.device)
+    code = _kernels.load_library().nerficg_xbar_permute(
+        mat.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+        mat.shape[1], _kernels.stream_of(mat))
+    _kernels.check(code, name)
+    xbar_permute.launches += 1
+    return out
+
+
+xbar_permute.launches = 0

@@ -7,7 +7,7 @@ from __future__ import annotations
 import math
 from typing import Callable
 
-__all__ = ['multistep_lr', 'lr_decay_policy']
+__all__ = ['multistep_lr', 'lr_decay_policy', 'exponential_decay']
 
 
 def lr_decay_policy(lr_init: float, lr_final: float,
@@ -36,5 +36,17 @@ def multistep_lr(lr_init: float, milestones: list[int],
             if step >= m:
                 factor *= gamma
         return lr_init * factor
+
+    return schedule
+
+
+def exponential_decay(lr_init: float, transition_steps: int,
+                      decay_rate: float) -> Callable[[int], float]:
+    """lr_init * decay_rate^(step / transition_steps), not staircased
+    (``optax.exponential_decay`` with its other arguments at their
+    defaults)."""
+
+    def schedule(step: int) -> float:
+        return lr_init * decay_rate ** (step / transition_steps)
 
     return schedule

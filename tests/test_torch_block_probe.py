@@ -2,7 +2,11 @@
 xbar_gather.py) with the JAX package's (nerficg_tpu/ops/xbar_gather.py) on
 the CPU, where the JAX probe's crossbar gathers are ``table.reshape(-1)[idx]``.
 Both are integer functions and must agree exactly, including overflow blocks
-and two grids (cascades)."""
+and two grids (cascades). The row permutation ``xbar_permute`` (#5) moves
+bits and must agree exactly too, with JAX's CPU path and with the TPU
+kernel ``_permute_kernel`` run in interpret mode."""
+
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -109,3 +113,50 @@ def test_wrapper_refuses_non_cpu_tensors_without_a_kernel():
     c = torch.empty(64, dtype=torch.int32, device='meta')
     with pytest.raises(KernelError):
         txg.block_probe_cells(table, c, c, c, 0, 32, 64)
+
+
+def _permute_inputs(dtype, n=3000, cols=4, seed=0):
+    rng = np.random.default_rng(seed)
+    if dtype == np.int32:
+        mat = rng.integers(-2 ** 31, 2 ** 31, (n, cols), dtype=np.int64
+                           ).astype(np.int32)
+    else:
+        # Every bit pattern, NaNs and infinities included.
+        mat = rng.integers(0, 2 ** 32, (n, cols), dtype=np.uint64).astype(
+            np.uint32).view(np.float32)
+    return mat, rng.permutation(n).astype(np.int32)
+
+
+@pytest.mark.parametrize('dtype', [np.float32, np.int32])
+def test_xbar_permute_moves_the_bits(dtype):
+    """Against the JAX entry point's CPU path (``mat[idx]``) and against
+    ``_permute_kernel`` in interpret mode: ``pallas_call`` patched as
+    tests/test_hash_xbar.py patches it and the backend check (:122) made to
+    see a TPU. Bit for bit, over an (N, 4) matrix, N not a multiple of the
+    TPU's 1024-row padding."""
+    mat, idx = _permute_inputs(dtype)
+    got = txg.xbar_permute(torch.from_numpy(mat), torch.from_numpy(idx))
+    got = got.numpy().view(np.uint32)
+    want = np.asarray(jxg.xbar_permute(jnp.asarray(mat), jnp.asarray(idx)))
+    np.testing.assert_array_equal(got, want.view(np.uint32))
+    orig = jxg.pl.pallas_call
+
+    def call(*a, **kw):
+        kw['interpret'] = True
+        kw.pop('compiler_params', None)
+        return orig(*a, **kw)
+    with mock.patch.object(jxg.pl, 'pallas_call', call), \
+            mock.patch.object(jxg.jax, 'default_backend', lambda: 'tpu'):
+        kernel = np.asarray(jxg.xbar_permute(jnp.asarray(mat),
+                                             jnp.asarray(idx)))
+    np.testing.assert_array_equal(got, kernel.view(np.uint32))
+
+
+def test_xbar_permute_refuses_non_cpu_tensors_without_a_kernel():
+    mat = torch.empty((100, 4), device='meta')
+    idx = torch.empty(100, dtype=torch.int32, device='meta')
+    with pytest.raises(KernelError):
+        txg.xbar_permute(mat, idx)
+    with pytest.raises(KernelError):
+        txg.xbar_permute(torch.empty((100, 4), dtype=torch.float64,
+                                     device='meta'), idx)

@@ -250,3 +250,64 @@ def test_gs_composite_bwd(cuda):
     torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
     assert torch.equal(got, gs_tiles_kernel.gs_composite_bwd(
         *args[:3], tacc, dout, *args[3:]))
+
+
+@pytest.mark.parametrize('n_corners', [0, 1, 2, 4])
+def test_hash_xbar_bwd_pos(cuda, n_corners):
+    """The position gradient against its plain version on the same bits:
+    rtol 1e-5 (the kernel keeps the plain version's order of operations
+    with _rn intrinsics), and equal between two launches (no atomics)."""
+    table, pos, g = _xbar_inputs(cuda, seed=7)
+    args = (table, pos, g, CFG, n_corners, 0x5EED)
+    got = hash_xbar.hash_xbar_bwd_pos(*args)
+    want = hash_xbar.hash_xbar_bwd_pos_plain(*args)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+    assert torch.equal(got, hash_xbar.hash_xbar_bwd_pos(*args))
+    if n_corners != 1:
+        assert float(got.abs().max()) > 1.0
+
+
+def _slot_inputs(cuda):
+    """Slots of the rasterizer's 160x120 stream (``_slots``), k = 256."""
+    args = _gs_stream(cuda, packed=False, seed=8)
+    mat, starts, counts, tiles_x, num_tiles, k = args
+    slots, _ = gs_tiles_kernel._slots(mat, starts, tiles_x, k, 0, num_tiles)
+    origins = gs_tiles_kernel._tile_origins(num_tiles, tiles_x, cuda)
+    return args, slots.contiguous(), counts, origins
+
+
+def test_gs_tiles_fwd_and_bwd(cuda):
+    """#13 atol 1e-5 against its plain version and, in rows 0-4, against
+    #15 on the same tiles (two kernels of one function); #14 within the JAX
+    package's 2e-3 / 1e-3 of autograd of the plain version, zero past each
+    count, and equal between two launches."""
+    args, slots, counts, origins = _slot_inputs(cuda)
+    out = gs_tiles_kernel.gs_tiles_fwd(slots, counts, origins)
+    torch.testing.assert_close(
+        out, gs_tiles_kernel.gs_tiles_fwd_plain(slots, counts, origins),
+        rtol=0, atol=1e-5)
+    stream_out, _ = gs_tiles_kernel.gs_composite_fwd(*args)
+    torch.testing.assert_close(out[:, :5], stream_out, rtol=0, atol=1e-5)
+    assert not out[:, 5:].any()
+    dout = torch.tensor(np.random.default_rng(9).normal(
+        size=(args[4], 8, 256)), dtype=torch.float32, device=cuda)
+    got = gs_tiles_kernel.gs_tiles_bwd(slots, counts, origins, dout)
+    want = gs_tiles_kernel.gs_tiles_bwd_plain(slots, counts, origins, dout)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
+    past = torch.arange(slots.shape[1], device=cuda)[None] >= \
+        counts[:, None].long()
+    assert not got[past].any()
+    assert torch.equal(got, gs_tiles_kernel.gs_tiles_bwd(slots, counts,
+                                                         origins, dout))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.int32])
+def test_xbar_permute(cuda, dtype):
+    rng = np.random.default_rng(10)
+    bits = rng.integers(-2 ** 31, 2 ** 31, (65536, 4), dtype=np.int64)
+    mat = torch.tensor(bits.astype(np.int32), device=cuda).view(dtype)
+    idx = torch.tensor(rng.permutation(65536), dtype=torch.int32, device=cuda)
+    got = xbar_gather.xbar_permute(mat, idx)
+    want = xbar_gather.xbar_permute_plain(mat, idx)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -1,10 +1,13 @@
-"""The port's 3DGS stream compositor (#15/#16) against the JAX package.
+"""The port's 3DGS stream compositor (#15/#16) and slot compositor
+``composite_tiles`` (#13/#14) against the JAX package.
 
 The plain versions (what the CUDA kernels are held to on the card) against
-the JAX oracle ``_cs_jnp`` and against the Pallas kernels run in interpret
-mode, as tests/test_gs_tiles_kernel.py runs them: forwards within atol 1e-5,
-gradients within JAX's own 2e-3 / 1e-3. The streams hold tiles with count 0
-and with count > k.
+the JAX oracles ``_cs_jnp`` and ``_composite_jnp`` and against the Pallas
+kernels run in interpret mode, as tests/test_gs_tiles_kernel.py runs them:
+forwards within atol 1e-5, gradients within JAX's own 2e-3 / 1e-3. The
+streams hold tiles with count 0 and with count > k; the slots are that
+test's fixture (counts k, 0, 5, 64, k, 37; row-major origins, on which the
+TPU kernel's origins from tiles_x and the oracle's agree).
 """
 
 from unittest import mock
@@ -235,3 +238,86 @@ def test_cpu_wrappers_take_the_plain_versions(stream16, stream8, dout):
                                   save_tacc=False))
     assert (tk.gs_composite_fwd.launches, tk.gs_composite_fwd_packed.launches,
             tk.gs_composite_bwd.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# composite_tiles (#13/#14)
+# ---------------------------------------------------------------------------
+
+SLOT_COUNTS = np.array([128, 0, 5, 64, 128, 37], np.int32)
+
+
+@pytest.fixture(scope='module')
+def slot_data():
+    """tests/test_gs_tiles_kernel.py's fixture shapes: 6 tiles of k = 128
+    slots in a row (origins 16 t, 0), drawn from numpy."""
+    rng = np.random.default_rng(7)
+    t, k = 6, 128
+    slots = np.concatenate([
+        rng.uniform(-4.0, 20.0, (t, k, 2)),
+        rng.uniform(0.05, 0.3, (t, k, 1)), rng.uniform(-0.02, 0.02, (t, k, 1)),
+        rng.uniform(0.05, 0.3, (t, k, 1)), rng.uniform(0.05, 0.9, (t, k, 1)),
+        rng.uniform(0.0, 1.0, (t, k, 3)), rng.uniform(1.0, 5.0, (t, k, 1)),
+    ], axis=-1).astype(np.float32)
+    slots[..., 0] += (np.arange(t) * 16.0)[:, None]
+    origins = np.stack([np.arange(t) * 16.0, np.zeros(t)], -1).astype(
+        np.float32)
+    dout = rng.normal(size=(t, 8, tk.P)).astype(np.float32)
+    return slots, origins, dout
+
+
+def test_composite_tiles_forward_matches_oracle(slot_data):
+    slots, origins, _ = slot_data
+    want = np.asarray(gtk._composite_jnp(jnp.asarray(slots),
+                                         jnp.asarray(SLOT_COUNTS),
+                                         jnp.asarray(origins)))
+    got = tk.composite_tiles(torch.from_numpy(slots),
+                             torch.from_numpy(SLOT_COUNTS),
+                             torch.from_numpy(origins)).numpy()
+    assert got.shape == want.shape == (6, 8, tk.P)
+    assert float(np.abs(want[:, 3]).max()) > 0.5      # tiles composite
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert not got[:, 5:].any()
+    with _interp():
+        kernel = np.asarray(gtk._run_fwd(
+            gtk._slots_to_rows(jnp.asarray(slots)), jnp.asarray(SLOT_COUNTS),
+            1000000, slots.shape[1]))
+    np.testing.assert_allclose(got[:, :5], kernel[:, :5], rtol=0, atol=1e-5)
+
+
+def test_composite_tiles_gradient_matches_jax(slot_data):
+    """Autograd through ``composite_tiles`` against ``jax.grad`` of the
+    oracle and the TPU backward ``_run_bwd`` in interpret mode (JAX's own
+    2e-3 / 1e-3); slots past each count get exact zeros."""
+    slots, origins, dout = slot_data
+    counts = jnp.asarray(SLOT_COUNTS)
+
+    def loss(x):
+        return jnp.sum(gtk._composite_jnp(x, counts, jnp.asarray(origins))
+                       * dout)
+    want = np.asarray(jax.grad(loss)(jnp.asarray(slots)))
+    with _interp():
+        kernel = np.asarray(gtk._run_bwd(
+            gtk._slots_to_rows(jnp.asarray(slots)), counts, 1000000,
+            jnp.asarray(dout), slots.shape[1]))[:, :10].transpose(0, 2, 1)
+    x = torch.from_numpy(slots).requires_grad_()
+    out = tk.composite_tiles(x, torch.from_numpy(SLOT_COUNTS),
+                             torch.from_numpy(origins))
+    (out * torch.from_numpy(dout)).sum().backward()
+    got = x.grad.numpy()
+    for ref in (want, kernel):
+        np.testing.assert_allclose(got, ref, rtol=1e-3, atol=2e-3)
+    for tile, count in enumerate(SLOT_COUNTS):
+        assert not got[tile, count:].any()
+    assert np.abs(got[0]).max() > 1e-3
+
+
+def test_slot_wrappers_refuse_non_cpu_tensors_without_a_kernel():
+    slots = torch.empty((2, 64, 10), device='meta')
+    counts = torch.empty(2, dtype=torch.int32, device='meta')
+    origins = torch.empty((2, 2), device='meta')
+    dout = torch.empty((2, 8, tk.P), device='meta')
+    for call in (lambda: tk.gs_tiles_fwd(slots, counts, origins),
+                 lambda: tk.gs_tiles_bwd(slots, counts, origins, dout)):
+        with pytest.raises(KernelError):
+            call()
