@@ -7,7 +7,9 @@ Phases, each printing its own lines:
   1. build the CUDA kernel library from nerficg_torch/csrc/;
   2. compare every kernel of the serving and training paths with its plain
      PyTorch version on the card, at the shapes its path gives it, and time
-     both;
+     both: the kernel (and the library call) on the card's own clock, a CUDA
+     graph of 50 calls, and on the host's, 50 calls ending in a synchronize;
+     the 3DGS stream backward on the 1080p frame and on a 400x400 one;
   3. serving path: write a textured synthetic scene and an Instant-NGP
      checkpoint at full library width (random weights from a numpy seed,
      a shell-shaped occupancy grid), run the port's inference entry point
@@ -89,6 +91,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
 
 # Kernel -> (route, source, TPU kernel it replaces).
 KERNELS = {
@@ -177,22 +180,6 @@ def phase1_build(card: str) -> None:
           f'[{card}]', flush=True)
 
 
-def cuda_ms(fn, iters: int = 50) -> float:
-    """Mean device time of fn() in ms over ``iters`` launches (CUDA events),
-    after one warm-up call."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound(nbytes: float, ops: float, sfu: float = 0.0) -> tuple[float, str]:
     """(least ms the card could take, what bounds it): ``nbytes`` moved at
     the HBM rate, or ``ops`` f32 operations at the peak rate and ``sfu``
@@ -273,6 +260,8 @@ def phase2_kernels(card: str) -> dict:
                                                build_block_bitfield,
                                                xbar_permute,
                                                xbar_permute_plain)
+    from nerficg_torch.scripts.kernel_timing import (device_ms, events_ms,
+                                                     host_ms)
 
     dev = torch.device('cuda')
     rng = np.random.default_rng(1)
@@ -280,27 +269,39 @@ def phase2_kernels(card: str) -> dict:
 
     def record(name, got, want, tol_ok, kernel_fn, plain_fn, shape, moved,
                ops, library_fn=None, sfu=0.0, plain_iters=50):
-        """Check, then time the kernel, its plain version and the library
-        call; ``moved`` bytes, ``ops`` f32 operations and ``sfu``
-        special-function operations give the bound."""
+        """Check, then time the kernel and the library call on the card's
+        clock (a CUDA graph of 50 calls) and the host's (50 calls ending in
+        a synchronize), and the plain version eagerly between CUDA events;
+        ``moved`` bytes, ``ops`` f32 operations and ``sfu`` special-function
+        operations give the bound."""
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         ok = tol_ok(got, want)
-        ms = cuda_ms(kernel_fn)
-        plain_ms = cuda_ms(plain_fn, plain_iters)
-        library_ms = None if library_fn is None else cuda_ms(library_fn)
+        ms = device_ms(kernel_fn)
+        host, enqueue = host_ms(kernel_fn)
+        plain_ms = events_ms(plain_fn, plain_iters)
+        library_ms = library_host = library_enqueue = None
+        if library_fn is not None:
+            library_ms = device_ms(library_fn)
+            library_host, library_enqueue = host_ms(library_fn)
         bound_ms, bound_by = bound(moved, ops, sfu)
+        library = 'none' if library_fn is None else (
+            f'{library_ms:.4f} ms (host {library_host:.4f} ms per call, '
+            f'enqueue {library_enqueue:.4f})')
         print(f'phase 2: {name} {shape}: max_abs_err={err:.3e} '
-              f'{"ok" if ok else "MISMATCH"}; kernel {ms:.4f} ms, plain '
-              f'{plain_ms:.4f} ms, library '
-              f'{"none" if library_ms is None else f"{library_ms:.4f} ms"}, '
-              f'bound {bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.2f} MB, '
-              f'{ops / 1e6:.2f} M f32 ops) [{card}]', flush=True)
+              f'{"ok" if ok else "MISMATCH"}; kernel {ms:.4f} ms on the '
+              f'card (graph), host {host:.4f} ms per call (enqueue '
+              f'{enqueue:.4f}), plain {plain_ms:.4f} ms (eager), library '
+              f'{library}, bound {bound_ms:.4f} ms by {bound_by} '
+              f'({moved / 1e6:.2f} MB, {ops / 1e6:.2f} M f32 ops) [{card}]',
+              flush=True)
         if not ok:
             fail(f'{name} disagrees with its plain version')
         report[name] = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
                         'bound_ms': bound_ms, 'bound_by': bound_by,
-                        'library_ms': library_ms}
+                        'library_ms': library_ms, 'host_ms': host,
+                        'enqueue_ms': enqueue,
+                        'library_host_ms': library_host}
         return report[name]
 
     # 1. hash_window_fwd: full-width table, one chunk of morton-sorted samples.
@@ -542,7 +543,7 @@ def phase2_kernels(card: str) -> dict:
            f'({n},4) f32 rows by a block permutation', nbytes(stream, idx,
                                                                got), 0,
            lambda: torch.index_select(stream, 0, idx))
-    phase2_gs_kernels(record, rng)
+    report['gs_composite_bwd'] = phase2_gs_kernels(record, rng)
     return report
 
 
@@ -555,46 +556,10 @@ def phase2_kernels(card: str) -> dict:
 # Backward, passing pairs (elsewhere every gradient term is zero): the
 # transmittance step (2), alpha and the weight (2), g (8), the upper test,
 # d_alpha (4), the suffix FMA, d_op, d_pow (3), the 10 channel products
-# (21) and 10 adds of the pixel sums. The kernel's second pass over a
-# chunk's alphas is not counted: one pass with the alphas kept would do.
+# (21) and 10 adds of the pixel sums. Every valid pair is counted, though
+# the backward skips the pairs its per-strip bound proves below 1/255.
 GS_FWD_OPS = (14, 13)
 GS_BWD_OPS = (14, 54)
-
-
-def gs_model(device: str, n: int = 100_000, seed: int = 0):
-    """bench.py's ``_make_gs_model`` protocol on the port: n points
-    U(-1, 1)^3 with colors U(0, 1) from numpy seed 0, at the library's GS
-    defaults (SH degree 4, 16,384-slot capacity steps)."""
-    import numpy as np
-
-    from nerficg_torch.core.config import ConfigNode
-    from nerficg_torch.data.types import BasicPointCloud
-    from nerficg_torch.methods.gaussian_splatting.model import \
-        GaussianSplattingModel
-    model = GaussianSplattingModel(ConfigNode({'MODEL': {}}), device=device)
-    rng = np.random.default_rng(seed)
-    pts = rng.random((n, 3)).astype(np.float32) * 2.0 - 1.0
-    cols = rng.random((n, 3)).astype(np.float32)
-    model.init_from_point_cloud(BasicPointCloud(pts, cols))
-    return model
-
-
-def orbit_view(angle: float, width: int, height: int):
-    """bench.py's orbit pose (radius 3, looking at the origin) as a View with
-    focal 0.8 * width and a black background."""
-    import numpy as np
-
-    from nerficg_torch.cameras.perspective import PerspectiveCamera
-    from nerficg_torch.data.types import View
-    eye = np.array([3 * np.sin(angle), 0.0, 3 * np.cos(angle)])
-    fwd = -eye / np.linalg.norm(eye)
-    right = np.cross(np.array([0.0, 1.0, 0.0]), fwd)
-    right /= np.linalg.norm(right)
-    c2w = np.eye(4)
-    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = (
-        right, np.cross(fwd, right), fwd, eye)
-    return View(PerspectiveCamera(width, height, 0.8 * width, 0.8 * width,
-                                  width / 2.0, height / 2.0), c2w)
 
 
 def gs_pairs(args) -> tuple[int, int]:
@@ -618,41 +583,25 @@ def gs_pairs(args) -> tuple[int, int]:
     return int(counts.sum()) * gtk.P, passing
 
 
-def phase2_gs_kernels(record, rng) -> None:
+def phase2_gs_kernels(record, rng) -> dict:
     """#15 (both layouts) and #16 at bench.py's frame: the streams
     ``rasterize_gaussians`` builds from the 100k-Gaussian model at orbit
     pose 0, 1920x1080 (8160 tiles, k = 256, D = 6), SH degree 1 as
-    bench.py renders it; a random d out for the backward."""
+    bench.py renders it; a random d out for the backward. #16 again on a
+    400x400 frame of the same model (625 tiles), the GS training config's
+    image size."""
     import torch
 
-    from nerficg_torch.core.config import ConfigNode
-    from nerficg_torch.methods.gaussian_splatting.renderer import \
-        GaussianSplattingRenderer
     from nerficg_torch.ops import gs_tiles_kernel as gtk
-    from nerficg_torch.ops.gs_rasterize import entry_stream
+    from nerficg_torch.scripts.kernel_timing import gs_frame, gs_model
 
     model = gs_model('cuda')
-    renderer = GaussianSplattingRenderer(ConfigNode({}), model)
-    intrinsics, w2c, cam_pos = renderer.view_constants(
-        orbit_view(0.0, 1920, 1080))
-    with torch.no_grad():
-        inputs = renderer.frontend(model.params, w2c, cam_pos, intrinsics,
-                                   int(model.active_sh_degree))
-        streams = {packed: entry_stream(**inputs, width=1920, height=1080,
-                                        max_tiles_per_gaussian=6,
-                                        max_per_tile=256,
-                                        packed_inference=packed)
-                   for packed in (True, False)}
-
-    def stream_args(packed):
-        s = streams[packed]
-        return (s['sorted_mat'], s['starts'], s['counts'], s['tiles_x'],
-                s['num_tiles'], 256)
+    args8 = gs_frame(model, 1920, 1080, packed=True)
+    args16 = gs_frame(model, 1920, 1080)
 
     def forward_close(a, b):
         return bool(torch.allclose(a, b, rtol=0.0, atol=1e-5))
 
-    args8, args16 = stream_args(True), stream_args(False)
     num_tiles = args16[4]
     pairs, passing = gs_pairs(args16)
     entries = pairs // gtk.P
@@ -688,26 +637,11 @@ def phase2_gs_kernels(record, rng) -> None:
            entries * 10 * 4 + seg + out_bytes + tacc_bytes,
            fwd_ops, sfu=pairs, plain_iters=5)
 
-    dout = torch.from_numpy(rng.normal(
-        size=(num_tiles, gtk.OUT_ROWS, gtk.P)).astype('float32')).cuda()
-    bwd = (*args16[:3], tacc, dout, *args16[3:])
-    got = gtk.gs_composite_bwd(*bwd)
-    # Gradients: the JAX package's own 2e-3 / 1e-3 (sums over 256 pixels in
-    # another order than autograd's).
-    record('gs_composite_bwd', got,
-           gtk.gs_composite_bwd_plain(*args16[:3], dout, *args16[3:]),
-           lambda a, b: bool(torch.allclose(a, b, rtol=1e-3, atol=2e-3)),
-           lambda: gtk.gs_composite_bwd(*bwd),
-           lambda: gtk.gs_composite_bwd_plain(*args16[:3], dout,
-                                              *args16[3:]),
-           f'd out ({num_tiles},5,256) + tacc -> d stream '
-           f'(16,{args16[0].shape[1]})',
-           # d stream: the 10 attribute rows; rows 10-15 are the layout's
-           # padding.
-           entries * 10 * 4 + seg + tacc_bytes + out_bytes +
-           10 * got.shape[1] * 4,
-           GS_BWD_OPS[0] * pairs + GS_BWD_OPS[1] * passing, sfu=pairs,
-           plain_iters=3)
+    dout, line_1080 = record_gs_bwd(record, rng, args16, tacc, '1920x1080')
+    frame_400 = gs_frame(model, 400, 400)
+    _, tacc_400 = gtk.gs_composite_fwd(*frame_400)
+    _, line_400 = record_gs_bwd(record, rng, frame_400, tacc_400, '400x400')
+    del frame_400, tacc_400
 
     # #13/#14: the same frame as per-tile slot windows (T, 256, 10), the
     # layout of composite_tiles, with row-major origins; the same valid and
@@ -737,6 +671,44 @@ def phase2_gs_kernels(record, rng) -> None:
            slot_in + out_bytes + nbytes(got),
            GS_BWD_OPS[0] * pairs + GS_BWD_OPS[1] * passing, sfu=pairs,
            plain_iters=3)
+    return {**line_1080, 'frame_400x400': line_400}
+
+
+def record_gs_bwd(record, rng, args16, tacc, frame: str):
+    """#16 on one frame's 16-wide stream with its saved transmittance and a
+    random d out: checked and timed by ``record``; (d out, its line)."""
+    import torch
+
+    from nerficg_torch.ops import gs_tiles_kernel as gtk
+    num_tiles = args16[4]
+    pairs, passing = gs_pairs(args16)
+    entries = pairs // gtk.P
+    tacc_bytes = int(gtk.live_chunks(args16[2], 256).sum()) * gtk.P * 4
+    out_bytes = num_tiles * gtk.OUT_ROWS * gtk.P * 4
+    seg = (args16[1].numel() + args16[2].numel()) * 4    # starts, counts
+    dout = torch.from_numpy(rng.normal(
+        size=(num_tiles, gtk.OUT_ROWS, gtk.P)).astype('float32')).cuda()
+    bwd = (*args16[:3], tacc, dout, *args16[3:])
+    got = gtk.gs_composite_bwd(*bwd)
+    # Gradients: the JAX package's own 2e-3 / 1e-3 (sums over 256 pixels in
+    # another order than autograd's); two launches bit-equal (no atomics).
+    line = record(
+        'gs_composite_bwd', got,
+        gtk.gs_composite_bwd_plain(*args16[:3], dout, *args16[3:]),
+        lambda a, b: bool(torch.allclose(a, b, rtol=1e-3, atol=2e-3))
+        and bool(torch.equal(a, gtk.gs_composite_bwd(*bwd))),
+        lambda: gtk.gs_composite_bwd(*bwd),
+        lambda: gtk.gs_composite_bwd_plain(*args16[:3], dout, *args16[3:]),
+        f'{frame}: d out ({num_tiles},5,256) + tacc -> d stream '
+        f'(16,{args16[0].shape[1]}), {entries} entries within k, {pairs} '
+        f'pairs, {passing} passing',
+        # d stream: the 10 attribute rows; rows 10-15 are the layout's
+        # padding.
+        entries * 10 * 4 + seg + tacc_bytes + out_bytes +
+        10 * got.shape[1] * 4,
+        GS_BWD_OPS[0] * pairs + GS_BWD_OPS[1] * passing, sfu=pairs,
+        plain_iters=3)
+    return dout, dict(line)
 
 
 def slot_windows(args16):
@@ -1221,6 +1193,7 @@ def phase8_gs_serving(card: str, scene: Path) -> dict:
 
     from nerficg_torch.core.config import load_config, save_config
     from nerficg_torch.scripts import inference
+    from nerficg_torch.scripts.kernel_timing import gs_model, orbit_view
 
     with tempfile.TemporaryDirectory(prefix='chip_smoke_gs_') as tmp:
         run_dir = Path(tmp) / 'run'
@@ -1731,29 +1704,17 @@ def phase13_op_api(card: str) -> dict:
     import numpy as np
     import torch
 
-    from nerficg_torch.core.config import ConfigNode
-    from nerficg_torch.methods.gaussian_splatting.renderer import \
-        GaussianSplattingRenderer
     from nerficg_torch.ops import gs_tiles_kernel as gtk
-    from nerficg_torch.ops.gs_rasterize import entry_stream
     from nerficg_torch.ops.sample_sort import permute_block_channels
     from nerficg_torch.ops.xbar_gather import xbar_permute
+    from nerficg_torch.scripts.kernel_timing import gs_frame, gs_model
 
-    model = gs_model('cuda')
-    renderer = GaussianSplattingRenderer(ConfigNode({}), model)
-    intrinsics, w2c, cam_pos = renderer.view_constants(
-        orbit_view(0.0, 1920, 1080))
+    args16 = gs_frame(gs_model('cuda'), 1920, 1080)
     with torch.no_grad():
-        inputs = renderer.frontend(model.params, w2c, cam_pos, intrinsics,
-                                   int(model.active_sh_degree))
-        s = entry_stream(**inputs, width=1920, height=1080,
-                         max_tiles_per_gaussian=6, max_per_tile=256)
-        args16 = (s['sorted_mat'], s['starts'], s['counts'], s['tiles_x'],
-                  s['num_tiles'], 256)
         image, _ = gtk.gs_composite_fwd(*args16)
         slots, counts, origins = slot_windows(args16)
     rng = np.random.default_rng(13)
-    dout = torch.from_numpy(rng.normal(size=(s['num_tiles'], 8, gtk.P))
+    dout = torch.from_numpy(rng.normal(size=(args16[4], 8, gtk.P))
                             .astype(np.float32)).cuda()
     n, block = 262144, 8
     perm = torch.from_numpy(rng.permutation(n // block)).cuda()
@@ -1799,7 +1760,6 @@ def phase13_op_api(card: str) -> dict:
 
 def main() -> None:
     import torch
-    sys.path.insert(0, str(ROOT))
     from nerficg_torch.data.synthetic import (make_dynamic_textured_scene,
                                               make_textured_scene)
     card = phase0_environment()

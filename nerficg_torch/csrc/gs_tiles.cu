@@ -42,12 +42,18 @@
 //       g = <dL/drgb, color> + dL/dacc + depth * dL/ddepth.
 //     dpow is zero where the raw power is > 0 (the oracle's min(power, 0)).
 //   * every stream entry belongs to exactly one tile, so its gradient is a
-//     sum over that tile's 256 pixels: a warp-shuffle reduction, the 8
-//     warp partials in shared memory summed in a fixed order, one plain
-//     store per (entry, channel). No atomics: the gradient is reproducible.
-//     Rows past k and the guard rows stay zero (memset first). A warp none
-//     of whose 32 pixels an entry reaches (alpha <= 1/255 on every lane, the
-//     common case) writes zero partials and skips the entry's 10 sums.
+//     sum over that tile's 256 pixels. A reduction across the lanes of a
+//     warp costs five shuffles per value, 50 per (entry, warp) for the 10
+//     gradients, and an SM retires one warp-wide shuffle per clock: that
+//     network set the pace of the first version of this kernel. The chunk
+//     is instead transposed through shared memory (the per-splat backward
+//     of Mallick et al., "Taming 3DGS", arXiv 2406.15643): a pixel pass
+//     (thread = pixel) leaves each pair's scalar terms w and dL/dop, and an
+//     entry pass (lane = entry) sums each entry's gradients over the warp's
+//     32 pixels in series, then the 8 warp partials in a fixed order: one
+//     plain store per (entry, channel), no shuffles, no atomics, the
+//     gradient reproducible. Pixels no entry of the chunk reaches are
+//     skipped. Rows past k and the guard rows stay zero (memset first).
 //
 // The geometry (dx, dy, power, a_raw) uses _rn intrinsics in the plain
 // version's order of operations, so nvcc cannot contract it into FMAs: the
@@ -234,12 +240,6 @@ gs_fwd_kernel(Tiles tl, float* __restrict__ out, float* __restrict__ tacc,
   for (int r = kOut; r < out_rows<L>(); ++r) o[r * kP] = 0.0f;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, off);
-  return v;
-}
-
 // Alpha of staged entry j at pixel (px, py), 0 where a_raw <= 1/255.
 __device__ __forceinline__ float staged_alpha(float (*s)[kCH], int j,
                                               float px, float py) {
@@ -251,16 +251,97 @@ __device__ __forceinline__ float staged_alpha(float (*s)[kCH], int j,
   return a_raw > kAlphaMin ? fminf(a_raw, kAlphaMax) : 0.0f;
 }
 
+// Bit w set where an entry's alpha may pass 1/255 at a pixel of strip w of
+// the tile (pixel rows 2w and 2w + 1, one warp's pixels); all eight bits
+// where no bound applies. The bound is conservative: alpha = op e^power >
+// 1/255 needs power > -ln(255 op), an ellipse of the conic whose extent is
+// sqrt(2 tau cc / det) in x and sqrt(2 tau ca / det) in y; tau is widened
+// by 1% and 0.01 and the extents by 1/16 px, far beyond the rounding of
+// expf, of the power's _rn arithmetic and of this bound. A conic that is
+// not positive definite, or so ill-conditioned that det loses its digits,
+// reaches every strip.
+__device__ __forceinline__ unsigned strip_reach(float mx, float my, float ca,
+                                                float cb, float cc, float op,
+                                                float ox, float oy) {
+  // a_raw = op e^power <= op: an entry below the threshold passes nowhere.
+  if (!(op > kAlphaMin)) return 0u;
+  const float det = ca * cc - cb * cb;
+  constexpr unsigned kEvery = (1u << kWarps) - 1u;
+  if (!(ca > 0.0f && cc > 0.0f && det > 1e-3f * ca * cc)) return kEvery;
+  const float tau = 1.01f * logf(255.0f * op) + 0.01f;
+  const float ex = sqrtf(2.0f * tau * cc / det) + 0.0625f;
+  const float ey = sqrtf(2.0f * tau * ca / det) + 0.0625f;
+  if (!(ex <= 3.0e38f && ey <= 3.0e38f)) return kEvery;   // NaN or inf
+  // Distance from the mean to the tile's pixel centres in x.
+  const float gx = fmaxf(fmaxf(ox + 0.5f - mx, mx - (ox + 15.5f)), 0.0f);
+  if (!(gx <= ex)) return 0u;
+  unsigned reach = 0u;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const float lo = oy + static_cast<float>(2 * w) + 0.5f;
+    const float gy = fmaxf(fmaxf(lo - my, my - (lo + 1.0f)), 0.0f);
+    if (gy <= ey) reach |= 1u << w;
+  }
+  return reach;
+}
+
+// Quantities the entry pass sums per entry over pixels: the moments of
+// dL/dpower in tile-centred pixel coordinates (1, x, y, xx, xy, yy), dL/dop,
+// and w times each of dL/d(r, g, b, depth).
+constexpr int kSums = 11;
+
+// The backward's shared memory (dynamic: above the 48 KB static limit).
+// 75,392 bytes, so three blocks share an SM.
+struct BwdShared {
+  // Per (pixel, entry) of the chunk, rows padded to 33 so that a warp's
+  // lanes hit distinct banks whether they vary the pixel (pixel pass) or
+  // the entry (entry pass). After the forward walk: (T before the entry,
+  // e^power, negated where the raw power is > 0). After the backward walk:
+  // (w = T alpha, negated where the raw power is > 0; dL/dop).
+  float2 pair[kP][kCH + 1];
+  float4 dout[kP];          // dL/d(r, g, b, depth) of each pixel
+  unsigned live[kP];        // bit j: entry j's alpha passes 1/255 here
+  float s[kAttrs][kCH];     // the staged chunk, as stage() writes it
+  float4 geo[kCH];          // the same, packed: mx my ca cb
+  float4 opc[kCH];          //                   cc op r g
+  float2 bd[kCH];           //                   b depth
+  unsigned reach[kCH];      // strip_reach of each entry
+};
+// The 8 warps' partial sums per (quantity, entry) reuse `pair` once every
+// warp has finished reading it.
+static_assert(sizeof(float) * kWarps * kSums * kCH <=
+                  sizeof(float2) * kP * (kCH + 1),
+              "partials must fit in pair");
+
 // The stream backward reads the forward's saved transmittance; the slot
-// backward (kSlots) first records it into `tacc` itself.
+// backward (kSlots) first records it into `tacc` itself. Each chunk runs
+// in two passes that need no shuffles and no atomics:
+//   pixel pass (thread = pixel): walk the chunk forward from the saved
+//     transmittance, keeping T and e^power per entry (one expf per pair),
+//     then backward with the suffix S, leaving w and dL/dop per (pixel,
+//     entry) in `pair`. Both walks visit only the entries whose bound
+//     (strip_reach) reaches the warp's two pixel rows, a set the whole warp
+//     shares: most (entry, pixel) pairs of a tile have alpha 0;
+//   entry pass (lane = entry, warp = the 32 pixels it walked): each thread
+//     sums over the warp's pixels in series the 11 quantities its entry's
+//     10 gradients follow from. dL/dpower is taken through its moments in
+//     pixel coordinates, so a pair costs 8 multiply-adds against constants
+//     instead of recomputing dx, dy and 10 products: with p = pixel - centre
+//     and c = mean - centre, dx = p_x - c_x and
+//       sum d dx dx = M_xx - 2 c_x M_x + c_x^2 M_1, and so on.
+//   The 8 warp partials are then added in a fixed order.
+// Only __syncwarp separates the two passes: a warp's entry pass reads the
+// pixels its own pixel pass wrote.
 template <int L>
-__global__ void __launch_bounds__(kP)
+__global__ void __launch_bounds__(kP, 3)
 gs_bwd_kernel(Tiles tl, float* __restrict__ tacc,
               const float* __restrict__ dout, float* __restrict__ dmat,
               int nc) {
-  __shared__ float s[kAttrs][kCH];
-  __shared__ float s_trans[kCH][kP];             // T before entry j, per pixel
-  __shared__ float s_part[kWarps][kCH][kAttrs];  // per-warp entry gradients
+  extern __shared__ float4 shared_raw[];
+  BwdShared& sh = *reinterpret_cast<BwdShared*>(shared_raw);
+  float (*s)[kCH] = sh.s;
+  float (*part)[kSums][kCH] = reinterpret_cast<float (*)[kSums][kCH]>(
+      &sh.pair[0][0]);
   const int t = blockIdx.x;
   const int p = threadIdx.x;
   const int lane = p & 31;
@@ -273,6 +354,7 @@ gs_bwd_kernel(Tiles tl, float* __restrict__ tacc,
   const float* g_out = dout + static_cast<size_t>(t) * out_rows<L>() * kP + p;
   const float d_r = g_out[0 * kP], d_g = g_out[1 * kP], d_b = g_out[2 * kP];
   const float d_acc = g_out[3 * kP], d_dep = g_out[4 * kP];
+  sh.dout[p] = make_float4(d_r, d_g, d_b, d_dep);
   float suffix = 0.0f;                           // S: sum of g * w after j
   const int n_chunks = (n + kCH - 1) / kCH;
   if (L == kSlots) {
@@ -296,72 +378,140 @@ gs_bwd_kernel(Tiles tl, float* __restrict__ tacc,
     __syncthreads();
     stage<L>(tl, seg, j0, m, ox, oy, s);
     __syncthreads();
-    // Forward through the chunk from its saved starting transmittance.
-    float trans = tacc[(static_cast<size_t>(t) * nc + c) * kP + p];
-    for (int j = 0; j < m; ++j) {
-      s_trans[j][p] = trans;
-      const float dx = __fsub_rn(px, s[0][j]);
-      const float dy = __fsub_rn(py, s[1][j]);
-      const float power = fminf(raw_power(s[2][j], s[3][j], s[4][j], dx, dy),
-                                0.0f);
-      const float a_raw = __fmul_rn(s[5][j], expf(power));
-      if (a_raw > kAlphaMin) trans = trans * (1.0f - fminf(a_raw, kAlphaMax));
-    }
-    // Backward through the chunk.
-    for (int j = m - 1; j >= 0; --j) {
-      const float ca = s[2][j], cbc = s[3][j], cc = s[4][j], op = s[5][j];
-      const float dx = __fsub_rn(px, s[0][j]);
-      const float dy = __fsub_rn(py, s[1][j]);
-      const float pw = raw_power(ca, cbc, cc, dx, dy);
-      const float ep = expf(fminf(pw, 0.0f));
-      const float a_raw = __fmul_rn(op, ep);
-      if (!__any_sync(0xFFFFFFFFu, a_raw > kAlphaMin)) {
-        // No pixel of this warp composites entry j: every term below is 0.
-        if (lane == 0) {
-#pragma unroll
-          for (int a = 0; a < kAttrs; ++a) s_part[warp][j][a] = 0.0f;
-        }
-        continue;
-      }
-      const float tj = s_trans[j][p];
-      const float alpha = a_raw > kAlphaMin ? fminf(a_raw, kAlphaMax) : 0.0f;
-      const float w = tj * alpha;
-      const float g = d_r * s[6][j] + d_g * s[7][j] + d_b * s[8][j] + d_acc +
-                      s[9][j] * d_dep;
-      float d_alpha = 0.0f;
-      if (a_raw > kAlphaMin && a_raw < kAlphaMax)
-        d_alpha = g * tj - suffix / (1.0f - alpha);
-      suffix += g * w;
-      const float d_op = d_alpha * ep;
-      const float d_pow = pw > 0.0f ? 0.0f : d_alpha * op * ep;
-      float v[kAttrs];
-      v[0] = d_pow * (ca * dx + cbc * dy);
-      v[1] = d_pow * (cc * dy + cbc * dx);
-      v[2] = d_pow * (-0.5f * dx * dx);
-      v[3] = d_pow * (-dx * dy);
-      v[4] = d_pow * (-0.5f * dy * dy);
-      v[5] = d_op;
-      v[6] = w * d_r;
-      v[7] = w * d_g;
-      v[8] = w * d_b;
-      v[9] = w * d_dep;
-#pragma unroll
-      for (int a = 0; a < kAttrs; ++a) {
-        const float sum = warp_sum(v[a]);
-        if (lane == 0) s_part[warp][j][a] = sum;
-      }
+    if (p < kCH) {
+      sh.geo[p] = make_float4(s[0][p], s[1][p], s[2][p], s[3][p]);
+      sh.opc[p] = make_float4(s[4][p], s[5][p], s[6][p], s[7][p]);
+      sh.bd[p] = make_float2(s[8][p], s[9][p]);
+      sh.reach[p] = p < m ? strip_reach(s[0][p], s[1][p], s[2][p], s[3][p],
+                                        s[4][p], s[5][p], ox, oy)
+                          : 0u;
     }
     __syncthreads();
-    for (int i = p; i < kAttrs * kCH; i += kP) {
-      // Slots: a fastest, so consecutive threads write consecutive words.
-      const int a = L == kSlots ? i % kAttrs : i / kCH;
-      const int j = L == kSlots ? i / kAttrs : i - a * kCH;
-      const size_t e = seg + j0 + j;
-      if (j < m && (L == kSlots || e < tl.e_pad)) {
-        float sum = 0.0f;
+    // The entries that may reach this warp's pixels; the others have alpha
+    // 0 at every one of them and change nothing.
+    const unsigned near = __ballot_sync(0xFFFFFFFFu,
+                                        (sh.reach[lane] >> warp) & 1u);
+    // Pixel pass, forward from the chunk's saved starting transmittance:
+    // T before each entry and e^power.
+    float trans = tacc[(static_cast<size_t>(t) * nc + c) * kP + p];
+    for (unsigned bits = near; bits != 0u; bits &= bits - 1u) {
+      const int j = __ffs(bits) - 1;
+      const float4 g4 = sh.geo[j];
+      const float2 co = make_float2(sh.opc[j].x, sh.opc[j].y);
+      const float dx = __fsub_rn(px, g4.x);
+      const float dy = __fsub_rn(py, g4.y);
+      const float pw = raw_power(g4.z, g4.w, co.x, dx, dy);
+      const float ep = expf(fminf(pw, 0.0f));
+      sh.pair[p][j] = make_float2(trans, pw > 0.0f ? -ep : ep);
+      const float a_raw = __fmul_rn(co.y, ep);
+      if (a_raw > kAlphaMin) trans = trans * (1.0f - fminf(a_raw, kAlphaMax));
+    }
+    // Pixel pass, backward: the pair's scalar terms.
+    //   dL/dalpha = g T - S / (1 - alpha)  where 1/255 < a_raw < 0.99,
+    //   dL/dop = dL/dalpha e^power,  dL/dpower = dL/dop op (0 where the raw
+    //   power is > 0, the oracle's min(power, 0)).
+    unsigned live = 0u;
+    for (unsigned bits = near; bits != 0u;) {
+      const int j = 31 - __clz(bits);
+      bits ^= 1u << j;
+      const float2 te = sh.pair[p][j];
+      const float4 o4 = sh.opc[j];
+      const float ep = fabsf(te.y);
+      const float a_raw = __fmul_rn(o4.y, ep);
+      float w = 0.0f, d_op = 0.0f;
+      if (a_raw > kAlphaMin) {
+        live |= 1u << j;
+        const float2 bd = sh.bd[j];
+        const float alpha = fminf(a_raw, kAlphaMax);
+        w = te.x * alpha;
+        const float g = d_r * o4.z + d_g * o4.w + d_b * bd.x + d_acc +
+                        bd.y * d_dep;
+        if (a_raw < kAlphaMax)
+          d_op = (g * te.x - suffix * __frcp_rn(1.0f - alpha)) * ep;
+        suffix += g * w;
+      }
+      sh.pair[p][j] = make_float2(copysignf(w, te.y), d_op);
+    }
+    sh.live[p] = live;
+    __syncwarp();
+    // Entry pass: lane j sums entry j's quantities over this warp's pixels,
+    // two rows of 16 (pixel coordinates relative to the tile's centre).
+    float sum[kSums];
 #pragma unroll
-        for (int wi = 0; wi < kWarps; ++wi) sum += s_part[wi][j][a];
-        dmat[L == kSlots ? e * kAttrs + a : a * tl.e_pad + e] = sum;
+    for (int a = 0; a < kSums; ++a) sum[a] = 0.0f;
+    if ((near >> lane) & 1u) {
+      const float op = sh.opc[lane].y;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 2 * warp + r;
+        const float yc = static_cast<float>(row) - 7.5f;
+        float r0 = 0.0f, r1 = 0.0f, r2 = 0.0f;
+#pragma unroll
+        for (int x = 0; x < kTile; ++x) {
+          const int q = row * kTile + x;
+          if (sh.live[q] == 0u) continue;   // no entry passes at pixel q
+          const float xc = static_cast<float>(x) - 7.5f;
+          const float2 wd = sh.pair[q][lane];
+          const float4 go = sh.dout[q];
+          const float w = fabsf(wd.x);
+          const float d_pow = signbit(wd.x) ? 0.0f : wd.y * op;
+          r0 += d_pow;
+          r1 += d_pow * xc;
+          r2 += d_pow * (xc * xc);
+          sum[6] += wd.y;
+          sum[7] += w * go.x;
+          sum[8] += w * go.y;
+          sum[9] += w * go.z;
+          sum[10] += w * go.w;
+        }
+        sum[0] += r0;
+        sum[1] += r1;
+        sum[2] += yc * r0;
+        sum[3] += r2;
+        sum[4] += yc * r1;
+        sum[5] += (yc * yc) * r0;
+      }
+    }
+    __syncthreads();   // every warp is done with `pair`: reuse it
+#pragma unroll
+    for (int a = 0; a < kSums; ++a) part[warp][a][lane] = sum[a];
+    __syncthreads();
+    for (int i = p; i < kSums * kCH; i += kP) {
+      const int a = i / kCH;
+      const int j = i - a * kCH;
+      float total = 0.0f;
+#pragma unroll
+      for (int wi = 0; wi < kWarps; ++wi) total += part[wi][a][j];
+      part[0][a][j] = total;
+    }
+    __syncthreads();
+    if (p < m) {
+      const float4 g4 = sh.geo[p];
+      const float cc = sh.opc[p].x;
+      const float m1 = part[0][0][p], mx = part[0][1][p], my = part[0][2][p];
+      const float mxx = part[0][3][p], mxy = part[0][4][p];
+      const float myy = part[0][5][p];
+      // The mean relative to the tile's centre.
+      const float cx = g4.x - (ox + 8.0f);
+      const float cy = g4.y - (oy + 8.0f);
+      const float sdx = mx - cx * m1;                      // sum d dx
+      const float sdy = my - cy * m1;                      // sum d dy
+      const float sdxx = mxx - 2.0f * cx * mx + cx * cx * m1;
+      const float sdxy = mxy - cx * my - cy * mx + cx * cy * m1;
+      const float sdyy = myy - 2.0f * cy * my + cy * cy * m1;
+      float grad[kAttrs];
+      grad[0] = g4.z * sdx + g4.w * sdy;
+      grad[1] = cc * sdy + g4.w * sdx;
+      grad[2] = -0.5f * sdxx;
+      grad[3] = -sdxy;
+      grad[4] = -0.5f * sdyy;
+#pragma unroll
+      for (int a = 5; a < kAttrs; ++a) grad[a] = part[0][a + 1][p];
+      const size_t e = seg + j0 + p;
+      if (L == kSlots || e < tl.e_pad) {
+#pragma unroll
+        for (int a = 0; a < kAttrs; ++a)
+          dmat[L == kSlots ? e * kAttrs + a : a * tl.e_pad + e] = grad[a];
       }
     }
   }
@@ -399,7 +549,16 @@ int launch_bwd(const Tiles& tl, void* tacc, const void* dout, void* dmat,
   cudaError_t err = cudaMemsetAsync(dmat, 0, dmat_bytes, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (num_tiles == 0) return static_cast<int>(cudaGetLastError());
-  gs_bwd_kernel<L><<<num_tiles, kP, 0, s>>>(
+  // Per launch, not once: the attributes belong to the current device.
+  err = cudaFuncSetAttribute(gs_bwd_kernel<L>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(sizeof(BwdShared)));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gs_bwd_kernel<L>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gs_bwd_kernel<L><<<num_tiles, kP, sizeof(BwdShared), s>>>(
       tl, static_cast<float*>(tacc), static_cast<const float*>(dout),
       static_cast<float*>(dmat), (tl.k + kCH - 1) / kCH);
   return static_cast<int>(cudaGetLastError());

@@ -17,7 +17,7 @@ import torch
 
 from nerficg_torch.core.config import Configurable
 from nerficg_torch.methods.instant_ngp.trainer import InstantNGPTrainer
-from nerficg_torch.optim.lr import exponential_decay
+from nerficg_torch.optim.lr import optax_exponential_decay
 
 __all__ = ['DNeRFTrainer']
 
@@ -41,7 +41,7 @@ class DNeRFTrainer(InstantNGPTrainer):
                          if not n.startswith('deform_mlp.')]},
              {'params': list(model.module.deform_mlp.parameters())}],
             lr=float(self.LR), eps=1e-15)
-        self.deform_schedule = exponential_decay(
+        self.deform_schedule = optax_exponential_decay(
             float(self.DEFORM_LR), max(int(self.NUM_ITERATIONS), 1),
             float(self.DEFORM_LR_FINAL_FACTOR))
 

@@ -160,18 +160,24 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``t``'s device (the
+    capturing stream while a CUDA graph is captured), read without building
+    a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require_cuda(kernel: str, *tensors: torch.Tensor,
                  dtypes: tuple[torch.dtype, ...]) -> None:
-    """Every tensor on one CUDA device, contiguous, of the given dtype."""
-    device = tensors[0].device
+    """Every tensor of the given dtype and contiguous, then all on one CUDA
+    device (in that order, so each refusal is reachable without a card)."""
     for t, dtype in zip(tensors, dtypes):
-        if t.device != device or t.device.type != 'cuda':
-            raise KernelError(f'{kernel}: all inputs must be on one CUDA '
-                              f'device, got {t.device} and {device}')
         if t.dtype != dtype:
             raise KernelError(f'{kernel}: expected {dtype}, got {t.dtype}')
         if not t.is_contiguous():
             raise KernelError(f'{kernel}: inputs must be contiguous')
+    index = tensors[0].get_device()
+    for t in tensors:
+        if not t.is_cuda or t.get_device() != index:
+            raise KernelError(f'{kernel}: all inputs must be on one CUDA '
+                              f'device, got {t.device} and '
+                              f'{tensors[0].device}')

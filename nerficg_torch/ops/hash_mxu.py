@@ -55,18 +55,17 @@ def _check_idx(name: str, idx: torch.Tensor, levels: int) -> None:
 def seg_gather(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """(L, F, M) gather; CUDA tensors launch the kernel, CPU tensors take
     ``seg_gather_plain``."""
-    if table.device.type == 'cpu':
+    if table.is_cpu:
         return seg_gather_plain(idx, table)
     name = 'seg_gather'
-    _kernels.require_cuda(name, idx, table,
-                          dtypes=(torch.int32, torch.float32))
     if table.ndim != 4 or table.shape[3] != LANES:
         raise KernelError(f'{name}: table must be (L, F, R, 128)')
     levels, feats, rows, _ = table.shape
     _check_idx(name, idx, levels)
+    _kernels.require_cuda(name, idx, table,
+                          dtypes=(torch.int32, torch.float32))
     m = idx.shape[1]
-    out = torch.empty((levels, feats, m), dtype=torch.float32,
-                      device=table.device)
+    out = table.new_empty((levels, feats, m))
     code = _kernels.load_library().nerficg_seg_gather(
         idx.data_ptr(), table.data_ptr(), out.data_ptr(), levels, feats, m,
         rows, _kernels.stream_of(table))
@@ -79,18 +78,17 @@ def seg_scatter_add(idx: torch.Tensor, g: torch.Tensor,
                     rows: int) -> torch.Tensor:
     """(L, F, rows, 128) scatter-add into zeros; CUDA tensors launch the
     kernel, CPU tensors take ``seg_scatter_add_plain``."""
-    if g.device.type == 'cpu':
+    if g.is_cpu:
         return seg_scatter_add_plain(idx, g, rows)
     name = 'seg_scatter_add'
-    _kernels.require_cuda(name, idx, g, dtypes=(torch.int32, torch.float32))
     if g.ndim != 3:
         raise KernelError(f'{name}: g must be (L, F, M)')
     levels, feats, m = g.shape
     _check_idx(name, idx, levels)
     if idx.shape[1] != m:
         raise KernelError(f'{name}: idx and g disagree on M')
-    out = torch.empty((levels, feats, rows, LANES), dtype=torch.float32,
-                      device=g.device)
+    _kernels.require_cuda(name, idx, g, dtypes=(torch.int32, torch.float32))
+    out = g.new_empty((levels, feats, rows, LANES))
     code = _kernels.load_library().nerficg_seg_scatter_add(
         idx.data_ptr(), g.data_ptr(), out.data_ptr(), levels, feats, m,
         rows, _kernels.stream_of(g))

@@ -1,0 +1,373 @@
+#!/usr/bin/env python3
+"""Time the port's CUDA kernels on one card, apart from the host.
+
+Three clocks, each for a different question:
+
+* ``device_ms``: the card's time per call. ``iters`` calls are captured into
+  one CUDA graph and its replays timed with CUDA events, so the host's
+  launch path is not in the number (a ctypes entry launches on PyTorch's
+  current stream, which is the capturing stream during capture).
+* ``host_ms``: the wall time per call of ``iters`` back-to-back calls that
+  ends in ``synchronize()``: the larger of the host's cost per call and the
+  card's. ``enqueue_ms`` is the same loop before the synchronize: the
+  host's cost alone.
+* ``events_ms``: CUDA events around ``iters`` eager calls (the plain
+  versions, which are timed only to show what the kernel replaces).
+
+Run as a script it answers two questions on the card:
+
+  python -m nerficg_torch.scripts.kernel_timing wrappers [--root DIR]
+      the host's cost per call of each piece of a kernel wrapper's path
+      (the segment gather's), beside ``torch.take`` on the same indices;
+      ``--root`` imports ``nerficg_torch`` from another checkout, so two
+      trees' wrappers can be timed in one call;
+  python -m nerficg_torch.scripts.kernel_timing gs-bwd \\
+      --variant NAME=PATH/gs_tiles.cu [--variant ...]
+      builds each variant of ``csrc/gs_tiles.cu`` into its own library
+      (printing ptxas's registers, shared memory and spills), checks its
+      stream backward against the plain version, and times the variants in
+      turns (A B ... B A, repeated) on bench.py's 1080p frame and on a
+      400x400 frame of the same model.
+
+Both also write their results as JSON under ``build/kernel_timing/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+__all__ = ['device_ms', 'host_ms', 'events_ms', 'gs_model', 'orbit_view',
+           'gs_frame']
+
+_OUT = Path('build') / 'kernel_timing'
+
+
+def device_ms(fn, iters: int = 50, replays: int = 3) -> float:
+    """Device time of one ``fn()`` in ms: ``iters`` calls captured into one
+    CUDA graph, its ``replays`` timed with CUDA events after one untimed
+    replay. ``fn`` is called once eagerly first (builds, caches)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def host_ms(fn, iters: int = 50) -> tuple[float, float]:
+    """(wall ms per call of ``iters`` calls ending in ``synchronize()``,
+    ms per call of the same loop before the synchronize), after a warm-up
+    call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueued = time.perf_counter()
+    torch.cuda.synchronize()
+    done = time.perf_counter()
+    return (done - start) * 1e3 / iters, (enqueued - start) * 1e3 / iters
+
+
+def events_ms(fn, iters: int = 50) -> float:
+    """Mean time of ``fn()`` in ms between CUDA events around ``iters``
+    eager calls, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def gs_model(device: str, n: int = 100_000, seed: int = 0):
+    """bench.py's ``_make_gs_model`` protocol on the port: n points
+    U(-1, 1)^3 with colors U(0, 1) from numpy seed 0, at the library's GS
+    defaults (SH degree 4, 16,384-slot capacity steps)."""
+    import numpy as np
+
+    from nerficg_torch.core.config import ConfigNode
+    from nerficg_torch.data.types import BasicPointCloud
+    from nerficg_torch.methods.gaussian_splatting.model import \
+        GaussianSplattingModel
+    model = GaussianSplattingModel(ConfigNode({'MODEL': {}}), device=device)
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n, 3)).astype(np.float32) * 2.0 - 1.0
+    cols = rng.random((n, 3)).astype(np.float32)
+    model.init_from_point_cloud(BasicPointCloud(pts, cols))
+    return model
+
+
+def orbit_view(angle: float, width: int, height: int):
+    """bench.py's orbit pose (radius 3, looking at the origin) as a View with
+    focal 0.8 * width and a black background."""
+    import numpy as np
+
+    from nerficg_torch.cameras.perspective import PerspectiveCamera
+    from nerficg_torch.data.types import View
+    eye = np.array([3 * np.sin(angle), 0.0, 3 * np.cos(angle)])
+    fwd = -eye / np.linalg.norm(eye)
+    right = np.cross(np.array([0.0, 1.0, 0.0]), fwd)
+    right /= np.linalg.norm(right)
+    c2w = np.eye(4)
+    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = (
+        right, np.cross(fwd, right), fwd, eye)
+    return View(PerspectiveCamera(width, height, 0.8 * width, 0.8 * width,
+                                  width / 2.0, height / 2.0), c2w)
+
+
+def gs_frame(model, width: int, height: int, packed: bool = False) -> tuple:
+    """The compositor's arguments (sorted_mat, starts, counts, tiles_x,
+    num_tiles, k = 256) for ``model`` at orbit pose 0, as
+    ``rasterize_gaussians`` builds them (6 tiles per Gaussian at most), at
+    SH degree 1 as bench.py renders it."""
+    import torch
+
+    from nerficg_torch.core.config import ConfigNode
+    from nerficg_torch.methods.gaussian_splatting.renderer import \
+        GaussianSplattingRenderer
+    from nerficg_torch.ops.gs_rasterize import entry_stream
+    renderer = GaussianSplattingRenderer(ConfigNode({}), model)
+    intrinsics, w2c, cam_pos = renderer.view_constants(
+        orbit_view(0.0, width, height))
+    with torch.no_grad():
+        inputs = renderer.frontend(model.params, w2c, cam_pos, intrinsics,
+                                   int(model.active_sh_degree))
+        s = entry_stream(**inputs, width=width, height=height,
+                         max_tiles_per_gaussian=6, max_per_tile=256,
+                         packed_inference=packed)
+    return (s['sorted_mat'], s['starts'], s['counts'], s['tiles_x'],
+            s['num_tiles'], 256)
+
+
+def _card() -> str:
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _write(name: str, result: dict) -> None:
+    _OUT.mkdir(parents=True, exist_ok=True)
+    (_OUT / name).write_text(json.dumps(result, indent=1))
+
+
+def wrappers(iters: int = 10000, rounds: int = 2) -> dict:
+    """Host microseconds per call of each piece of ``seg_gather``'s path at
+    the serving chunk's shape (24,576 int32 indices into a (1, 1, 13, 128)
+    table), beside ``torch.take``; every piece in turns, ``rounds`` times."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.ops import _kernels
+    from nerficg_torch.ops.hash_mxu import seg_gather
+
+    rng = np.random.default_rng(1)
+    m, rows = 24576, 13
+    dev = torch.device('cuda')
+    idx = torch.from_numpy(np.sort(rng.integers(0, 1537, (1, m))).astype(
+        np.int32)).to(dev)
+    table = torch.from_numpy(rng.normal(size=(1, 1, rows, 128)).astype(
+        np.float32)).to(dev)
+    idx64 = idx[0].long()
+    out = torch.empty((1, 1, m), device=dev)
+    lib = _kernels.load_library()
+    fn = lib.nerficg_seg_gather
+    # The same library loaded so that its calls keep the GIL.
+    held = ctypes.PyDLL(lib._name).nerficg_seg_gather
+    held.argtypes, held.restype = fn.argtypes, fn.restype
+    ptrs = (idx.data_ptr(), table.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    pieces = {
+        'empty Python call': lambda: None,
+        'tensor.device': lambda: table.device,
+        'torch.cuda.current_stream(device).cuda_stream':
+            lambda: torch.cuda.current_stream(table.device).cuda_stream,
+        '_kernels.stream_of': lambda: _kernels.stream_of(table),
+        '_kernels.require_cuda (2 tensors)':
+            lambda: _kernels.require_cuda('t', idx, table, dtypes=(
+                torch.int32, torch.float32)),
+        'torch.empty((1, 1, M), dtype, device)':
+            lambda: torch.empty((1, 1, m), dtype=torch.float32, device=dev),
+        'tensor.new_empty((1, 1, M))': lambda: table.new_empty((1, 1, m)),
+        'tensor.data_ptr()': lambda: table.data_ptr(),
+        '_kernels.load_library().nerficg_seg_gather':
+            lambda: _kernels.load_library().nerficg_seg_gather,
+        'ctypes call (launches the kernel)':
+            lambda: fn(*ptrs, 1, 1, m, rows, stream),
+        'ctypes call, M = 0 (returns before the launch)':
+            lambda: fn(*ptrs, 1, 1, 0, rows, stream),
+        'ctypes call keeping the GIL (launches)':
+            lambda: held(*ptrs, 1, 1, m, rows, stream),
+        'ctypes call keeping the GIL, M = 0':
+            lambda: held(*ptrs, 1, 1, 0, rows, stream),
+        'new_empty + 3 data_ptr + ctypes call (no checks)':
+            lambda: fn(idx.data_ptr(), table.data_ptr(),
+                       table.new_empty((1, 1, m)).data_ptr(), 1, 1, m, rows,
+                       stream),
+        'seg_gather (the wrapper)': lambda: seg_gather(idx, table),
+        'torch.take (int64 indices)': lambda: torch.take(table, idx64),
+    }
+    result = {name: [] for name in pieces}
+    for _ in range(rounds):
+        for name, piece in pieces.items():
+            for _ in range(100):
+                piece()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(iters):
+                piece()
+            torch.cuda.synchronize()
+            result[name].append((time.perf_counter() - start) * 1e6 / iters)
+    card = _card()
+    for name, us in result.items():
+        print(f'wrappers: {name}: ' + ', '.join(f'{u:.3f}' for u in us) +
+              f' us per call over {iters} calls [{card}]', flush=True)
+    device = {'seg_gather': device_ms(lambda: seg_gather(idx, table)),
+              'torch.take': device_ms(lambda: torch.take(table, idx64))}
+    for name, ms in device.items():
+        print(f'wrappers: {name}: {ms * 1e3:.3f} us per call on the card '
+              f'(CUDA graph of 50 calls) [{card}]', flush=True)
+    return {'card': card, 'iters': iters, 'us_per_call': result,
+            'device_ms': device}
+
+
+def _build_variant(name: str, source: Path) -> tuple[ctypes.CDLL, str]:
+    """Compile one gs_tiles.cu on its own into build/ab/<name>.so with the
+    library's flags and ``-Xptxas -v``; (the loaded library, ptxas's
+    report)."""
+    from nerficg_torch.ops import _kernels
+    out = _kernels._BUILD_DIR / 'ab' / f'lib{name}.so'
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_kernels._nvcc(), *_kernels._NVCC_FLAGS,
+                           '-Xptxas', '-v', '-o', str(out), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f'{name}: nvcc failed:\n{proc.stderr}')
+    lib = ctypes.CDLL(str(out))
+    lib.nerficg_gs_composite_bwd.argtypes = \
+        _kernels._SIGNATURES['nerficg_gs_composite_bwd']
+    lib.nerficg_gs_composite_bwd.restype = ctypes.c_int
+    return lib, proc.stderr
+
+
+def gs_bwd(variants: dict[str, Path], rounds: int = 3) -> dict:
+    """Each variant's stream backward on two frames: checked against the
+    plain version (rtol 1e-3 / atol 2e-3) and repeat-launch equality, then
+    timed in turns (device time, CUDA graph of 20 launches)."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.ops import gs_tiles_kernel as gtk
+
+    card = _card()
+    libs = {}
+    report = {'card': card, 'ptxas': {}, 'frames': {}}
+    for name, source in variants.items():
+        libs[name], ptxas = _build_variant(name, source)
+        report['ptxas'][name] = ptxas
+        print(f'gs-bwd: {name} ({source}) ptxas:\n{ptxas}', flush=True)
+    model = gs_model('cuda')
+    rng = np.random.default_rng(1)
+    for width, height in ((1920, 1080), (400, 400)):
+        args = gs_frame(model, width, height)
+        mat, starts, counts, tiles_x, num_tiles, k = args
+        _, tacc = gtk.gs_composite_fwd(*args)
+        dout = torch.from_numpy(rng.normal(
+            size=(num_tiles, gtk.OUT_ROWS, gtk.P)).astype(np.float32)).cuda()
+        want = gtk.gs_composite_bwd_plain(mat, starts, counts, dout, tiles_x,
+                                          num_tiles, k)
+
+        def call(lib):
+            d = torch.empty_like(mat)
+            code = lib.nerficg_gs_composite_bwd(
+                mat.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+                tacc.data_ptr(), dout.data_ptr(), d.data_ptr(), mat.shape[1],
+                num_tiles, tiles_x, k, torch.cuda.current_stream().cuda_stream)
+            if code != 0:
+                raise RuntimeError(f'launch failed with CUDA error {code}')
+            return d
+
+        frame = {'tiles': num_tiles, 'entries': int(counts.clamp(max=k).sum()),
+                 'variants': {}}
+        for name, lib in libs.items():
+            got = call(lib)
+            torch.cuda.synchronize()
+            frame['variants'][name] = {
+                'max_abs_err': float((got - want).abs().max()),
+                'close': bool(torch.allclose(got, want, rtol=1e-3,
+                                             atol=2e-3)),
+                'repeat_equal': bool(torch.equal(got, call(lib))),
+                'ms': []}
+        order = list(libs) + list(reversed(libs))
+        for _ in range(rounds):
+            for name in order:
+                lib = libs[name]
+                frame['variants'][name]['ms'].append(
+                    device_ms(lambda: call(lib), iters=20))
+        for name, v in frame['variants'].items():
+            print(f'gs-bwd {width}x{height} ({num_tiles} tiles, '
+                  f'{frame["entries"]} entries within k): {name}: device ms '
+                  + ', '.join(f'{t:.4f}' for t in v['ms']) +
+                  f' (median {float(np.median(v["ms"])):.4f}); max_abs_err '
+                  f'{v["max_abs_err"]:.3e} {"ok" if v["close"] else "MISMATCH"}'
+                  f', repeat {"equal" if v["repeat_equal"] else "DIFFERS"} '
+                  f'[{card}]', flush=True)
+        report['frames'][f'{width}x{height}'] = frame
+    return report
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    parser.add_argument('what', choices=('wrappers', 'gs-bwd'))
+    parser.add_argument('--root', default=None,
+                        help='import nerficg_torch from this checkout')
+    parser.add_argument('--variant', action='append', default=[],
+                        help='NAME=PATH of a gs_tiles.cu (gs-bwd)')
+    args = parser.parse_args(argv)
+    if args.root is not None:
+        sys.path.insert(0, str(Path(args.root).resolve()))
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit('kernel_timing: needs a CUDA card')
+    if args.what == 'wrappers':
+        tag = Path(args.root).name if args.root else 'this'
+        _write(f'wrappers_{tag}.json', wrappers())
+    else:
+        variants = dict(v.split('=', 1) for v in args.variant)
+        _write('gs_bwd_ab.json', gs_bwd({k: Path(v) for k, v in
+                                         variants.items()}))
+
+
+if __name__ == '__main__':
+    main()

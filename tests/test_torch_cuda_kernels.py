@@ -252,6 +252,77 @@ def test_gs_composite_bwd(cuda):
         *args[:3], tacc, dout, *args[3:]))
 
 
+def _edge_tiles(device, k=64, seed=11):
+    """A hand-built 16-wide stream over a 32x32 frame (2 x 2 tiles) whose
+    tiles hold 0 entries, 45 (not a multiple of the 32-entry chunk), 100
+    (above k) and 32 small Gaussians in the tile's top two pixel rows, so
+    that only the first warps' pixels are reached."""
+    rng = np.random.default_rng(seed)
+    counts = np.array([0, 45, 100, 32])
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    origins = [(0, 0), (16, 0), (0, 16), (16, 16)]
+    entries = []
+    for (ox, oy), n, small in zip(origins, counts, (False, False, False,
+                                                    True)):
+        mx = ox + rng.uniform(0, 16, n)
+        my = oy + (rng.uniform(0, 2, n) if small else rng.uniform(0, 16, n))
+        inv = rng.uniform(1.5, 3.0, n) if small else rng.uniform(0.05, 0.5, n)
+        cb = rng.uniform(-0.02, 0.02, n)
+        entries.append(np.stack([mx, my, inv, cb, inv, rng.uniform(0.05, 0.99, n),
+                                 *rng.uniform(0, 1, (3, n)),
+                                 rng.uniform(1, 5, n)], 0))
+    mat = np.zeros((16, int(counts.sum()) + 3 * k), np.float32)
+    mat[:10, :int(counts.sum())] = np.concatenate(entries, 1)
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(a, dtype=dtype, device=device)
+    return (t(mat), t(starts, torch.int32), t(counts, torch.int32), 2, 4, k)
+
+
+@pytest.mark.parametrize('layout', ['stream', 'slots'])
+def test_gs_bwd_edge_tiles(cuda, layout):
+    """#16 (stream) and #14 (slots) on tiles with 0, 45, 100 > k and 32
+    entries, the last reaching only its first warps' pixels: within the
+    JAX package's 2e-3 / 1e-3 of autograd of the plain version, zero past
+    each tile's min(count, k), bit-equal between two launches."""
+    args = _edge_tiles(cuda)
+    mat, starts, counts, tiles_x, num_tiles, k = args
+    dout = torch.tensor(np.random.default_rng(12).normal(
+        size=(num_tiles, 5, 256)), dtype=torch.float32, device=cuda)
+    if layout == 'stream':
+        _, tacc = gs_tiles_kernel.gs_composite_fwd(*args)
+
+        def run():
+            return gs_tiles_kernel.gs_composite_bwd(*args[:3], tacc, dout,
+                                                    *args[3:])
+        want = gs_tiles_kernel.gs_composite_bwd_plain(*args[:3], dout,
+                                                      *args[3:])
+        got = run()
+        composited = torch.zeros(mat.shape[1], dtype=torch.bool,
+                                 device=cuda)
+        for start, count in zip(starts.tolist(), counts.tolist()):
+            composited[start:start + min(count, k)] = True
+        assert not got[:, ~composited].any()
+        assert bool(got[:10, composited].abs().sum(1).gt(0).all())
+    else:
+        slots, _ = gs_tiles_kernel._slots(mat, starts, tiles_x, k, 0,
+                                          num_tiles)
+        slots = slots.contiguous()
+        origins = gs_tiles_kernel._tile_origins(num_tiles, tiles_x, cuda)
+        dout8 = torch.nn.functional.pad(dout, (0, 0, 0, 3))
+
+        def run():
+            return gs_tiles_kernel.gs_tiles_bwd(slots, counts, origins,
+                                                dout8)
+        want = gs_tiles_kernel.gs_tiles_bwd_plain(slots, counts, origins,
+                                                  dout8)
+        got = run()
+        past = torch.arange(k, device=cuda)[None] >= counts[:, None].long()
+        assert not got[past].any()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
+    assert torch.equal(got, run())
+
+
 @pytest.mark.parametrize('n_corners', [0, 1, 2, 4])
 def test_hash_xbar_bwd_pos(cuda, n_corners):
     """The position gradient against its plain version on the same bits:

@@ -11,7 +11,7 @@ exact corners (STOCHASTIC_CORNERS=0, D-NeRF's default).
   field with timestamps and a grid refresh at a given time (densities and
   colours by ``_assert_bf16_close``), the offset prior on given points
   (1e-5 relative), a rendered test view (>= 45 dB),
-  ``exponential_decay`` (1e-6 relative over 0..N) and the loader's
+  ``optax_exponential_decay`` (1e-6 relative over 0..N) and the loader's
   normalised timestamps.
 * Training: one exact step through the trainer's own code with the JAX
   step's march seed and offset-prior points. Loss to 1e-5 relative, every
@@ -47,7 +47,7 @@ from nerficg_torch.core.registry import Datasets as TDatasets
 from nerficg_torch.core.registry import Methods as TMethods
 from nerficg_torch.data.synthetic import make_dynamic_textured_scene
 from nerficg_torch.ops.encoding import frequency_encode
-from nerficg_torch.optim.lr import exponential_decay
+from nerficg_torch.optim.lr import optax_exponential_decay
 from nerficg_tpu.core.config import ConfigNode as JConfigNode
 from nerficg_tpu.core.registry import Datasets as JDatasets
 from nerficg_tpu.core.registry import Methods as JMethods
@@ -352,7 +352,7 @@ def test_one_step_matches_jax(scene):
 def test_exponential_decay_matches_optax():
     want = optax.exponential_decay(1e-3, transition_steps=300,
                                    decay_rate=0.1)
-    got = exponential_decay(1e-3, 300, 0.1)
+    got = optax_exponential_decay(1e-3, 300, 0.1)
     for step in range(301):
         assert got(step) == pytest.approx(float(want(step)), rel=1e-6)
 

@@ -1,6 +1,7 @@
 """The port's 3DGS frontend and helpers against the JAX package on the CPU:
 quaternion rotations, 3D covariances, the EWA projection, SH color, the kNN
-scale init, 30-bit Morton codes, the log-lerp LR schedule and DSSIM.
+scale init, 30-bit Morton codes, the log-lerp LR schedules (with the
+delayed warm-up) and DSSIM.
 Inputs come from numpy seeds; tolerances are stated per test."""
 
 import jax
@@ -15,6 +16,7 @@ from nerficg_torch.ops import gaussian as t_gauss
 from nerficg_torch.ops.knn import knn_mean_sq_distance as t_knn
 from nerficg_torch.ops.morton import morton_encode_positions as t_morton
 from nerficg_torch.optim.losses import dssim as t_dssim
+from nerficg_torch.optim.lr import exponential_decay as t_exp
 from nerficg_torch.optim.lr import lr_decay_policy as t_lr
 from nerficg_tpu.cameras.pose import quaternion_to_rotation_matrix as j_q2r
 from nerficg_tpu.ops import encoding as j_enc
@@ -22,6 +24,7 @@ from nerficg_tpu.ops import gaussian as j_gauss
 from nerficg_tpu.ops.knn import knn_mean_sq_distance as j_knn
 from nerficg_tpu.ops.morton import morton_encode_positions as j_morton
 from nerficg_tpu.optim.losses import dssim as j_dssim
+from nerficg_tpu.optim.lr import exponential_decay as j_exp
 from nerficg_tpu.optim.lr import lr_decay_policy as j_lr
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -118,6 +121,29 @@ def test_lr_decay_policy_matches_jax():
     j_fn = j_lr(1.6e-4 * 3.3, 1.6e-6 * 3.3, 30000)
     for step in (0, 1, 50, 999, 15000, 30000, 40000):
         np.testing.assert_allclose(t_fn(step), float(j_fn(step)), rtol=1e-6)
+
+
+@pytest.mark.parametrize('delay_steps,delay_mult', [(0, 0.5), (2500, 0.01),
+                                                    (1000, 1.0)])
+def test_lr_decay_policy_delay_matches_jax(delay_steps, delay_mult):
+    """The cosine-delayed warm-up (and its absence at 0 delay steps)
+    against JAX's f32, before, during and after the delay: rtol 1e-6."""
+    args = (5e-4, 5e-6, 10000, delay_steps, delay_mult)
+    t_fn, j_fn = t_lr(*args), j_lr(*args)
+    for step in (0, 1, 10, 500, 999, 1000, 2499, 2500, 5000, 10000, 15000):
+        np.testing.assert_allclose(t_fn(step), float(j_fn(step)), rtol=1e-6)
+
+
+@pytest.mark.parametrize('lr_init,lr_final,max_steps', [
+    (1e-2, 1e-4, 1000), (5e-3, 5e-3, 300), (1e-3, 3e-2, 777)])
+def test_exponential_decay_matches_jax(lr_init, lr_final, max_steps):
+    """The log-linear decay against JAX's over steps 0..1.5 max_steps,
+    the clamp past max_steps included: rtol 1e-6."""
+    t_fn = t_exp(lr_init, lr_final, max_steps)
+    j_fn = j_exp(lr_init, lr_final, max_steps)
+    for step in range(0, max_steps * 3 // 2 + 1):
+        np.testing.assert_allclose(t_fn(step), float(j_fn(step)), rtol=1e-6)
+    assert t_fn(max_steps * 3 // 2) == pytest.approx(lr_final, rel=1e-12)
 
 
 def test_dssim_and_its_gradient_match_jax():

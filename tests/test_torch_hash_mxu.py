@@ -57,3 +57,51 @@ def test_wrappers_refuse_non_cpu_tensors_without_a_kernel():
         tmx.seg_gather(idx, table)
     with pytest.raises(KernelError):
         tmx.seg_scatter_add(idx, torch.empty((1, 1, 8), device='meta'), 2)
+
+
+def _meta(shape, dtype=torch.float32):
+    """A tensor that is on no CPU, so the wrappers take the kernel path and
+    must refuse it before any launch (there is no card here)."""
+    return torch.empty(shape, dtype=dtype, device='meta')
+
+
+@pytest.mark.parametrize('call,message', [
+    # a CPU tensor beside a non-CPU one (the first tensor, idx, is named)
+    (lambda: tmx.seg_gather(torch.zeros((1, 8), dtype=torch.int32),
+                            _meta((1, 1, 2, 128))),
+     'seg_gather: all inputs must be on one CUDA device, got cpu and cpu'),
+    (lambda: tmx.seg_scatter_add(torch.zeros((1, 8), dtype=torch.int32),
+                                 _meta((1, 1, 8)), 2),
+     'seg_scatter_add: all inputs must be on one CUDA device, got cpu and '
+     'cpu'),
+    # wrong dtypes
+    (lambda: tmx.seg_gather(_meta((1, 8), torch.int64), _meta((1, 1, 2, 128))),
+     'seg_gather: expected torch.int32, got torch.int64'),
+    (lambda: tmx.seg_scatter_add(_meta((1, 8), torch.int32),
+                                 _meta((1, 1, 8), torch.float64), 2),
+     'seg_scatter_add: expected torch.float32, got torch.float64'),
+    # non-contiguous inputs
+    (lambda: tmx.seg_gather(_meta((1, 16), torch.int32)[:, ::2],
+                            _meta((1, 1, 2, 128))),
+     'seg_gather: inputs must be contiguous'),
+    (lambda: tmx.seg_scatter_add(_meta((1, 8), torch.int32),
+                                 _meta((1, 1, 16))[..., ::2], 2),
+     'seg_scatter_add: inputs must be contiguous'),
+    # shapes
+    (lambda: tmx.seg_scatter_add(_meta((1, 8), torch.int32),
+                                 _meta((1, 1, 9)), 2),
+     'seg_scatter_add: idx and g disagree on M'),
+    (lambda: tmx.seg_scatter_add(_meta((2, 8), torch.int32),
+                                 _meta((1, 1, 8)), 2),
+     r'seg_scatter_add: idx must be \(1, M\), got \(2, 8\)'),
+    (lambda: tmx.seg_scatter_add(_meta((1, 8), torch.int32), _meta((1, 8)),
+                                 2),
+     r'seg_scatter_add: g must be \(L, F, M\)'),
+    (lambda: tmx.seg_gather(_meta((1, 8), torch.int32), _meta((1, 1, 2, 64))),
+     r'seg_gather: table must be \(L, F, R, 128\)'),
+])
+def test_wrapper_refusals_keep_their_messages(call, message):
+    """Every check of the kernel path still raises KernelError with its
+    message: device, dtype, contiguity, shape."""
+    with pytest.raises(KernelError, match=message):
+        call()
