@@ -9,7 +9,11 @@ Phases, each printing its own lines:
      PyTorch version on the card, at the shapes its path gives it, and time
      both: the kernel (and the library call) on the card's own clock, a CUDA
      graph of 50 calls, and on the host's, 50 calls ending in a synchronize;
-     the 3DGS stream backward on the 1080p frame and on a 400x400 one;
+     the 3DGS stream backward on the 1080p frame and on a 400x400 one; the
+     crossbar backward (#11, #12 and both from one call) at the Instant-NGP
+     step's 65,536 and D-NeRF's 262,144 samples on the level-resident path,
+     and on a 2^16-entry table, past a block's shared memory, on the gather
+     path;
   3. serving path: write a textured synthetic scene and an Instant-NGP
      checkpoint at full library width (random weights from a numpy seed,
      a shell-shaped occupancy grid), run the port's inference entry point
@@ -55,17 +59,20 @@ Phases, each printing its own lines:
  11. D-NeRF: nerficg_torch/configs/dnerf.yaml (16 levels x 2^14 on the
      crossbar, exact corners, a 48 -> 128 x 3 -> 3 deformation MLP, 262,144
      samples per step) on a 400x400 make_dynamic_textured_scene through the
-     training entry point for 2000 of its 30,000 iterations (#12 once per
-     iteration, loss falls, the deformation trains, test PSNR at least 5 dB
-     above the untrained model's), a profile of one step, served through the
+     training entry point for 2000 of its 30,000 iterations (#11 and #12
+     from one fused call per iteration, loss falls, the deformation
+     trains, test PSNR at least 5 dB above the untrained model's), a
+     profile of one step, served through the
      inference entry point, and Instant-NGP with the same config on the same
-     scene as the static control (printed, not checked);
+     scene as the static control (printed with its launches, not checked);
  12. one D-NeRF training step at a small width, card against CPU;
  13. the op API's kernels without a caller among the methods, as a user
      calls them: composite_tiles (forward and, through autograd, backward)
      on the slot windows of bench.py's 1080p frame, held to the stream
-     compositor's image, and xbar_permute of a 262,144 x 4 sample stream,
-     held to permute_block_channels.
+     compositor's image; xbar_permute of a 262,144 x 4 sample stream,
+     held to permute_block_channels; and the crossbar's position gradient
+     alone (#12, through a frozen table's hash_encode_xbar_posgrad) at
+     D-NeRF's width and 262,144 samples, held to its plain version.
 Every kernel's launch count is set to 0 just before the run that drives it
 and read just after. Each kernel's line reports its time against the least
 time the card could take for the same work (`bound_ms`: each input read once
@@ -125,6 +132,9 @@ KERNELS = {
                          'nerficg_tpu/ops/gs_tiles_kernel.py:481'),
     'hash_xbar_bwd_pos': ('cuda', 'nerficg_torch/csrc/hash_xbar.cu',
                           'nerficg_tpu/ops/hash_xbar.py:537'),
+    'hash_xbar_bwd_fused': ('cuda', 'nerficg_torch/csrc/hash_xbar.cu',
+                            'nerficg_tpu/ops/hash_xbar.py:394; '
+                            'nerficg_tpu/ops/hash_xbar.py:537'),
     'gs_tiles_fwd': ('cuda', 'nerficg_torch/csrc/gs_tiles.cu',
                      'nerficg_tpu/ops/gs_tiles_kernel.py:164'),
     'gs_tiles_bwd': ('cuda', 'nerficg_torch/csrc/gs_tiles.cu',
@@ -249,11 +259,13 @@ def phase2_kernels(card: str) -> dict:
         hash_window_fwd_stoch_plain, morton_sort_keys, window_bases,
         window_layout)
     from nerficg_torch.ops.hash_xbar import (hash_xbar_bwd,
+                                             hash_xbar_bwd_fused,
                                              hash_xbar_bwd_plain,
                                              hash_xbar_bwd_pos,
                                              hash_xbar_bwd_pos_plain,
                                              hash_xbar_fwd,
-                                             hash_xbar_fwd_plain)
+                                             hash_xbar_fwd_plain,
+                                             xbar_bwd_plan)
     from nerficg_torch.ops.hashgrid import HashGridConfig
     from nerficg_torch.ops.xbar_gather import (block_probe_cells,
                                                block_probe_cells_plain,
@@ -460,74 +472,128 @@ def phase2_kernels(card: str) -> dict:
            f'g (32,{n}) -> (16,2,4096,128), 8 corners',
            nbytes(g, pos, lo, win, got), 16 * n * 8 * 6)
 
-    # #10/#11: the crossbar config's step, 65,536 ray-ordered samples on the
+    # #10/#11: the crossbar config's step, 65,536 samples on the
     # (16,2,128,128) table, exact (serving) and 4 stochastic corners
-    # (training); the stochastic corners and weights must be bit-equal.
-    n = 65536
-    pos = torch.from_numpy(rng.uniform(0.2, 0.8, (n, 3)).astype(
-        np.float32)).to(dev)
-    g = torch.from_numpy(rng.normal(size=(n, 32)).astype(np.float32)).to(dev)
-    for nc in (4, 0):
-        args = (table, pos, config, nc, 0x5EED)
-        out, x_idx, x_w = hash_xbar_fwd(*args, save=True)
-        out_p, x_idx_p, x_w_p = hash_xbar_fwd_plain(*args, save=True)
-        mode = 'exact' if nc == 0 else f'{nc} corners'
-        line = record(
-            'hash_xbar_fwd', out, out_p,
-            lambda a, b: bool(torch.equal(x_idx, x_idx_p)) and bool(
-                torch.equal(x_w, x_w_p)) and bool(
-                torch.allclose(a, b, rtol=0.0, atol=1e-5)),
-            lambda: hash_xbar_fwd(*args), lambda: hash_xbar_fwd_plain(*args),
-            f'table (16,2,128,128) x {n} samples, {mode}',
-            nbytes(pos, out) + entry_bytes(x_idx), 16 * n * (nc or 8) * 6)
-        got = hash_xbar_bwd(g, pos, config, 128, nc, 0x5EED)
-        line_bwd = record(
-            'hash_xbar_bwd', got,
-            hash_xbar_bwd_plain(g, pos, config, 128, nc, 0x5EED), scatter_ok,
-            lambda: hash_xbar_bwd(g, pos, config, 128, nc, 0x5EED),
-            lambda: hash_xbar_bwd_plain(g, pos, config, 128, nc, 0x5EED),
-            f'g ({n},32) -> (16,2,128,128), {mode}',
-            nbytes(g, pos, got), 16 * n * (nc or 8) * 6)
-        if nc:
-            stochastic = {'hash_xbar_fwd': dict(line),
-                          'hash_xbar_bwd': dict(line_bwd)}
-    # The report's xbar lines are the exact mode; the 4-corner training mode
-    # rides along.
-    for name, line in stochastic.items():
-        report[name]['stochastic_4_corners'] = line
+    # (training), then D-NeRF's step, 262,144 samples, exact and 4 corners;
+    # the stochastic corners and weights must be bit-equal. #11 runs on the
+    # level-resident path (its table gradient staged in shared memory).
+    # #11's bytes: cotangent and positions read, the table written.
+    xbar_lines = {}
+    for n in (262144, 65536):
+        plain_iters = 5 if n > 65536 else 50
+        pos = torch.from_numpy(rng.uniform(0.2, 0.8, (n, 3)).astype(
+            np.float32)).to(dev)
+        g = torch.from_numpy(rng.normal(size=(n, 32)).astype(
+            np.float32)).to(dev)
+        for nc in (4, 0):
+            args = (table, pos, config, nc, 0x5EED)
+            out, x_idx, x_w = hash_xbar_fwd(*args, save=True)
+            out_p, x_idx_p, x_w_p = hash_xbar_fwd_plain(*args, save=True)
+            mode = 'exact' if nc == 0 else f'{nc} corners'
+            xbar_lines['hash_xbar_fwd', n, nc] = dict(record(
+                'hash_xbar_fwd', out, out_p,
+                lambda a, b: bool(torch.equal(x_idx, x_idx_p)) and bool(
+                    torch.equal(x_w, x_w_p)) and bool(
+                    torch.allclose(a, b, rtol=0.0, atol=1e-5)),
+                lambda: hash_xbar_fwd(*args),
+                lambda: hash_xbar_fwd_plain(*args),
+                f'table (16,2,128,128) x {n} samples, {mode}',
+                nbytes(pos, out) + entry_bytes(x_idx),
+                16 * n * (nc or 8) * 6, plain_iters=plain_iters))
+            got = hash_xbar_bwd(g, pos, config, 128, nc, 0x5EED)
+            xbar_lines['hash_xbar_bwd', n, nc] = dict(record(
+                'hash_xbar_bwd', got,
+                hash_xbar_bwd_plain(g, pos, config, 128, nc, 0x5EED),
+                scatter_ok,
+                lambda: hash_xbar_bwd(g, pos, config, 128, nc, 0x5EED),
+                lambda: hash_xbar_bwd_plain(g, pos, config, 128, nc, 0x5EED),
+                f'g ({n},32) -> (16,2,128,128), {mode}, '
+                f'{xbar_bwd_plan(config, n, pos=False).path}',
+                nbytes(g, pos, got), 16 * n * (nc or 8) * 6,
+                plain_iters=plain_iters))
 
-    # #12: the D-NeRF step's 262,144 samples (TARGET_BATCH_SIZE) on the
-    # full-width table, exact (D-NeRF's default) and 4 corners, against the
-    # plain version on the same bits (the kernel keeps its order of
-    # operations): rtol 1e-5. Bytes: positions, cotangent and dpos, and the
-    # table entries the samples reach; operations per (sample, level,
-    # corner): g . v (3), the other dims' factor products (3), 3 per dim
-    # for the product and 1 for the sum (12).
-    n = 262144
-    pos = torch.from_numpy(rng.uniform(0.2, 0.8, (n, 3)).astype(
-        np.float32)).to(dev)
-    g = torch.from_numpy(rng.normal(size=(n, 32)).astype(np.float32)).to(dev)
-    for nc in (4, 0):
-        args = (table, pos, g, config, nc, 0x5EED)
-        got = hash_xbar_bwd_pos(*args)
-        _, x_idx, _ = hash_xbar_fwd(table, pos, config, nc, 0x5EED,
-                                    save=True)
+    # #12 at both sample counts, and #11 and #12 from one call at D-NeRF's
+    # (exact, its default, and 4 corners), each against the plain versions
+    # on the same bits: the position gradient equal (the kernels keep the
+    # plain version's order of operations and sum the levels in order),
+    # the table gradient as scatter_ok allows. #12's bytes: positions,
+    # cotangent and dpos, and the table entries the samples reach;
+    # operations per (sample, level, corner): g . v (3), the other dims'
+    # factor products (3), 3 per dim for the product and 1 for the sum (12).
+    def xbar_bwd_pair(tag, xtable, xconfig, n, nc):
+        """#12 and the fused entry on one input set; their report lines."""
+        rows = xtable.shape[2]
+        pos = torch.from_numpy(rng.uniform(0.2, 0.8, (n, 3)).astype(
+            np.float32)).to(dev)
+        g = torch.from_numpy(rng.normal(size=(n, 32)).astype(
+            np.float32)).to(dev)
+        args = (xtable, pos, g, xconfig, nc, 0x5EED)
         mode = 'exact' if nc == 0 else f'{nc} corners'
-        line = record(
-            'hash_xbar_bwd_pos', got, hash_xbar_bwd_pos_plain(*args),
-            lambda a, b: bool(torch.allclose(
-                a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))),
+        plan = xbar_bwd_plan(xconfig, n)
+        want_pos = hash_xbar_bwd_pos_plain(*args)
+        got = hash_xbar_bwd_pos(*args)
+        _, x_idx, _ = hash_xbar_fwd(xtable, pos, xconfig, nc, 0x5EED,
+                                    save=True)
+        moved_pos = nbytes(pos, g, got) + entry_bytes(x_idx)
+        line_pos = dict(record(
+            'hash_xbar_bwd_pos', got, want_pos,
+            lambda a, b: bool(torch.equal(a, b)),
             lambda: hash_xbar_bwd_pos(*args),
             lambda: hash_xbar_bwd_pos_plain(*args),
-            f'g ({n},32) -> dpos ({n},3), {mode}',
-            nbytes(pos, g, got) + entry_bytes(x_idx), 16 * n * (nc or 8) * 18,
-            plain_iters=5)
-        if nc:
-            pos_4_corners = dict(line)
-    report['hash_xbar_bwd_pos']['stochastic_4_corners'] = pos_4_corners
+            f'{tag}g ({n},32) -> dpos ({n},3), {mode}, '
+            f'{xbar_bwd_plan(xconfig, n, tab=False).path}',
+            moved_pos, 16 * n * (nc or 8) * 18, plain_iters=5))
+        dtab, dpos = hash_xbar_bwd_fused(*args)
+        want_tab = hash_xbar_bwd_plain(g, pos, xconfig, rows, nc, 0x5EED)
+        print(f'phase 2: hash_xbar_bwd_fused {tag}{n} samples, {mode}: '
+              f'dpos max_abs_err={float((dpos - want_pos).abs().max()):.3e} '
+              f'(equal {bool(torch.equal(dpos, want_pos))})', flush=True)
+
+        def plain_both():
+            return (hash_xbar_bwd_plain(g, pos, xconfig, rows, nc, 0x5EED),
+                    hash_xbar_bwd_pos_plain(*args))
+        line_both = dict(record(
+            'hash_xbar_bwd_fused', dtab, want_tab,
+            lambda a, b: scatter_ok(a, b) and bool(torch.equal(dpos,
+                                                               want_pos)),
+            lambda: hash_xbar_bwd_fused(*args), plain_both,
+            f'{tag}g ({n},32) -> (16,2,{rows},128) + dpos ({n},3), {mode}, '
+            f'{plan.path}',
+            moved_pos + nbytes(dtab), 16 * n * (nc or 8) * 24,
+            plain_iters=5))
+        return line_pos, line_both
+
+    for n, nc in ((65536, 4), (65536, 0), (262144, 4), (262144, 0)):
+        (xbar_lines['hash_xbar_bwd_pos', n, nc],
+         xbar_lines['hash_xbar_bwd_fused', n, nc]) = xbar_bwd_pair(
+            '', table, config, n, nc)
+    # The gather path: a 2^16-entry crossbar table (16,2,512,128) needs 384
+    # KiB of shared memory per level, past a block's 227 KB.
+    big_config = HashGridConfig(num_levels=16, features_per_level=2,
+                                log2_table_size=16, base_resolution=16,
+                                target_resolution=2048)
+    big_table = torch.from_numpy(rng.uniform(-1, 1, (16, 2, 512, 128)).astype(
+        np.float32)).to(dev)
+    if xbar_bwd_plan(big_config, 262144).path != 'gather':
+        fail('a 2^16 crossbar table should take the gather path')
+    gather = xbar_bwd_pair('2^16 table, ', big_table, big_config, 262144, 0)
+    # The report's lines: #10 and #11 at the Instant-NGP step's 65,536,
+    # exact; #12 and the fused entry at D-NeRF's 262,144, exact; the other
+    # shapes and modes ride along.
+    main_shape = {'hash_xbar_fwd': 65536, 'hash_xbar_bwd': 65536,
+                  'hash_xbar_bwd_pos': 262144, 'hash_xbar_bwd_fused': 262144}
+    for name, n_main in main_shape.items():
+        report[name] = dict(xbar_lines[name, n_main, 0])
+        for (key, n, nc), line in xbar_lines.items():
+            if key == name and (n, nc) != (n_main, 0):
+                report[name][f'{"exact" if nc == 0 else f"{nc}_corners"}_'
+                             f'{n}'] = line
+    report['hash_xbar_bwd_pos']['gather_2^16_exact_262144'] = gather[0]
+    report['hash_xbar_bwd_fused']['gather_2^16_exact_262144'] = gather[1]
 
     # #5: the (262,144 x 4) f32 sample stream (sigma, rgb) permuted by
     # whole blocks of 8, as permute_block_channels moves it; bit-exact.
+    n = 262144
     blocks = n // 8
     perm = torch.from_numpy(rng.permutation(blocks)).to(dev)
     idx = (perm[:, None] * 8 + torch.arange(8, device=dev)).reshape(-1).to(
@@ -918,6 +984,7 @@ def _training_wrappers() -> dict:
                                                hash_window_fwd,
                                                hash_window_fwd_stoch)
     from nerficg_torch.ops.hash_xbar import (hash_xbar_bwd,
+                                             hash_xbar_bwd_fused,
                                              hash_xbar_bwd_pos,
                                              hash_xbar_fwd)
     from nerficg_torch.ops.xbar_gather import block_probe_cells
@@ -928,6 +995,7 @@ def _training_wrappers() -> dict:
             'hash_cell_fwd': hash_cell_fwd, 'hash_cell_bwd': hash_cell_bwd,
             'hash_xbar_fwd': hash_xbar_fwd, 'hash_xbar_bwd': hash_xbar_bwd,
             'hash_xbar_bwd_pos': hash_xbar_bwd_pos,
+            'hash_xbar_bwd_fused': hash_xbar_bwd_fused,
             'block_probe': block_probe_cells, 'seg_gather': seg_gather,
             'seg_scatter_add': seg_scatter_add}
 
@@ -1462,13 +1530,16 @@ def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
     point on the 400x400 dynamic scene for ``iterations`` of its 30,000
     (which also compresses the deformation rate's decay, tied to
     NUM_ITERATIONS, into the cut), after an untrained run for the baseline
-    PSNR. Checks that #12 launched once per iteration, the loss fell, the
-    deformation's output layer left zero and moves points differently at
-    t = 1/4 and 3/4, and the test PSNR, trained and served through the
-    inference entry point, is at least 5 dB above the untrained model's.
-    Prints, without a check, the static control: Instant-NGP with the same
-    config (crossbar, exact corners) on the same scene and iterations.
-    Returns #12's launch count of the training run."""
+    PSNR. Checks that the fused crossbar backward (#11 and #12 in one
+    launch) ran once per iteration, the loss fell, the deformation's output
+    layer left zero and moves points differently at t = 1/4 and 3/4, and
+    the test PSNR, trained and served through the inference entry point, is
+    at least 5 dB above the untrained model's. Prints, without a check, the
+    static control: Instant-NGP with the same config (crossbar, exact
+    corners) on the same scene and iterations, and its launches. Returns
+    the crossbar kernels' launch counts: the fused entry's of the training
+    run, #10's and #11's of all three runs (D-NeRF trained and served, the
+    control trained) summed."""
     import numpy as np
     import torch
 
@@ -1515,13 +1586,14 @@ def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
         print(f'{tag}: test metrics after {iterations} iterations: ' +
               ', '.join(f'{k}={v:.4f}' for k, v in result['metrics'].items())
               + f' (untrained {psnr_before:.3f} dB) [{card}]')
-        shown = {k: launches[k] for k in ('hash_xbar_bwd_pos', 'hash_xbar_fwd',
-                                          'hash_xbar_bwd', 'block_probe')}
+        xbar = ('hash_xbar_fwd', 'hash_xbar_bwd', 'hash_xbar_bwd_pos',
+                'hash_xbar_bwd_fused')
+        shown = {k: launches[k] for k in xbar + ('block_probe',)}
         print(f'{tag}: kernel launches in the training run: {shown}',
               flush=True)
-        if launches['hash_xbar_bwd_pos'] != iterations:
-            fail(f'{tag}: hash_xbar_bwd_pos launched '
-                 f'{launches["hash_xbar_bwd_pos"]} times in {iterations} '
+        if launches['hash_xbar_bwd_fused'] != iterations:
+            fail(f'{tag}: hash_xbar_bwd_fused launched '
+                 f'{launches["hash_xbar_bwd_fused"]} times in {iterations} '
                  'iterations')
         if len(losses) != iterations or not np.isfinite(losses).all():
             fail(f'{tag}: training loss is missing or not finite')
@@ -1564,16 +1636,23 @@ def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
             fail(f'{tag}: the served test PSNR {metrics["PSNR"]:.3f} dB is '
                  f'not 5 dB above the untrained model\'s {psnr_before:.3f} dB')
 
-        control = train.main(args + ['GLOBAL.METHOD_TYPE=InstantNGP',
-                                     f'TRAINING.NUM_ITERATIONS={iterations}',
-                                     'TRAINING.MODEL_NAME=static_control'])
+        control, control_launches = _launches_of(lambda: train.main(
+            args + ['GLOBAL.METHOD_TYPE=InstantNGP',
+                    f'TRAINING.NUM_ITERATIONS={iterations}',
+                    'TRAINING.MODEL_NAME=static_control']), wrappers)
         step = control['trainer'].timers['training_iteration']
         print(f'{tag}: static control, Instant-NGP (crossbar, exact corners) '
               f'with the same config on the same scene, {iterations} '
               f'iterations: test PSNR {control["metrics"]["PSNR"]:.3f} dB, '
               f'{step.mean * 1e3:.2f} ms per training_iteration (D-NeRF '
-              f'{psnr:.3f} dB) [{card}]', flush=True)
-    return {'hash_xbar_bwd_pos': launches['hash_xbar_bwd_pos']}
+              f'{psnr:.3f} dB); launches '
+              f'{ {k: control_launches[k] for k in xbar} } [{card}]',
+              flush=True)
+    counts = {'hash_xbar_bwd_fused': launches['hash_xbar_bwd_fused']}
+    for name in ('hash_xbar_fwd', 'hash_xbar_bwd'):
+        counts[name] = launches[name] + control_launches[name] + \
+            served_launches[name]
+    return counts
 
 
 # The deformation MLP learns through the position gradient, a sum over
@@ -1594,7 +1673,7 @@ def phase12_dnerf_step(card: str, seed: int = 0) -> None:
     gradient), grid, rays, background, march seed and offset-prior points.
     Loss 1e-5 relative; the field's gradients 2e-2 relative Frobenius (the
     bf16 noise floor), the deformation MLP's DEFORM_FROBENIUS_RTOL, all
-    non-zero; #12 launched once."""
+    non-zero; #11 and #12 launched once, from one fused call."""
     import numpy as np
     import torch
 
@@ -1670,8 +1749,8 @@ def phase12_dnerf_step(card: str, seed: int = 0) -> None:
     loss_err = abs(loss_g - loss_c) / abs(loss_c)
     print(f'phase 12: D-NeRF step, loss card {loss_g:.8f}, CPU {loss_c:.8f}, '
           f'relative error {loss_err:.2e} (limit 1e-5); '
-          f'{int(logs["card"]["num_samples"])} samples; hash_xbar_bwd_pos '
-          f'launched {launches["hash_xbar_bwd_pos"]} time(s) [{card}]')
+          f'{int(logs["card"]["num_samples"])} samples; hash_xbar_bwd_fused '
+          f'launched {launches["hash_xbar_bwd_fused"]} time(s) [{card}]')
     bad = []
     for name in ('hash_table', 'density_mlp', 'color_mlp', 'deform_mlp'):
         pairs = zip(*(grads[r][name] if name != 'hash_table'
@@ -1684,8 +1763,9 @@ def phase12_dnerf_step(card: str, seed: int = 0) -> None:
                   f'{np.linalg.norm(c):.3e}')
             if not (frob <= limit and np.linalg.norm(c) > 0.0):
                 bad.append(f'{name}[{i}]')
-    if launches['hash_xbar_bwd_pos'] != 1:
-        fail('phase 12: the step did not launch hash_xbar_bwd_pos once')
+    if launches['hash_xbar_bwd_fused'] != 1:
+        fail('phase 12: the step did not launch the fused crossbar backward '
+             f'once: {launches}')
     if not loss_err <= 1e-5:
         fail(f'phase 12: card and CPU losses differ by {loss_err:.2e}')
     if bad:
@@ -1696,15 +1776,20 @@ def phase13_op_api(card: str) -> dict:
     """The op API's entry points with no caller among the methods, as a user
     calls them: ``composite_tiles`` (#13, #14 through autograd) on the slot
     windows of bench.py's 1080p frame, and ``xbar_permute`` (#5) on a
-    262,144-sample stream permuted by blocks of 8. Checks: the composite's
+    262,144-sample stream permuted by blocks of 8, and the crossbar's
+    position gradient alone (#12): ``hash_encode_xbar_posgrad`` through a
+    frozen 16 x 2^14 table, 262,144 samples. Checks: the composite's
     rows 0-4 equal the stream compositor's (#15) image of the frame (atol
     1e-5), its three padding rows and the gradient past each count are
     zero, the gradient is finite; the permutation equals
-    ``permute_block_channels`` bit for bit. Returns their launch counts."""
+    ``permute_block_channels`` bit for bit; the position gradient equals
+    ``hash_xbar_bwd_pos_plain`` bit for bit. Returns their launch counts."""
     import numpy as np
     import torch
 
     from nerficg_torch.ops import gs_tiles_kernel as gtk
+    from nerficg_torch.ops import hash_xbar as hx
+    from nerficg_torch.ops.hashgrid import HashGridConfig
     from nerficg_torch.ops.sample_sort import permute_block_channels
     from nerficg_torch.ops.xbar_gather import xbar_permute
     from nerficg_torch.scripts.kernel_timing import gs_frame, gs_model
@@ -1723,17 +1808,31 @@ def phase13_op_api(card: str) -> dict:
            ).reshape(-1).to(torch.int32)
     channels = torch.from_numpy(rng.normal(size=(4, n)).astype(
         np.float32)).cuda()
+    xconfig = HashGridConfig(num_levels=16, features_per_level=2,
+                             log2_table_size=14, base_resolution=16,
+                             target_resolution=2048)
+    xtable = torch.from_numpy(rng.uniform(-1, 1, (16, 2, 128, 128)).astype(
+        np.float32)).cuda()
+    xpos = torch.from_numpy(rng.uniform(0, 1 - 1e-6, (n, 3)).astype(
+        np.float32)).cuda()
+    xcot = torch.from_numpy(rng.normal(size=(n, 32)).astype(
+        np.float32)).cuda()
     wrappers = {'gs_tiles_fwd': gtk.gs_tiles_fwd,
                 'gs_tiles_bwd': gtk.gs_tiles_bwd,
-                'xbar_permute': xbar_permute}
+                'xbar_permute': xbar_permute,
+                'hash_xbar_bwd_pos': hx.hash_xbar_bwd_pos}
 
     def run():
         x = slots.detach().requires_grad_(True)
         out = gtk.composite_tiles(x, counts, origins)
         (out * dout).sum().backward()
+        p = xpos.clone().requires_grad_(True)
+        (hx.hash_encode_xbar_posgrad(xtable, p, xconfig) * xcot).sum() \
+            .backward()
         return out.detach(), x.grad, xbar_permute(channels.T.contiguous(),
-                                                  idx)
-    (out, grad, permuted), launches = _launches_of(run, wrappers)
+                                                  idx), p.grad
+    (out, grad, permuted, dpos), launches = _launches_of(run, wrappers)
+    want_dpos = hx.hash_xbar_bwd_pos_plain(xtable, xpos, xcot, xconfig)
     past = torch.arange(slots.shape[1], device='cuda')[None] >= \
         counts[:, None].long()
     err = float((out[:, :5] - image).abs().max())
@@ -1744,7 +1843,10 @@ def phase13_op_api(card: str) -> dict:
           f'{bool(torch.isfinite(grad).all())}, max |d slots| '
           f'{float(grad.abs().max()):.3e}; xbar_permute of ({n},4) rows '
           f'bit-equal to permute_block_channels '
-          f'{bool(torch.equal(permuted, want))}; launches {launches} '
+          f'{bool(torch.equal(permuted, want))}; position gradient of a '
+          f'frozen 16 x 2^14 crossbar, {n} samples, bit-equal to '
+          f'hash_xbar_bwd_pos_plain {bool(torch.equal(dpos, want_dpos))}, '
+          f'max |dpos| {float(dpos.abs().max()):.3e}; launches {launches} '
           f'[{card}]', flush=True)
     if not err <= 1e-5 or bool(out[:, 5:].any()):
         fail('phase 13: composite_tiles disagrees with the stream compositor')
@@ -1753,6 +1855,9 @@ def phase13_op_api(card: str) -> dict:
              'each count')
     if not torch.equal(permuted.view(torch.int32), want.view(torch.int32)):
         fail('phase 13: xbar_permute disagrees with permute_block_channels')
+    if not torch.equal(dpos, want_dpos) or not float(dpos.abs().max()) > 0:
+        fail('phase 13: the position gradient disagrees with '
+             'hash_xbar_bwd_pos_plain or vanishes')
     if any(v != 1 for v in launches.values()):
         fail(f'phase 13: each op-API kernel should launch once: {launches}')
     return launches
@@ -1816,7 +1921,10 @@ def main() -> None:
         print(f'phase 11: 400x400 dynamic textured scene (40 train, 4 test '
               f'views) written in {time.perf_counter() - start:.1f} s',
               flush=True)
-        launches.update(phase11_dnerf(card, scene))
+        dnerf = phase11_dnerf(card, scene)
+        for name in ('hash_xbar_fwd', 'hash_xbar_bwd'):
+            launches[name] += dnerf.pop(name)
+        launches.update(dnerf)
     phase12_dnerf_step(card)
     launches.update(phase13_op_api(card))
     kernels = [{'name': name, 'route': route, 'source': source,

@@ -18,43 +18,69 @@
 // index (int32) and weight (f32), each (L, C, N), so a check can hold the
 // corners to the plain version's bit for bit.
 //
-// Backward. `hash_xbar_bwd` replaces `_bwd_kernel` (:394, `_bwd_pallas`
-// :481), whose one-hot MXU block limits the TPU to tables of 2^14 entries;
-// the function has no such limit and neither has this kernel. It recomputes
-// the corners with the forward's device code (the same words in stochastic
-// mode, which the TPU replays from its per-tile stream), so the gradient
-// lands on the corners the forward read, bit for bit, and adds the f32
-// product g * w_c at each, as `_bwd_jnp` (:721) does, with fp32 atomicAdd
-// into a table zeroed by cudaMemsetAsync on the stream.
-//
-// Position gradient. `hash_xbar_bwd_pos` replaces `_bwd_pos_kernel` (:537,
-// `_bwd_pos_pallas` :599), the d(encode)/d(position) that a deformation
-// field (D-NeRF) trains through. Per sample and level, with g the sample's
-// two cotangents and v_c the bf16-rounded features of corner c, it adds
+// Backward. One entry, `nerficg_hash_xbar_bwd_fused`, computes the table
+// gradient (#11, `_bwd_kernel` :394, `_bwd_pallas` :481), the position
+// gradient (#12, `_bwd_pos_kernel` :537, `_bwd_pos_pallas` :599), or both
+// from one pass over the corners. Both recompute the corners with the
+// forward's device code (the same counter words in stochastic mode, which
+// the TPU replays from its per-tile stream), so the gradient lands on the
+// corners the forward read, bit for bit. The table gradient adds the f32
+// product g * w_c at each corner, as `_bwd_jnp` (:721) does. The position
+// gradient, with g the sample's two cotangents and v_c the bf16-rounded
+// features of corner c, adds per sample and level
 //   ((g . v_c) * dfactor_{c,d}) * (prod_{e != d} factor_{c,e}) * (res - 1)
 // over the corners in order into a per-level sum, and the levels' sums in
 // order into dpos (N, 3), d/d(unit position) as the oracle `_dpos_jnp`
 // (:642) differentiates the bf16 trilinear encode. Exact corners: factor f
-// or 1 - f, dfactor +-1. Stochastic corners (the same draws as the forward):
-// the interpolated dims likewise, the Bernoulli-sampled dims factor 1 and
-// dfactor 0 (`_corner_set` :236, straight-through). One thread per sample
-// loops over the levels and keeps the three sums in registers: no atomics,
-// and every sum in the plain version's order with _rn intrinsics, so the
-// result is the plain version's, bit for bit, from run to run. Not fused with
-// the table gradient (the TPU launches them apart; a fused kernel would
-// share the gather). A level whose two cotangents are 0 adds exact zeros and
-// is skipped.
+// or 1 - f, dfactor +-1. Stochastic corners (the forward's draws): the
+// interpolated dims likewise, the Bernoulli-sampled dims factor 1 and
+// dfactor 0 (`_corner_set` :236, straight-through). A (sample, level) whose
+// two cotangents are 0 adds exact zeros to both and is skipped.
+//
+// Level-resident path (what the TPU kernels keep in VMEM: the level's
+// gradient block across all sample tiles, `_bwd_kernel`, and the level's
+// table, `_bwd_pos_kernel`). Grid (T sample tiles, L levels), one block of
+// kResThreads per SM, T * L about one wave of the SMs. A block stages its
+// level's rows_l * 128 entries in dynamic shared memory: the table (#12) as
+// one bf16x2 word per entry (both features rounded with bf16_round, as the
+// gather path reads them), and an f32 gradient of both planes (#11), zeroed.
+// A corner then costs one shared load and two shared f32 atomicAdds where
+// the gather path pays two L2 sectors or two global atomics; the shared
+// atomics are compare-and-swap loops on sm_90, so runs of lanes on one
+// corner (ray-ordered samples at the coarse levels) first sum in the warp.
+// At the end the block adds its gradient's non-zero float4s into the table,
+// one coalesced vector atomic each (the table zeroed by cudaMemsetAsync
+// first): T * L * rows_l * 128 / 2 global atomics where the gather path
+// makes 16 per (sample, level). The position gradient keeps the plain
+// version's order of operations: each (level, sample) sum goes to an
+// (L, N, 3) scratch, and a second kernel adds each sample's L sums in level
+// order with _rn intrinsics, so dpos is the plain version's, bit for bit,
+// whichever level block finished first. A level of 2^14 entries needs 128
+// KiB of gradient and 64 KiB of table; the path is taken when the largest
+// level fits the 227 KB a block may use (the wrapper chooses by shapes).
+//
+// Gather path, for tables past that: one thread per (sample, level) that
+// atomically adds into the global table (#11), and one thread per sample
+// that walks the levels in order, reads the corners with __ldg and keeps
+// the three sums in registers (#12); no atomics there, so dpos is again the
+// plain version's bits.
 //
 // What bounds them on an H100: 2 * C random 4-byte reads (forward) or atomic
 // adds (backward) per (sample, level), C = 8 exact or 1/2/4 stochastic,
 // against 8 bytes written or read per (sample, level). At the library's 2^14
-// entries the whole table is 2 MiB and stays in the 50 MB L2, so the reads
-// and atomics are L2 operations. The hash spreads neighbouring vertices over
-// the table, so a warp's corners touch ~32 separate sectors at hashed levels:
-// sector throughput, not arithmetic, is the limit. One thread per (sample,
-// level), the level on blockIdx.y (uniform dense/hash branch per block); the
-// sample-major output is written as one 8-byte pair per thread at a stride of
-// L*2 floats, which L2 merges across the levels' blocks.
+// entries the whole table is 2 MiB and stays in the 50 MB L2, so on the
+// gather path the reads and atomics are L2 operations; the hash spreads
+// neighbouring vertices over the table, so a warp's corners touch ~32
+// separate sectors at hashed levels, and ray-ordered samples share the
+// coarse levels' corners, whose atomics serialize at L2. The resident path
+// moves those operations into shared memory, where the latency of the
+// compare-and-swap atomics and their bank conflicts sets the pace (on an
+// H100 it runs a third faster at 1024 threads per SM than at 512); the
+// position gradient's scratch and level sum add 2 * 12 bytes per (sample,
+// level). The forward runs one thread per (sample, level), the level on
+// blockIdx.y (uniform dense/hash branch per block); the sample-major output
+// is written as one 8-byte pair per thread at a stride of L*2 floats, which
+// L2 merges across the levels' blocks.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -250,6 +276,210 @@ __global__ void hash_xbar_bwd_pos_kernel(
   o[2] = d[2];
 }
 
+// Threads of a level-resident block (one block per SM: its shared memory).
+// The kernel is latency-bound on its shared-memory atomics and reads: on an
+// H100, 1024 threads (64 registers, no spills) beat 768 and 512.
+constexpr int kResThreads = 1024;
+
+// The two features of a table entry rounded to bf16 (bf16_round's bits),
+// packed as one word: feature 0 low, feature 1 high.
+__device__ __forceinline__ uint32_t pack_bf16x2(float v0, float v1) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(v0))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(v1)))
+          << 16);
+}
+
+// Shared-memory f32 atomicAdd is a compare-and-swap loop on sm_90, so lanes
+// that hit one entry retry in turn. Ray-ordered samples put runs of
+// neighbouring lanes on the same corner at the coarse levels. When the
+// warp's keys form at most kAggregateRuns runs of equal neighbours, each
+// run's values are summed by a segmented shuffle reduction and its first
+// lane adds them once; otherwise every lane adds its own. key < 0: nothing
+// to add. Called by all 32 lanes.
+constexpr int kAggregateRuns = 24;
+
+__device__ __forceinline__ void add_aggregated(float* sg, int entries,
+                                               int key, float a, float b) {
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  const int lane = threadIdx.x & 31;
+  const int prev = __shfl_up_sync(kFull, key, 1);
+  const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != key);
+  if (__popc(heads) <= kAggregateRuns) {
+    const unsigned after = heads & ~((2u << lane) - 1u);
+    const int end = after != 0u ? __ffs(after) - 1 : 32;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float ta = __shfl_down_sync(kFull, a, d);
+      const float tb = __shfl_down_sync(kFull, b, d);
+      if (lane + d < end) {
+        a = __fadd_rn(a, ta);
+        b = __fadd_rn(b, tb);
+      }
+    }
+    if (key < 0 || ((heads >> lane) & 1u) == 0u) return;
+  } else if (key < 0) {
+    return;
+  }
+  atomicAdd(sg + key, a);
+  atomicAdd(sg + entries + key, b);
+}
+
+// One (sample tile, level) block of the level-resident backward: stage the
+// level (its bf16x2 table when POS, its zeroed f32 gradient when TAB), walk
+// the tile's chunks of kResThreads samples, then flush the gradient into
+// dtab. With POS, each (level, sample) sum goes to scratch (L, N, 3).
+template <int NC, bool TAB, bool POS>
+__global__ void __launch_bounds__(kResThreads, 1)
+    hash_xbar_bwd_resident_kernel(
+        const float* __restrict__ g, const float* __restrict__ pos,
+        const float* __restrict__ table, const float* __restrict__ res_m1_l,
+        const int* __restrict__ lrows_l, const int* __restrict__ dense_l,
+        float* __restrict__ dtab, float* __restrict__ scratch, int n,
+        int levels, int rows, int chunks_per_tile, uint32_t seed) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int lvl = blockIdx.y;
+  const XbarLevel lay = xbar_level(res_m1_l, lrows_l, dense_l, lvl);
+  const int entries = lrows_l[lvl] * kLanes;
+  const size_t plane = static_cast<size_t>(rows) * kLanes;
+  float* sg = reinterpret_cast<float*>(smem);
+  uint32_t* stab = smem + (TAB ? 2 * entries : 0);
+  for (int e = 4 * threadIdx.x; e < entries; e += 4 * kResThreads) {
+    if constexpr (TAB) {
+      const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      *reinterpret_cast<float4*>(sg + e) = zero;
+      *reinterpret_cast<float4*>(sg + entries + e) = zero;
+    }
+    if constexpr (POS) {
+      const float* t0 = table + 2 * lvl * plane + e;
+      const float4 a = __ldg(reinterpret_cast<const float4*>(t0));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(t0 + plane));
+      *reinterpret_cast<uint4*>(stab + e) =
+          make_uint4(pack_bf16x2(a.x, b.x), pack_bf16x2(a.y, b.y),
+                     pack_bf16x2(a.z, b.z), pack_bf16x2(a.w, b.w));
+    }
+  }
+  __syncthreads();
+
+  constexpr int kMax = NC == 0 ? 8 : NC;
+  const int chunks = (n + kResThreads - 1) / kResThreads;
+  const int c0 = blockIdx.x * chunks_per_tile;
+  const int c1 = min(chunks, c0 + chunks_per_tile);
+  for (int ch = c0; ch < c1; ++ch) {
+    const int i = ch * kResThreads + threadIdx.x;
+    float g0 = 0.0f;
+    float g1 = 0.0f;
+    if (i < n) {
+      const float* gi = g + static_cast<size_t>(i) * (2 * levels) + 2 * lvl;
+      g0 = gi[0];
+      g1 = gi[1];
+    }
+    // A lane past n or with both cotangents 0 adds nothing; a warp of such
+    // lanes skips the level. The others keep every lane converged for the
+    // table gradient's warp aggregation.
+    const bool active = g0 != 0.0f || g1 != 0.0f;
+    float acc[3] = {0.0f, 0.0f, 0.0f};
+    if (__any_sync(0xFFFFFFFFu, active)) {
+      int base[3];
+      float frac[3];
+      nerficg::level_coords(pos, min(i, n - 1), lay.res_m1, base, frac);
+      int off[kMax][3];
+      float w[kMax];
+      bool exact[3] = {true, true, true};
+      if constexpr (NC == 0) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          off[c][0] = (c >> 2) & 1;
+          off[c][1] = (c >> 1) & 1;
+          off[c][2] = c & 1;
+          w[c] = nerficg::trilinear_weight(frac, off[c][0], off[c][1],
+                                           off[c][2]);
+        }
+      } else {
+        nerficg::stoch_corners<NC>(frac, seed, lvl, i, off, w, exact);
+      }
+#pragma unroll
+      for (int c = 0; c < kMax; ++c) {
+        const int idx =
+            xbar_index(lay, base, off[c][0], off[c][1], off[c][2]);
+        if constexpr (TAB) {
+          add_aggregated(sg, entries, active ? idx : -1,
+                         __fmul_rn(g0, w[c]), __fmul_rn(g1, w[c]));
+        }
+        if constexpr (POS) {
+          if (active) {
+            const uint32_t word = stab[idx];
+            const float v0 = __uint_as_float(word << 16);
+            const float v1 = __uint_as_float(word & 0xFFFF0000u);
+            const float gp = __fadd_rn(__fmul_rn(g0, v0), __fmul_rn(g1, v1));
+            float f[3], df[3];
+#pragma unroll
+            for (int e = 0; e < 3; ++e) {
+              f[e] = exact[e]
+                         ? (off[c][e] ? frac[e] : __fsub_rn(1.0f, frac[e]))
+                         : 1.0f;
+              df[e] = exact[e] ? (off[c][e] ? 1.0f : -1.0f) : 0.0f;
+            }
+            const float other[3] = {__fmul_rn(f[1], f[2]),
+                                    __fmul_rn(f[0], f[2]),
+                                    __fmul_rn(f[0], f[1])};
+#pragma unroll
+            for (int e = 0; e < 3; ++e) {
+              acc[e] = __fadd_rn(
+                  acc[e], __fmul_rn(__fmul_rn(__fmul_rn(gp, df[e]), other[e]),
+                                    lay.res_m1));
+            }
+          }
+        }
+      }
+    }
+    if constexpr (POS) {
+      if (i < n) {
+        float* s = scratch + (static_cast<size_t>(lvl) * n + i) * 3;
+        s[0] = acc[0];
+        s[1] = acc[1];
+        s[2] = acc[2];
+      }
+    }
+  }
+
+  if constexpr (TAB) {
+    __syncthreads();
+    float* d0 = dtab + 2 * lvl * plane;
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      for (int e = 4 * threadIdx.x; e < entries; e += 4 * kResThreads) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(sg + f * entries + e);
+        if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f) {
+          atomicAdd(reinterpret_cast<float4*>(d0 + f * plane + e), v);
+        }
+      }
+    }
+  }
+}
+
+// dpos (N, 3) from the resident kernel's scratch (L, N, 3): each sample's L
+// level sums added in level order, so dpos is the plain version's bits
+// whichever level block finished first. A second launch: a last-block
+// handshake in the resident kernel (a counter per chunk and a threadfence)
+// measured slower on an H100.
+__global__ void hash_xbar_sum_levels_kernel(const float* __restrict__ scratch,
+                                            float* __restrict__ dpos, int n,
+                                            int levels) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float d[3] = {0.0f, 0.0f, 0.0f};
+  for (int l = 0; l < levels; ++l) {
+    const float* s = scratch + (static_cast<size_t>(l) * n + i) * 3;
+#pragma unroll
+    for (int e = 0; e < 3; ++e) d[e] = __fadd_rn(d[e], s[e]);
+  }
+  float* o = dpos + static_cast<size_t>(i) * 3;
+  o[0] = d[0];
+  o[1] = d[1];
+  o[2] = d[2];
+}
+
 template <int NC>
 cudaError_t launch_fwd(const void* table, const void* pos, const void* res_m1,
                        const void* lrows, const void* dense, void* out,
@@ -298,6 +528,73 @@ cudaError_t launch_bwd_pos(const void* table, const void* pos, const void* g,
   return cudaGetLastError();
 }
 
+template <int NC, bool TAB, bool POS>
+cudaError_t launch_resident(const void* g, const void* pos, const void* table,
+                            const void* res_m1, const void* lrows,
+                            const void* dense, void* dtab, void* dpos,
+                            void* scratch, int levels, int n, int rows,
+                            int level_rows, int tiles, uint32_t seed,
+                            cudaStream_t stream) {
+  const auto kernel = hash_xbar_bwd_resident_kernel<NC, TAB, POS>;
+  const int smem = level_rows * kLanes * ((TAB ? 8 : 0) + (POS ? 4 : 0));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int chunks = (n + kResThreads - 1) / kResThreads;
+  const int per_tile = (chunks + tiles - 1) / tiles;
+  kernel<<<dim3(tiles, levels), kResThreads, smem, stream>>>(
+      static_cast<const float*>(g), static_cast<const float*>(pos),
+      static_cast<const float*>(table), static_cast<const float*>(res_m1),
+      static_cast<const int*>(lrows), static_cast<const int*>(dense),
+      static_cast<float*>(dtab), static_cast<float*>(scratch), n, levels,
+      rows, per_tile, seed);
+  if (POS) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    hash_xbar_sum_levels_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+        static_cast<const float*>(scratch), static_cast<float*>(dpos), n,
+        levels);
+  }
+  return cudaGetLastError();
+}
+
+template <int NC>
+cudaError_t launch_bwd_fused(const void* g, const void* pos,
+                             const void* table, const void* res_m1,
+                             const void* lrows, const void* dense, void* dtab,
+                             void* dpos, void* scratch, int levels, int n,
+                             int rows, int level_rows, int tiles,
+                             uint32_t seed, cudaStream_t stream) {
+  if (tiles == 0) {  // gather path
+    cudaError_t err = cudaSuccess;
+    if (dtab != nullptr) {
+      err = launch_bwd<NC>(g, pos, res_m1, lrows, dense, dtab, levels, n,
+                           rows, seed, stream);
+    }
+    if (err == cudaSuccess && dpos != nullptr) {
+      err = launch_bwd_pos<NC>(table, pos, g, res_m1, lrows, dense, dpos,
+                               levels, n, rows, seed, stream);
+    }
+    return err;
+  }
+  if (dtab != nullptr && dpos != nullptr) {
+    return launch_resident<NC, true, true>(g, pos, table, res_m1, lrows,
+                                           dense, dtab, dpos, scratch, levels,
+                                           n, rows, level_rows, tiles, seed,
+                                           stream);
+  }
+  if (dtab != nullptr) {
+    return launch_resident<NC, true, false>(g, pos, table, res_m1, lrows,
+                                            dense, dtab, dpos, scratch,
+                                            levels, n, rows, level_rows,
+                                            tiles, seed, stream);
+  }
+  return launch_resident<NC, false, true>(g, pos, table, res_m1, lrows, dense,
+                                          dtab, dpos, scratch, levels, n,
+                                          rows, level_rows, tiles, seed,
+                                          stream);
+}
+
 }  // namespace
 
 // table (L, 2, rows, 128) f32; pos (N, 3) f32; per-level layout res_m1 (L,)
@@ -333,63 +630,49 @@ extern "C" int nerficg_hash_xbar_fwd(const void* table, const void* pos,
   }
 }
 
-// g (N, L*2) f32; pos, the layout, n_corners and seed as for the forward;
-// dtab (L, 2, rows, 128) f32, zeroed here.
-extern "C" int nerficg_hash_xbar_bwd(const void* g, const void* pos,
-                                     const void* res_m1, const void* lrows,
-                                     const void* dense, void* dtab,
-                                     int levels, int n, int rows,
-                                     int n_corners, unsigned int seed,
-                                     void* stream) {
+// The crossbar backward: the table gradient dtab (L, 2, rows, 128) f32
+// when dtab is non-null, the position gradient dpos (N, 3) f32 when dpos is
+// non-null, at least one of them. g (N, L*2) f32; pos (N, 3) f32 in
+// [0, 1); table (L, 2, rows, 128) f32 (read only for dpos); the layout,
+// n_corners and seed as for the forward; level_rows the largest level's
+// rows. tiles > 0 takes the level-resident path with that many sample
+// tiles (and, for dpos, scratch (L, N, 3) f32); tiles == 0 takes the
+// gather path. dtab is zeroed here.
+extern "C" int nerficg_hash_xbar_bwd_fused(
+    const void* g, const void* pos, const void* table, const void* res_m1,
+    const void* lrows, const void* dense, void* dtab, void* dpos,
+    void* scratch, int levels, int n, int rows, int level_rows, int tiles,
+    int n_corners, unsigned int seed, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t bytes =
-      static_cast<size_t>(levels) * 2 * rows * kLanes * sizeof(float);
-  cudaError_t err = cudaMemsetAsync(dtab, 0, bytes, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  switch (n_corners) {
-    case 0:
-      return static_cast<int>(launch_bwd<0>(g, pos, res_m1, lrows, dense,
-                                            dtab, levels, n, rows, seed, s));
-    case 1:
-      return static_cast<int>(launch_bwd<1>(g, pos, res_m1, lrows, dense,
-                                            dtab, levels, n, rows, seed, s));
-    case 2:
-      return static_cast<int>(launch_bwd<2>(g, pos, res_m1, lrows, dense,
-                                            dtab, levels, n, rows, seed, s));
-    case 4:
-      return static_cast<int>(launch_bwd<4>(g, pos, res_m1, lrows, dense,
-                                            dtab, levels, n, rows, seed, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if ((dtab == nullptr && dpos == nullptr) || tiles < 0 || levels <= 0 ||
+      level_rows <= 0 || level_rows > rows ||
+      (tiles > 0 && dpos != nullptr && scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// table (L, 2, rows, 128) f32; pos (N, 3) f32 in [0, 1); g (N, L*2) f32;
-// the layout, n_corners and seed as for the forward; dpos (N, 3) f32.
-extern "C" int nerficg_hash_xbar_bwd_pos(const void* table, const void* pos,
-                                         const void* g, const void* res_m1,
-                                         const void* lrows, const void* dense,
-                                         void* dpos, int levels, int n,
-                                         int rows, int n_corners,
-                                         unsigned int seed, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtab != nullptr) {
+    const size_t bytes =
+        static_cast<size_t>(levels) * 2 * rows * kLanes * sizeof(float);
+    const cudaError_t err = cudaMemsetAsync(dtab, 0, bytes, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (n == 0) return static_cast<int>(cudaGetLastError());
   switch (n_corners) {
     case 0:
-      return static_cast<int>(launch_bwd_pos<0>(table, pos, g, res_m1, lrows,
-                                                dense, dpos, levels, n, rows,
-                                                seed, s));
+      return static_cast<int>(launch_bwd_fused<0>(
+          g, pos, table, res_m1, lrows, dense, dtab, dpos, scratch, levels, n,
+          rows, level_rows, tiles, seed, s));
     case 1:
-      return static_cast<int>(launch_bwd_pos<1>(table, pos, g, res_m1, lrows,
-                                                dense, dpos, levels, n, rows,
-                                                seed, s));
+      return static_cast<int>(launch_bwd_fused<1>(
+          g, pos, table, res_m1, lrows, dense, dtab, dpos, scratch, levels, n,
+          rows, level_rows, tiles, seed, s));
     case 2:
-      return static_cast<int>(launch_bwd_pos<2>(table, pos, g, res_m1, lrows,
-                                                dense, dpos, levels, n, rows,
-                                                seed, s));
+      return static_cast<int>(launch_bwd_fused<2>(
+          g, pos, table, res_m1, lrows, dense, dtab, dpos, scratch, levels, n,
+          rows, level_rows, tiles, seed, s));
     case 4:
-      return static_cast<int>(launch_bwd_pos<4>(table, pos, g, res_m1, lrows,
-                                                dense, dpos, levels, n, rows,
-                                                seed, s));
+      return static_cast<int>(launch_bwd_fused<4>(
+          g, pos, table, res_m1, lrows, dense, dtab, dpos, scratch, levels, n,
+          rows, level_rows, tiles, seed, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

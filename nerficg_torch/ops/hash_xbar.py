@@ -16,7 +16,13 @@ Instant-NGP hash masked to ``rows*128 - 1``. Output is sample-major
     gradient lands on the corners the forward read;
   * ``hash_xbar_bwd_pos``: the position gradient d(encode)/d(unit position)
     (#12 ``_bwd_pos_kernel`` :537), exact, or straight-through on the same
-    stochastic corners (interpolated dims only).
+    stochastic corners (interpolated dims only);
+  * ``hash_xbar_bwd_fused``: both gradients from one pass over the
+    corners, one call (D-NeRF's backward).
+All three reach one C entry: a level-resident kernel (a block per (sample
+tile, level) with the level's table and gradient in shared memory) where
+the largest level fits a block's shared memory, the gather kernels past
+that; ``xbar_bwd_plan`` chooses from the shapes alone.
 ``hash_encode_xbar`` and ``hash_encode_xbar_stochastic`` are the
 differentiable entry points with gradients to the table only;
 ``hash_encode_xbar_posgrad`` and ``hash_encode_xbar_stochastic_posgrad``
@@ -27,6 +33,7 @@ differentiable entry points with gradients to the table only;
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -43,7 +50,9 @@ __all__ = ['level_layout', 'hash_encode_xbar', 'hash_encode_xbar_stochastic',
            'hash_encode_xbar_posgrad', 'hash_encode_xbar_stochastic_posgrad',
            'hash_xbar_fwd', 'hash_xbar_fwd_plain', 'hash_xbar_bwd',
            'hash_xbar_bwd_plain', 'hash_xbar_bwd_pos',
-           'hash_xbar_bwd_pos_plain', 'xbar_corners']
+           'hash_xbar_bwd_pos_plain',
+           'hash_xbar_bwd_fused', 'hash_xbar_bwd_fused_plain',
+           'xbar_bwd_plan', 'xbar_corners']
 
 # ---------------------------------------------------------------------------
 # crossbar layout and corner indices
@@ -214,23 +223,8 @@ def hash_xbar_bwd(g: torch.Tensor, positions: torch.Tensor,
     if g.device.type == 'cpu':
         return hash_xbar_bwd_plain(g, positions, config, rows, n_corners,
                                    seed)
-    name = 'hash_xbar_bwd'
-    _kernels.require_cuda(name, g, positions,
-                          dtypes=(torch.float32, torch.float32))
-    levels = config.num_levels
-    _check_table(name, rows, levels, tuple(positions.shape), config)
-    n = positions.shape[0]
-    if g.shape != (n, levels * 2):
-        raise KernelError(f'{name}: g must be ({n}, {levels * 2}), got '
-                          f'{tuple(g.shape)}')
-    res_m1, lrows, dense = _layout_tensors(config, g.device)
-    dtab = torch.empty((levels, 2, rows, LANES), dtype=torch.float32,
-                       device=g.device)
-    code = _kernels.load_library().nerficg_hash_xbar_bwd(
-        g.data_ptr(), positions.data_ptr(), res_m1.data_ptr(),
-        lrows.data_ptr(), dense.data_ptr(), dtab.data_ptr(), levels, n, rows,
-        n_corners, seed, _kernels.stream_of(g))
-    _kernels.check(code, name)
+    dtab, _ = _launch_bwd('hash_xbar_bwd', g, positions, None, config, rows,
+                          n_corners, seed, True, False)
     hash_xbar_bwd.launches += 1
     return dtab
 
@@ -242,18 +236,14 @@ hash_xbar_bwd.launches = 0
 # #12 position gradient
 # ---------------------------------------------------------------------------
 
-def hash_xbar_bwd_pos_plain(table: torch.Tensor, positions: torch.Tensor,
-                            g: torch.Tensor, config: HashGridConfig,
-                            n_corners: int = 0, seed: int = 0
-                            ) -> torch.Tensor:
-    """Plain position gradient: g (N, L*2) -> dpos (N, 3), d/d(unit
-    position) of the bf16 trilinear encode (the oracle ``_dpos_jnp`` :642
-    for exact corners). Per level, over the corners in order,
-    ((g . v_c) * dfactor_d) * (prod_{e != d} factor_e) * (res - 1), the
-    kernel's order of operations; the levels' sums added in order."""
+def _dpos_levels(table: torch.Tensor, positions: torch.Tensor,
+                 g: torch.Tensor, config: HashGridConfig, n_corners: int,
+                 seed: int):
+    """Each level's position-gradient sum (N, 3), in level order: over the
+    corners in order, ((g . v_c) * dfactor_d) * (prod_{e != d} factor_e) *
+    (res - 1), the kernels' order of operations."""
     flat = bf16_planes(table)
     res_m1 = level_layout(config)[0]
-    dpos = torch.zeros_like(positions)
     for lv in range(table.shape[0]):
         verts, f, df = corner_factors(positions, int(res_m1[lv]) + 1, lv,
                                       n_corners, seed)
@@ -265,6 +255,19 @@ def hash_xbar_bwd_pos_plain(table: torch.Tensor, positions: torch.Tensor,
         acc = torch.zeros_like(positions)
         for c in range(terms.shape[1]):
             acc = acc + terms[:, c]
+        yield acc
+
+
+def hash_xbar_bwd_pos_plain(table: torch.Tensor, positions: torch.Tensor,
+                            g: torch.Tensor, config: HashGridConfig,
+                            n_corners: int = 0, seed: int = 0
+                            ) -> torch.Tensor:
+    """Plain position gradient: g (N, L*2) -> dpos (N, 3), d/d(unit
+    position) of the bf16 trilinear encode (the oracle ``_dpos_jnp`` :642
+    for exact corners): the levels' sums (``_dpos_levels``) added in
+    order."""
+    dpos = torch.zeros_like(positions)
+    for acc in _dpos_levels(table, positions, g, config, n_corners, seed):
         dpos = dpos + acc
     return dpos
 
@@ -283,26 +286,8 @@ def hash_xbar_bwd_pos(table: torch.Tensor, positions: torch.Tensor,
     if positions.device.type == 'cpu':
         return hash_xbar_bwd_pos_plain(table, positions, g, config, n_corners,
                                        seed)
-    name = 'hash_xbar_bwd_pos'
-    _kernels.require_cuda(name, table, positions, g,
-                          dtypes=(torch.float32,) * 3)
-    levels, feats, rows, lanes = table.shape
-    if feats != 2 or lanes != LANES:
-        raise KernelError(f'{name}: table must be (L, 2, R, 128), got '
-                          f'{tuple(table.shape)}')
-    _check_table(name, rows, levels, tuple(positions.shape), config)
-    n = positions.shape[0]
-    if g.shape != (n, levels * 2):
-        raise KernelError(f'{name}: g must be ({n}, {levels * 2}), got '
-                          f'{tuple(g.shape)}')
-    res_m1, lrows, dense = _layout_tensors(config, g.device)
-    dpos = torch.empty((n, 3), dtype=torch.float32, device=g.device)
-    code = _kernels.load_library().nerficg_hash_xbar_bwd_pos(
-        table.data_ptr(), positions.data_ptr(), g.data_ptr(),
-        res_m1.data_ptr(), lrows.data_ptr(), dense.data_ptr(),
-        dpos.data_ptr(), levels, n, rows, n_corners, seed,
-        _kernels.stream_of(g))
-    _kernels.check(code, name)
+    _, dpos = _launch_bwd('hash_xbar_bwd_pos', g, positions, table, config,
+                          table.shape[2], n_corners, seed, False, True)
     hash_xbar_bwd_pos.launches += 1
     return dpos
 
@@ -311,13 +296,134 @@ hash_xbar_bwd_pos.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# #11 and #12 from one pass; the backward's launch plan
+# ---------------------------------------------------------------------------
+
+# Threads of a level-resident block (kResThreads in csrc/hash_xbar.cu).
+RESIDENT_THREADS = 1024
+
+
+class XbarBwdPlan(NamedTuple):
+    """How the backward runs: ``path`` 'resident' or 'gather', the sample
+    ``tiles`` of the resident grid (0 on the gather path), the largest
+    level's ``level_rows`` and the dynamic ``smem_bytes`` a resident block
+    asks for."""
+    path: str
+    tiles: int
+    level_rows: int
+    smem_bytes: int
+
+
+def xbar_bwd_plan(config: HashGridConfig, n: int, tab: bool = True,
+                  pos: bool = True, sms: int = 132,
+                  smem_per_block: int = 232_448) -> XbarBwdPlan:
+    """The backward's launch plan, from the shapes and the card's limits
+    (by default an H100's: 132 SMs, 232,448 bytes of shared memory a block
+    may opt in to): the resident path when the largest level's staged
+    gradient (8 bytes per entry, ``tab``) and bf16x2 table (4 bytes,
+    ``pos``) fit one block's shared memory, with about one block per SM
+    (``sms // levels`` tiles, no more than blocks of RESIDENT_THREADS
+    samples); else the gather path. Corner counts do not enter: every mode
+    stages the same level."""
+    level_rows = level_layout(config)[3]
+    smem = level_rows * LANES * ((8 if tab else 0) + (4 if pos else 0))
+    if smem > smem_per_block:
+        return XbarBwdPlan('gather', 0, level_rows, 0)
+    tiles = max(1, min(sms // config.num_levels, -(-n // RESIDENT_THREADS)))
+    return XbarBwdPlan('resident', tiles, level_rows, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_limits(index: int) -> tuple[int, int]:
+    """(SMs, shared-memory bytes a block may opt in to) of card ``index``."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+def _launch_bwd(name: str, g: torch.Tensor, positions: torch.Tensor,
+                table, config: HashGridConfig, rows: int, n_corners: int,
+                seed: int, want_tab: bool, want_pos: bool, lib=None):
+    """Check, allocate and launch ``nerficg_hash_xbar_bwd_fused`` (of
+    ``lib``, by default the port's library) for the table gradient
+    (``want_tab``), the position gradient (``want_pos``, from ``table``) or
+    both; (dtab or None, dpos or None)."""
+    tensors = (g, positions) + ((table,) if want_pos else ())
+    _kernels.require_cuda(name, *tensors, dtypes=(torch.float32,) * len(
+        tensors))
+    levels = config.num_levels
+    if want_pos and (table.dim() != 4 or table.shape[0] != levels
+                     or table.shape[1] != 2 or table.shape[3] != LANES):
+        raise KernelError(f'{name}: table must be ({levels}, 2, R, 128), got '
+                          f'{tuple(table.shape)}')
+    _check_table(name, rows, levels, tuple(positions.shape), config)
+    n = positions.shape[0]
+    if g.shape != (n, levels * 2):
+        raise KernelError(f'{name}: g must be ({n}, {levels * 2}), got '
+                          f'{tuple(g.shape)}')
+    plan = xbar_bwd_plan(config, n, want_tab, want_pos,
+                         *_card_limits(g.get_device()))
+    dtab = dpos = scratch = None
+    if want_tab:
+        dtab = g.new_empty((levels, 2, rows, LANES))
+    if want_pos:
+        dpos = g.new_empty((n, 3))
+        if plan.tiles:
+            scratch = g.new_empty((levels, n, 3))
+    res_m1, lrows, dense = _layout_tensors(config, g.device)
+    lib = lib or _kernels.load_library()
+    code = lib.nerficg_hash_xbar_bwd_fused(
+        g.data_ptr(), positions.data_ptr(), _kernels.ptr(table),
+        res_m1.data_ptr(), lrows.data_ptr(), dense.data_ptr(),
+        _kernels.ptr(dtab), _kernels.ptr(dpos), _kernels.ptr(scratch), levels,
+        n, rows, plan.level_rows, plan.tiles, n_corners, seed,
+        _kernels.stream_of(g))
+    _kernels.check(code, name)
+    return dtab, dpos
+
+
+def hash_xbar_bwd_fused_plain(table: torch.Tensor, positions: torch.Tensor,
+                              g: torch.Tensor, config: HashGridConfig,
+                              n_corners: int = 0, seed: int = 0):
+    """Plain table and position gradients of one backward:
+    (``hash_xbar_bwd_plain``, ``hash_xbar_bwd_pos_plain``)."""
+    return (hash_xbar_bwd_plain(g, positions, config, table.shape[2],
+                                n_corners, seed),
+            hash_xbar_bwd_pos_plain(table, positions, g, config, n_corners,
+                                    seed))
+
+
+def hash_xbar_bwd_fused(table: torch.Tensor, positions: torch.Tensor,
+                        g: torch.Tensor, config: HashGridConfig,
+                        n_corners: int = 0, seed: int = 0):
+    """Both gradients of the crossbar encode from one call (#11 and #12):
+    g (N, L*2) -> (dtab (L, 2, R, 128), dpos (N, 3)), each as
+    ``hash_xbar_bwd`` and ``hash_xbar_bwd_pos`` give it: one pass of the
+    level-resident kernel over the corners, then its level sum.
+
+    CUDA tensors launch the hand-written kernel; CPU tensors take
+    ``hash_xbar_bwd_fused_plain``."""
+    _check_corners(n_corners)
+    seed = int(seed) & M32
+    if positions.device.type == 'cpu':
+        return hash_xbar_bwd_fused_plain(table, positions, g, config,
+                                         n_corners, seed)
+    out = _launch_bwd('hash_xbar_bwd_fused', g, positions, table, config,
+                      table.shape[2], n_corners, seed, True, True)
+    hash_xbar_bwd_fused.launches += 1
+    return out
+
+
+hash_xbar_bwd_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # differentiable entry points
 # ---------------------------------------------------------------------------
 
 class _HashEncodeXbar(torch.autograd.Function):
     """Crossbar encode; backward is #11 on the same corners for the table
-    and, with ``pos_grad``, #12 for the positions, each launched only when
-    its input needs a gradient."""
+    and, with ``pos_grad``, #12 for the positions, each computed only when
+    its input needs a gradient, both from one call when both do."""
 
     @staticmethod
     def forward(ctx, table, positions, config, n_corners, seed, pos_grad):
@@ -331,11 +437,17 @@ class _HashEncodeXbar(torch.autograd.Function):
     def backward(ctx, g):
         table, pos = ctx.saved_tensors
         g = g.contiguous()
+        want_tab = ctx.needs_input_grad[0]
+        want_pos = ctx.pos_grad and ctx.needs_input_grad[1]
         dtab = dpos = None
-        if ctx.needs_input_grad[0]:
+        if want_tab and want_pos:
+            dtab, dpos = hash_xbar_bwd_fused(table.detach(), pos, g,
+                                             ctx.config, ctx.n_corners,
+                                             ctx.seed)
+        elif want_tab:
             dtab = hash_xbar_bwd(g, pos, ctx.config, ctx.rows, ctx.n_corners,
                                  ctx.seed)
-        if ctx.pos_grad and ctx.needs_input_grad[1]:
+        elif want_pos:
             dpos = hash_xbar_bwd_pos(table.detach(), pos, g, ctx.config,
                                      ctx.n_corners, ctx.seed)
         return dtab, dpos, None, None, None, None

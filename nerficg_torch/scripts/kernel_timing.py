@@ -27,9 +27,20 @@ Run as a script it answers two questions on the card:
       (printing ptxas's registers, shared memory and spills), checks its
       stream backward against the plain version, and times the variants in
       turns (A B ... B A, repeated) on bench.py's 1080p frame and on a
-      400x400 frame of the same model.
+      400x400 frame of the same model;
+  python -m nerficg_torch.scripts.kernel_timing xbar-bwd \\
+      --variant NAME=PATH/hash_xbar.cu [--variant ...] [--capture FILE]
+      builds each variant of ``csrc/hash_xbar.cu`` likewise and times its
+      crossbar backward in turns: the table gradient (#11), the position
+      gradient (#12) and both (one fused call where the variant has the
+      entry, else the two), each checked against the plain versions, on
+      uniform positions at 262,144 and 65,536 samples, on a 2^16-entry table
+      (the gather path), and on the positions and cotangent of one D-NeRF
+      training step (nerficg_torch/configs/dnerf.yaml trained 300 iterations
+      on a 400x400 dynamic scene), captured into FILE (default
+      build/kernel_timing/dnerf_capture.pt) unless it exists.
 
-Both also write their results as JSON under ``build/kernel_timing/``.
+Each also writes its results as JSON under ``build/kernel_timing/``.
 """
 
 from __future__ import annotations
@@ -262,22 +273,26 @@ def wrappers(iters: int = 10000, rounds: int = 2) -> dict:
             'device_ms': device}
 
 
-def _build_variant(name: str, source: Path) -> tuple[ctypes.CDLL, str]:
-    """Compile one gs_tiles.cu on its own into build/ab/<name>.so with the
-    library's flags and ``-Xptxas -v``; (the loaded library, ptxas's
-    report)."""
+def _build_variant(name: str, source: Path,
+                   entries: tuple = ('nerficg_gs_composite_bwd',)
+                   ) -> tuple[ctypes.CDLL, str]:
+    """Compile one kernel source on its own into build/ab/<name>.so with the
+    library's flags and ``-Xptxas -v``, binding those of ``entries`` it
+    has; (the loaded library, ptxas's report)."""
     from nerficg_torch.ops import _kernels
     out = _kernels._BUILD_DIR / 'ab' / f'lib{name}.so'
     out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_kernels._nvcc(), *_kernels._NVCC_FLAGS,
-                           '-Xptxas', '-v', '-o', str(out), str(source)],
+    proc = subprocess.run([_kernels._nvcc(), *_kernels._NVCC_FLAGS, '-Xptxas',
+                           '-v', '-o', str(out), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f'{name}: nvcc failed:\n{proc.stderr}')
     lib = ctypes.CDLL(str(out))
-    lib.nerficg_gs_composite_bwd.argtypes = \
-        _kernels._SIGNATURES['nerficg_gs_composite_bwd']
-    lib.nerficg_gs_composite_bwd.restype = ctypes.c_int
+    for entry in entries:
+        if hasattr(lib, entry):
+            getattr(lib, entry).argtypes = _PARENT_SIGNATURES.get(
+                entry, _kernels._SIGNATURES.get(entry))
+            getattr(lib, entry).restype = ctypes.c_int
     return lib, proc.stderr
 
 
@@ -347,13 +362,228 @@ def gs_bwd(variants: dict[str, Path], rounds: int = 3) -> dict:
     return report
 
 
+# The crossbar backward's entries before the fused one (a parent's source).
+_PARENT_SIGNATURES = {
+    'nerficg_hash_xbar_bwd': [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_uint, ctypes.c_void_p],
+    'nerficg_hash_xbar_bwd_pos': [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_uint, ctypes.c_void_p],
+}
+_XBAR_ENTRIES = ('nerficg_hash_xbar_bwd_fused', *_PARENT_SIGNATURES)
+
+
+def _xbar_calls(lib, table, pos, g, config, nc, seed) -> dict:
+    """The variant's table gradient, position gradient and both, as
+    callables: through ``hash_xbar._launch_bwd`` where the variant has the
+    fused entry, else through its two entries (with the parent wrappers'
+    allocations)."""
+    import torch
+
+    from nerficg_torch.ops import hash_xbar as hx
+    rows = table.shape[2]
+    if hasattr(lib, 'nerficg_hash_xbar_bwd_fused'):
+        def run(tab, want_pos):
+            return hx._launch_bwd('xbar-bwd', g, pos, table, config, rows, nc,
+                                  seed, tab, want_pos, lib=lib)
+        return {'tab': lambda: run(True, False)[0],
+                'pos': lambda: run(False, True)[1],
+                'both': lambda: run(True, True)}
+    res_m1, lrows, dense = hx._layout_tensors(config, g.device)
+    levels, n = config.num_levels, pos.shape[0]
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def tab():
+        d = torch.empty((levels, 2, rows, 128), device=g.device)
+        code = lib.nerficg_hash_xbar_bwd(
+            g.data_ptr(), pos.data_ptr(), res_m1.data_ptr(), lrows.data_ptr(),
+            dense.data_ptr(), d.data_ptr(), levels, n, rows, nc, seed,
+            stream())
+        if code != 0:
+            raise RuntimeError(f'launch failed with CUDA error {code}')
+        return d
+
+    def dpos():
+        d = torch.empty((n, 3), device=g.device)
+        code = lib.nerficg_hash_xbar_bwd_pos(
+            table.data_ptr(), pos.data_ptr(), g.data_ptr(), res_m1.data_ptr(),
+            lrows.data_ptr(), dense.data_ptr(), d.data_ptr(), levels, n, rows,
+            nc, seed, stream())
+        if code != 0:
+            raise RuntimeError(f'launch failed with CUDA error {code}')
+        return d
+    return {'tab': tab, 'pos': dpos, 'both': lambda: (tab(), dpos())}
+
+
+def capture_dnerf(path: Path, iterations: int = 300) -> dict:
+    """Train nerficg_torch/configs/dnerf.yaml for ``iterations`` on a
+    400x400 dynamic textured scene (40 train views, phase 11's), then run
+    one more training step and keep what its crossbar backward is given:
+    the table, the positions and the cotangent. Saved to ``path``."""
+    import tempfile
+
+    import torch
+
+    from nerficg_torch.core.setup import Directories
+    from nerficg_torch.data.synthetic import make_dynamic_textured_scene
+    from nerficg_torch.ops import hash_xbar as hx
+    from nerficg_torch.scripts import train
+
+    config = Path(__file__).resolve().parents[1] / 'configs' / 'dnerf.yaml'
+    captured = {}
+    with tempfile.TemporaryDirectory(prefix='xbar_capture_') as tmp:
+        scene = make_dynamic_textured_scene(Path(tmp) / 'scene',
+                                            image_size=400, n_train=40,
+                                            n_test=1)
+        Directories.base = Path(tmp) / 'output'
+        result = train.main(['-c', str(config), f'DATASET.PATH={scene}',
+                             f'TRAINING.NUM_ITERATIONS={iterations}',
+                             'TRAINING.RENDER_TESTSET=False',
+                             'TRAINING.MODEL_NAME=capture'])
+        launch = hx._launch_bwd
+
+        def keep(name, g, positions, table, config, rows, n_corners, seed,
+                 want_tab, want_pos, lib=None):
+            if want_tab and want_pos:
+                captured.update(table=table.detach().clone(),
+                                pos=positions.clone(), g=g.clone(),
+                                config=config, n_corners=n_corners,
+                                seed=seed)
+            return launch(name, g, positions, table, config, rows, n_corners,
+                          seed, want_tab, want_pos, lib)
+        hx._launch_bwd = keep
+        try:
+            result['trainer'].training_iteration(None, iterations)
+        finally:
+            hx._launch_bwd = launch
+    if not captured:
+        raise RuntimeError('the D-NeRF step never reached the fused backward')
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(captured, path)
+    return captured
+
+
+def xbar_bwd(variants: dict[str, Path], capture: Path,
+             rounds: int = 3) -> dict:
+    """Each variant's crossbar backward on each input set: the table
+    gradient against ``hash_xbar_bwd_plain`` (rtol 1e-4 / atol 1e-5 x max,
+    atomics), the position gradient against ``hash_xbar_bwd_pos_plain``
+    (bit for bit), then device time (CUDA graph of 20 calls) in turns."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.ops import hash_xbar as hx
+    from nerficg_torch.ops.hashgrid import HashGridConfig
+
+    card = _card()
+    if not capture.is_file():
+        print(f'xbar-bwd: capturing one D-NeRF step into {capture}',
+              flush=True)
+        capture_dnerf(capture)
+    libs = {}
+    report = {'card': card, 'ptxas': {}, 'inputs': {}}
+    for name, source in variants.items():
+        libs[name], ptxas = _build_variant(name, source, _XBAR_ENTRIES)
+        report['ptxas'][name] = ptxas
+        print(f'xbar-bwd: {name} ({source}) ptxas:\n{ptxas}', flush=True)
+    dev = torch.device('cuda')
+    lib_cfg = HashGridConfig(num_levels=16, features_per_level=2,
+                             log2_table_size=14, base_resolution=16,
+                             target_resolution=2048)
+    rng = np.random.default_rng(7)
+
+    def uniform(config, n):
+        rows = config.table_size // 128
+        return (torch.from_numpy(rng.uniform(-1, 1, (16, 2, rows, 128)).astype(
+                    np.float32)).to(dev),
+                torch.from_numpy(rng.uniform(0.2, 0.8, (n, 3)).astype(
+                    np.float32)).to(dev),
+                torch.from_numpy(rng.normal(size=(n, 32)).astype(
+                    np.float32)).to(dev))
+    sets = []
+    for n in (262144, 65536):
+        inputs = uniform(lib_cfg, n)
+        for nc in (0, 4):
+            sets.append((f'uniform {n}, {"exact" if nc == 0 else "4 corners"}',
+                         inputs, lib_cfg, nc, 0x5EED))
+    big_cfg = HashGridConfig(num_levels=16, features_per_level=2,
+                             log2_table_size=16, base_resolution=16,
+                             target_resolution=2048)
+    sets.append(('uniform 262144, exact, 2^16 table (gather path)',
+                 uniform(big_cfg, 262144), big_cfg, 0, 0x5EED))
+    cap = torch.load(capture, weights_only=False)
+    cap_inputs = tuple(cap[k].to(dev) for k in ('table', 'pos', 'g'))
+    mode = 'exact' if cap['n_corners'] == 0 else 'stochastic'
+    sets.append((f'D-NeRF step {cap["pos"].shape[0]}, {mode}', cap_inputs,
+                 cap['config'], cap['n_corners'], cap['seed']))
+    # The same samples in a random order: the same work without the ray
+    # order's shared corners, so the difference is what collisions cost.
+    order = torch.from_numpy(rng.permutation(cap['pos'].shape[0])).to(dev)
+    sets.append((f'D-NeRF step {cap["pos"].shape[0]}, {mode}, samples '
+                 'shuffled', (cap_inputs[0], cap_inputs[1][order].contiguous(),
+                              cap_inputs[2][order].contiguous()),
+                 cap['config'], cap['n_corners'], cap['seed']))
+
+    for label, (table, pos, g), config, nc, seed in sets:
+        want_tab = hx.hash_xbar_bwd_plain(g, pos, config, table.shape[2], nc,
+                                          seed)
+        want_pos = hx.hash_xbar_bwd_pos_plain(table, pos, g, config, nc,
+                                              seed)
+        zero = float((g.reshape(g.shape[0], -1, 2) == 0).all(-1).double()
+                     .mean())
+        plan = hx.xbar_bwd_plan(config, pos.shape[0])
+        entry = {'samples': pos.shape[0], 'n_corners': nc,
+                 'zero_cotangent_share': zero, 'path': plan.path,
+                 'tiles': plan.tiles, 'variants': {}}
+        calls = {}
+        for name, lib in libs.items():
+            calls[name] = _xbar_calls(lib, table, pos, g, config, nc, seed)
+            dtab, dpos = calls[name]['both']()
+            torch.cuda.synchronize()
+            atol = 1e-5 * float(want_tab.abs().max())
+            entry['variants'][name] = {
+                'tab_err': float((dtab - want_tab).abs().max()),
+                'tab_close': bool(torch.allclose(dtab, want_tab, rtol=1e-4,
+                                                 atol=atol)),
+                'tab_only_close': bool(torch.allclose(
+                    calls[name]['tab'](), want_tab, rtol=1e-4, atol=atol)),
+                'pos_equal': bool(torch.equal(dpos, want_pos)),
+                'pos_only_equal': bool(torch.equal(calls[name]['pos'](),
+                                                   want_pos)),
+                'pos_err': float((dpos - want_pos).abs().max()),
+                'ms': {'tab': [], 'pos': [], 'both': []}}
+        order = list(libs) + list(reversed(libs))
+        for _ in range(rounds):
+            for name in order:
+                for what, fn in calls[name].items():
+                    entry['variants'][name]['ms'][what].append(
+                        device_ms(fn, iters=20))
+        for name, v in entry['variants'].items():
+            times = '; '.join(
+                f'{what} ' + ', '.join(f'{t:.4f}' for t in ts) +
+                f' (median {float(np.median(ts)):.4f})'
+                for what, ts in v['ms'].items())
+            ok = v['tab_close'] and v['tab_only_close'] and v['pos_equal'] \
+                and v['pos_only_equal']
+            print(f'xbar-bwd {label} ({plan.path}, zero-cotangent share '
+                  f'{zero:.3f}): {name}: device ms {times}; table err '
+                  f'{v["tab_err"]:.3e}, dpos err {v["pos_err"]:.3e} '
+                  f'{"ok" if ok else "MISMATCH"} [{card}]', flush=True)
+        report['inputs'][label] = entry
+    return report
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    parser.add_argument('what', choices=('wrappers', 'gs-bwd'))
+    parser.add_argument('what', choices=('wrappers', 'gs-bwd', 'xbar-bwd'))
     parser.add_argument('--root', default=None,
                         help='import nerficg_torch from this checkout')
     parser.add_argument('--variant', action='append', default=[],
-                        help='NAME=PATH of a gs_tiles.cu (gs-bwd)')
+                        help='NAME=PATH of a gs_tiles.cu (gs-bwd) or a '
+                        'hash_xbar.cu (xbar-bwd)')
+    parser.add_argument('--capture', default=str(_OUT / 'dnerf_capture.pt'),
+                        help='the captured D-NeRF step (xbar-bwd)')
     args = parser.parse_args(argv)
     if args.root is not None:
         sys.path.insert(0, str(Path(args.root).resolve()))
@@ -364,9 +594,12 @@ def main(argv=None) -> None:
         tag = Path(args.root).name if args.root else 'this'
         _write(f'wrappers_{tag}.json', wrappers())
     else:
-        variants = dict(v.split('=', 1) for v in args.variant)
-        _write('gs_bwd_ab.json', gs_bwd({k: Path(v) for k, v in
-                                         variants.items()}))
+        variants = {k: Path(v) for k, v in (
+            v.split('=', 1) for v in args.variant)}
+        if args.what == 'gs-bwd':
+            _write('gs_bwd_ab.json', gs_bwd(variants))
+        else:
+            _write('xbar_bwd_ab.json', xbar_bwd(variants, Path(args.capture)))
 
 
 if __name__ == '__main__':

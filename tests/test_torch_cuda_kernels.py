@@ -326,17 +326,88 @@ def test_gs_bwd_edge_tiles(cuda, layout):
 @pytest.mark.parametrize('n_corners', [0, 1, 2, 4])
 def test_hash_xbar_bwd_pos(cuda, n_corners):
     """The position gradient against its plain version on the same bits:
-    rtol 1e-5 (the kernel keeps the plain version's order of operations
-    with _rn intrinsics), and equal between two launches (no atomics)."""
+    equal (the kernel keeps the plain version's order of operations with
+    _rn intrinsics and sums the levels in order), and equal between two
+    launches (no atomics in the sums)."""
     table, pos, g = _xbar_inputs(cuda, seed=7)
     args = (table, pos, g, CFG, n_corners, 0x5EED)
     got = hash_xbar.hash_xbar_bwd_pos(*args)
     want = hash_xbar.hash_xbar_bwd_pos_plain(*args)
-    torch.testing.assert_close(got, want, rtol=1e-5,
-                               atol=1e-6 * float(want.abs().max()))
+    assert torch.equal(got, want)
     assert torch.equal(got, hash_xbar.hash_xbar_bwd_pos(*args))
     if n_corners != 1:
         assert float(got.abs().max()) > 1.0
+
+
+def _sparse_cotangent(g, seed):
+    """g with a quarter of its (sample, level) pairs zeroed, both features:
+    the kernels skip those pairs."""
+    rng = np.random.default_rng(seed)
+    keep = rng.random((g.shape[0], g.shape[1] // 2)) >= 0.25
+    mask = torch.tensor(np.repeat(keep, 2, axis=1), device=g.device)
+    return torch.where(mask, g, torch.zeros_like(g))
+
+
+@pytest.mark.parametrize('n_corners', [0, 1, 2, 4])
+def test_hash_xbar_bwd_fused(cuda, n_corners):
+    """Both gradients from one call of the level-resident kernel: the
+    table gradient as the atomics allow, the position gradient bit for bit,
+    on ray-ordered positions (neighbours share the coarse levels' corners)
+    and a cotangent with zero pairs."""
+    table, pos, g = _xbar_inputs(cuda, seed=11)
+    pos = pos[torch.argsort(pos[:, 0])].contiguous()
+    g = _sparse_cotangent(g, 12)
+    args = (table, pos, g, CFG, n_corners, 0xC0FFEE)
+    assert hash_xbar.xbar_bwd_plan(CFG, pos.shape[0]).path == 'resident'
+    before = (hash_xbar.hash_xbar_bwd_fused.launches,
+              hash_xbar.hash_xbar_bwd.launches,
+              hash_xbar.hash_xbar_bwd_pos.launches)
+    dtab, dpos = hash_xbar.hash_xbar_bwd_fused(*args)
+    after = (hash_xbar.hash_xbar_bwd_fused.launches,
+             hash_xbar.hash_xbar_bwd.launches,
+             hash_xbar.hash_xbar_bwd_pos.launches)
+    assert after == (before[0] + 1, before[1], before[2])
+    want_tab = hash_xbar.hash_xbar_bwd_plain(g, pos, CFG, 128, n_corners,
+                                             0xC0FFEE)
+    _close_to_scatter(dtab, want_tab)
+    assert torch.equal(dpos, hash_xbar.hash_xbar_bwd_pos_plain(*args))
+    _close_to_scatter(hash_xbar.hash_xbar_bwd(g, pos, CFG, 128, n_corners,
+                                              0xC0FFEE), want_tab)
+
+
+@pytest.mark.parametrize('n', [1, 1000, 70000])
+def test_hash_xbar_bwd_fused_ragged(cuda, n):
+    """Sample counts that leave the last chunk of 1024 ragged, one tile, or
+    more chunks than a tile count divides evenly."""
+    rng = np.random.default_rng(n)
+    table = torch.tensor(rng.uniform(-1, 1, (16, 2, 128, 128)),
+                         dtype=torch.float32, device=cuda)
+    pos = torch.tensor(rng.uniform(0, 1 - 1e-6, (n, 3)), dtype=torch.float32,
+                       device=cuda)
+    g = torch.tensor(rng.normal(size=(n, 32)), dtype=torch.float32,
+                     device=cuda)
+    dtab, dpos = hash_xbar.hash_xbar_bwd_fused(table, pos, g, CFG)
+    _close_to_scatter(dtab, hash_xbar.hash_xbar_bwd_plain(g, pos, CFG, 128))
+    assert torch.equal(dpos, hash_xbar.hash_xbar_bwd_pos_plain(table, pos, g,
+                                                               CFG))
+
+
+def test_hash_xbar_bwd_gather_path(cuda):
+    """A 2^16-entry table does not fit a block's shared memory: the same
+    wrappers take the gather kernels, checked the same way."""
+    cfg = HashGridConfig(num_levels=16, features_per_level=2,
+                         log2_table_size=16, base_resolution=16,
+                         target_resolution=2048)
+    assert hash_xbar.xbar_bwd_plan(cfg, 16384).path == 'gather'
+    rng = np.random.default_rng(13)
+    table = torch.tensor(rng.uniform(-1, 1, (16, 2, 512, 128)),
+                         dtype=torch.float32, device=cuda)
+    _, pos, g = _xbar_inputs(cuda, seed=14)
+    dtab, dpos = hash_xbar.hash_xbar_bwd_fused(table, pos, g, cfg, 4, 5)
+    _close_to_scatter(dtab, hash_xbar.hash_xbar_bwd_plain(g, pos, cfg, 512,
+                                                          4, 5))
+    assert torch.equal(dpos, hash_xbar.hash_xbar_bwd_pos_plain(table, pos, g,
+                                                               cfg, 4, 5))
 
 
 def _slot_inputs(cuda):
