@@ -9,7 +9,10 @@ Phases, each printing its own lines:
      PyTorch version on the card, at the shapes its path gives it, and time
      both: the kernel (and the library call) on the card's own clock, a CUDA
      graph of 50 calls, and on the host's, 50 calls ending in a synchronize;
-     the 3DGS stream backward on the 1080p frame and on a 400x400 one; the
+     the 3DGS stream forward (#15) and backward on the 1080p frame and on a
+     400x400 one; the crossbar forward (#10) at 65,536, a serving chunk's
+     196,608, D-NeRF's 262,144 and the occupancy grid's warm-up 4,194,304
+     samples, each line naming its path; the
      crossbar backward (#11, #12 and both from one call) at the Instant-NGP
      step's 65,536 and D-NeRF's 262,144 samples on the level-resident path,
      and on a 2^16-entry table, past a block's shared memory, on the gather
@@ -74,13 +77,15 @@ Phases, each printing its own lines:
      alone (#12, through a frozen table's hash_encode_xbar_posgrad) at
      D-NeRF's width and 262,144 samples, held to its plain version.
 Every kernel's launch count is set to 0 just before the run that drives it
-and read just after. Each kernel's line reports its time against the least
-time the card could take for the same work (`bound_ms`: each input read once
-and each output written once at 3.35 TB/s, or its f32 operations at 67
-TFLOP/s with each expf at the special-function units' 4.18 T/s, whichever
-is larger; an encode reads only the table entries its samples reach, a
-compositor counts only the (entry, pixel) pairs its tiles composite) and,
-where one PyTorch call computes the same function, that call's time
+and read just after; the sample counts of #10's launches in phases 7 and 11
+are printed at the end (min, median, max per run). Each kernel's line
+reports its time against the least time the card could take for the same
+work (`bound_ms`: each input read once and each output written once at
+3.35 TB/s, or its f32 operations at 67 TFLOP/s with each expf at the
+special-function units' 4.18 T/s, whichever is larger; an encode reads
+only the table entries its samples reach, a compositor counts only the
+(entry, pixel) pairs whose alpha passes 1/255) and, where one PyTorch
+call computes the same function, that call's time
 (`library_ms`; the port never calls it). The line before the last is the
 JSON kernel report; the last line is the JSON result. Any failure exits
 non-zero before either is printed.
@@ -90,6 +95,8 @@ Usage: python3 chip_smoke.py
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import subprocess
 import sys
@@ -265,7 +272,7 @@ def phase2_kernels(card: str) -> dict:
                                              hash_xbar_bwd_pos_plain,
                                              hash_xbar_fwd,
                                              hash_xbar_fwd_plain,
-                                             xbar_bwd_plan)
+                                             xbar_bwd_plan, xbar_fwd_plan)
     from nerficg_torch.ops.hashgrid import HashGridConfig
     from nerficg_torch.ops.xbar_gather import (block_probe_cells,
                                                block_probe_cells_plain,
@@ -474,12 +481,14 @@ def phase2_kernels(card: str) -> dict:
 
     # #10/#11: the crossbar config's step, 65,536 samples on the
     # (16,2,128,128) table, exact (serving) and 4 stochastic corners
-    # (training), then D-NeRF's step, 262,144 samples, exact and 4 corners;
-    # the stochastic corners and weights must be bit-equal. #11 runs on the
-    # level-resident path (its table gradient staged in shared memory).
-    # #11's bytes: cotangent and positions read, the table written.
+    # (training), a serving chunk's 196,608 (#10 only), then D-NeRF's step,
+    # 262,144 samples, exact and 4 corners; the stochastic corners and
+    # weights must be bit-equal. Each takes the path its plan gives it: the
+    # level-resident path at these sizes (the level's table, #10, or its
+    # gradient, #11, staged in shared memory). #11's bytes: cotangent and
+    # positions read, the table written.
     xbar_lines = {}
-    for n in (262144, 65536):
+    for n in (262144, 196608, 65536):
         plain_iters = 5 if n > 65536 else 50
         pos = torch.from_numpy(rng.uniform(0.2, 0.8, (n, 3)).astype(
             np.float32)).to(dev)
@@ -490,6 +499,7 @@ def phase2_kernels(card: str) -> dict:
             out, x_idx, x_w = hash_xbar_fwd(*args, save=True)
             out_p, x_idx_p, x_w_p = hash_xbar_fwd_plain(*args, save=True)
             mode = 'exact' if nc == 0 else f'{nc} corners'
+            path = xbar_fwd_plan(config, n).path
             xbar_lines['hash_xbar_fwd', n, nc] = dict(record(
                 'hash_xbar_fwd', out, out_p,
                 lambda a, b: bool(torch.equal(x_idx, x_idx_p)) and bool(
@@ -497,9 +507,11 @@ def phase2_kernels(card: str) -> dict:
                     torch.allclose(a, b, rtol=0.0, atol=1e-5)),
                 lambda: hash_xbar_fwd(*args),
                 lambda: hash_xbar_fwd_plain(*args),
-                f'table (16,2,128,128) x {n} samples, {mode}',
+                f'table (16,2,128,128) x {n} samples, {mode}, {path}',
                 nbytes(pos, out) + entry_bytes(x_idx),
-                16 * n * (nc or 8) * 6, plain_iters=plain_iters))
+                16 * n * (nc or 8) * 6, plain_iters=plain_iters), path=path)
+            if n == 196608:
+                continue
             got = hash_xbar_bwd(g, pos, config, 128, nc, 0x5EED)
             xbar_lines['hash_xbar_bwd', n, nc] = dict(record(
                 'hash_xbar_bwd', got,
@@ -579,9 +591,25 @@ def phase2_kernels(card: str) -> dict:
     gather = xbar_bwd_pair('2^16 table, ', big_table, big_config, 262144, 0)
     # The report's lines: #10 and #11 at the Instant-NGP step's 65,536,
     # exact; #12 and the fused entry at D-NeRF's 262,144, exact; the other
-    # shapes and modes ride along.
+    # shapes and modes ride along (#10's with the path each took).
     main_shape = {'hash_xbar_fwd': 65536, 'hash_xbar_bwd': 65536,
                   'hash_xbar_bwd_pos': 262144, 'hash_xbar_bwd_fused': 262144}
+    # #10 at the occupancy grid's warm-up refresh, every cell of 2 cascades
+    # of 128^3 in one call (exact corners).
+    n = 2 * 128 ** 3
+    pos = torch.from_numpy(rng.uniform(0.0, 1 - 1e-6, (n, 3)).astype(
+        np.float32)).to(dev)
+    args = (table, pos, config, 0, 0)
+    out, x_idx, _ = hash_xbar_fwd(*args, save=True)
+    path = xbar_fwd_plan(config, n).path
+    xbar_lines['hash_xbar_fwd', n, 0] = dict(record(
+        'hash_xbar_fwd', out, hash_xbar_fwd_plain(*args),
+        lambda a, b: bool(torch.allclose(a, b, rtol=0.0, atol=1e-5)),
+        lambda: hash_xbar_fwd(*args), lambda: hash_xbar_fwd_plain(*args),
+        f'table (16,2,128,128) x {n} samples, exact, {path}',
+        nbytes(pos, out) + entry_bytes(x_idx), 16 * n * 8 * 6,
+        plain_iters=1), path=path)
+    del pos, out, x_idx
     for name, n_main in main_shape.items():
         report[name] = dict(xbar_lines[name, n_main, 0])
         for (key, n, nc), line in xbar_lines.items():
@@ -609,53 +637,47 @@ def phase2_kernels(card: str) -> dict:
            f'({n},4) f32 rows by a block permutation', nbytes(stream, idx,
                                                                got), 0,
            lambda: torch.index_select(stream, 0, idx))
-    report['gs_composite_bwd'] = phase2_gs_kernels(record, rng)
+    report.update(phase2_gs_kernels(record, rng))
     return report
 
 
-# The least f32 work per valid (entry, pixel) pair of the composite and its
-# gradient, counted from nerficg_torch/csrc/gs_tiles.cu as (on every pair,
-# on each pair whose alpha passes 1/255; an FMA is 2). Every pair: its alpha,
-# 2 for dx, dy, 9 for the power, its clamp, a_raw and the threshold test,
-# and one expf at the special-function rate. Forward, passing pairs: alpha,
-# the weight, 3 color FMAs, acc, the depth FMA and the transmittance step.
-# Backward, passing pairs (elsewhere every gradient term is zero): the
-# transmittance step (2), alpha and the weight (2), g (8), the upper test,
-# d_alpha (4), the suffix FMA, d_op, d_pow (3), the 10 channel products
-# (21) and 10 adds of the pixel sums. Every valid pair is counted, though
-# the backward skips the pairs its per-strip bound proves below 1/255.
-GS_FWD_OPS = (14, 13)
-GS_BWD_OPS = (14, 54)
+# The least f32 work of the composite and its gradient, counted from
+# nerficg_torch/csrc/gs_tiles.cu per (entry, pixel) pair whose alpha passes
+# 1/255 (an FMA is 2); the other pairs need no work, since a bound like the
+# kernels' per-strip cull proves most of them zero, and are not counted.
+# Both: the alpha (2 for dx, dy, 9 for the power, its clamp, a_raw and the
+# threshold test: 14) and one expf at the special-function rate. Forward,
+# 13 more: alpha, the weight, 3 color FMAs, acc, the depth FMA and the
+# transmittance step. Backward, 54 more: the transmittance step (2), alpha
+# and the weight (2), g (8), the upper test, d_alpha (4), the suffix FMA,
+# d_op, d_pow (3), the 10 channel products (21) and 10 adds of the pixel
+# sums.
+GS_FWD_OPS = 14 + 13
+GS_BWD_OPS = 14 + 54
 
 
 def gs_pairs(args) -> tuple[int, int]:
     """(valid (entry, pixel) pairs, pairs whose alpha passes 1/255) of a
     composite of ``args`` = (sorted_mat, starts, counts, tiles_x,
-    num_tiles, k), by the plain version's geometry."""
-    import torch
-
-    from nerficg_torch.ops import gs_tiles_kernel as gtk
-    sorted_mat, starts, counts, tiles_x, num_tiles, k = args
-    counts = torch.clamp(counts, max=k)
-    passing = 0
-    with torch.no_grad():
-        for first in range(0, num_tiles, 256):
-            last = min(first + 256, num_tiles)
-            slots, _ = gtk._slots(sorted_mat, starts, tiles_x, k, first, last)
-            origins = gtk._tile_origins(last, tiles_x,
-                                        sorted_mat.device)[first:]
-            passing += int((gtk._alpha_plain(slots, counts[first:last],
-                                             origins) > 0).sum())
-    return int(counts.sum()) * gtk.P, passing
+    num_tiles, k), by the plain version's geometry; also prints the pairs
+    the culled kernels walk."""
+    from nerficg_torch.scripts.kernel_timing import gs_pair_counts
+    pairs = gs_pair_counts(args)
+    print(f'phase 2: 3DGS composite of {args[4]} tiles: {pairs["valid"]} '
+          f'valid (entry, pixel) pairs, {pairs["walked"]} walked by the '
+          f'per-strip cull, {pairs["passing"]} with alpha > 1/255',
+          flush=True)
+    return pairs['valid'], pairs['passing']
 
 
 def phase2_gs_kernels(record, rng) -> dict:
-    """#15 (both layouts) and #16 at bench.py's frame: the streams
-    ``rasterize_gaussians`` builds from the 100k-Gaussian model at orbit
-    pose 0, 1920x1080 (8160 tiles, k = 256, D = 6), SH degree 1 as
-    bench.py renders it; a random d out for the backward. #16 again on a
-    400x400 frame of the same model (625 tiles), the GS training config's
-    image size."""
+    """#15 (both layouts), #16, #13 and #14 at bench.py's frame: the
+    streams ``rasterize_gaussians`` builds from the 100k-Gaussian model at
+    orbit pose 0, 1920x1080 (8160 tiles, k = 256, D = 6), SH degree 1 as
+    bench.py renders it; a random d out for the backward. #15 (16-wide)
+    and #16 again on a 400x400 frame of the same model (625 tiles), the GS
+    training config's image size. Returns the report's lines of #15 and
+    #16 (each with its 400x400 sub-entry)."""
     import torch
 
     from nerficg_torch.ops import gs_tiles_kernel as gtk
@@ -669,45 +691,35 @@ def phase2_gs_kernels(record, rng) -> dict:
         return bool(torch.allclose(a, b, rtol=0.0, atol=1e-5))
 
     num_tiles = args16[4]
+    print(f'phase 2: 3DGS stream at 1920x1080: {num_tiles} tiles, '
+          f'{int(args16[2].sum())} entries', flush=True)
     pairs, passing = gs_pairs(args16)
     entries = pairs // gtk.P
-    # The transmittance chunks the tiles composite: the kernel writes, and
-    # the backward reads, only these.
-    live = gtk.live_chunks(args16[2], 256)
-    tacc_bytes = int(live.sum()) * gtk.P * 4
     out_bytes = num_tiles * gtk.OUT_ROWS * gtk.P * 4
-    print(f'phase 2: 3DGS stream at 1920x1080: {num_tiles} tiles, '
-          f'{int(args16[2].sum())} entries ({entries} within k), '
-          f'{pairs} valid (entry, pixel) pairs, {passing} with alpha > '
-          f'1/255', flush=True)
     seg = (args16[1].numel() + args16[2].numel()) * 4    # starts, counts
-    fwd_ops = GS_FWD_OPS[0] * pairs + GS_FWD_OPS[1] * passing
     got = gtk.gs_composite_fwd_packed(*args8)
     record('gs_composite_fwd_packed', got,
            gtk.gs_composite_fwd_plain(*args8, save_tacc=False),
            forward_close, lambda: gtk.gs_composite_fwd_packed(*args8),
            lambda: gtk.gs_composite_fwd_plain(*args8, save_tacc=False),
            f'packed stream (8,{args8[0].shape[1]}) -> ({num_tiles},5,256)',
-           entries * 5 * 4 + seg + out_bytes, fwd_ops, sfu=pairs,
-           plain_iters=5)
+           entries * 5 * 4 + seg + out_bytes, GS_FWD_OPS * passing,
+           sfu=passing, plain_iters=5)
 
-    out, tacc = gtk.gs_composite_fwd(*args16)
-    out_p, tacc_p = gtk.gs_composite_fwd_plain(*args16)
-    record('gs_composite_fwd', out, out_p,
-           lambda a, b: forward_close(a, b) and forward_close(tacc[live],
-                                                              tacc_p[live]),
-           lambda: gtk.gs_composite_fwd(*args16),
-           lambda: gtk.gs_composite_fwd_plain(*args16),
-           f'stream (16,{args16[0].shape[1]}) -> ({num_tiles},5,256) + '
-           f'tacc {tuple(tacc.shape)}, {int(live.sum())} chunks live',
-           entries * 10 * 4 + seg + out_bytes + tacc_bytes,
-           fwd_ops, sfu=pairs, plain_iters=5)
-
-    dout, line_1080 = record_gs_bwd(record, rng, args16, tacc, '1920x1080')
+    counts_1080 = pairs, passing
+    tacc, line_1080_fwd = record_gs_fwd(record, args16, '1920x1080',
+                                        counts_1080)
+    dout, line_1080 = record_gs_bwd(record, rng, args16, tacc, '1920x1080',
+                                    counts_1080)
     frame_400 = gs_frame(model, 400, 400)
-    _, tacc_400 = gtk.gs_composite_fwd(*frame_400)
-    _, line_400 = record_gs_bwd(record, rng, frame_400, tacc_400, '400x400')
+    counts_400 = gs_pairs(frame_400)
+    tacc_400, line_400_fwd = record_gs_fwd(record, frame_400, '400x400',
+                                           counts_400)
+    _, line_400 = record_gs_bwd(record, rng, frame_400, tacc_400, '400x400',
+                                counts_400)
     del frame_400, tacc_400
+    lines = {'gs_composite_fwd': {**line_1080_fwd,
+                                  'frame_400x400': line_400_fwd}}
 
     # #13/#14: the same frame as per-tile slot windows (T, 256, 10), the
     # layout of composite_tiles, with row-major origins; the same valid and
@@ -717,6 +729,7 @@ def phase2_gs_kernels(record, rng) -> dict:
     # the whole (T, 256, 10) d slots (#14).
     slots, counts, origins = slot_windows(args16)
     got = gtk.gs_tiles_fwd(slots, counts, origins)
+    out, _ = gtk.gs_composite_fwd(*args16)
     slot_in = entries * 10 * 4 + nbytes(counts, origins)
     record('gs_tiles_fwd', got, gtk.gs_tiles_fwd_plain(slots, counts,
                                                        origins),
@@ -725,7 +738,8 @@ def phase2_gs_kernels(record, rng) -> dict:
            lambda: gtk.gs_tiles_fwd(slots, counts, origins),
            lambda: gtk.gs_tiles_fwd_plain(slots, counts, origins),
            f'slots {tuple(slots.shape)} -> ({num_tiles},8,256)',
-           slot_in + nbytes(got), fwd_ops, sfu=pairs, plain_iters=5)
+           slot_in + nbytes(got), GS_FWD_OPS * passing, sfu=passing,
+           plain_iters=5)
     dout8 = torch.nn.functional.pad(dout, (0, 0, 0, 3))
     got = gtk.gs_tiles_bwd(slots, counts, origins, dout8)
     record('gs_tiles_bwd', got,
@@ -734,20 +748,21 @@ def phase2_gs_kernels(record, rng) -> dict:
            lambda: gtk.gs_tiles_bwd(slots, counts, origins, dout8),
            lambda: gtk.gs_tiles_bwd_plain(slots, counts, origins, dout8),
            f'd out ({num_tiles},8,256) -> d slots {tuple(slots.shape)}',
-           slot_in + out_bytes + nbytes(got),
-           GS_BWD_OPS[0] * pairs + GS_BWD_OPS[1] * passing, sfu=pairs,
-           plain_iters=3)
-    return {**line_1080, 'frame_400x400': line_400}
+           slot_in + out_bytes + nbytes(got), GS_BWD_OPS * passing,
+           sfu=passing, plain_iters=3)
+    lines['gs_composite_bwd'] = {**line_1080, 'frame_400x400': line_400}
+    return lines
 
 
-def record_gs_bwd(record, rng, args16, tacc, frame: str):
+def record_gs_bwd(record, rng, args16, tacc, frame: str, counts):
     """#16 on one frame's 16-wide stream with its saved transmittance and a
-    random d out: checked and timed by ``record``; (d out, its line)."""
+    random d out, ``counts`` its ``gs_pairs``: checked and timed by
+    ``record``; (d out, its line)."""
     import torch
 
     from nerficg_torch.ops import gs_tiles_kernel as gtk
     num_tiles = args16[4]
-    pairs, passing = gs_pairs(args16)
+    pairs, passing = counts
     entries = pairs // gtk.P
     tacc_bytes = int(gtk.live_chunks(args16[2], 256).sum()) * gtk.P * 4
     out_bytes = num_tiles * gtk.OUT_ROWS * gtk.P * 4
@@ -772,9 +787,38 @@ def record_gs_bwd(record, rng, args16, tacc, frame: str):
         # padding.
         entries * 10 * 4 + seg + tacc_bytes + out_bytes +
         10 * got.shape[1] * 4,
-        GS_BWD_OPS[0] * pairs + GS_BWD_OPS[1] * passing, sfu=pairs,
-        plain_iters=3)
+        GS_BWD_OPS * passing, sfu=passing, plain_iters=3)
     return dout, dict(line)
+
+
+def record_gs_fwd(record, args16, frame: str, counts):
+    """#15 on one frame's 16-wide stream, with its saved transmittance (on
+    the chunks the tiles composite, the only ones the kernel writes and the
+    backward reads), ``counts`` its ``gs_pairs``: checked and timed by
+    ``record``; (tacc, its line)."""
+    import torch
+
+    from nerficg_torch.ops import gs_tiles_kernel as gtk
+    num_tiles = args16[4]
+    pairs, passing = counts
+    live = gtk.live_chunks(args16[2], 256)
+    seg = (args16[1].numel() + args16[2].numel()) * 4    # starts, counts
+    out, tacc = gtk.gs_composite_fwd(*args16)
+    out_p, tacc_p = gtk.gs_composite_fwd_plain(*args16)
+
+    def close(a, b):
+        return bool(torch.allclose(a, b, rtol=0.0, atol=1e-5))
+    line = record(
+        'gs_composite_fwd', out, out_p,
+        lambda a, b: close(a, b) and close(tacc[live], tacc_p[live]),
+        lambda: gtk.gs_composite_fwd(*args16),
+        lambda: gtk.gs_composite_fwd_plain(*args16),
+        f'{frame}: stream (16,{args16[0].shape[1]}) -> ({num_tiles},5,256) '
+        f'+ tacc {tuple(tacc.shape)}, {int(live.sum())} chunks live',
+        pairs // gtk.P * 10 * 4 + seg + num_tiles * gtk.OUT_ROWS * gtk.P * 4
+        + int(live.sum()) * gtk.P * 4,
+        GS_FWD_OPS * passing, sfu=passing, plain_iters=5)
+    return tacc, dict(line)
 
 
 def slot_windows(args16):
@@ -1104,6 +1148,49 @@ def phase4_training_step(card: str, card_device: str = 'cuda') -> dict:
     if bad:
         fail(f'training step gradients: card and CPU disagree: {bad}')
     return {'hash_window_bwd': launches['hash_window_bwd']}
+
+
+# #10's sample count at each launch of the main paths, by run.
+XBAR_FWD_SIZES: dict = {}
+
+
+@contextlib.contextmanager
+def xbar_fwd_sizes(label: str):
+    """Record under ``label`` the sample count of every crossbar forward
+    (#10) launched inside the block, by wrapping its launcher; the launch
+    counts are the wrapper's, untouched."""
+    from nerficg_torch.ops import hash_xbar as hx
+    sizes = XBAR_FWD_SIZES.setdefault(label, [])
+    launch = hx._launch_fwd
+
+    def recording(name, table, positions, *args, **kwargs):
+        sizes.append(int(positions.shape[0]))
+        return launch(name, table, positions, *args, **kwargs)
+    hx._launch_fwd = recording
+    try:
+        yield sizes
+    finally:
+        hx._launch_fwd = launch
+
+
+def print_xbar_fwd_sizes() -> None:
+    """The distribution of #10's sample counts over each recorded run:
+    launches, min, median, max, how many fell under the plan's
+    FWD_MIN_SAMPLES (the gather path at 2^14 entries), the commonest."""
+    import numpy as np
+
+    from nerficg_torch.ops.hash_xbar import FWD_MIN_SAMPLES
+    for label, sizes in XBAR_FWD_SIZES.items():
+        if not sizes:
+            print(f'#10 sample counts, {label}: no launches')
+            continue
+        a = np.array(sizes)
+        common = collections.Counter(sizes).most_common(4)
+        print(f'#10 sample counts, {label}: {a.size} launches, min '
+              f'{a.min()}, median {int(np.median(a))}, max {a.max()}; '
+              f'{int((a < FWD_MIN_SAMPLES).sum())} under FWD_MIN_SAMPLES '
+              f'{FWD_MIN_SAMPLES}; commonest (N, launches) {common}',
+              flush=True)
 
 
 def _launches_of(run, wrappers: dict) -> tuple:
@@ -1558,9 +1645,11 @@ def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
               f'{psnr_before:.3f} dB [{card}]', flush=True)
         torch.cuda.reset_peak_memory_stats()
         start = time.perf_counter()
-        result, launches = _launches_of(lambda: train.main(
-            args + [f'TRAINING.NUM_ITERATIONS={iterations}',
-                    'TRAINING.MODEL_NAME=chip_smoke']), wrappers)
+        with xbar_fwd_sizes('phase 11 D-NeRF training (grid refreshes '
+                            'included)'):
+            result, launches = _launches_of(lambda: train.main(
+                args + [f'TRAINING.NUM_ITERATIONS={iterations}',
+                        'TRAINING.MODEL_NAME=chip_smoke']), wrappers)
         wall = time.perf_counter() - start
         trainer = result['trainer']
         losses = torch.stack(trainer.losses).float().cpu().numpy()
@@ -1620,9 +1709,10 @@ def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
         profile_device(lambda: trainer.training_iteration(None, iterations),
                        f'{tag}: profile of one training step', card)
 
-        served, served_launches = _launches_of(lambda: inference.main(
-            ['-d', str(result['output_dir']), '-s', 'test', '-m', '-b',
-             '--repeats', '1']), wrappers)
+        with xbar_fwd_sizes('phase 11 D-NeRF serving'):
+            served, served_launches = _launches_of(lambda: inference.main(
+                ['-d', str(result['output_dir']), '-s', 'test', '-m', '-b',
+                 '--repeats', '1']), wrappers)
         metrics = served['metrics']['test']
         shown = {k: served_launches[k] for k in ('hash_xbar_fwd',
                                                  'block_probe')}
@@ -1636,10 +1726,11 @@ def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
             fail(f'{tag}: the served test PSNR {metrics["PSNR"]:.3f} dB is '
                  f'not 5 dB above the untrained model\'s {psnr_before:.3f} dB')
 
-        control, control_launches = _launches_of(lambda: train.main(
-            args + ['GLOBAL.METHOD_TYPE=InstantNGP',
-                    f'TRAINING.NUM_ITERATIONS={iterations}',
-                    'TRAINING.MODEL_NAME=static_control']), wrappers)
+        with xbar_fwd_sizes('phase 11 static control training'):
+            control, control_launches = _launches_of(lambda: train.main(
+                args + ['GLOBAL.METHOD_TYPE=InstantNGP',
+                        f'TRAINING.NUM_ITERATIONS={iterations}',
+                        'TRAINING.MODEL_NAME=static_control']), wrappers)
         step = control['trainer'].timers['training_iteration']
         print(f'{tag}: static control, Instant-NGP (crossbar, exact corners) '
               f'with the same config on the same scene, {iterations} '
@@ -1901,11 +1992,13 @@ def main() -> None:
             ('hash_cell_fwd', *marcher))
         launches.update({k: phase6[k] for k in ('hash_cell_fwd',
                                                 'hash_cell_bwd')})
-        phase7 = phase_training(
-            card, 7, scene, 'ingp_e2e_bench.yaml',
-            ('MODEL.ENCODING_BACKEND=xbar',),
-            ('hash_xbar_fwd', 'hash_xbar_bwd', *marcher),
-            ('hash_xbar_fwd', *marcher))
+        with xbar_fwd_sizes('phase 7 (crossbar Instant-NGP, trained and '
+                            'served)'):
+            phase7 = phase_training(
+                card, 7, scene, 'ingp_e2e_bench.yaml',
+                ('MODEL.ENCODING_BACKEND=xbar',),
+                ('hash_xbar_fwd', 'hash_xbar_bwd', *marcher),
+                ('hash_xbar_fwd', *marcher))
         launches.update({k: phase7[k] for k in ('hash_xbar_fwd',
                                                 'hash_xbar_bwd')})
         served = phase8_gs_serving(card, scene)
@@ -1927,6 +2020,7 @@ def main() -> None:
         launches.update(dnerf)
     phase12_dnerf_step(card)
     launches.update(phase13_op_api(card))
+    print_xbar_fwd_sizes()
     kernels = [{'name': name, 'route': route, 'source': source,
                 'replaces': replaces, 'launches': launches[name],
                 **report[name]}

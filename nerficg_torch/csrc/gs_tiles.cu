@@ -27,6 +27,12 @@
 //     CH entries at a time, and each thread composites front to back in
 //     registers (T, rgb, acc, depth). No early stop at a transmittance
 //     threshold: the function composites every entry up to k.
+//   * most (entry, pixel) pairs of a tile have alpha 0 (at 1080p 8.1% pass
+//     1/255), and the per-pair geometry and expf were the forward's pace.
+//     Both directions bound each entry's reach per warp strip (strip_reach,
+//     two pixel rows) when they stage it, and a warp walks only the entries
+//     that reach its strip; the forward double-buffers its chunks, packed
+//     as 16-byte vectors, and loads the next one while it composites.
 //   * the 16-wide forward saves each pixel's transmittance at the start of
 //     every chunk the tile composites, tacc (T, ceil(k / CH), P); chunks at
 //     and past ceil(min(count, k) / CH) are left unwritten (the backward
@@ -60,9 +66,10 @@
 // alpha > 1/255 test then sees the plain version's bits on the card, and no
 // entry flips across the threshold (a flip would move a pixel by ~0.004).
 //
-// The functions' least work on an H100 (chip_smoke.py's bound): each valid
-// (entry, pixel) pair costs 14 f32 operations and one expf for its alpha;
-// only where alpha passes 1/255 come 13 more forward, 54 more backward.
+// The functions' least work on an H100 (chip_smoke.py's bound): a pair
+// whose alpha passes 1/255 costs 14 f32 operations and one expf for its
+// alpha and 13 more forward, 54 more backward; the other pairs need none,
+// since a bound like strip_reach proves most of them zero.
 // Bytes: 20 (packed) or 40 per entry within k, the 5 output rows and, for
 // training, the live transmittance chunks; for the slots, the 40 bytes of
 // each slot within its count, 8 output rows, and 40 bytes of d slots per
@@ -130,11 +137,12 @@ __device__ __forceinline__ size_t tile_start(const Tiles& tl, int t) {
 }
 
 // Stage chunk entries [j0, j0 + m) of the tile's entries from `seg` into
-// s[attr][j] as f32 attributes with ABSOLUTE means.
+// s[attr][j] as f32 attributes (the backward's; the 16-wide stream or the
+// slots, all threads of the block).
 template <int L>
 __device__ __forceinline__ void stage(const Tiles& tl, size_t seg, int j0,
-                                      int m, float ox, float oy,
-                                      float (*s)[kCH]) {
+                                      int m, float (*s)[kCH]) {
+  static_assert(L != kPacked, "the packed stream has no backward");
   const float* __restrict__ mat = tl.mat;
   const size_t e_pad = tl.e_pad;
   if (L == kSlots) {
@@ -146,31 +154,11 @@ __device__ __forceinline__ void stage(const Tiles& tl, size_t seg, int j0,
     }
     return;
   }
-  if (L == kStream) {
-    for (int i = threadIdx.x; i < kAttrs * kCH; i += kP) {
-      const int a = i / kCH;
-      const int j = i - a * kCH;
-      const size_t e = seg + j0 + j;
-      s[a][j] = (j < m && e < e_pad) ? __ldg(mat + a * e_pad + e) : 0.0f;
-    }
-    return;
-  }
-  const int j = threadIdx.x;
-  if (j >= kCH) return;
-  const size_t e = seg + j0 + j;
-  uint32_t w[5] = {0u, 0u, 0u, 0u, 0u};
-  if (j < m && e < e_pad) {
-#pragma unroll
-    for (int r = 0; r < 5; ++r) w[r] = __float_as_uint(__ldg(mat + r * e_pad + e));
-  }
-  s[0][j] = __fadd_rn(__fsub_rn(__fmul_rn(static_cast<float>(w[0] >> 16),
-                                          kMeansStep), kMeansBias), ox);
-  s[1][j] = __fadd_rn(__fsub_rn(__fmul_rn(static_cast<float>(w[0] & 0xFFFFu),
-                                          kMeansStep), kMeansBias), oy);
-#pragma unroll
-  for (int r = 1; r < 5; ++r) {
-    s[2 * r][j] = __uint_as_float(w[r] & 0xFFFF0000u);
-    s[2 * r + 1][j] = __uint_as_float(w[r] << 16);
+  for (int i = threadIdx.x; i < kAttrs * kCH; i += kP) {
+    const int a = i / kCH;
+    const int j = i - a * kCH;
+    const size_t e = seg + j0 + j;
+    s[a][j] = (j < m && e < e_pad) ? __ldg(mat + a * e_pad + e) : 0.0f;
   }
 }
 
@@ -189,55 +177,6 @@ __device__ __forceinline__ void pixel(float ox, float oy, int p, float* px,
                                       float* py) {
   *px = __fadd_rn(ox, static_cast<float>(p % kTile) + 0.5f);
   *py = __fadd_rn(oy, static_cast<float>(p / kTile) + 0.5f);
-}
-
-template <int L, bool kSave>
-__global__ void __launch_bounds__(kP)
-gs_fwd_kernel(Tiles tl, float* __restrict__ out, float* __restrict__ tacc,
-              int nc) {
-  __shared__ float s[kAttrs][kCH];
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const size_t seg = tile_start<L>(tl, t);
-  const int n = min(max(tl.counts[t], 0), tl.k);
-  float ox, oy, px, py;
-  tile_origin<L>(tl, t, &ox, &oy);
-  pixel(ox, oy, p, &px, &py);
-  float trans = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f, acc = 0.0f,
-        dep = 0.0f;
-  const int n_chunks = (n + kCH - 1) / kCH;
-  for (int c = 0; c < n_chunks; ++c) {
-    if (kSave) tacc[(static_cast<size_t>(t) * nc + c) * kP + p] = trans;
-    const int j0 = c * kCH;
-    const int m = min(kCH, n - j0);
-    __syncthreads();
-    stage<L>(tl, seg, j0, m, ox, oy, s);
-    __syncthreads();
-    for (int j = 0; j < m; ++j) {
-      const float dx = __fsub_rn(px, s[0][j]);
-      const float dy = __fsub_rn(py, s[1][j]);
-      const float power = fminf(raw_power(s[2][j], s[3][j], s[4][j], dx, dy),
-                                0.0f);
-      const float a_raw = __fmul_rn(s[5][j], expf(power));
-      if (!(a_raw > kAlphaMin)) continue;   // alpha 0: nothing changes
-      const float alpha = fminf(a_raw, kAlphaMax);
-      const float w = trans * alpha;
-      cr += s[6][j] * w;
-      cg += s[7][j] * w;
-      cb += s[8][j] * w;
-      acc += w;
-      dep += s[9][j] * w;
-      trans = trans * (1.0f - alpha);
-    }
-  }
-  float* o = out + static_cast<size_t>(t) * out_rows<L>() * kP + p;
-  o[0 * kP] = cr;
-  o[1 * kP] = cg;
-  o[2 * kP] = cb;
-  o[3 * kP] = acc;
-  o[4 * kP] = dep;
-#pragma unroll
-  for (int r = kOut; r < out_rows<L>(); ++r) o[r * kP] = 0.0f;
 }
 
 // Alpha of staged entry j at pixel (px, py), 0 where a_raw <= 1/255.
@@ -283,6 +222,147 @@ __device__ __forceinline__ unsigned strip_reach(float mx, float my, float ca,
     if (gy <= ey) reach |= 1u << w;
   }
   return reach;
+}
+
+// Entry j of the tile's entries from `seg` as the 10 f32 attributes with
+// ABSOLUTE means (packed means are tile-relative: the origin is added);
+// zeros where j is past the tile's m entries (or the stream's end). The
+// forward's, one entry per lane.
+template <int L>
+__device__ __forceinline__ void load_entry(const Tiles& tl, size_t seg, int j,
+                                           int m, float ox, float oy,
+                                           float* v) {
+  const float* __restrict__ mat = tl.mat;
+  const size_t e = seg + j;
+  if (L == kSlots) {
+#pragma unroll
+    for (int a = 0; a < kAttrs; ++a)
+      v[a] = j < m ? __ldg(mat + e * kAttrs + a) : 0.0f;
+    return;
+  }
+  const bool ok = j < m && e < tl.e_pad;
+  if (L == kStream) {
+#pragma unroll
+    for (int a = 0; a < kAttrs; ++a)
+      v[a] = ok ? __ldg(mat + a * tl.e_pad + e) : 0.0f;
+    return;
+  }
+  uint32_t w[5] = {0u, 0u, 0u, 0u, 0u};
+  if (ok) {
+#pragma unroll
+    for (int r = 0; r < 5; ++r)
+      w[r] = __float_as_uint(__ldg(mat + r * tl.e_pad + e));
+  }
+  v[0] = __fadd_rn(__fsub_rn(__fmul_rn(static_cast<float>(w[0] >> 16),
+                                       kMeansStep), kMeansBias), ox);
+  v[1] = __fadd_rn(__fsub_rn(__fmul_rn(static_cast<float>(w[0] & 0xFFFFu),
+                                       kMeansStep), kMeansBias), oy);
+#pragma unroll
+  for (int r = 1; r < 5; ++r) {
+    v[2 * r] = __uint_as_float(w[r] & 0xFFFF0000u);
+    v[2 * r + 1] = __uint_as_float(w[r] << 16);
+  }
+}
+
+// One chunk of the forward, packed for two 16-byte and one 8-byte shared
+// load per pair, with each entry's strip_reach.
+struct FwdChunk {
+  float4 geo[kCH];      // mx my ca cb
+  float4 opc[kCH];      // cc op r g
+  float2 bd[kCH];       // b depth
+  unsigned reach[kCH];  // 0 past the chunk's entries
+};
+
+__device__ __forceinline__ void put_entry(FwdChunk& ch, int j, int m,
+                                          const float* v, float ox,
+                                          float oy) {
+  ch.geo[j] = make_float4(v[0], v[1], v[2], v[3]);
+  ch.opc[j] = make_float4(v[4], v[5], v[6], v[7]);
+  ch.bd[j] = make_float2(v[8], v[9]);
+  ch.reach[j] = j < m ? strip_reach(v[0], v[1], v[2], v[3], v[4], v[5], ox,
+                                    oy)
+                      : 0u;
+}
+
+// Blocks of the forward an SM should hold, which sets the registers a
+// thread may keep (65,536 / (256 * blocks)): more tiles in flight hide the
+// loads' latency. On an H100 (kernel_timing.py gs-fwd; PERF.md section 6)
+// 8 blocks (32 registers, a few spilled) beat 6 and 4 at 1080p by 10-24%
+// and lose 6% at 400x400, whose 625 tiles are fewer than the card holds.
+constexpr int kFwdBlocksPerSm = 8;
+
+// The forward: a 256-thread block per tile, a thread per pixel, chunks of
+// kCH entries in two shared buffers. Chunk j is loaded (one lane per entry,
+// into registers) by warp j % 8 after it walks chunk j - 2, and packed into
+// the free buffer with its strip_reach before it walks chunk j - 1: the
+// load has a whole chunk's walk to land, the registers are not held during
+// a walk, a chunk costs one __syncthreads, and the work rotates over the
+// warps. Each warp walks, in ascending order, only the chunk's entries whose
+// bound reaches its two pixel rows: the others have alpha 0 at each of its
+// pixels, where the walk would `continue`, so the composite and the saved
+// transmittance keep their bits.
+template <int L, bool kSave>
+__global__ void __launch_bounds__(kP, kFwdBlocksPerSm)
+gs_fwd_kernel(Tiles tl, float* __restrict__ out, float* __restrict__ tacc,
+              int nc) {
+  __shared__ FwdChunk buf[2];
+  const int t = blockIdx.x;
+  const int p = threadIdx.x;
+  const int lane = p & 31;
+  const int warp = p >> 5;
+  const size_t seg = tile_start<L>(tl, t);
+  const int n = min(max(tl.counts[t], 0), tl.k);
+  float ox, oy, px, py;
+  tile_origin<L>(tl, t, &ox, &oy);
+  pixel(ox, oy, p, &px, &py);
+  float trans = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f, acc = 0.0f,
+        dep = 0.0f;
+  const int n_chunks = (n + kCH - 1) / kCH;
+  float v[kAttrs];
+  if (warp == 0 && n_chunks > 0) {
+    load_entry<L>(tl, seg, lane, n, ox, oy, v);
+    put_entry(buf[0], lane, n, v, ox, oy);
+  }
+  if (warp == 1 % kWarps && n_chunks > 1)
+    load_entry<L>(tl, seg, kCH + lane, n, ox, oy, v);
+  for (int c = 0; c < n_chunks; ++c) {
+    __syncthreads();   // chunk c is packed; every warp is done with c - 1
+    if (warp == (c + 1) % kWarps && c + 1 < n_chunks)
+      put_entry(buf[(c + 1) & 1], lane, n - (c + 1) * kCH, v, ox, oy);
+    if (kSave) tacc[(static_cast<size_t>(t) * nc + c) * kP + p] = trans;
+    const FwdChunk& ch = buf[c & 1];
+    const unsigned near = __ballot_sync(0xFFFFFFFFu,
+                                        (ch.reach[lane] >> warp) & 1u);
+    for (unsigned bits = near; bits != 0u; bits &= bits - 1u) {
+      const int j = __ffs(bits) - 1;
+      const float4 g4 = ch.geo[j];
+      const float4 o4 = ch.opc[j];
+      const float dx = __fsub_rn(px, g4.x);
+      const float dy = __fsub_rn(py, g4.y);
+      const float power = fminf(raw_power(g4.z, g4.w, o4.x, dx, dy), 0.0f);
+      const float a_raw = __fmul_rn(o4.y, expf(power));
+      if (!(a_raw > kAlphaMin)) continue;   // alpha 0: nothing changes
+      const float2 b2 = ch.bd[j];
+      const float alpha = fminf(a_raw, kAlphaMax);
+      const float w = trans * alpha;
+      cr += o4.z * w;
+      cg += o4.w * w;
+      cb += b2.x * w;
+      acc += w;
+      dep += b2.y * w;
+      trans = trans * (1.0f - alpha);
+    }
+    if (warp == (c + 2) % kWarps && c + 2 < n_chunks)
+      load_entry<L>(tl, seg, (c + 2) * kCH + lane, n, ox, oy, v);
+  }
+  float* o = out + static_cast<size_t>(t) * out_rows<L>() * kP + p;
+  o[0 * kP] = cr;
+  o[1 * kP] = cg;
+  o[2 * kP] = cb;
+  o[3 * kP] = acc;
+  o[4 * kP] = dep;
+#pragma unroll
+  for (int r = kOut; r < out_rows<L>(); ++r) o[r * kP] = 0.0f;
 }
 
 // Quantities the entry pass sums per entry over pixels: the moments of
@@ -365,7 +445,7 @@ gs_bwd_kernel(Tiles tl, float* __restrict__ tacc,
       const int j0 = c * kCH;
       const int m = min(kCH, n - j0);
       __syncthreads();
-      stage<L>(tl, seg, j0, m, ox, oy, s);
+      stage<L>(tl, seg, j0, m, s);
       __syncthreads();
       for (int j = 0; j < m; ++j) {
         trans = trans * (1.0f - staged_alpha(s, j, px, py));
@@ -376,7 +456,7 @@ gs_bwd_kernel(Tiles tl, float* __restrict__ tacc,
     const int j0 = c * kCH;
     const int m = min(kCH, n - j0);
     __syncthreads();
-    stage<L>(tl, seg, j0, m, ox, oy, s);
+    stage<L>(tl, seg, j0, m, s);
     __syncthreads();
     if (p < kCH) {
       sh.geo[p] = make_float4(s[0][p], s[1][p], s[2][p], s[3][p]);

@@ -16,7 +16,19 @@
 // pltpu.prng_random_bits per (level, tile) instead, so no port run matches a
 // TPU run's corners. With saves, the forward also writes each corner's flat
 // index (int32) and weight (f32), each (L, C, N), so a check can hold the
-// corners to the plain version's bit for bit.
+// corners to the plain version's bit for bit. Each feature is the sum over
+// the corners in order of the rounded products w_c * v_c (__fmul_rn, then
+// __fadd_rn: the plain version rounds each product too), so the forward's
+// two paths give the same bits:
+//   * level-resident (what the TPU kernel keeps in VMEM: the level's
+//     table): grid (T sample tiles, L / kFwdLevels level groups); a block
+//     stages its kFwdLevels adjacent levels' tables as one bf16x2 word per
+//     entry (64 KiB per 2^14 level), then walks its tile's samples, one
+//     4-byte shared load per corner, and writes each sample's levels as one
+//     contiguous store;
+//   * gather, for tables past a block's shared memory and for calls too
+//     small to repay the staging: one thread per (sample, level), two
+//     __ldg per corner.
 //
 // Backward. One entry, `nerficg_hash_xbar_bwd_fused`, computes the table
 // gradient (#11, `_bwd_kernel` :394, `_bwd_pallas` :481), the position
@@ -77,10 +89,16 @@
 // compare-and-swap atomics and their bank conflicts sets the pace (on an
 // H100 it runs a third faster at 1024 threads per SM than at 512); the
 // position gradient's scratch and level sum add 2 * 12 bytes per (sample,
-// level). The forward runs one thread per (sample, level), the level on
-// blockIdx.y (uniform dense/hash branch per block); the sample-major output
-// is written as one 8-byte pair per thread at a stride of L*2 floats, which
-// L2 merges across the levels' blocks.
+// level). The forward's gather path spends two 32-byte L2 sectors on each
+// corner's two 4-byte features (the planes lie rows * 128 floats apart); the
+// resident path reads each level's table once per block (128 KiB of f32 at
+// 2^14, from L2) and then only the positions, so its pace is the per-corner
+// index math and shared loads, and the sample-major output: each block writes
+// 8 * kFwdLevels bytes per sample at a stride of L*2 floats, which L2 merges
+// across the level groups' blocks. Two levels per block halve those partial
+// writes (on an H100 a quarter faster than one level at 262,144 samples);
+// past about 24 MiB of output, as the L2 stops holding the rows until they
+// are whole, the time per sample grows and varies between calls.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -146,17 +164,24 @@ __device__ __forceinline__ void xbar_corners(const XbarLevel& lay,
   }
 }
 
-template <int NC>
-__global__ void hash_xbar_fwd_kernel(
-    const float* __restrict__ table, const float* __restrict__ pos,
-    const float* __restrict__ res_m1_l, const int* __restrict__ lrows_l,
-    const int* __restrict__ dense_l, float* __restrict__ out,
-    int* __restrict__ save_idx, float* __restrict__ save_w, int n, int levels,
-    int rows, uint32_t seed) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int lvl = blockIdx.y;
-  if (i >= n) return;
-  const XbarLevel lay = xbar_level(res_m1_l, lrows_l, dense_l, lvl);
+// The two features of a table entry rounded to bf16 (bf16_round's bits),
+// packed as one word: feature 0 low, feature 1 high.
+__device__ __forceinline__ uint32_t pack_bf16x2(float v0, float v1) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(v0))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(v1)))
+          << 16);
+}
+
+// One (sample, level) of the forward, both paths: the corners (saved when
+// save_idx is non-null), then per feature the sum over the corners in order
+// of the rounded product w_c * v_c (the plain version's products; no
+// contraction into FMAs, so the two paths give the same bits). `read(idx)`
+// returns the corner's bf16x2 word.
+template <int NC, typename Read>
+__device__ __forceinline__ float2 xbar_encode(
+    const XbarLevel& lay, const float* __restrict__ pos, int i, int lvl,
+    int n, uint32_t seed, int* __restrict__ save_idx,
+    float* __restrict__ save_w, Read read) {
   constexpr int kMax = NC == 0 ? 8 : NC;
   int idx[kMax];
   float w[kMax];
@@ -169,18 +194,116 @@ __global__ void hash_xbar_fwd_kernel(
       save_w[at] = w[c];
     }
   }
-  const float* tab0 = table + static_cast<size_t>(2 * lvl) * rows * kLanes;
-  const float* tab1 = tab0 + static_cast<size_t>(rows) * kLanes;
   float acc0 = 0.0f;
   float acc1 = 0.0f;
 #pragma unroll
   for (int c = 0; c < kMax; ++c) {
-    acc0 += w[c] * nerficg::bf16_round(__ldg(tab0 + idx[c]));
-    acc1 += w[c] * nerficg::bf16_round(__ldg(tab1 + idx[c]));
+    const uint32_t word = read(idx[c]);
+    acc0 = __fadd_rn(acc0, __fmul_rn(w[c], __uint_as_float(word << 16)));
+    acc1 = __fadd_rn(acc1,
+                     __fmul_rn(w[c], __uint_as_float(word & 0xFFFF0000u)));
   }
-  float* o = out + static_cast<size_t>(i) * (2 * levels) + 2 * lvl;
-  o[0] = acc0;
-  o[1] = acc1;
+  return make_float2(acc0, acc1);
+}
+
+// Gather path: one thread per (sample, level), two __ldg per corner.
+template <int NC>
+__global__ void hash_xbar_fwd_kernel(
+    const float* __restrict__ table, const float* __restrict__ pos,
+    const float* __restrict__ res_m1_l, const int* __restrict__ lrows_l,
+    const int* __restrict__ dense_l, float* __restrict__ out,
+    int* __restrict__ save_idx, float* __restrict__ save_w, int n, int levels,
+    int rows, uint32_t seed) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lvl = blockIdx.y;
+  if (i >= n) return;
+  const XbarLevel lay = xbar_level(res_m1_l, lrows_l, dense_l, lvl);
+  const float* tab0 = table + static_cast<size_t>(2 * lvl) * rows * kLanes;
+  const float* tab1 = tab0 + static_cast<size_t>(rows) * kLanes;
+  const float2 v = xbar_encode<NC>(
+      lay, pos, i, lvl, n, seed, save_idx, save_w, [&](int idx) {
+        return pack_bf16x2(__ldg(tab0 + idx), __ldg(tab1 + idx));
+      });
+  *reinterpret_cast<float2*>(out + static_cast<size_t>(i) * (2 * levels) +
+                             2 * lvl) = v;
+}
+
+// Threads of a level-resident forward block and the levels one block owns
+// (kernel_timing.py xbar-fwd timed 256-1024 threads and 1-2 levels on an
+// H100; PERF.md section 6).
+constexpr int kFwdThreads = 1024;
+constexpr int kFwdLevels = 2;
+// Blocks an SM should hold, which sets the registers a thread may keep: as
+// many as its shared memory holds (three 64 KiB levels), at most 1536
+// threads (1024 threads: one block, 64 registers).
+constexpr int kFwdMinBlocks = 3 / kFwdLevels < 1536 / kFwdThreads
+                                  ? 3 / kFwdLevels
+                                  : 1536 / kFwdThreads;
+static_assert(kFwdMinBlocks >= 1, "a block must fit an SM");
+
+// Level-resident forward: a block per (sample tile, group of kFwdLevels
+// levels) stages its levels' tables as bf16x2 words (level g at word
+// g * level_rows * 128), then walks its tile's chunks of kFwdThreads
+// samples: each corner is one 4-byte shared load, and a sample's kFwdLevels
+// levels are written as one contiguous store (16 bytes: two levels' blocks
+// complete a 32-byte sector of the row).
+template <int NC>
+__global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
+    hash_xbar_fwd_resident_kernel(
+        const float* __restrict__ table, const float* __restrict__ pos,
+        const float* __restrict__ res_m1_l, const int* __restrict__ lrows_l,
+        const int* __restrict__ dense_l, float* __restrict__ out,
+        int* __restrict__ save_idx, float* __restrict__ save_w, int n,
+        int levels, int rows, int level_rows, int chunks_per_tile,
+        uint32_t seed) {
+  extern __shared__ __align__(16) uint32_t stab[];
+  const int lvl0 = blockIdx.y * kFwdLevels;
+  const size_t plane = static_cast<size_t>(rows) * kLanes;
+  const int stride = level_rows * kLanes;
+  XbarLevel lay[kFwdLevels];
+#pragma unroll
+  for (int g = 0; g < kFwdLevels; ++g) {
+    const int lvl = lvl0 + g;
+    lay[g] = xbar_level(res_m1_l, lrows_l, dense_l, lvl);
+    const int entries = lrows_l[lvl] * kLanes;
+    const float* t0 = table + 2 * lvl * plane;
+    for (int e = 4 * threadIdx.x; e < entries; e += 4 * kFwdThreads) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(t0 + e));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(t0 + plane + e));
+      *reinterpret_cast<uint4*>(stab + g * stride + e) =
+          make_uint4(pack_bf16x2(a.x, b.x), pack_bf16x2(a.y, b.y),
+                     pack_bf16x2(a.z, b.z), pack_bf16x2(a.w, b.w));
+    }
+  }
+  __syncthreads();
+
+  const int chunks = (n + kFwdThreads - 1) / kFwdThreads;
+  const int c0 = blockIdx.x * chunks_per_tile;
+  const int c1 = min(chunks, c0 + chunks_per_tile);
+  for (int ch = c0; ch < c1; ++ch) {
+    const int i = ch * kFwdThreads + threadIdx.x;
+    if (i >= n) break;
+    float v[2 * kFwdLevels];
+#pragma unroll
+    for (int g = 0; g < kFwdLevels; ++g) {
+      const uint32_t* level = stab + g * stride;
+      const float2 f = xbar_encode<NC>(lay[g], pos, i, lvl0 + g, n, seed,
+                                       save_idx, save_w,
+                                       [&](int idx) { return level[idx]; });
+      v[2 * g] = f.x;
+      v[2 * g + 1] = f.y;
+    }
+    float* o = out + static_cast<size_t>(i) * (2 * levels) + 2 * lvl0;
+    if constexpr (kFwdLevels == 2) {
+      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int g = 0; g < kFwdLevels; ++g) {
+        *reinterpret_cast<float2*>(o + 2 * g) =
+            make_float2(v[2 * g], v[2 * g + 1]);
+      }
+    }
+  }
 }
 
 template <int NC>
@@ -280,14 +403,6 @@ __global__ void hash_xbar_bwd_pos_kernel(
 // The kernel is latency-bound on its shared-memory atomics and reads: on an
 // H100, 1024 threads (64 registers, no spills) beat 768 and 512.
 constexpr int kResThreads = 1024;
-
-// The two features of a table entry rounded to bf16 (bf16_round's bits),
-// packed as one word: feature 0 low, feature 1 high.
-__device__ __forceinline__ uint32_t pack_bf16x2(float v0, float v1) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(v0))) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(v1)))
-          << 16);
-}
 
 // Shared-memory f32 atomicAdd is a compare-and-swap loop on sm_90, so lanes
 // that hit one entry retry in turn. Ray-ordered samples put runs of
@@ -484,16 +599,33 @@ template <int NC>
 cudaError_t launch_fwd(const void* table, const void* pos, const void* res_m1,
                        const void* lrows, const void* dense, void* out,
                        void* save_idx, void* save_w, int levels, int n,
-                       int rows, uint32_t seed, cudaStream_t stream) {
-  if (n == 0) return cudaGetLastError();
-  const dim3 block(256);
-  const dim3 grid((n + block.x - 1) / block.x, levels);
-  hash_xbar_fwd_kernel<NC><<<grid, block, 0, stream>>>(
-      static_cast<const float*>(table), static_cast<const float*>(pos),
-      static_cast<const float*>(res_m1), static_cast<const int*>(lrows),
-      static_cast<const int*>(dense), static_cast<float*>(out),
-      static_cast<int*>(save_idx), static_cast<float*>(save_w), n, levels,
-      rows, seed);
+                       int rows, int level_rows, int tiles, uint32_t seed,
+                       cudaStream_t stream) {
+  const float* t = static_cast<const float*>(table);
+  const float* p = static_cast<const float*>(pos);
+  const float* r = static_cast<const float*>(res_m1);
+  const int* lr = static_cast<const int*>(lrows);
+  const int* d = static_cast<const int*>(dense);
+  float* o = static_cast<float*>(out);
+  int* si = static_cast<int*>(save_idx);
+  float* sw = static_cast<float*>(save_w);
+  if (tiles == 0) {  // gather path
+    const dim3 grid((n + 255) / 256, levels);
+    hash_xbar_fwd_kernel<NC><<<grid, 256, 0, stream>>>(
+        t, p, r, lr, d, o, si, sw, n, levels, rows, seed);
+    return cudaGetLastError();
+  }
+  const int smem = kFwdLevels * level_rows * kLanes * 4;
+  // Per launch, not once: the attribute belongs to the current device.
+  const cudaError_t err = cudaFuncSetAttribute(
+      hash_xbar_fwd_resident_kernel<NC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int chunks = (n + kFwdThreads - 1) / kFwdThreads;
+  const dim3 grid(tiles, levels / kFwdLevels);
+  hash_xbar_fwd_resident_kernel<NC><<<grid, kFwdThreads, smem, stream>>>(
+      t, p, r, lr, d, o, si, sw, n, levels, rows, level_rows,
+      (chunks + tiles - 1) / tiles, seed);
   return cudaGetLastError();
 }
 
@@ -597,34 +729,43 @@ cudaError_t launch_bwd_fused(const void* g, const void* pos,
 
 }  // namespace
 
-// table (L, 2, rows, 128) f32; pos (N, 3) f32; per-level layout res_m1 (L,)
-// f32, lrows (L,) i32, dense (L,) i32; out (N, L*2) f32; n_corners 0 (exact)
-// or 1, 2, 4 (stochastic, drawn from seed); save_idx (L, C, N) i32 and save_w
-// (L, C, N) f32, C = 8 or n_corners, are written when non-null.
+// table (L, 2, rows, 128) f32; pos (N, 3) f32 in [0, 1); per-level layout
+// res_m1 (L,) f32, lrows (L,) i32, dense (L,) i32; out (N, L*2) f32;
+// n_corners 0 (exact) or 1, 2, 4 (stochastic, drawn from seed); save_idx
+// (L, C, N) i32 and save_w (L, C, N) f32, C = 8 or n_corners, are written
+// when non-null. level_rows is the largest level's rows; tiles > 0 takes the
+// level-resident path with that many sample tiles (levels a multiple of the
+// levels a block owns), tiles == 0 the gather path.
 extern "C" int nerficg_hash_xbar_fwd(const void* table, const void* pos,
                                      const void* res_m1, const void* lrows,
                                      const void* dense, void* out,
                                      void* save_idx, void* save_w, int levels,
-                                     int n, int rows, int n_corners,
+                                     int n, int rows, int level_rows,
+                                     int tiles, int n_corners,
                                      unsigned int seed, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tiles < 0 || levels <= 0 || level_rows <= 0 || level_rows > rows ||
+      (tiles > 0 && levels % kFwdLevels != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return static_cast<int>(cudaGetLastError());
   switch (n_corners) {
     case 0:
       return static_cast<int>(launch_fwd<0>(table, pos, res_m1, lrows, dense,
                                             out, save_idx, save_w, levels, n,
-                                            rows, seed, s));
+                                            rows, level_rows, tiles, seed, s));
     case 1:
       return static_cast<int>(launch_fwd<1>(table, pos, res_m1, lrows, dense,
                                             out, save_idx, save_w, levels, n,
-                                            rows, seed, s));
+                                            rows, level_rows, tiles, seed, s));
     case 2:
       return static_cast<int>(launch_fwd<2>(table, pos, res_m1, lrows, dense,
                                             out, save_idx, save_w, levels, n,
-                                            rows, seed, s));
+                                            rows, level_rows, tiles, seed, s));
     case 4:
       return static_cast<int>(launch_fwd<4>(table, pos, res_m1, lrows, dense,
                                             out, save_idx, save_w, levels, n,
-                                            rows, seed, s));
+                                            rows, level_rows, tiles, seed, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

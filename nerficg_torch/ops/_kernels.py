@@ -56,7 +56,7 @@ _SIGNATURES = {
     'nerficg_hash_window_bwd_cached': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     'nerficg_hash_cell_fwd': [_P] * 10 + [_I, _I, _I, _I, _P],
     'nerficg_hash_cell_bwd': [_P] * 10 + [_I, _I, _I, _I, _P],
-    'nerficg_hash_xbar_fwd': [_P] * 8 + [_I, _I, _I, _I, _U, _P],
+    'nerficg_hash_xbar_fwd': [_P] * 8 + [_I] * 6 + [_U, _P],
     'nerficg_hash_xbar_bwd_fused': [_P] * 9 + [_I] * 6 + [_U, _P],
     'nerficg_block_probe': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     'nerficg_seg_gather': [_P, _P, _P, _I, _I, _I, _I, _P],

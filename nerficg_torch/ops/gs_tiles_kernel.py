@@ -146,13 +146,46 @@ def _alpha_plain(slots: torch.Tensor, counts: torch.Tensor,
                        a_raw.new_zeros(()))
 
 
+def _strip_reach_plain(slots: torch.Tensor,
+                       origins: torch.Tensor) -> torch.Tensor:
+    """(T, K) int64 bits: bit w set where slot k's alpha may pass 1/255 at a
+    pixel of strip w (pixel rows 2w and 2w + 1) of tile t; all eight bits
+    where the bound does not apply. ``strip_reach`` of csrc/gs_tiles.cu op
+    for op in f32 (the bound both GS kernels cull by), for the tests that
+    hold it to ``_alpha_plain``."""
+    mx, my, ca, cb, cc, op = slots[..., :6].unbind(-1)
+    ox, oy = origins[:, 0:1], origins[:, 1:2]
+    zero = slots.new_zeros(())
+    det = ca * cc - cb * cb
+    tau = 1.01 * torch.log(255.0 * op) + 0.01
+    ex = torch.sqrt(2.0 * tau * cc / det) + 0.0625
+    ey = torch.sqrt(2.0 * tau * ca / det) + 0.0625
+    # fmax, as the kernel's fmaxf: a NaN operand gives the other one.
+    gx = torch.fmax(torch.fmax(ox + 0.5 - mx, mx - (ox + 15.5)), zero)
+    reach = torch.zeros_like(mx, dtype=torch.int64)
+    for w in range(TILE // 2):
+        lo = oy + float(2 * w) + 0.5
+        gy = torch.fmax(torch.fmax(lo - my, my - (lo + 1.0)), zero)
+        reach |= (gy <= ey).long() << w
+    reach = torch.where(gx <= ex, reach, 0)
+    bounded = (ca > 0) & (cc > 0) & (det > 1e-3 * ca * cc) & (ex <= 3.0e38) \
+        & (ey <= 3.0e38)
+    reach = torch.where(bounded, reach, (1 << (TILE // 2)) - 1)
+    return torch.where(op > ALPHA_MIN, reach, 0)
+
+
 def _composite_plain(slots: torch.Tensor, counts: torch.Tensor,
                      origins: torch.Tensor) -> tuple[torch.Tensor,
                                                      torch.Tensor]:
     """slots (T, K, 10), counts (T,), origins (T, 2) -> ((T, 5, P) composite,
     (T, K, P) exclusive transmittance before each entry); the oracle
     ``_composite_jnp`` (:322), op for op."""
-    alpha = _alpha_plain(slots, counts, origins)
+    return _composite_alpha(_alpha_plain(slots, counts, origins), slots)
+
+
+def _composite_alpha(alpha: torch.Tensor, slots: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_composite_plain`` from the (T, K, P) alpha of the slots."""
     trans = torch.cumprod(1.0 - alpha, dim=1)
     trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=1)
     w = trans * alpha

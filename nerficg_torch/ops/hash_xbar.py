@@ -10,7 +10,10 @@ Instant-NGP hash masked to ``rows*128 - 1``. Output is sample-major
 ``nerficg_torch/csrc/hash_xbar.cu``; CPU tensors take the plain version):
   * ``hash_xbar_fwd``: exact 8 corners or 1/2/4 stochastic corners (TPU
     kernel #10 ``_fwd_kernel`` :303), optionally saving each corner's flat
-    index and weight;
+    index and weight: a level-resident kernel (a block per (sample tile,
+    two levels) with the levels' bf16x2 tables in shared memory) where
+    they fit and the call is large enough to repay the staging, the gather
+    kernel otherwise (``xbar_fwd_plan``); the two give the same bits;
   * ``hash_xbar_bwd``: the table gradient of either (#11 ``_bwd_kernel``
     :394), recomputing the corners from the same counter hash, so the
     gradient lands on the corners the forward read;
@@ -52,7 +55,7 @@ __all__ = ['level_layout', 'hash_encode_xbar', 'hash_encode_xbar_stochastic',
            'hash_xbar_bwd_plain', 'hash_xbar_bwd_pos',
            'hash_xbar_bwd_pos_plain',
            'hash_xbar_bwd_fused', 'hash_xbar_bwd_fused_plain',
-           'xbar_bwd_plan', 'xbar_corners']
+           'xbar_bwd_plan', 'xbar_fwd_plan', 'xbar_corners']
 
 # ---------------------------------------------------------------------------
 # crossbar layout and corner indices
@@ -147,21 +150,71 @@ def hash_xbar_fwd_plain(table: torch.Tensor, positions: torch.Tensor,
             torch.stack(ws).contiguous())
 
 
-def hash_xbar_fwd(table: torch.Tensor, positions: torch.Tensor,
-                  config: HashGridConfig, n_corners: int = 0,
-                  seed: int = 0, save: bool = False):
-    """Crossbar encode, exact (``n_corners`` 0) or with 1, 2 or 4
-    stochastic corners drawn from the uint32 ``seed`` (#10): (N, L*2), and
-    with ``save`` the corner streams of ``hash_xbar_fwd_plain``.
+@functools.lru_cache(maxsize=None)
+def _card_limits(index: int) -> tuple[int, int]:
+    """(SMs, shared-memory bytes a block may opt in to) of card ``index``."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
 
-    CUDA tensors launch the hand-written kernel; CPU tensors take
-    ``hash_xbar_fwd_plain``."""
-    _check_corners(n_corners)
-    seed = int(seed) & M32
-    if positions.device.type == 'cpu':
-        return hash_xbar_fwd_plain(table, positions, config, n_corners, seed,
-                                   save)
-    name = 'hash_xbar_fwd'
+
+# The level-resident forward's block: its threads and the levels it owns
+# (kFwdThreads and kFwdLevels in csrc/hash_xbar.cu).
+FWD_THREADS = 1024
+FWD_LEVELS = 2
+# Calls of fewer samples take the forward's gather path: below this many, a
+# block's staging of its levels costs more than the gathers it saves.
+# Measured by `kernel_timing.py xbar-fwd` (its crossover lines, exact
+# corners, 2^14 table) on an H100 80GB HBM3 at 700 W: 2,048 samples, gather
+# 0.0043 ms against resident 0.0065; 4,096, 0.0063 against 0.0064 (a tie);
+# 8,192, resident 0.0065 against 0.0162 (PERF.md section 6).
+FWD_MIN_SAMPLES = 4096
+
+
+class XbarFwdPlan(NamedTuple):
+    """How the forward runs: ``path`` 'resident' or 'gather', the sample
+    ``tiles`` of the resident grid (0 on the gather path), the largest
+    level's ``level_rows`` and the dynamic ``smem_bytes`` a resident block
+    asks for."""
+    path: str
+    tiles: int
+    level_rows: int
+    smem_bytes: int
+
+
+def xbar_fwd_plan(config: HashGridConfig, n: int, sms: int = 132,
+                  smem_per_block: int = 232_448, threads: int = FWD_THREADS,
+                  group: int = FWD_LEVELS,
+                  min_samples: int = FWD_MIN_SAMPLES) -> XbarFwdPlan:
+    """The forward's launch plan, from the shapes and the card's limits (by
+    default an H100's): the resident path when ``group`` levels' bf16x2
+    tables (4 bytes per entry of the largest level) fit one block's shared
+    memory and ``n`` is at least ``min_samples``, with one wave of blocks
+    (as many as an SM holds by the kernel's launch bounds, times ``sms``)
+    and
+    no more tiles than chunks of ``threads`` samples; else the gather path.
+    ``threads`` and ``group`` are the kernel's constants (a variant built
+    with others passes its own)."""
+    level_rows = level_layout(config)[3]
+    smem = group * level_rows * LANES * 4
+    levels = config.num_levels
+    if smem > smem_per_block or n < min_samples or levels % group:
+        return XbarFwdPlan('gather', 0, level_rows, 0)
+    # An SM holds the opt-in maximum plus the 1 KiB each block reserves;
+    # the kernel's launch bounds (kFwdMinBlocks) ask for no more blocks than
+    # three levels' tables or 1536 threads.
+    per_sm = max(1, min((smem_per_block + 1024) // (smem + 1024),
+                        3 // group, 1536 // threads))
+    tiles = max(1, min(sms * per_sm // (levels // group), -(-n // threads)))
+    return XbarFwdPlan('resident', tiles, level_rows, smem)
+
+
+def _launch_fwd(name: str, table: torch.Tensor, positions: torch.Tensor,
+                config: HashGridConfig, n_corners: int, seed: int,
+                save: bool, lib=None, plan=None):
+    """Check, allocate and launch ``nerficg_hash_xbar_fwd`` (of ``lib``, by
+    default the port's library) on ``plan`` (by default ``xbar_fwd_plan``'s
+    for these shapes and this card): (out, save_idx or None, save_w or
+    None)."""
     _kernels.require_cuda(name, table, positions,
                           dtypes=(torch.float32, torch.float32))
     levels, feats, rows, lanes = table.shape
@@ -170,24 +223,44 @@ def hash_xbar_fwd(table: torch.Tensor, positions: torch.Tensor,
                           f'{tuple(table.shape)}')
     _check_table(name, rows, levels, tuple(positions.shape), config)
     n = positions.shape[0]
+    if plan is None:
+        plan = xbar_fwd_plan(config, n, *_card_limits(positions.get_device()))
     res_m1, lrows, dense = _layout_tensors(config, positions.device)
-    device = positions.device
-    out = torch.empty((n, levels * 2), dtype=torch.float32, device=device)
+    out = positions.new_empty((n, levels * 2))
     idx = w = None
     if save:
         corners = n_corners or 8
         idx = torch.empty((levels, corners, n), dtype=torch.int32,
-                          device=device)
-        w = torch.empty((levels, corners, n), dtype=torch.float32,
-                        device=device)
-    code = _kernels.load_library().nerficg_hash_xbar_fwd(
+                          device=positions.device)
+        w = positions.new_empty((levels, corners, n))
+    lib = lib or _kernels.load_library()
+    code = lib.nerficg_hash_xbar_fwd(
         table.data_ptr(), positions.data_ptr(), res_m1.data_ptr(),
         lrows.data_ptr(), dense.data_ptr(), out.data_ptr(), _kernels.ptr(idx),
-        _kernels.ptr(w), levels, n, rows, n_corners, seed,
-        _kernels.stream_of(positions))
+        _kernels.ptr(w), levels, n, rows, plan.level_rows, plan.tiles,
+        n_corners, seed, _kernels.stream_of(positions))
     _kernels.check(code, name)
+    return out, idx, w
+
+
+def hash_xbar_fwd(table: torch.Tensor, positions: torch.Tensor,
+                  config: HashGridConfig, n_corners: int = 0,
+                  seed: int = 0, save: bool = False):
+    """Crossbar encode, exact (``n_corners`` 0) or with 1, 2 or 4
+    stochastic corners drawn from the uint32 ``seed`` (#10): (N, L*2), and
+    with ``save`` the corner streams of ``hash_xbar_fwd_plain``.
+
+    CUDA tensors launch the hand-written kernel on the path
+    ``xbar_fwd_plan`` chooses; CPU tensors take ``hash_xbar_fwd_plain``."""
+    _check_corners(n_corners)
+    seed = int(seed) & M32
+    if positions.device.type == 'cpu':
+        return hash_xbar_fwd_plain(table, positions, config, n_corners, seed,
+                                   save)
+    out = _launch_fwd('hash_xbar_fwd', table, positions, config, n_corners,
+                      seed, save)
     hash_xbar_fwd.launches += 1
-    return (out, idx, w) if save else out
+    return out if save else out[0]
 
 
 hash_xbar_fwd.launches = 0
@@ -331,13 +404,6 @@ def xbar_bwd_plan(config: HashGridConfig, n: int, tab: bool = True,
         return XbarBwdPlan('gather', 0, level_rows, 0)
     tiles = max(1, min(sms // config.num_levels, -(-n // RESIDENT_THREADS)))
     return XbarBwdPlan('resident', tiles, level_rows, smem)
-
-
-@functools.lru_cache(maxsize=None)
-def _card_limits(index: int) -> tuple[int, int]:
-    """(SMs, shared-memory bytes a block may opt in to) of card ``index``."""
-    props = torch.cuda.get_device_properties(index)
-    return props.multi_processor_count, props.shared_memory_per_block_optin
 
 
 def _launch_bwd(name: str, g: torch.Tensor, positions: torch.Tensor,

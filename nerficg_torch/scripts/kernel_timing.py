@@ -14,7 +14,7 @@ Three clocks, each for a different question:
 * ``events_ms``: CUDA events around ``iters`` eager calls (the plain
   versions, which are timed only to show what the kernel replaces).
 
-Run as a script it answers two questions on the card:
+Run as a script it answers these questions on the card:
 
   python -m nerficg_torch.scripts.kernel_timing wrappers [--root DIR]
       the host's cost per call of each piece of a kernel wrapper's path
@@ -38,7 +38,22 @@ Run as a script it answers two questions on the card:
       (the gather path), and on the positions and cotangent of one D-NeRF
       training step (nerficg_torch/configs/dnerf.yaml trained 300 iterations
       on a 400x400 dynamic scene), captured into FILE (default
-      build/kernel_timing/dnerf_capture.pt) unless it exists.
+      build/kernel_timing/dnerf_capture.pt) unless it exists;
+  python -m nerficg_torch.scripts.kernel_timing xbar-fwd \\
+      --variant NAME=PATH/hash_xbar.cu[:kFwdThreads=N,kFwdLevels=G] ...
+      times the crossbar forward (#10) likewise, each variant on the path
+      its plan takes, checked against the plain version and the first
+      variant: uniform positions at 262,144, 196,608 (a serving chunk) and
+      65,536 samples, exact and 4 corners, the captured D-NeRF step's
+      positions and a 2^16 table; then both paths over 2,048-262,144
+      samples (where the level-resident path starts to pay);
+  python -m nerficg_torch.scripts.kernel_timing gs-fwd \\
+      --variant NAME=PATH/gs_tiles.cu [--variant ...]
+      times the 3DGS forwards (#15 16-wide and packed, #13 on slots) on the
+      1080p and 400x400 frames, checked against the first variant bit for
+      bit and against the plain versions.
+A variant's ``:CONST=VALUE`` list sets those ``constexpr int`` constants of
+its source before the build (a copy under build/ab/).
 
 Each also writes its results as JSON under ``build/kernel_timing/``.
 """
@@ -48,13 +63,14 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 __all__ = ['device_ms', 'host_ms', 'events_ms', 'gs_model', 'orbit_view',
-           'gs_frame']
+           'gs_frame', 'gs_pair_counts']
 
 _OUT = Path('build') / 'kernel_timing'
 
@@ -181,6 +197,37 @@ def gs_frame(model, width: int, height: int, packed: bool = False) -> tuple:
             s['num_tiles'], 256)
 
 
+def gs_pair_counts(args) -> dict:
+    """The (entry, pixel) pairs of a composite of ``args`` = (sorted_mat,
+    starts, counts, tiles_x, num_tiles, k), by the plain version's
+    geometry: ``valid`` (every entry within min(count, k) at each of its
+    tile's 256 pixels), ``walked`` (those of the strips each entry's
+    ``strip_reach`` bound reaches: what the culled kernels visit) and
+    ``passing`` (alpha > 1/255)."""
+    import torch
+
+    from nerficg_torch.ops import gs_tiles_kernel as gtk
+    sorted_mat, starts, counts, tiles_x, num_tiles, k = args
+    counts = torch.clamp(counts, max=k)
+    walked = passing = 0
+    strip = torch.arange(gtk.P, device=sorted_mat.device) // 32
+    with torch.no_grad():
+        for first in range(0, num_tiles, 256):
+            last = min(first + 256, num_tiles)
+            slots, _ = gtk._slots(sorted_mat, starts, tiles_x, k, first, last)
+            origins = gtk._tile_origins(last, tiles_x,
+                                        sorted_mat.device)[first:]
+            alpha = gtk._alpha_plain(slots, counts[first:last], origins)
+            passing += int((alpha > 0).sum())
+            inside = torch.arange(k, device=slots.device)[None] < \
+                counts[first:last, None]
+            reach = gtk._strip_reach_plain(slots, origins)
+            walked += int((((reach[..., None] >> strip) & 1).bool()
+                           & inside[..., None]).sum())
+    return {'valid': int(counts.sum()) * gtk.P, 'walked': walked,
+            'passing': passing}
+
+
 def _card() -> str:
     return subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -273,30 +320,60 @@ def wrappers(iters: int = 10000, rounds: int = 2) -> dict:
             'device_ms': device}
 
 
+def _variant_source(name: str, source: Path, overrides: dict) -> Path:
+    """``source`` itself, or with each ``constexpr int NAME = ...;`` of
+    ``overrides`` set to its value, written to build/ab/<name>.cu."""
+    if not overrides:
+        return source
+    from nerficg_torch.ops import _kernels
+    text = source.read_text()
+    for const, value in overrides.items():
+        text, hits = re.subn(rf'constexpr int {const} = [^;]+;',
+                             f'constexpr int {const} = {int(value)};', text)
+        if hits != 1:
+            raise ValueError(f'{name}: {source} defines {const} {hits} times')
+    out = _kernels._BUILD_DIR / 'ab' / f'{name}.cu'
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(text)
+    return out
+
+
+def _source_constant(source: Path, const: str) -> int:
+    """The value of ``constexpr int const = N;`` in ``source``."""
+    return int(re.search(rf'constexpr int {const} = (\d+);',
+                         source.read_text()).group(1))
+
+
 def _build_variant(name: str, source: Path,
-                   entries: tuple = ('nerficg_gs_composite_bwd',)
+                   entries: tuple = ('nerficg_gs_composite_bwd',),
+                   overrides: dict | None = None,
+                   signatures: dict | None = None
                    ) -> tuple[ctypes.CDLL, str]:
     """Compile one kernel source on its own into build/ab/<name>.so with the
-    library's flags and ``-Xptxas -v``, binding those of ``entries`` it
-    has; (the loaded library, ptxas's report)."""
+    library's flags and ``-Xptxas -v`` (its constants first set to
+    ``overrides``), binding those of ``entries`` it has, with
+    ``signatures`` where given; (the loaded library, ptxas's report)."""
     from nerficg_torch.ops import _kernels
     out = _kernels._BUILD_DIR / 'ab' / f'lib{name}.so'
     out.parent.mkdir(parents=True, exist_ok=True)
+    compiled = _variant_source(name, source, overrides or {})
     proc = subprocess.run([_kernels._nvcc(), *_kernels._NVCC_FLAGS, '-Xptxas',
-                           '-v', '-o', str(out), str(source)],
+                           '-v', f'-I{source.parent}', '-o', str(out),
+                           str(compiled)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f'{name}: nvcc failed:\n{proc.stderr}')
     lib = ctypes.CDLL(str(out))
     for entry in entries:
         if hasattr(lib, entry):
-            getattr(lib, entry).argtypes = _PARENT_SIGNATURES.get(
-                entry, _kernels._SIGNATURES.get(entry))
+            getattr(lib, entry).argtypes = (signatures or {}).get(
+                entry, _PARENT_SIGNATURES.get(
+                    entry, _kernels._SIGNATURES.get(entry)))
             getattr(lib, entry).restype = ctypes.c_int
     return lib, proc.stderr
 
 
-def gs_bwd(variants: dict[str, Path], rounds: int = 3) -> dict:
+def gs_bwd(variants: dict[str, tuple], rounds: int = 3) -> dict:
     """Each variant's stream backward on two frames: checked against the
     plain version (rtol 1e-3 / atol 2e-3) and repeat-launch equality, then
     timed in turns (device time, CUDA graph of 20 launches)."""
@@ -308,10 +385,11 @@ def gs_bwd(variants: dict[str, Path], rounds: int = 3) -> dict:
     card = _card()
     libs = {}
     report = {'card': card, 'ptxas': {}, 'frames': {}}
-    for name, source in variants.items():
-        libs[name], ptxas = _build_variant(name, source)
+    for name, (source, overrides) in variants.items():
+        libs[name], ptxas = _build_variant(name, source, overrides=overrides)
         report['ptxas'][name] = ptxas
-        print(f'gs-bwd: {name} ({source}) ptxas:\n{ptxas}', flush=True)
+        print(f'gs-bwd: {name} ({source} {overrides or ""}) ptxas:\n{ptxas}',
+              flush=True)
     model = gs_model('cuda')
     rng = np.random.default_rng(1)
     for width, height in ((1920, 1080), (400, 400)):
@@ -355,10 +433,334 @@ def gs_bwd(variants: dict[str, Path], rounds: int = 3) -> dict:
                   f'{frame["entries"]} entries within k): {name}: device ms '
                   + ', '.join(f'{t:.4f}' for t in v['ms']) +
                   f' (median {float(np.median(v["ms"])):.4f}); max_abs_err '
-                  f'{v["max_abs_err"]:.3e} {"ok" if v["close"] else "MISMATCH"}'
+                  f'{v["max_abs_err"]:.3e} '
+                  f'{"ok" if v["close"] else "MISMATCH"}'
                   f', repeat {"equal" if v["repeat_equal"] else "DIFFERS"} '
                   f'[{card}]', flush=True)
         report['frames'][f'{width}x{height}'] = frame
+    return report
+
+
+def _turns(calls: dict, rounds: int, iters: int = 20) -> dict:
+    """Device ms of each named callable, ``rounds`` times in turns (A B ...
+    B A)."""
+    ms = {name: [] for name in calls}
+    order = list(calls) + list(reversed(calls))
+    for _ in range(rounds):
+        for name in order:
+            ms[name].append(device_ms(calls[name], iters=iters))
+    return ms
+
+
+def _median(ts) -> float:
+    import numpy as np
+    return float(np.median(ts))
+
+
+def gs_fwd(variants: dict[str, tuple], rounds: int = 3) -> dict:
+    """Each variant's forwards, #15 16-wide (with its saved transmittance),
+    #15 packed and #13 on the slot windows, on bench.py's 1080p frame and a
+    400x400 one of the same model: each output (and the transmittance on
+    the chunks a tile composites) against the first variant's with
+    ``torch.equal`` and against the plain version (atol 1e-5), then device
+    time (CUDA graph of 20 calls) in turns."""
+    import torch
+
+    from nerficg_torch.ops import gs_tiles_kernel as gtk
+
+    card = _card()
+    libs = {}
+    report = {'card': card, 'ptxas': {}, 'frames': {}}
+    for name, (source, overrides) in variants.items():
+        libs[name], ptxas = _build_variant(
+            name, source, ('nerficg_gs_composite_fwd',
+                           'nerficg_gs_composite_fwd_packed',
+                           'nerficg_gs_tiles_fwd'), overrides)
+        report['ptxas'][name] = ptxas
+        print(f'gs-fwd: {name} ({source} {overrides or ""}) ptxas:\n{ptxas}',
+              flush=True)
+    first = next(iter(libs))
+    model = gs_model('cuda')
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def checked(code):
+        if code != 0:
+            raise RuntimeError(f'launch failed with CUDA error {code}')
+
+    for width, height in ((1920, 1080), (400, 400)):
+        args16 = gs_frame(model, width, height)
+        args8 = gs_frame(model, width, height, packed=True)
+        mat, starts, counts, tiles_x, num_tiles, k = args16
+        live = gtk.live_chunks(counts, k)
+        slots, _ = gtk._slots(mat, starts, tiles_x, k, 0, num_tiles)
+        slots = slots.contiguous()
+        origins = gtk._tile_origins(num_tiles, tiles_x, mat.device)
+
+        def fwd16(lib):
+            out = torch.empty((num_tiles, gtk.OUT_ROWS, gtk.P), device='cuda')
+            tacc = torch.empty((num_tiles, gtk.num_chunks(k), gtk.P),
+                               device='cuda')
+            checked(lib.nerficg_gs_composite_fwd(
+                mat.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+                out.data_ptr(), tacc.data_ptr(), mat.shape[1], num_tiles,
+                tiles_x, k, stream()))
+            return out, tacc
+
+        def fwd8(lib):
+            m8, s8, c8 = args8[:3]
+            out = torch.empty((num_tiles, gtk.OUT_ROWS, gtk.P), device='cuda')
+            checked(lib.nerficg_gs_composite_fwd_packed(
+                m8.data_ptr(), s8.data_ptr(), c8.data_ptr(), out.data_ptr(),
+                m8.shape[1], num_tiles, tiles_x, k, stream()))
+            return out
+
+        def slot_fwd(lib):
+            out = torch.empty((num_tiles, gtk.SLOT_OUT_ROWS, gtk.P),
+                              device='cuda')
+            checked(lib.nerficg_gs_tiles_fwd(
+                slots.data_ptr(), counts.data_ptr(), origins.data_ptr(),
+                out.data_ptr(), num_tiles, k, stream()))
+            return out
+
+        want16, want_tacc = gtk.gs_composite_fwd_plain(*args16)
+        plain = {'16-wide': want16,
+                 'packed': gtk.gs_composite_fwd_plain(*args8,
+                                                      save_tacc=False),
+                 'slots': gtk.gs_tiles_fwd_plain(slots, counts, origins)}
+        frame = {'tiles': num_tiles,
+                 'entries': int(counts.clamp(max=k).sum()),
+                 'pairs': gs_pair_counts(args16), 'kernels': {}}
+        print(f'gs-fwd {width}x{height}: (entry, pixel) pairs '
+              f'{frame["pairs"]}', flush=True)
+        for kernel, run in (('16-wide', fwd16), ('packed', fwd8),
+                            ('slots', slot_fwd)):
+            ref = run(libs[first])
+            line = {'variants': {}}
+            for name, lib in libs.items():
+                got = run(lib)
+                torch.cuda.synchronize()
+                out, ref_out = (got[0], ref[0]) if kernel == '16-wide' else (
+                    got, ref)
+                entry = {
+                    'max_abs_err': float((out - plain[kernel]).abs().max()),
+                    'close': bool(torch.allclose(out, plain[kernel], rtol=0,
+                                                 atol=1e-5)),
+                    'equal_first': bool(torch.equal(out, ref_out))}
+                if kernel == '16-wide':
+                    entry['close'] &= bool(torch.allclose(
+                        got[1][live], want_tacc[live], rtol=0, atol=1e-5))
+                    entry['equal_first'] &= bool(torch.equal(got[1][live],
+                                                             ref[1][live]))
+                line['variants'][name] = entry
+            ms = _turns({name: (lambda lib=lib: run(lib))
+                         for name, lib in libs.items()}, rounds)
+            for name, v in line['variants'].items():
+                v['ms'] = ms[name]
+                print(f'gs-fwd {width}x{height} {kernel} ({num_tiles} tiles, '
+                      f'{frame["entries"]} entries within k): {name}: device '
+                      f'ms ' + ', '.join(f'{t:.4f}' for t in v['ms']) +
+                      f' (median {_median(v["ms"]):.4f}); max_abs_err '
+                      f'{v["max_abs_err"]:.3e} '
+                      f'{"ok" if v["close"] else "MISMATCH"}, '
+                      f'{"equal to" if v["equal_first"] else "DIFFERS from"} '
+                      f'{first} [{card}]', flush=True)
+            frame['kernels'][kernel] = line
+        report['frames'][f'{width}x{height}'] = frame
+    return report
+
+
+# The crossbar forward's entry before the level-resident path (a parent's
+# source), and its backward's entries before the fused one.
+_PARENT_XBAR_FWD = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+    ctypes.c_uint, ctypes.c_void_p]
+
+
+def _xbar_fwd_call(lib, source: Path, table, pos, config, nc, seed,
+                   save=False, plan=None):
+    """The variant's forward as a callable returning (out, idx, w): through
+    ``hash_xbar._launch_fwd`` on ``plan`` (default: ``xbar_fwd_plan`` with
+    the variant's own block constants) where the source has the resident
+    path, else through its one entry with the parent wrapper's
+    allocations."""
+    import torch
+
+    from nerficg_torch.ops import hash_xbar as hx
+    if 'hash_xbar_fwd_resident_kernel' in source.read_text():
+        if plan is None:
+            plan = hx.xbar_fwd_plan(
+                config, pos.shape[0], *hx._card_limits(pos.get_device()),
+                threads=_source_constant(source, 'kFwdThreads'),
+                group=_source_constant(source, 'kFwdLevels'))
+        return lambda: hx._launch_fwd('xbar-fwd', table, pos, config, nc,
+                                      seed, save, lib=lib, plan=plan)
+    res_m1, lrows, dense = hx._layout_tensors(config, pos.device)
+    levels, n, rows = table.shape[0], pos.shape[0], table.shape[2]
+
+    def call():
+        out = torch.empty((n, 2 * levels), device=pos.device)
+        idx = w = None
+        if save:
+            idx = torch.empty((levels, nc or 8, n), dtype=torch.int32,
+                              device=pos.device)
+            w = torch.empty((levels, nc or 8, n), device=pos.device)
+        code = lib.nerficg_hash_xbar_fwd(
+            table.data_ptr(), pos.data_ptr(), res_m1.data_ptr(),
+            lrows.data_ptr(), dense.data_ptr(), out.data_ptr(),
+            None if idx is None else idx.data_ptr(),
+            None if w is None else w.data_ptr(), levels, n, rows, nc, seed,
+            torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f'launch failed with CUDA error {code}')
+        return out, idx, w
+    return call
+
+
+def xbar_fwd(variants: dict[str, tuple], capture: Path,
+             rounds: int = 3) -> dict:
+    """Each variant's crossbar forward on each input set, on the path its
+    plan takes: the output against ``hash_xbar_fwd_plain`` (atol 1e-5) and
+    the saved corner streams bit for bit; every output and stream against
+    the first variant's with ``torch.equal``; where the variant has both
+    paths, the resident path against its gather path, bit for bit; then
+    device time (CUDA graph of 20 calls, no saves) in turns. Then, for the
+    first variant with both paths, the two paths and the others' plans in
+    turns over sample counts from 2,048 to 262,144 (exact corners, uniform
+    positions): where the resident path starts to pay."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.ops import hash_xbar as hx
+    from nerficg_torch.ops.hashgrid import HashGridConfig
+
+    card = _card()
+    if not capture.is_file():
+        print(f'xbar-fwd: capturing one D-NeRF step into {capture}',
+              flush=True)
+        capture_dnerf(capture)
+    libs, sources = {}, {}
+    report = {'card': card, 'ptxas': {}, 'inputs': {}, 'crossover': {}}
+    for name, (source, overrides) in variants.items():
+        compiled = _variant_source(name, source, overrides)
+        resident = 'hash_xbar_fwd_resident_kernel' in compiled.read_text()
+        libs[name], ptxas = _build_variant(
+            name, source, ('nerficg_hash_xbar_fwd',), overrides,
+            None if resident else {'nerficg_hash_xbar_fwd': _PARENT_XBAR_FWD})
+        sources[name] = compiled
+        report['ptxas'][name] = ptxas
+        print(f'xbar-fwd: {name} ({source} {overrides or ""}) ptxas:\n'
+              f'{ptxas}', flush=True)
+    first = next(iter(libs))
+    dev = torch.device('cuda')
+    lib_cfg = HashGridConfig(num_levels=16, features_per_level=2,
+                             log2_table_size=14, base_resolution=16,
+                             target_resolution=2048)
+    big_cfg = HashGridConfig(num_levels=16, features_per_level=2,
+                             log2_table_size=16, base_resolution=16,
+                             target_resolution=2048)
+    rng = np.random.default_rng(8)
+
+    def uniform(config, n):
+        rows = config.table_size // 128
+        return (torch.from_numpy(rng.uniform(-1, 1, (16, 2, rows, 128)).astype(
+                    np.float32)).to(dev),
+                torch.from_numpy(rng.uniform(0.0, 1 - 1e-6, (n, 3)).astype(
+                    np.float32)).to(dev))
+    sets = []
+    for n in (262144, 196608, 65536):
+        inputs = uniform(lib_cfg, n)
+        for nc in (0, 4):
+            sets.append((f'uniform {n}, {"exact" if nc == 0 else "4 corners"}',
+                         inputs, lib_cfg, nc, 0x5EED))
+    cap = torch.load(capture, weights_only=False)
+    sets.append((f'D-NeRF step {cap["pos"].shape[0]}, '
+                 f'{"exact" if cap["n_corners"] == 0 else "stochastic"}',
+                 (cap['table'].to(dev), cap['pos'].to(dev)), cap['config'],
+                 cap['n_corners'], cap['seed']))
+    sets.append(('uniform 262144, exact, 2^16 table (gather path)',
+                 uniform(big_cfg, 262144), big_cfg, 0, 0x5EED))
+
+    for label, (table, pos), config, nc, seed in sets:
+        want, want_idx, want_w = hx.hash_xbar_fwd_plain(table, pos, config,
+                                                        nc, seed, save=True)
+        plan = hx.xbar_fwd_plan(config, pos.shape[0])
+        entry = {'samples': pos.shape[0], 'n_corners': nc, 'path': plan.path,
+                 'tiles': plan.tiles, 'variants': {}}
+        ref = _xbar_fwd_call(libs[first], sources[first], table, pos, config,
+                             nc, seed, save=True)()
+        calls = {}
+        for name, lib in libs.items():
+            got = _xbar_fwd_call(lib, sources[name], table, pos, config, nc,
+                                 seed, save=True)()
+            torch.cuda.synchronize()
+            v = {'max_abs_err': float((got[0] - want).abs().max()),
+                 'close': bool(torch.allclose(got[0], want, rtol=0,
+                                              atol=1e-5))
+                 and bool(torch.equal(got[1], want_idx))
+                 and bool(torch.equal(got[2], want_w)),
+                 'equal_first': all(bool(torch.equal(a, b))
+                                    for a, b in zip(got, ref)),
+                 'max_diff_first': float((got[0] - ref[0]).abs().max())}
+            if 'hash_xbar_fwd_resident_kernel' in sources[name].read_text():
+                gather = _xbar_fwd_call(
+                    lib, sources[name], table, pos, config, nc, seed,
+                    save=True, plan=hx.XbarFwdPlan('gather', 0,
+                                                   plan.level_rows, 0))()
+                v['paths_equal'] = all(bool(torch.equal(a, b))
+                                       for a, b in zip(got, gather))
+            entry['variants'][name] = v
+            calls[name] = _xbar_fwd_call(lib, sources[name], table, pos,
+                                         config, nc, seed)
+        ms = _turns(calls, rounds)
+        for name, v in entry['variants'].items():
+            v['ms'] = ms[name]
+            paths = '' if 'paths_equal' not in v else (
+                ', resident = gather ' + ('bit for bit' if v['paths_equal']
+                                          else 'DIFFERS'))
+            times = ', '.join(f'{t:.4f}' for t in ms[name])
+            print(f'xbar-fwd {label} ({plan.path}, {plan.tiles} tiles): '
+                  f'{name}: device ms {times} (median '
+                  f'{_median(ms[name]):.4f}); max_abs_err '
+                  f'{v["max_abs_err"]:.3e} '
+                  f'{"ok" if v["close"] else "MISMATCH"}'
+                  f', {"equal to" if v["equal_first"] else "differs from"} '
+                  f'{first} (max {v["max_diff_first"]:.3e}){paths} [{card}]',
+                  flush=True)
+        report['inputs'][label] = entry
+
+    # Where the resident path pays: both paths of the first variant that
+    # has them, beside every variant's own plan, over the sample counts.
+    both = next((name for name in libs if 'hash_xbar_fwd_resident_kernel'
+                 in sources[name].read_text()), None)
+    if both is None:
+        return report
+    table, _ = uniform(lib_cfg, 1)
+    for n in (2048, 4096, 8192, 16384, 32768, 65536, 131072, 262144):
+        pos = torch.from_numpy(rng.uniform(0.0, 1 - 1e-6, (n, 3)).astype(
+            np.float32)).to(dev)
+        src = sources[both]
+        resident = hx.xbar_fwd_plan(
+            lib_cfg, n, *hx._card_limits(0),
+            threads=_source_constant(src, 'kFwdThreads'),
+            group=_source_constant(src, 'kFwdLevels'), min_samples=0)
+        calls = {f'{both} resident ({resident.tiles} tiles)': _xbar_fwd_call(
+                     libs[both], src, table, pos, lib_cfg, 0, 0,
+                     plan=resident),
+                 f'{both} gather': _xbar_fwd_call(
+                     libs[both], src, table, pos, lib_cfg, 0, 0,
+                     plan=hx.XbarFwdPlan('gather', 0, resident.level_rows,
+                                         0))}
+        for name, lib in libs.items():
+            if name != both:
+                calls[name] = _xbar_fwd_call(lib, sources[name], table, pos,
+                                             lib_cfg, 0, 0)
+        ms = _turns(calls, rounds)
+        report['crossover'][n] = ms
+        print(f'xbar-fwd crossover, uniform {n}, exact: ' + '; '.join(
+            f'{name} {_median(ts):.4f}' for name, ts in ms.items()) +
+            f' (device ms, medians of {len(next(iter(ms.values())))}) '
+            f'[{card}]', flush=True)
     return report
 
 
@@ -464,7 +866,7 @@ def capture_dnerf(path: Path, iterations: int = 300) -> dict:
     return captured
 
 
-def xbar_bwd(variants: dict[str, Path], capture: Path,
+def xbar_bwd(variants: dict[str, tuple], capture: Path,
              rounds: int = 3) -> dict:
     """Each variant's crossbar backward on each input set: the table
     gradient against ``hash_xbar_bwd_plain`` (rtol 1e-4 / atol 1e-5 x max,
@@ -483,10 +885,12 @@ def xbar_bwd(variants: dict[str, Path], capture: Path,
         capture_dnerf(capture)
     libs = {}
     report = {'card': card, 'ptxas': {}, 'inputs': {}}
-    for name, source in variants.items():
-        libs[name], ptxas = _build_variant(name, source, _XBAR_ENTRIES)
+    for name, (source, overrides) in variants.items():
+        libs[name], ptxas = _build_variant(name, source, _XBAR_ENTRIES,
+                                           overrides)
         report['ptxas'][name] = ptxas
-        print(f'xbar-bwd: {name} ({source}) ptxas:\n{ptxas}', flush=True)
+        print(f'xbar-bwd: {name} ({source} {overrides or ""}) ptxas:\n'
+              f'{ptxas}', flush=True)
     dev = torch.device('cuda')
     lib_cfg = HashGridConfig(num_levels=16, features_per_level=2,
                              log2_table_size=14, base_resolution=16,
@@ -574,16 +978,26 @@ def xbar_bwd(variants: dict[str, Path], capture: Path,
     return report
 
 
+def _parse_variant(spec: str) -> tuple[str, tuple[Path, dict]]:
+    """NAME=PATH[:CONST=VALUE,...] -> (NAME, (PATH, {CONST: VALUE}))."""
+    name, rest = spec.split('=', 1)
+    path, _, sets = rest.partition(':')
+    overrides = dict(item.split('=', 1) for item in sets.split(',') if item)
+    return name, (Path(path), overrides)
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    parser.add_argument('what', choices=('wrappers', 'gs-bwd', 'xbar-bwd'))
+    parser.add_argument('what', choices=('wrappers', 'gs-bwd', 'gs-fwd',
+                                         'xbar-bwd', 'xbar-fwd'))
     parser.add_argument('--root', default=None,
                         help='import nerficg_torch from this checkout')
     parser.add_argument('--variant', action='append', default=[],
-                        help='NAME=PATH of a gs_tiles.cu (gs-bwd) or a '
-                        'hash_xbar.cu (xbar-bwd)')
+                        help='NAME=PATH[:CONST=VALUE,...] of a gs_tiles.cu '
+                        '(gs-bwd, gs-fwd) or a hash_xbar.cu (xbar-bwd, '
+                        'xbar-fwd), its constexpr int CONSTs set to VALUEs')
     parser.add_argument('--capture', default=str(_OUT / 'dnerf_capture.pt'),
-                        help='the captured D-NeRF step (xbar-bwd)')
+                        help='the captured D-NeRF step (xbar-bwd, xbar-fwd)')
     args = parser.parse_args(argv)
     if args.root is not None:
         sys.path.insert(0, str(Path(args.root).resolve()))
@@ -593,13 +1007,16 @@ def main(argv=None) -> None:
     if args.what == 'wrappers':
         tag = Path(args.root).name if args.root else 'this'
         _write(f'wrappers_{tag}.json', wrappers())
+        return
+    variants = dict(map(_parse_variant, args.variant))
+    if args.what == 'gs-bwd':
+        _write('gs_bwd_ab.json', gs_bwd(variants))
+    elif args.what == 'gs-fwd':
+        _write('gs_fwd_ab.json', gs_fwd(variants))
+    elif args.what == 'xbar-bwd':
+        _write('xbar_bwd_ab.json', xbar_bwd(variants, Path(args.capture)))
     else:
-        variants = {k: Path(v) for k, v in (
-            v.split('=', 1) for v in args.variant)}
-        if args.what == 'gs-bwd':
-            _write('gs_bwd_ab.json', gs_bwd(variants))
-        else:
-            _write('xbar_bwd_ab.json', xbar_bwd(variants, Path(args.capture)))
+        _write('xbar_fwd_ab.json', xbar_fwd(variants, Path(args.capture)))
 
 
 if __name__ == '__main__':

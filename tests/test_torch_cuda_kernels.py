@@ -185,6 +185,75 @@ def test_hash_xbar_fwd(cuda, n_corners):
     assert torch.equal(hash_xbar.hash_xbar_fwd(*args), out)
 
 
+def _xbar_fwd_paths(table, pos, cfg, n_corners, seed):
+    """The forward on the level-resident path (whatever the call's size)
+    and on the gather path, with saves: two (out, idx, w)."""
+    resident = hash_xbar.xbar_fwd_plan(cfg, pos.shape[0], min_samples=0)
+    assert resident.path == 'resident'
+    gather = hash_xbar.XbarFwdPlan('gather', 0, resident.level_rows, 0)
+    args = ('hash_xbar_fwd', table, pos, cfg, n_corners, seed, True)
+    return (hash_xbar._launch_fwd(*args, plan=resident),
+            hash_xbar._launch_fwd(*args, plan=gather))
+
+
+@pytest.mark.parametrize('n_corners', [0, 1, 2, 4])
+def test_hash_xbar_fwd_resident_equals_gather(cuda, n_corners):
+    """The level-resident forward against the gather path bit for bit,
+    output and saved corner streams (the same corners, the same explicit
+    sum in corner order), on ray-ordered positions; both within atol 1e-5
+    of the plain version, the streams equal to its."""
+    table, pos, _ = _xbar_inputs(cuda, seed=15)
+    pos = pos[torch.argsort(pos[:, 0])].contiguous()
+    resident, gather = _xbar_fwd_paths(table, pos, CFG, n_corners, 0xFACE)
+    for a, b in zip(resident, gather):
+        assert torch.equal(a, b)
+    out_p, idx_p, w_p = hash_xbar.hash_xbar_fwd_plain(
+        table, pos, CFG, n_corners, 0xFACE, save=True)
+    assert torch.equal(resident[1], idx_p)
+    assert torch.equal(resident[2], w_p)
+    torch.testing.assert_close(resident[0], out_p, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize('n', [1, 1000, 70000])
+def test_hash_xbar_fwd_ragged(cuda, n):
+    """Sample counts that leave the last chunk ragged, one tile, and more
+    chunks than the tiles divide evenly: both paths bit-equal and close to
+    the plain version; the wrapper takes the gather path under
+    FWD_MIN_SAMPLES and counts one launch."""
+    rng = np.random.default_rng(n + 1)
+    table = torch.tensor(rng.uniform(-1, 1, (16, 2, 128, 128)),
+                         dtype=torch.float32, device=cuda)
+    pos = torch.tensor(rng.uniform(0, 1 - 1e-6, (n, 3)), dtype=torch.float32,
+                       device=cuda)
+    resident, gather = _xbar_fwd_paths(table, pos, CFG, 4, 21)
+    for a, b in zip(resident, gather):
+        assert torch.equal(a, b)
+    want = hash_xbar.hash_xbar_fwd_plain(table, pos, CFG)
+    before = hash_xbar.hash_xbar_fwd.launches
+    got = hash_xbar.hash_xbar_fwd(table, pos, CFG)
+    assert hash_xbar.hash_xbar_fwd.launches == before + 1
+    assert hash_xbar.xbar_fwd_plan(CFG, n).path == (
+        'gather' if n < hash_xbar.FWD_MIN_SAMPLES else 'resident')
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_hash_xbar_fwd_gather_path(cuda):
+    """A 2^16-entry table's level does not fit a block's shared memory:
+    the wrapper takes the gather kernel, within atol 1e-5 of the plain
+    version."""
+    cfg = HashGridConfig(num_levels=16, features_per_level=2,
+                         log2_table_size=16, base_resolution=16,
+                         target_resolution=2048)
+    assert hash_xbar.xbar_fwd_plan(cfg, 262144).path == 'gather'
+    rng = np.random.default_rng(16)
+    table = torch.tensor(rng.uniform(-1, 1, (16, 2, 512, 128)),
+                         dtype=torch.float32, device=cuda)
+    _, pos, _ = _xbar_inputs(cuda, seed=17)
+    torch.testing.assert_close(hash_xbar.hash_xbar_fwd(table, pos, cfg),
+                               hash_xbar.hash_xbar_fwd_plain(table, pos, cfg),
+                               rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize('n_corners', [0, 4])
 def test_hash_xbar_bwd(cuda, n_corners):
     _, pos, g = _xbar_inputs(cuda, seed=3)
@@ -321,6 +390,35 @@ def test_gs_bwd_edge_tiles(cuda, layout):
         assert not got[past].any()
     torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
     assert torch.equal(got, run())
+
+
+@pytest.mark.parametrize('layout', ['stream', 'slots'])
+def test_gs_fwd_edge_tiles(cuda, layout):
+    """The culled forwards (#15 with its saved transmittance, #13) on the
+    edge tiles above: 0, 45, 100 > k and 32 entries, the last reaching only
+    its first warps' pixels; within atol 1e-5 of the plain version, equal
+    between two launches."""
+    args = _edge_tiles(cuda)
+    mat, starts, counts, tiles_x, num_tiles, k = args
+    if layout == 'stream':
+        out, tacc = gs_tiles_kernel.gs_composite_fwd(*args)
+        out_p, tacc_p = gs_tiles_kernel.gs_composite_fwd_plain(*args)
+        live = gs_tiles_kernel.live_chunks(counts, k)
+        torch.testing.assert_close(tacc[live], tacc_p[live], rtol=0,
+                                   atol=1e-5)
+        again, _ = gs_tiles_kernel.gs_composite_fwd(*args)
+    else:
+        slots, _ = gs_tiles_kernel._slots(mat, starts, tiles_x, k, 0,
+                                          num_tiles)
+        slots = slots.contiguous()
+        origins = gs_tiles_kernel._tile_origins(num_tiles, tiles_x, cuda)
+        out = gs_tiles_kernel.gs_tiles_fwd(slots, counts, origins)
+        out_p = gs_tiles_kernel.gs_tiles_fwd_plain(slots, counts, origins)
+        again = gs_tiles_kernel.gs_tiles_fwd(slots, counts, origins)
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5)
+    assert torch.equal(out, again)
+    # The last tile's Gaussians lie in its top two pixel rows.
+    assert float(out[3, 3, 128:].abs().max()) < float(out[3, 3, :32].max())
 
 
 @pytest.mark.parametrize('n_corners', [0, 1, 2, 4])
