@@ -16,7 +16,13 @@ Phases, each printing its own lines:
      crossbar backward (#11, #12 and both from one call) at the Instant-NGP
      step's 65,536 and D-NeRF's 262,144 samples on the level-resident path,
      and on a 2^16-entry table, past a block's shared memory, on the gather
-     path;
+     path; the segment scatter-add (#7) on the serving chunk's sorted ray
+     ids, and on unsorted ids with some negative or past the end and
+     signed values, on its fused path, and on a training step's call, on
+     its atomic path; the cell table gradient (#9) as the wrapper runs it
+     (each level's windows and the share of blocks that keep theirs in
+     shared memory printed) and with level 12 forced onto the
+     global-atomic path;
   3. serving path: write a textured synthetic scene and an Instant-NGP
      checkpoint at full library width (random weights from a numpy seed,
      a shell-shaped occupancy grid), run the port's inference entry point
@@ -78,7 +84,9 @@ Phases, each printing its own lines:
      D-NeRF's width and 262,144 samples, held to its plain version.
 Every kernel's launch count is set to 0 just before the run that drives it
 and read just after; the sample counts of #10's launches in phases 7 and 11
-are printed at the end (min, median, max per run). Each kernel's line
+are printed at the end (min, median, max per run), and after phase 11 the
+largest segment scatter-add of phases 3-11 with the path its plan took.
+Each kernel's line
 reports its time against the least time the card could take for the same
 work (`bound_ms`: each input read once and each output written once at
 3.35 TB/s, or its f32 operations at 67 TFLOP/s with each expf at the
@@ -251,14 +259,16 @@ def phase2_kernels(card: str) -> dict:
     import numpy as np
     import torch
 
-    from nerficg_torch.ops.hash_cell import (_cell_corners, cell_layout,
+    from nerficg_torch.ops.hash_cell import (BWD_WIN_ROWS, _cell_corners,
+                                             cell_bwd_paths, cell_layout,
                                              cell_window_bases, hash_cell_bwd,
                                              hash_cell_bwd_plain,
                                              hash_cell_fwd,
                                              hash_cell_fwd_plain)
     from nerficg_torch.ops.hash_mxu import (seg_gather, seg_gather_plain,
                                             seg_scatter_add,
-                                            seg_scatter_add_plain)
+                                            seg_scatter_add_plain,
+                                            seg_scatter_plan)
     from nerficg_torch.ops.hash_window import (
         _exact_corners, hash_window_bwd, hash_window_bwd_cached,
         hash_window_bwd_cached_plain, hash_window_bwd_plain, hash_window_fwd,
@@ -279,7 +289,8 @@ def phase2_kernels(card: str) -> dict:
                                                build_block_bitfield,
                                                xbar_permute,
                                                xbar_permute_plain)
-    from nerficg_torch.scripts.kernel_timing import (device_ms, events_ms,
+    from nerficg_torch.scripts.kernel_timing import (cell_window_report,
+                                                     device_ms, events_ms,
                                                      host_ms)
 
     dev = torch.device('cuda')
@@ -392,15 +403,67 @@ def phase2_kernels(card: str) -> dict:
            lambda: torch.take(seg_table, idx64))
     vals = torch.from_numpy(rng.uniform(0, 1, (1, 5, nb)).astype(
         np.float32)).to(dev)
+
+    def scatter_close(idx_s, vals_s, rows_s):
+        # Within 1e-5 of the sum of |g| per entry, plus 1e-6: rtol 1e-5 /
+        # atol 1e-6 where the values share a sign, scaled where sums
+        # cancel (atomics add in another order).
+        scale = seg_scatter_add_plain(idx_s, vals_s.abs(), rows_s)
+        return lambda a, b: bool(((a - b).abs() <= 1e-5 * scale + 1e-6)
+                                 .all())
     got = seg_scatter_add(idx, vals, rows)
-    record('seg_scatter_add', got, seg_scatter_add_plain(idx, vals, rows),
-           lambda a, b: bool(torch.allclose(a, b, rtol=1e-5, atol=1e-6)),
-           lambda: seg_scatter_add(idx, vals, rows),
-           lambda: seg_scatter_add_plain(idx, vals, rows),
-           f'(1,5,{nb}) -> (1,5,{rows},128)', nbytes(idx, vals, got),
-           5 * nb,
-           lambda: torch.zeros((5, rows * 128), device=dev).index_add_(
-               1, idx64, vals[0]))
+    path = seg_scatter_plan(5, nb, rows)
+    line = record('seg_scatter_add', got,
+                  seg_scatter_add_plain(idx, vals, rows),
+                  scatter_close(idx, vals, rows),
+                  lambda: seg_scatter_add(idx, vals, rows),
+                  lambda: seg_scatter_add_plain(idx, vals, rows),
+                  f'(1,5,{nb}) -> (1,5,{rows},128), sorted, {path}',
+                  nbytes(idx, vals, got), 5 * nb,
+                  lambda: torch.zeros((5, rows * 128), device=dev).index_add_(
+                      1, idx64, vals[0]))
+    line['path'] = path
+    # #7's contract beyond the serving path: ids in any order, a tenth of
+    # them negative (counted from the end, as the oracle's NumPy indexing
+    # does) or past either end (dropped), signed values, on the plan's
+    # path for the shape (fused); and a training step's call (8,192
+    # blocks over 512 rays, signed values), which the plan sends down the
+    # atomic path (memset and one atomic per element).
+    ids = rng.integers(0, rays + 1, nb)
+    bad = rng.uniform(size=nb) < 0.1
+    ids[bad] = rng.choice([-1, -1000, rows * 128, rows * 128 + 7],
+                          int(bad.sum()))
+    idx_any = torch.from_numpy(ids.astype(np.int32)[None]).to(dev)
+    # From a generator of their own, so the later inputs stay as they were.
+    rng_s = np.random.default_rng(7)
+    signed = torch.from_numpy(rng_s.uniform(-1, 1, (1, 5, nb)).astype(
+        np.float32)).to(dev)
+    nt, rays_t = 8192, 512
+    rows_t = (rays_t + 1 + 127) // 128
+    idx_t = torch.from_numpy(np.sort(rng_s.integers(0, rays_t + 1, nt))
+                             .astype(np.int32)[None]).to(dev)
+    vals_t = torch.from_numpy(rng_s.uniform(-1, 1, (1, 5, nt)).astype(
+        np.float32)).to(dev)
+    for key, (idx_s, vals_s, rows_s), what in (
+            ('unsorted_out_of_range', (idx_any, signed, rows),
+             'unsorted, 10% negative or past the end, signed'),
+            ('atomic_path', (idx_t, vals_t, rows_t), 'sorted, signed')):
+        m_s = vals_s.shape[2]
+        path_s = seg_scatter_plan(5, m_s, rows_s)
+        got = seg_scatter_add(idx_s, vals_s, rows_s)
+        line[key] = dict(record(
+            'seg_scatter_add', got,
+            seg_scatter_add_plain(idx_s, vals_s, rows_s),
+            scatter_close(idx_s, vals_s, rows_s),
+            lambda a=(idx_s, vals_s, rows_s): seg_scatter_add(*a),
+            lambda a=(idx_s, vals_s, rows_s): seg_scatter_add_plain(*a),
+            f'(1,5,{m_s}) -> (1,5,{rows_s},128), {what}, {path_s}',
+            nbytes(idx_s, vals_s, got), 5 * m_s), path=path_s)
+    if (line['unsorted_out_of_range']['path'], line['atomic_path']['path']
+            ) != ('fused', 'atomic'):
+        fail('#7: the plan should take the fused path at the serving '
+             'chunk and the atomic path at a training step')
+    report['seg_scatter_add'] = line
 
     # 5.-7. the training encode: one step's 65,536 morton-sorted samples
     # (TARGET_BATCH_SIZE) on the full-width table, 4 stochastic corners with
@@ -472,12 +535,39 @@ def phase2_kernels(card: str) -> dict:
                for lv in range(16)),
            16 * n * 8 * 6)
     g = torch.from_numpy(rng.normal(size=(32, n)).astype(np.float32)).to(dev)
+    # #9 as the wrapper runs it (each (sub-block, level) block keeps its
+    # window's gradient in shared memory when the window fits, else adds
+    # to the table with global atomics), then with one level that keeps
+    # some windows resident (level 12) forced onto the global path.
+    paths = cell_window_report(win)
+    print(f'phase 2: hash_cell_bwd windows per level (base rows min/median/'
+          f'max, share of sub-blocks resident at {BWD_WIN_ROWS} rows): ' +
+          '; '.join(f'{lv}: {w["min"]}/{w["median"]:g}/{w["max"]} '
+                    f'{w["resident_share"]:.3f}'
+                    for lv, w in enumerate(paths['levels'])) +
+          f'; all levels {paths["resident_share"]:.3f}', flush=True)
+    want = hash_cell_bwd_plain(g, *cell, 4096)
     got = hash_cell_bwd(g, *cell, 4096)
-    record('hash_cell_bwd', got, hash_cell_bwd_plain(g, *cell, 4096),
-           scatter_ok, lambda: hash_cell_bwd(g, *cell, 4096),
-           lambda: hash_cell_bwd_plain(g, *cell, 4096),
-           f'g (32,{n}) -> (16,2,4096,128), 8 corners',
-           nbytes(g, pos, lo, win, got), 16 * n * 8 * 6)
+    line = record('hash_cell_bwd', got, want, scatter_ok,
+                  lambda: hash_cell_bwd(g, *cell, 4096),
+                  lambda: hash_cell_bwd_plain(g, *cell, 4096),
+                  f'g (32,{n}) -> (16,2,4096,128), 8 corners, '
+                  f'{paths["resident_share"]:.3f} of blocks resident',
+                  nbytes(g, pos, lo, win, got), 16 * n * 8 * 6)
+    line['resident_share'] = paths['resident_share']
+    if not bool(cell_bwd_paths(win)[12].any()):
+        fail('level 12 should keep some windows in shared memory')
+    got = hash_cell_bwd(g, *cell, 4096, global_levels=(12,))
+    line['level_12_global'] = dict(record(
+        'hash_cell_bwd', got, want, scatter_ok,
+        lambda: hash_cell_bwd(g, *cell, 4096, global_levels=(12,)),
+        lambda: hash_cell_bwd_plain(g, *cell, 4096),
+        f'g (32,{n}) -> (16,2,4096,128), 8 corners, level 12 forced '
+        f'global', nbytes(g, pos, lo, win, got), 16 * n * 8 * 6,
+        plain_iters=5))
+    line['level_12_global']['resident_share'] = float(
+        cell_bwd_paths(win, (12,)).float().mean())
+    report['hash_cell_bwd'] = line
 
     # #10/#11: the crossbar config's step, 65,536 samples on the
     # (16,2,128,128) table, exact (serving) and 4 stochastic corners
@@ -1171,6 +1261,41 @@ def xbar_fwd_sizes(label: str):
         yield sizes
     finally:
         hx._launch_fwd = launch
+
+
+@contextlib.contextmanager
+def seg_scatter_shapes():
+    """Record the (F, M, rows) of every segment scatter-add (#7) launched
+    inside the block, by wrapping the wrapper's plan lookup; the launch
+    counts are the wrapper's, untouched."""
+    from nerficg_torch.ops import hash_mxu as hm
+    shapes = collections.Counter()
+    lookup = hm._scatter_plan
+
+    def recording(feats, m, rows):
+        shapes[feats, m, rows] += 1
+        return lookup(feats, m, rows)
+    hm._scatter_plan = recording
+    try:
+        yield shapes
+    finally:
+        hm._scatter_plan = lookup
+
+
+def print_seg_scatter_shapes(shapes) -> None:
+    """#7's calls by their planes' shared memory: how many, the largest
+    (F, M, rows) and the path each plan took."""
+    from nerficg_torch.ops.hash_mxu import seg_scatter_plan
+    if not shapes:
+        fail('no segment scatter-add was launched in phases 3-11')
+    paths = collections.Counter()
+    for (feats, m, rows), count in shapes.items():
+        paths[seg_scatter_plan(feats, m, rows)] += count
+    feats, m, rows = max(shapes, key=lambda k: k[0] * k[2])
+    print(f'#7 calls, phases 3-11: {sum(shapes.values())} launches of '
+          f'{len(shapes)} shapes, by path {dict(paths)}; largest planes '
+          f'F = {feats}, M = {m}, rows = {rows} ({feats * rows * 512} bytes, '
+          f'{seg_scatter_plan(feats, m, rows)})', flush=True)
 
 
 def print_xbar_fwd_sizes() -> None:
@@ -1954,13 +2079,11 @@ def phase13_op_api(card: str) -> dict:
     return launches
 
 
-def main() -> None:
-    import torch
+def main_paths(card: str) -> dict:
+    """Phases 3-11, the methods' serving and training paths; the kernels'
+    launch counts."""
     from nerficg_torch.data.synthetic import (make_dynamic_textured_scene,
                                               make_textured_scene)
-    card = phase0_environment()
-    phase1_build(card)
-    report = phase2_kernels(card)
     launches = phase3_main_path(card)
     launches.update(phase4_training_step(card))
     marcher = ('block_probe', 'seg_gather', 'seg_scatter_add')
@@ -2018,6 +2141,17 @@ def main() -> None:
         for name in ('hash_xbar_fwd', 'hash_xbar_bwd'):
             launches[name] += dnerf.pop(name)
         launches.update(dnerf)
+    return launches
+
+
+def main() -> None:
+    import torch
+    card = phase0_environment()
+    phase1_build(card)
+    report = phase2_kernels(card)
+    with seg_scatter_shapes() as shapes:
+        launches = main_paths(card)
+    print_seg_scatter_shapes(shapes)
     phase12_dnerf_step(card)
     launches.update(phase13_op_api(card))
     print_xbar_fwd_sizes()

@@ -1,7 +1,8 @@
 // Device helpers shared by the hash-encode kernels (hash_window.cu,
-// hash_cell.cu, hash_xbar.cu): the Instant-NGP hash primes, the brick morton
-// code, the bf16 table read, the window wrap, and the counter hash with the
-// stochastic-corner choice.
+// hash_cell.cu, hash_xbar.cu) and the segment scatter (seg_ops.cu): the
+// Instant-NGP hash primes, the brick morton code, the bf16 table read, the
+// window wrap, the counter hash with the stochastic-corner choice, and the
+// warp's run sum before a scatter-add.
 //
 // Every float operation that decides an address or a weight uses the _rn
 // intrinsics, so nvcc cannot contract it into an FMA: the plain PyTorch
@@ -74,6 +75,61 @@ __device__ __forceinline__ float trilinear_weight(const float frac[3], int cx,
   const float wy = cy ? frac[1] : __fsub_rn(1.0f, frac[1]);
   const float wz = cz ? frac[2] : __fsub_rn(1.0f, frac[2]);
   return __fmul_rn(__fmul_rn(wx, wy), wz);
+}
+
+// Segmented warp sum over runs of equal keys in neighbouring lanes, for
+// scatter-adds whose targets are shared atomics (compare-and-swap loops on
+// sm_90) or global ones: when the warp's keys form at most max_runs runs,
+// each run's V values are summed by a shuffle reduction into the run's
+// first lane, and only that lane adds; otherwise every lane adds its own.
+// Returns whether this lane adds (key < 0: nothing to add). Keys equal but
+// not adjacent stay separate runs, so any order is summed correctly, and
+// sorted keys (ray ids, morton-sorted samples' cells) fold the most. Called
+// by all 32 lanes.
+template <int V>
+__device__ __forceinline__ bool warp_run_sum(int key, float (&v)[V],
+                                             int max_runs) {
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  const int lane = threadIdx.x & 31;
+  const int prev = __shfl_up_sync(kFull, key, 1);
+  const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != key);
+  if (__popc(heads) > max_runs) return key >= 0;
+  const unsigned after = heads & ~((2u << lane) - 1u);
+  const int end = after != 0u ? __ffs(after) - 1 : 32;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float t = __shfl_down_sync(kFull, v[j], d);
+      if (lane + d < end) v[j] = __fadd_rn(v[j], t);
+    }
+  }
+  return key >= 0 && ((heads >> lane) & 1u) != 0u;
+}
+
+// Warp sum over all lanes of equal keys, adjacent or not (__match_any_sync
+// groups them): each group's V values are summed into its lowest lane by a
+// tree of shuffles, log2(group size) + 1 rounds, none when no two lanes
+// share a key. Returns whether this lane adds (its group's lowest lane,
+// key >= 0). Called by all 32 lanes.
+template <int V>
+__device__ __forceinline__ bool warp_peer_sum(int key, float (&v)[V]) {
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  const int lane = threadIdx.x & 31;
+  const unsigned group = __match_any_sync(kFull, key);
+  int rank = __popc(group & ((1u << lane) - 1u));
+  unsigned above = group & (0xFFFFFFFEu << lane);
+  while (__any_sync(kFull, above != 0u)) {
+    const int next = __ffs(above);  // 1 + the next lane of the group
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float t = __shfl_sync(kFull, v[j], max(next - 1, 0));
+      if (next != 0) v[j] = __fadd_rn(v[j], t);
+    }
+    above &= ~__ballot_sync(kFull, rank & 1);
+    rank >>= 1;
+  }
+  return key >= 0 && (group & ((1u << lane) - 1u)) == 0u;
 }
 
 // lowbias32 finalizer (nerficg_torch/ops/counter_rng.py mix32).

@@ -55,12 +55,12 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _P],
     'nerficg_hash_window_bwd_cached': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     'nerficg_hash_cell_fwd': [_P] * 10 + [_I, _I, _I, _I, _P],
-    'nerficg_hash_cell_bwd': [_P] * 10 + [_I, _I, _I, _I, _P],
+    'nerficg_hash_cell_bwd': [_P] * 10 + [_I] * 4 + [_U, _P],
     'nerficg_hash_xbar_fwd': [_P] * 8 + [_I] * 6 + [_U, _P],
     'nerficg_hash_xbar_bwd_fused': [_P] * 9 + [_I] * 6 + [_U, _P],
     'nerficg_block_probe': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     'nerficg_seg_gather': [_P, _P, _P, _I, _I, _I, _I, _P],
-    'nerficg_seg_scatter_add': [_P, _P, _P, _I, _I, _I, _I, _P],
+    'nerficg_seg_scatter_add': [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     'nerficg_gs_composite_fwd': [_P] * 5 + [_I] * 4 + [_P],
     'nerficg_gs_composite_fwd_packed': [_P] * 4 + [_I] * 4 + [_P],
     'nerficg_gs_composite_bwd': [_P] * 6 + [_I] * 4 + [_P],

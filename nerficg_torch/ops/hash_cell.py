@@ -17,7 +17,10 @@ Kernel wrappers (CUDA tensors launch the kernels of
 ``nerficg_torch/csrc/hash_cell.cu``; CPU tensors take the plain version):
   * ``hash_cell_fwd``: TPU kernel #8 ``_fwd_kernel``
     (nerficg_tpu/ops/hash_cell.py:380);
-  * ``hash_cell_bwd``: the table gradient, #9 ``_bwd_kernel`` (:441).
+  * ``hash_cell_bwd``: the table gradient, #9 ``_bwd_kernel`` (:441): a
+    block per (sub-block, level) keeps its window's gradient in shared
+    memory where the window fits BWD_WIN_ROWS base rows, else adds to the
+    table with global atomics (``cell_bwd_paths`` says which).
 ``hash_encode_cell`` is the differentiable entry point, gradients to the
 table only.
 """
@@ -44,11 +47,17 @@ from nerficg_torch.ops.hashgrid import HashGridConfig
 
 __all__ = ['CELL_SUB_BLOCK', 'CellLayout', 'cell_layout', 'cell_window_bases',
            'hash_encode_cell', 'hash_cell_fwd', 'hash_cell_fwd_plain',
-           'hash_cell_bwd', 'hash_cell_bwd_plain']
+           'hash_cell_bwd', 'hash_cell_bwd_plain', 'cell_bwd_paths']
 
 CELL_SUB_BLOCK = 16         # sublanes per window sub-block (16*128 = 2048)
 _SB_N = CELL_SUB_BLOCK * LANES
 _DENSE_CELL_MAX = 1 << 18
+# Shared memory of one base row of a backward window: 8 rows x 128 lanes x
+# 2 features of f32 (kWinRowBytes in csrc/hash_cell.cu).
+WIN_ROW_BYTES = 8 * LANES * 2 * 4
+# The widest window a backward block keeps in shared memory, in base rows
+# (kWinRows in csrc/hash_cell.cu, which says how it was chosen): 64 KiB.
+BWD_WIN_ROWS = 8
 
 
 class CellLayout(NamedTuple):
@@ -255,6 +264,17 @@ def hash_cell_fwd(table: torch.Tensor, positions: torch.Tensor,
 hash_cell_fwd.launches = 0
 
 
+def cell_bwd_paths(win: torch.Tensor,
+                   global_levels: tuple = ()) -> torch.Tensor:
+    """(L, N/2048) bool of ``win``: which (level, sub-block) blocks of the
+    table gradient keep their window in shared memory, by the kernel's own
+    test: a window of at most BWD_WIN_ROWS base rows, on a level not in
+    ``global_levels`` (forced onto the global path)."""
+    forced = torch.tensor([lv in global_levels for lv in range(win.shape[0])],
+                          device=win.device)
+    return (win <= BWD_WIN_ROWS) & ~forced[:, None]
+
+
 def hash_cell_bwd_plain(g: torch.Tensor, positions: torch.Tensor,
                         lo: torch.Tensor, win: torch.Tensor,
                         config: HashGridConfig, rows: int) -> torch.Tensor:
@@ -273,12 +293,14 @@ def hash_cell_bwd_plain(g: torch.Tensor, positions: torch.Tensor,
 
 def hash_cell_bwd(g: torch.Tensor, positions: torch.Tensor,
                   lo: torch.Tensor, win: torch.Tensor,
-                  config: HashGridConfig, rows: int) -> torch.Tensor:
+                  config: HashGridConfig, rows: int,
+                  global_levels: tuple = ()) -> torch.Tensor:
     """Table gradient of the cell encode (#9): g (L*2, N) feature-major
     cotangent -> (L, 2, rows, 128).
 
-    CUDA tensors launch the hand-written kernel; CPU tensors take
-    ``hash_cell_bwd_plain``."""
+    CUDA tensors launch the hand-written kernel, with the levels of
+    ``global_levels`` forced onto its global path (to test that path on
+    levels whose windows fit); CPU tensors take ``hash_cell_bwd_plain``."""
     if g.device.type == 'cpu':
         return hash_cell_bwd_plain(g, positions, lo, win, config, rows)
     name = 'hash_cell_bwd'
@@ -292,6 +314,10 @@ def hash_cell_bwd(g: torch.Tensor, positions: torch.Tensor,
         raise KernelError(f'{name}: g must be ({levels * 2}, {n}), got '
                           f'{tuple(g.shape)}')
     _check_rows(name, rows, config)
+    if any(not 0 <= lv < min(levels, 32) for lv in global_levels):
+        raise KernelError(f'{name}: global_levels {global_levels} outside '
+                          f'the {levels} levels')
+    global_mask = sum(1 << lv for lv in set(global_levels))
     res, dense, bscale, rpb, rsh = _layout_tensors(config, g.device)
     dtab = torch.empty((levels, 2, rows, LANES), dtype=torch.float32,
                        device=g.device)
@@ -299,7 +325,7 @@ def hash_cell_bwd(g: torch.Tensor, positions: torch.Tensor,
         g.data_ptr(), positions.data_ptr(), lo.data_ptr(), win.data_ptr(),
         res.data_ptr(), dense.data_ptr(), bscale.data_ptr(), rpb.data_ptr(),
         rsh.data_ptr(), dtab.data_ptr(), levels, n, n // _SB_N, rows,
-        _kernels.stream_of(g))
+        global_mask, _kernels.stream_of(g))
     _kernels.check(code, name)
     hash_cell_bwd.launches += 1
     return dtab

@@ -18,7 +18,8 @@ Run as a script it answers these questions on the card:
 
   python -m nerficg_torch.scripts.kernel_timing wrappers [--root DIR]
       the host's cost per call of each piece of a kernel wrapper's path
-      (the segment gather's), beside ``torch.take`` on the same indices;
+      (the segment gather's), beside ``torch.take`` on the same indices,
+      and of the segment scatter-add's wrapper beside ``index_add_``;
       ``--root`` imports ``nerficg_torch`` from another checkout, so two
       trees' wrappers can be timed in one call;
   python -m nerficg_torch.scripts.kernel_timing gs-bwd \\
@@ -51,7 +52,23 @@ Run as a script it answers these questions on the card:
       --variant NAME=PATH/gs_tiles.cu [--variant ...]
       times the 3DGS forwards (#15 16-wide and packed, #13 on slots) on the
       1080p and 400x400 frames, checked against the first variant bit for
-      bit and against the plain versions.
+      bit and against the plain versions;
+  python -m nerficg_torch.scripts.kernel_timing seg-scatter \\
+      --variant NAME=PATH/seg_ops.cu [--variant ...]
+      times the segment scatter-add (#7) likewise, device and host time per
+      call beside ``index_add_``: phase 2's serving chunk (sorted ray ids,
+      F = 5 and 1), unsorted ids with out-of-range entries, signed values,
+      training-sized calls and planes too large for the fused path; then
+      each variant's fused path (a cluster size per variant:
+      ``:kScatterCluster=N``) and the atomic path over M, and both over
+      the planes' size;
+  python -m nerficg_torch.scripts.kernel_timing cell-bwd \\
+      --variant NAME=PATH/hash_cell.cu [--variant ...]
+      times the cell table gradient (#9) likewise on phase 2's 262,144
+      morton-sorted samples of the 2^19 parity table and on the same samples
+      unsorted, printing each level's window widths and the share of blocks
+      on each path; then levels forced onto the global path one at a time
+      (shared-memory budgets are variants: ``:kWinRows=N``).
 A variant's ``:CONST=VALUE`` list sets those ``constexpr int`` constants of
 its source before the build (a copy under build/ab/).
 
@@ -243,12 +260,14 @@ def _write(name: str, result: dict) -> None:
 def wrappers(iters: int = 10000, rounds: int = 2) -> dict:
     """Host microseconds per call of each piece of ``seg_gather``'s path at
     the serving chunk's shape (24,576 int32 indices into a (1, 1, 13, 128)
-    table), beside ``torch.take``; every piece in turns, ``rounds`` times."""
+    table), beside ``torch.take``, and of the segment scatter-add's whole
+    wrapper at the chunk's (1, 5, 24,576) -> (1, 5, 13, 128); every piece
+    in turns, ``rounds`` times."""
     import numpy as np
     import torch
 
     from nerficg_torch.ops import _kernels
-    from nerficg_torch.ops.hash_mxu import seg_gather
+    from nerficg_torch.ops.hash_mxu import seg_gather, seg_scatter_add
 
     rng = np.random.default_rng(1)
     m, rows = 24576, 13
@@ -258,6 +277,8 @@ def wrappers(iters: int = 10000, rounds: int = 2) -> dict:
     table = torch.from_numpy(rng.normal(size=(1, 1, rows, 128)).astype(
         np.float32)).to(dev)
     idx64 = idx[0].long()
+    vals = torch.from_numpy(rng.uniform(0, 1, (1, 5, m)).astype(
+        np.float32)).to(dev)
     out = torch.empty((1, 1, m), device=dev)
     lib = _kernels.load_library()
     fn = lib.nerficg_seg_gather
@@ -295,6 +316,11 @@ def wrappers(iters: int = 10000, rounds: int = 2) -> dict:
                        stream),
         'seg_gather (the wrapper)': lambda: seg_gather(idx, table),
         'torch.take (int64 indices)': lambda: torch.take(table, idx64),
+        'seg_scatter_add (the wrapper), F = 5':
+            lambda: seg_scatter_add(idx, vals, rows),
+        'torch.zeros + index_add_, F = 5':
+            lambda: torch.zeros((5, rows * 128), device=dev).index_add_(
+                1, idx64, vals[0]),
     }
     result = {name: [] for name in pieces}
     for _ in range(rounds):
@@ -312,7 +338,9 @@ def wrappers(iters: int = 10000, rounds: int = 2) -> dict:
         print(f'wrappers: {name}: ' + ', '.join(f'{u:.3f}' for u in us) +
               f' us per call over {iters} calls [{card}]', flush=True)
     device = {'seg_gather': device_ms(lambda: seg_gather(idx, table)),
-              'torch.take': device_ms(lambda: torch.take(table, idx64))}
+              'torch.take': device_ms(lambda: torch.take(table, idx64)),
+              'seg_scatter_add': device_ms(
+                  lambda: seg_scatter_add(idx, vals, rows))}
     for name, ms in device.items():
         print(f'wrappers: {name}: {ms * 1e3:.3f} us per call on the card '
               f'(CUDA graph of 50 calls) [{card}]', flush=True)
@@ -978,6 +1006,439 @@ def xbar_bwd(variants: dict[str, tuple], capture: Path,
     return report
 
 
+# The segment scatter's and the cell backward's entries before this
+# design's (a parent's source).
+_PARENT_SEG_SCATTER = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+    ctypes.c_void_p]
+_PARENT_CELL_BWD = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+    ctypes.c_void_p]
+
+
+def _checked(code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f'launch failed with CUDA error {code}')
+
+
+def _scatter_call(lib, fusable: bool, idx, g, rows, path=None):
+    """The variant's scatter as a callable: the wrapper's allocation and
+    the ctypes call, on ``path`` ('fused' or 'atomic'; default the plan's)
+    where the source's entry takes a path."""
+    import torch
+
+    from nerficg_torch.ops import hash_mxu as hm
+    levels, feats, m = g.shape
+    fused = (path or hm.seg_scatter_plan(feats, m, rows)) == 'fused'
+
+    def call():
+        out = g.new_empty((levels, feats, rows, 128))
+        stream = torch.cuda.current_stream().cuda_stream
+        if fusable:
+            _checked(lib.nerficg_seg_scatter_add(
+                idx.data_ptr(), g.data_ptr(), out.data_ptr(), levels, feats,
+                m, rows, int(fused), stream))
+        else:
+            _checked(lib.nerficg_seg_scatter_add(
+                idx.data_ptr(), g.data_ptr(), out.data_ptr(), levels, feats,
+                m, rows, stream))
+        return out
+    return call
+
+
+def _parent_scatter_wrapper(lib, idx, g, rows):
+    """The parent tree's ``seg_scatter_add`` body on ``lib``: the same
+    checks, allocation and single ctypes call (its entry zeroes the output
+    with cudaMemsetAsync, then launches)."""
+    import torch
+
+    from nerficg_torch.ops import _kernels
+    from nerficg_torch.ops import hash_mxu as hm
+
+    def call():
+        name = 'seg_scatter_add'
+        if g.ndim != 3:
+            raise RuntimeError(f'{name}: g must be (L, F, M)')
+        levels, feats, m = g.shape
+        hm._check_idx(name, idx, levels)
+        if idx.shape[1] != m:
+            raise RuntimeError(f'{name}: idx and g disagree on M')
+        _kernels.require_cuda(name, idx, g,
+                              dtypes=(torch.int32, torch.float32))
+        out = g.new_empty((levels, feats, rows, 128))
+        _checked(lib.nerficg_seg_scatter_add(
+            idx.data_ptr(), g.data_ptr(), out.data_ptr(), levels, feats, m,
+            rows, _kernels.stream_of(g)))
+        call.launches += 1
+        return out
+    call.launches = 0
+    return call
+
+
+def seg_scatter(variants: dict[str, tuple], rounds: int = 3) -> dict:
+    """Each variant's segment scatter-add (#7) on phase 2's serving chunk
+    (24,576 sorted ray ids of 1,536 rays, F = 5 and 1, 13 rows), on the
+    same shape with unsorted ids, a tenth of them out of range, on a
+    training-sized call (65,536 sorted ids of 4,096 rays, F = 5), on
+    signed values, and on planes past SCATTER_FUSED_MAX_BYTES (the atomic
+    path): each checked against the plain version (within 1e-5 of the sum
+    of |g| per entry, plus 1e-6) and the first variant, then device time
+    (CUDA graph of 50 calls) and host time per call (50 calls ending in a
+    synchronize) in turns, beside ``torch.zeros(...).index_add_`` on the
+    same ids where they are all in range; this tree's wrapper against the
+    parent's wrapper body, host time per call. Then each variant with the
+    fused path (a cluster size per variant: ``:kScatterCluster=N``) and the
+    first one's atomic path in turns over M (where the fused path starts to
+    pay), and the fused path against the atomic path over the planes' size
+    (where a cluster's own zeroing stops paying)."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.ops import hash_mxu as hm
+
+    card = _card()
+    libs, fusable = {}, {}
+    report = {'card': card, 'ptxas': {}, 'inputs': {}, 'over_m': {}}
+    for name, (source, overrides) in variants.items():
+        compiled = _variant_source(name, source, overrides)
+        fusable[name] = 'int fused' in compiled.read_text()
+        libs[name], ptxas = _build_variant(
+            name, source, ('nerficg_seg_scatter_add',), overrides,
+            None if fusable[name] else
+            {'nerficg_seg_scatter_add': _PARENT_SEG_SCATTER})
+        report['ptxas'][name] = ptxas
+        print(f'seg-scatter: {name} ({source} {overrides or ""}) ptxas:\n'
+              f'{ptxas}', flush=True)
+    first = next(iter(libs))
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(1)
+
+    def inputs(m, rays, feats, sort=True, out_of_range=0.0, rows=None,
+               low=0.0):
+        rows = rows or (rays + 1 + 127) // 128
+        ids = rng.integers(0, rays + 1, m)
+        if sort:
+            ids = np.sort(ids)
+        bad = rng.uniform(size=m) < out_of_range
+        ids[bad] = rng.choice([-1, -1000, rows * 128, rows * 128 + 7],
+                              int(bad.sum()))
+        return (torch.from_numpy(ids.astype(np.int32)[None]).to(dev),
+                torch.from_numpy(rng.uniform(low, 1, (1, feats, m)).astype(
+                    np.float32)).to(dev), rows)
+
+    def close(got, idx, g, rows):
+        # Within 1e-5 of the sum of |g| per entry: rtol 1e-5 / atol 1e-6
+        # where the values share a sign, and scaled where sums cancel.
+        want = hm.seg_scatter_add_plain(idx, g, rows)
+        scale = hm.seg_scatter_add_plain(idx, g.abs(), rows)
+        return bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+    sets = [('serving chunk, sorted, F = 5', inputs(24576, 1536, 5)),
+            ('serving chunk, sorted, F = 1', inputs(24576, 1536, 1)),
+            ('serving chunk, unsorted, 10% negative or past the end, F = 5',
+             inputs(24576, 1536, 5, sort=False, out_of_range=0.1)),
+            ('serving chunk, sorted, signed values, F = 5',
+             inputs(24576, 1536, 5, low=-1.0)),
+            ('training step, 8,192 sorted, 512 rays, F = 5',
+             inputs(8192, 512, 5)),
+            ('training, 65,536 sorted, 4,096 rays, F = 5',
+             inputs(65536, 4096, 5)),
+            ('past the fused planes, 24,576 sorted, 65,536 rays, F = 5',
+             inputs(24576, 65536, 5))]
+    for label, (idx, g, rows) in sets:
+        want = hm.seg_scatter_add_plain(idx, g, rows)
+        path = hm.seg_scatter_plan(g.shape[1], g.shape[2], rows)
+        entry = {'m': g.shape[2], 'feats': g.shape[1], 'rows': rows,
+                 'path': path, 'variants': {}}
+        calls = {name: _scatter_call(lib, fusable[name], idx, g, rows)
+                 for name, lib in libs.items()}
+        ref = calls[first]()
+        for name, call in calls.items():
+            got = call()
+            torch.cuda.synchronize()
+            entry['variants'][name] = {
+                'max_abs_err': float((got - want).abs().max()),
+                'close': close(got, idx, g, rows),
+                'close_first': bool(
+                    ((got - ref).abs() <= 2e-5 * hm.seg_scatter_add_plain(
+                        idx, g.abs(), rows) + 2e-6).all()),
+                'ms': [], 'host_ms': []}
+        in_range = bool(((idx >= 0) & (idx < rows * 128)).all())
+        if in_range:
+            idx64 = idx[0].long()
+            calls['index_add_'] = lambda idx64=idx64, g=g, rows=rows: \
+                torch.zeros((g.shape[1], rows * 128), device=dev).index_add_(
+                    1, idx64, g[0])
+            entry['variants']['index_add_'] = {'ms': [], 'host_ms': []}
+        order = list(calls) + list(reversed(calls))
+        for _ in range(rounds):
+            for name in order:
+                v = entry['variants'][name]
+                v['ms'].append(device_ms(calls[name]))
+                v['host_ms'].append(host_ms(calls[name])[0])
+        for name, v in entry['variants'].items():
+            check = '' if name == 'index_add_' else (
+                f'; max_abs_err {v["max_abs_err"]:.3e} '
+                f'{"ok" if v["close"] else "MISMATCH"}, '
+                f'{"close to" if v["close_first"] else "DIFFERS from"} '
+                f'{first}')
+            print(f'seg-scatter {label} ({path}): {name}: device ms ' +
+                  ', '.join(f'{t:.4f}' for t in v['ms']) +
+                  f' (median {_median(v["ms"]):.4f}); host ms per call ' +
+                  ', '.join(f'{t:.4f}' for t in v['host_ms']) +
+                  f' (median {_median(v["host_ms"]):.4f}){check} [{card}]',
+                  flush=True)
+        report['inputs'][label] = entry
+
+    # The host's cost of a whole wrapper call at the serving chunk (F = 5):
+    # this tree's seg_scatter_add against, for each variant without the
+    # path argument, the parent tree's wrapper body (its checks, its
+    # allocation and its one ctypes call) around that variant's library;
+    # in turns, ``rounds`` times, 2,000 calls each ending in a synchronize.
+    idx, g, rows = sets[0][1]
+    wrapped = {'this tree': lambda: hm.seg_scatter_add(idx, g, rows)}
+    for name, lib in libs.items():
+        if not fusable[name]:
+            wrapped[f'{name} (parent wrapper)'] = _parent_scatter_wrapper(
+                lib, idx, g, rows)
+    report['wrapper_host_ms'] = {name: [] for name in wrapped}
+    for _ in range(rounds):
+        for name in list(wrapped) + list(reversed(wrapped)):
+            report['wrapper_host_ms'][name].append(
+                host_ms(wrapped[name], iters=2000)[0])
+    for name, ts in report['wrapper_host_ms'].items():
+        print(f'seg-scatter wrapper, serving chunk, F = 5: {name}: host ms '
+              f'per call ' + ', '.join(f'{t:.4f}' for t in ts) +
+              f' (median {_median(ts):.4f}) [{card}]', flush=True)
+
+    # Where the fused path starts to pay: each fused variant (its own
+    # cluster size) and the first one's atomic path over M (sorted ids of
+    # 1,536 rays, F = 5); then the fused path and the atomic path over the
+    # planes' rows (24,576 sorted ids of 1,536 rays, F = 5, the rest of
+    # the planes untouched: where a cluster's own zeroing stops paying).
+    fused = [name for name in libs if fusable[name]]
+    if not fused:
+        return report
+
+    def sweep(idx, g, rows, what):
+        calls = {f'{name} fused': _scatter_call(libs[name], True, idx, g,
+                                                rows, 'fused')
+                 for name in fused}
+        calls[f'{fused[0]} atomic'] = _scatter_call(libs[fused[0]], True, idx,
+                                                    g, rows, 'atomic')
+        for name, call in calls.items():
+            if not close(call(), idx, g, rows):
+                raise RuntimeError(f'seg-scatter: {name} at {what} '
+                                   'disagrees with the plain version')
+        return _turns(calls, rounds, iters=50)
+    for m in (4096, 8192, 12288, 16384, 20480, 24576, 65536, 196608):
+        idx, g, rows = inputs(m, 1536, 5)
+        ms = report['over_m'][m] = sweep(idx, g, rows, f'M = {m}')
+        print(f'seg-scatter over M, M = {m}, F = 5 (plan: '
+              f'{hm.seg_scatter_plan(5, m, rows)}): ' + '; '.join(
+                  f'{name} {_median(ts):.4f}' for name, ts in ms.items()) +
+              f' (device ms, medians of {rounds * 2}) [{card}]', flush=True)
+    report['planes'] = {}
+    for rows in (13, 129, 409, 1025, 4097):
+        idx, g, rows = inputs(24576, 1536, 5, rows=rows)
+        ms = report['planes'][rows] = sweep(idx, g, rows, f'{rows} rows')
+        print(f'seg-scatter planes, {rows} rows x F = 5 ({rows * 2560} '
+              f'bytes; plan: {hm.seg_scatter_plan(5, 24576, rows)}): ' +
+              '; '.join(f'{name} {_median(ts):.4f}'
+                        for name, ts in ms.items()) +
+              f' (device ms, medians of {rounds * 2}) [{card}]', flush=True)
+    return report
+
+
+def _cell_bwd_call(lib, new: bool, g, pos, lo, win, config, rows,
+                   global_levels=()):
+    """The variant's cell backward as a callable: the wrapper's allocation
+    and the ctypes call, with ``global_levels`` forced onto the global path
+    where the source has the window-resident path."""
+    import torch
+
+    from nerficg_torch.ops import hash_cell as hc
+    res, dense, bscale, rpb, rsh = hc._layout_tensors(config, g.device)
+    levels, n = config.num_levels, pos.shape[0]
+    nsb = n // (hc.CELL_SUB_BLOCK * 128)
+    mask = sum(1 << lv for lv in global_levels)
+
+    def call():
+        d = torch.empty((levels, 2, rows, 128), device=g.device)
+        common = (g.data_ptr(), pos.data_ptr(), lo.data_ptr(), win.data_ptr(),
+                  res.data_ptr(), dense.data_ptr(), bscale.data_ptr(),
+                  rpb.data_ptr(), rsh.data_ptr())
+        stream = torch.cuda.current_stream().cuda_stream
+        if new:
+            _checked(lib.nerficg_hash_cell_bwd(
+                *common, d.data_ptr(), levels, n, nsb, rows, mask, stream))
+        else:
+            _checked(lib.nerficg_hash_cell_bwd(
+                *common, d.data_ptr(), levels, n, nsb, rows, stream))
+        return d
+    return call
+
+
+# Upper edges (base rows) of the window-width histogram's bins.
+WIN_BINS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+
+
+def cell_window_report(win, win_rows: int | None = None) -> dict:
+    """Per level: the sub-blocks' window widths (min, median, max, in base
+    rows, and how many fall in each bin up to WIN_BINS' edges, the last
+    open) and the share of (sub-block, level) blocks on the
+    window-resident path (``cell_bwd_paths``; windows of at most
+    ``win_rows`` base rows where given, as a ``:kWinRows=N`` variant
+    builds); and that share over all levels."""
+    import torch
+
+    from nerficg_torch.ops import hash_cell as hc
+    on = (hc.cell_bwd_paths(win) if win_rows is None
+          else win <= win_rows)
+    w = win.cpu().float()
+    edges = torch.tensor(WIN_BINS, dtype=torch.float32)
+    levels = [{'min': int(w[lv].min()), 'median': float(w[lv].median()),
+               'max': int(w[lv].max()),
+               'histogram': torch.bincount(
+                   torch.bucketize(w[lv], edges),
+                   minlength=len(WIN_BINS) + 1).tolist(),
+               'resident_share': float(on[lv].float().mean())}
+              for lv in range(win.shape[0])]
+    return {'levels': levels, 'resident_share': float(on.float().mean())}
+
+
+def cell_bwd(variants: dict[str, tuple], rounds: int = 3) -> dict:
+    """Each variant's cell table gradient (#9) on phase 2's inputs (262,144
+    samples uniform in [0.2, 0.8]^3, morton-sorted, the (16, 2, 4096, 128)
+    table of configs/ingp_parity.yaml) and on the same samples unsorted
+    (wide windows): the windows' widths per level and the share of blocks
+    on each path, each variant against the plain version (rtol 1e-4 / atol
+    1e-5 x max, atomics), then device time (CUDA graph of 20 calls) in
+    turns, and the first variant with the window-resident path with every
+    level forced onto the global path. Then that variant with one level
+    forced at a time, and each variant's time per level. Shared-memory
+    budgets are variants: ``NAME=PATH:kWinRows=N``."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.ops import hash_cell as hc
+    from nerficg_torch.ops.hash_window import morton_sort_keys
+    from nerficg_torch.ops.hashgrid import HashGridConfig
+
+    card = _card()
+    libs, new = {}, {}
+    report = {'card': card, 'ptxas': {}, 'inputs': {}, 'forced': {},
+              'levels': {}}
+    config = HashGridConfig(num_levels=16, features_per_level=2,
+                            log2_table_size=19, base_resolution=16,
+                            target_resolution=2048, anchor_stride=8)
+    for name, (source, overrides) in variants.items():
+        compiled = _variant_source(name, source, overrides)
+        new[name] = 'global_mask' in compiled.read_text()
+        libs[name], ptxas = _build_variant(
+            name, source, ('nerficg_hash_cell_bwd',), overrides,
+            None if new[name] else {'nerficg_hash_cell_bwd':
+                                    _PARENT_CELL_BWD})
+        report['ptxas'][name] = ptxas
+        print(f'cell-bwd: {name} ({source} {overrides or ""}) ptxas:\n'
+              f'{ptxas}', flush=True)
+    dev = torch.device('cuda')
+    rows, n = 4096, 262144
+    rng = np.random.default_rng(1)
+    pos = torch.from_numpy(rng.uniform(0.2, 0.8, (n, 3)).astype(
+        np.float32)).to(dev)
+    pos = pos[torch.sort(morton_sort_keys(pos), stable=True).indices]
+    pos = pos.contiguous()
+    g = torch.from_numpy(rng.normal(size=(32, n)).astype(np.float32)).to(dev)
+    shuffled = pos[torch.from_numpy(rng.permutation(n)).to(dev)].contiguous()
+    def scatter_ok(a, b):
+        return bool(torch.allclose(a, b, rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max())))
+
+    both = next((name for name in libs if new[name]), None)
+    for label, p in (('262,144 morton-sorted', pos),
+                     ('262,144 unsorted', shuffled)):
+        lo, win = hc.cell_window_bases(p, config)
+        want = hc.hash_cell_bwd_plain(g, p, lo, win, config, rows)
+        windows = cell_window_report(win)
+        entry = {'windows': windows, 'variants': {}}
+        for name, (source, overrides) in variants.items():
+            if new[name] and 'kWinRows' in overrides:
+                share = cell_window_report(
+                    win, int(overrides['kWinRows']))['resident_share']
+                print(f'cell-bwd {label}: {name}: share resident at '
+                      f'{overrides["kWinRows"]} rows {share:.3f}', flush=True)
+        print(f'cell-bwd {label}: windows per level (base rows min/median/'
+              f'max, share resident at {hc.BWD_WIN_ROWS} rows): ' +
+              '; '.join(f'{lv}: {w["min"]}/{w["median"]:g}/{w["max"]} '
+                        f'{w["resident_share"]:.3f}'
+                        for lv, w in enumerate(windows['levels'])) +
+              f'; all levels {windows["resident_share"]:.3f}', flush=True)
+        print(f'cell-bwd {label}: window widths per level, sub-blocks in '
+              f'base-row bins <= {", ".join(map(str, WIN_BINS))}, more: ' +
+              '; '.join(f'{lv}: {w["histogram"]}'
+                        for lv, w in enumerate(windows['levels'])),
+              flush=True)
+        calls = {name: _cell_bwd_call(lib, new[name], g, p, lo, win, config,
+                                      rows) for name, lib in libs.items()}
+        if both is not None:
+            calls[f'{both}, all levels global'] = _cell_bwd_call(
+                libs[both], True, g, p, lo, win, config, rows, range(16))
+        for name, call in calls.items():
+            got = call()
+            torch.cuda.synchronize()
+            entry['variants'][name] = {
+                'max_abs_err': float((got - want).abs().max()),
+                'close': scatter_ok(got, want)}
+        ms = _turns(calls, rounds)
+        for name, v in entry['variants'].items():
+            v['ms'] = ms[name]
+            print(f'cell-bwd {label}: {name}: device ms ' +
+                  ', '.join(f'{t:.4f}' for t in ms[name]) +
+                  f' (median {_median(ms[name]):.4f}); max_abs_err '
+                  f'{v["max_abs_err"]:.3e} '
+                  f'{"ok" if v["close"] else "MISMATCH"} [{card}]',
+                  flush=True)
+        report['inputs'][label] = entry
+
+    if both is None:
+        return report
+    lo, win = hc.cell_window_bases(pos, config)
+    want = hc.hash_cell_bwd_plain(g, pos, lo, win, config, rows)
+    calls = {f'level {lv} global': _cell_bwd_call(
+                 libs[both], True, g, pos, lo, win, config, rows, (lv,))
+             for lv in range(16)}
+    for label, call in calls.items():
+        if not scatter_ok(call(), want):
+            raise RuntimeError(f'cell-bwd: {label} disagrees with the plain '
+                               'version')
+    ms = _turns(calls, rounds)
+    for lv in range(16):
+        label = f'level {lv} global'
+        share = float(hc.cell_bwd_paths(win, (lv,)).float().mean())
+        report['forced'][label] = {'ms': ms[label], 'resident_share': share}
+        print(f'cell-bwd {both} {label}: device ms ' +
+              ', '.join(f'{t:.4f}' for t in ms[label]) +
+              f' (median {_median(ms[label]):.4f}), resident share '
+              f'{share:.3f} [{card}]', flush=True)
+
+    # Where the time goes by level: each variant with the cotangent zero on
+    # every level but one (a warp whose cotangents are all 0 skips the
+    # level, in the parent as here), and on every level (the memset and the
+    # launch alone).
+    for lv in [*range(16), None]:
+        g_lv = torch.zeros_like(g)
+        if lv is not None:
+            g_lv[2 * lv:2 * lv + 2] = g[2 * lv:2 * lv + 2]
+        calls = {name: _cell_bwd_call(lib, new[name], g_lv, pos, lo, win,
+                                      config, rows)
+                 for name, lib in libs.items()}
+        ms = _turns(calls, 1)
+        tag = 'no level' if lv is None else f'level {lv}'
+        report['levels'][tag] = ms
+        print(f'cell-bwd {tag} alone: ' + '; '.join(
+            f'{name} {_median(ts):.4f}' for name, ts in ms.items()) +
+            f' (device ms, medians of 2) [{card}]', flush=True)
+    return report
+
+
 def _parse_variant(spec: str) -> tuple[str, tuple[Path, dict]]:
     """NAME=PATH[:CONST=VALUE,...] -> (NAME, (PATH, {CONST: VALUE}))."""
     name, rest = spec.split('=', 1)
@@ -989,13 +1450,16 @@ def _parse_variant(spec: str) -> tuple[str, tuple[Path, dict]]:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('what', choices=('wrappers', 'gs-bwd', 'gs-fwd',
-                                         'xbar-bwd', 'xbar-fwd'))
+                                         'xbar-bwd', 'xbar-fwd',
+                                         'seg-scatter', 'cell-bwd'))
     parser.add_argument('--root', default=None,
                         help='import nerficg_torch from this checkout')
     parser.add_argument('--variant', action='append', default=[],
                         help='NAME=PATH[:CONST=VALUE,...] of a gs_tiles.cu '
-                        '(gs-bwd, gs-fwd) or a hash_xbar.cu (xbar-bwd, '
-                        'xbar-fwd), its constexpr int CONSTs set to VALUEs')
+                        '(gs-bwd, gs-fwd), a hash_xbar.cu (xbar-bwd, '
+                        'xbar-fwd), a seg_ops.cu (seg-scatter) or a '
+                        'hash_cell.cu (cell-bwd), its constexpr int CONSTs '
+                        'set to VALUEs')
     parser.add_argument('--capture', default=str(_OUT / 'dnerf_capture.pt'),
                         help='the captured D-NeRF step (xbar-bwd, xbar-fwd)')
     args = parser.parse_args(argv)
@@ -1015,6 +1479,10 @@ def main(argv=None) -> None:
         _write('gs_fwd_ab.json', gs_fwd(variants))
     elif args.what == 'xbar-bwd':
         _write('xbar_bwd_ab.json', xbar_bwd(variants, Path(args.capture)))
+    elif args.what == 'seg-scatter':
+        _write('seg_scatter_ab.json', seg_scatter(variants))
+    elif args.what == 'cell-bwd':
+        _write('cell_bwd_ab.json', cell_bwd(variants))
     else:
         _write('xbar_fwd_ab.json', xbar_fwd(variants, Path(args.capture)))
 

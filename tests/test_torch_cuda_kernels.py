@@ -73,6 +73,78 @@ def test_block_probe(cuda, grids):
                        xbar_gather.block_probe_cells_plain(*args))
 
 
+def _scatter_ids(cuda, rng, m, rays, sort, out_of_range):
+    rows = (rays + 1 + 127) // 128
+    ids = rng.integers(0, rays + 1, m)
+    if sort:
+        ids = np.sort(ids)
+    bad = rng.uniform(size=m) < out_of_range
+    ids[bad] = rng.choice([-1, -1000, rows * 128, rows * 128 + 7],
+                          int(bad.sum()))
+    return torch.tensor(ids[None], dtype=torch.int32, device=cuda), rows
+
+
+def _scatter_close(got, idx, g, rows):
+    """Within 1e-5 of the sum of |g| per entry, plus 1e-6 (atomics add in
+    another order): rtol 1e-5 / atol 1e-6 where the values share a sign,
+    as the compositor's channels do, and scaled to the input where signed
+    values (the gather's backward) cancel."""
+    want = hash_mxu.seg_scatter_add_plain(idx, g, rows)
+    scale = hash_mxu.seg_scatter_add_plain(idx, g.abs(), rows)
+    err = (got - want).abs()
+    assert bool((err <= 1e-5 * scale + 1e-6).all()), float(err.max())
+
+
+# (rays, M, path at F = 1 and 5): the serving chunk; a training step's
+# call and a short one, under SCATTER_FUSED_MIN_M; 65,536 elements; and
+# 262,144 rays' planes, past SCATTER_FUSED_MAX_BYTES.
+@pytest.mark.parametrize('feats', [1, 5])
+@pytest.mark.parametrize('low', [0.0, -1.0])
+@pytest.mark.parametrize('sort, out_of_range', [(True, 0.0), (False, 0.0),
+                                                (False, 0.1)])
+@pytest.mark.parametrize('rays, m, path', [
+    (1536, 24576, 'fused'), (1536, 101, 'atomic'), (512, 8192, 'atomic'),
+    (4096, 65536, 'fused'), (262144, 24576, 'atomic')])
+def test_seg_scatter_add_paths(cuda, feats, low, sort, out_of_range, rays, m,
+                               path):
+    """#7 on the path its plan takes for the shape, values in [low, 1),
+    against the plain version."""
+    rng = np.random.default_rng(3)
+    idx, rows = _scatter_ids(cuda, rng, m, rays, sort, out_of_range)
+    g = torch.tensor(rng.uniform(low, 1, (1, feats, m)), dtype=torch.float32,
+                     device=cuda)
+    assert hash_mxu.seg_scatter_plan(feats, m, rows) == path
+    _scatter_close(hash_mxu.seg_scatter_add(idx, g, rows), idx, g, rows)
+
+
+def test_seg_scatter_add_unaligned_rows(cuda):
+    """Index and value rows 4 bytes past a 16-byte boundary take the
+    fused kernel's scalar loads."""
+    rng = np.random.default_rng(5)
+    ids = torch.tensor(np.sort(rng.integers(0, 1537, (1, 24577))),
+                       dtype=torch.int32, device=cuda)
+    idx = ids[:, 1:]
+    g = torch.tensor(rng.uniform(0, 1, (5 * 24576 + 1,)), dtype=torch.float32,
+                     device=cuda)[1:].reshape(1, 5, 24576)
+    assert idx.is_contiguous() and idx.data_ptr() % 16 == 4
+    assert g.is_contiguous() and g.data_ptr() % 16 == 4
+    assert hash_mxu.seg_scatter_plan(5, 24576, 13) == 'fused'
+    _scatter_close(hash_mxu.seg_scatter_add(idx, g, 13), idx, g, 13)
+
+
+@pytest.mark.parametrize('m, path', [(5000, 'atomic'), (20000, 'fused')])
+def test_seg_scatter_add_levels(cuda, m, path):
+    """Several levels of one call, each its own cluster (fused) or its
+    own planes (atomic), signed values."""
+    rng = np.random.default_rng(4)
+    idx = torch.tensor(np.sort(rng.integers(-5, 3 * 128 + 5, (3, m))),
+                       dtype=torch.int32, device=cuda)
+    g = torch.tensor(rng.uniform(-1, 1, (3, 2, m)), dtype=torch.float32,
+                     device=cuda)
+    assert hash_mxu.seg_scatter_plan(2, m, 3) == path
+    _scatter_close(hash_mxu.seg_scatter_add(idx, g, 3), idx, g, 3)
+
+
 def test_seg_gather_and_scatter_add(cuda):
     """Gather exact; scatter rtol 1e-5 / atol 1e-6 (atomic order)."""
     rng = np.random.default_rng(2)
@@ -155,6 +227,63 @@ def test_hash_cell_fwd(cuda):
 
 def test_hash_cell_bwd(cuda):
     _, pos, lo, win, g = _cell_inputs(cuda, seed=1)
+    _close_to_scatter(
+        hash_cell.hash_cell_bwd(g, pos, lo, win, CELL_CFG, 4096),
+        hash_cell.hash_cell_bwd_plain(g, pos, lo, win, CELL_CFG, 4096))
+
+
+def _dense_cell_inputs(cuda, seed=5):
+    """65,536 morton-sorted samples in [0.4, 0.6]^3 on CELL_CFG's table: a
+    sub-block's windows span 1-9 base rows on the coarse levels and 1-59
+    on the fine ones, so they fall on both sides of BWD_WIN_ROWS."""
+    rng = np.random.default_rng(seed)
+    pos = torch.tensor(rng.uniform(0.4, 0.6, (65536, 3)),
+                       dtype=torch.float32, device=cuda)
+    pos = pos[torch.sort(hash_window.morton_sort_keys(pos)).indices]
+    pos = pos.contiguous()
+    lo, win = hash_cell.cell_window_bases(pos, CELL_CFG)
+    g = torch.tensor(rng.normal(size=(32, 65536)), dtype=torch.float32,
+                     device=cuda)
+    return pos, lo, win, g
+
+
+def test_hash_cell_bwd_budget_edges(cuda):
+    """#9 with windows just under, at and just over the shared budget
+    (BWD_WIN_ROWS base rows), so that blocks of one level take both
+    paths, and with every level forced onto the global path."""
+    pos, lo, win, g = _dense_cell_inputs(cuda)
+    want = hash_cell.hash_cell_bwd_plain(g, pos, lo, win, CELL_CFG, 4096)
+    budget = hash_cell.BWD_WIN_ROWS
+    for width in (budget - 1, budget, budget + 1):
+        assert bool((win == width).any())
+    resident = hash_cell.cell_bwd_paths(win)
+    assert bool((resident.any(1) & ~resident.all(1)).any())
+    _close_to_scatter(hash_cell.hash_cell_bwd(g, pos, lo, win, CELL_CFG,
+                                              4096), want)
+    every = tuple(range(16))
+    assert not bool(hash_cell.cell_bwd_paths(win, every).any())
+    _close_to_scatter(hash_cell.hash_cell_bwd(g, pos, lo, win, CELL_CFG,
+                                              4096, global_levels=every),
+                      want)
+
+
+@pytest.mark.parametrize('level', [0, 1, 12, 15])
+def test_hash_cell_bwd_forced_global_level(cuda, level):
+    """One level that keeps some windows resident forced onto the global
+    path, the others as the wrapper runs them."""
+    pos, lo, win, g = _dense_cell_inputs(cuda, seed=6)
+    assert bool(hash_cell.cell_bwd_paths(win)[level].any())
+    _close_to_scatter(
+        hash_cell.hash_cell_bwd(g, pos, lo, win, CELL_CFG, 4096,
+                                global_levels=(level,)),
+        hash_cell.hash_cell_bwd_plain(g, pos, lo, win, CELL_CFG, 4096))
+
+
+def test_hash_cell_bwd_unsorted(cuda):
+    """Unsorted samples: wide windows, most blocks on the global path."""
+    _, pos, _, _, g = _cell_inputs(cuda, seed=4)
+    pos = pos[torch.randperm(pos.shape[0], device=cuda)].contiguous()
+    lo, win = hash_cell.cell_window_bases(pos, CELL_CFG)
     _close_to_scatter(
         hash_cell.hash_cell_bwd(g, pos, lo, win, CELL_CFG, 4096),
         hash_cell.hash_cell_bwd_plain(g, pos, lo, win, CELL_CFG, 4096))
