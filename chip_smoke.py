@@ -4,7 +4,9 @@
 Phases, each printing its own lines:
   0. environment: refuse to run without a CUDA card; print the card's name
      and power limit (nvidia-smi), the torch and CUDA versions;
-  1. build the CUDA kernel library from nerficg_torch/csrc/;
+  1. build the CUDA kernel library from nerficg_torch/csrc/, and beside it
+     the exact window encode (#1) with a shared-memory budget of 0 rows,
+     every block on its gather path;
   2. compare every kernel of the serving and training paths with its plain
      PyTorch version on the card, at the shapes its path gives it, and time
      both: the kernel (and the library call) on the card's own clock, a CUDA
@@ -19,7 +21,13 @@ Phases, each printing its own lines:
      path; the segment scatter-add (#7) on the serving chunk's sorted ray
      ids, and on unsorted ids with some negative or past the end and
      signed values, on its fused path, and on a training step's call, on
-     its atomic path; the cell table gradient (#9) as the wrapper runs it
+     its atomic path; the segment gather (#6) also on ids in
+     [-2 size, 2 size), from the end and clamped; the exact window
+     encode (#1) with the share of blocks that stage their window in
+     shared memory, held bit for bit to its 0-row build; the cell encode
+     (#8) at the parity step's 262,144 samples and a serving chunk's
+     196,608, each level's windows printed; the cell table gradient (#9)
+     as the wrapper runs it
      (each level's windows and the share of blocks that keep theirs in
      shared memory printed) and with level 12 forced onto the
      global-atomic path;
@@ -83,9 +91,10 @@ Phases, each printing its own lines:
      alone (#12, through a frozen table's hash_encode_xbar_posgrad) at
      D-NeRF's width and 262,144 samples, held to its plain version.
 Every kernel's launch count is set to 0 just before the run that drives it
-and read just after; the sample counts of #10's launches in phases 7 and 11
-are printed at the end (min, median, max per run), and after phase 11 the
-largest segment scatter-add of phases 3-11 with the path its plan took.
+and read just after; the sample counts of #1's (exact), #8's and #10's
+launches in phases 3-7 and 11 are printed at the end (min, median, max per
+run), and after phase 11 the largest segment scatter-add of phases 3-11
+with the path its plan took.
 Each kernel's line
 reports its time against the least time the card could take for the same
 work (`bound_ms`: each input read once and each output written once at
@@ -197,12 +206,32 @@ def phase0_environment():
     return card
 
 
-def phase1_build(card: str) -> None:
+# The exact window encode (#1) with every block on its gather path: the
+# source built alone with a shared-memory budget (kFwdWinRows) of 0 rows,
+# so that phase 2 holds the staged path to the gather bit for bit.
+WINDOW_FWD_GLOBAL = ('window_fwd_global', {'kFwdWinRows': 0})
+
+
+def phase1_build(card: str):
+    """Build the kernel library and, beside it, #1's gather-only build;
+    returns that build."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from nerficg_torch.ops import _kernels
-    path, seconds = _kernels.build_library()
-    _kernels.load_library()
-    print(f'phase 1: built {path.name} in {seconds:.2f} s (0 = reused) '
-          f'[{card}]', flush=True)
+    name, overrides = WINDOW_FWD_GLOBAL
+    start = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        variant = pool.submit(
+            _kernels.build_variant, name,
+            ROOT / 'nerficg_torch' / 'csrc' / 'hash_window.cu',
+            ('nerficg_hash_window_fwd',), overrides)
+        path, seconds = _kernels.build_library()
+        _kernels.load_library()
+        global_lib = variant.result()[0]
+    print(f'phase 1: built {path.name} in {seconds:.2f} s (0 = reused), and '
+          f'#1 with {overrides} beside it, all in '
+          f'{time.perf_counter() - start:.2f} s [{card}]', flush=True)
+    return global_lib
 
 
 def bound(nbytes: float, ops: float, sfu: float = 0.0) -> tuple[float, str]:
@@ -250,18 +279,21 @@ def shell_density_grid(resolution: int, cascades: int, scale: float,
     return np.concatenate(grids)
 
 
-def phase2_kernels(card: str) -> dict:
+def phase2_kernels(card: str, window_global_lib) -> dict:
     """Each kernel against its plain version at its path's shapes
     (configs/ingp_e2e_bench.yaml; serving: 1536-ray chunks, 196,608 samples =
     24,576 blocks of 8, 32 blocks x 7 probes per ray, 2 cascades; training:
     65,536 samples per step; configs/ingp_parity.yaml: 262,144 samples per
-    step on the 2^19 cell table)."""
+    step on the 2^19 cell table); #1 also against its gather-only build
+    (``window_global_lib``), bit for bit."""
     import numpy as np
     import torch
 
+    from nerficg_torch.ops import hash_window
     from nerficg_torch.ops.hash_cell import (BWD_WIN_ROWS, _cell_corners,
                                              cell_bwd_paths, cell_layout,
-                                             cell_window_bases, hash_cell_bwd,
+                                             cell_window_bases,
+                                             hash_cell_bwd,
                                              hash_cell_bwd_plain,
                                              hash_cell_fwd,
                                              hash_cell_fwd_plain)
@@ -274,7 +306,7 @@ def phase2_kernels(card: str) -> dict:
         hash_window_bwd_cached_plain, hash_window_bwd_plain, hash_window_fwd,
         hash_window_fwd_plain, hash_window_fwd_stoch,
         hash_window_fwd_stoch_plain, morton_sort_keys, window_bases,
-        window_layout)
+        window_fwd_paths, window_layout)
     from nerficg_torch.ops.hash_xbar import (hash_xbar_bwd,
                                              hash_xbar_bwd_fused,
                                              hash_xbar_bwd_plain,
@@ -352,15 +384,39 @@ def phase2_kernels(card: str) -> dict:
     # and 2 features x (multiply + add); gradients: 2 weight products and
     # 2 features x (product + atomic add). A forward's bytes count the
     # table entries its samples reach (entry_bytes), not the whole table.
+    # Each (tile, level) block of #1 stages its window in shared memory
+    # when it fits FWD_WIN_ROWS rows; at the library's 2^14 every
+    # morton-sorted window does.
     lay = window_layout(config)
-    record('hash_window_fwd', got, want,
-           lambda a, b: bool(torch.allclose(a, b, rtol=0.0, atol=1e-5)),
-           lambda: hash_window_fwd(table, pos, lo, win, config),
-           lambda: hash_window_fwd_plain(table, pos, lo, win, config),
-           f'table (16,2,128,128) x {n} samples',
-           nbytes(pos, lo, win, got) + entry_bytes(
-               _exact_corners(pos, lay, lv, lo, win)[0] for lv in range(16)),
-           16 * n * 8 * 6)
+    share = float(window_fwd_paths(win).float().mean())
+    line = record('hash_window_fwd', got, want,
+                  lambda a, b: bool(torch.allclose(a, b, rtol=0.0,
+                                                   atol=1e-5)),
+                  lambda: hash_window_fwd(table, pos, lo, win, config),
+                  lambda: hash_window_fwd_plain(table, pos, lo, win, config),
+                  f'table (16,2,128,128) x {n} samples, {share:.3f} of '
+                  f'windows staged', nbytes(pos, lo, win, got) + entry_bytes(
+                      _exact_corners(pos, lay, lv, lo, win)[0]
+                      for lv in range(16)),
+                  16 * n * 8 * 6)
+    line['resident_share'] = share
+    # The same call on the 0-row build, every block gathering.
+    name = WINDOW_FWD_GLOBAL[0]
+
+    def gathered():
+        return hash_window._launch_fwd(name, table, pos, lo, win, config,
+                                       window_global_lib)
+    equal = bool(torch.equal(got, gathered()))
+    line['global_build_ms'] = device_ms(gathered)
+    line['global_build_equal'] = equal
+    print(f'phase 2: hash_window_fwd {n} samples: the 0-row build (every '
+          f'block gathering) {line["global_build_ms"]:.4f} ms on the card; '
+          f'outputs {"equal" if equal else "DIFFER"} [{card}]', flush=True)
+    if not equal:
+        fail('hash_window_fwd: the staged and the gathered windows differ')
+    if share != 1.0:
+        fail('#1: every morton-sorted window of a serving chunk should fit '
+             'in shared memory')
 
     # 2. block_probe: 2 cascades of 128^3 with a shell, cap 2048 blocks.
     res, cascades, cap = 128, 2, 2048
@@ -395,12 +451,28 @@ def phase2_kernels(card: str) -> dict:
     # The library calls take the same indices as int64.
     idx64 = idx[0].long()
     got = seg_gather(idx, seg_table)
-    record('seg_gather', got, seg_gather_plain(idx, seg_table),
-           lambda a, b: bool(torch.equal(a, b)),
-           lambda: seg_gather(idx, seg_table),
-           lambda: seg_gather_plain(idx, seg_table),
-           f'(1,1,{rows},128) x {nb}', nbytes(idx, seg_table, got), 0,
-           lambda: torch.take(seg_table, idx64))
+    line = record('seg_gather', got, seg_gather_plain(idx, seg_table),
+                  lambda a, b: bool(torch.equal(a, b)),
+                  lambda: seg_gather(idx, seg_table),
+                  lambda: seg_gather_plain(idx, seg_table),
+                  f'(1,1,{rows},128) x {nb}', nbytes(idx, seg_table, got), 0,
+                  lambda: torch.take(seg_table, idx64))
+    # #6 on ids in [-2 size, 2 size): those in [-size, -1] count from the
+    # end and the others clamp into [0, size - 1], as the oracle's JAX
+    # indexing does; bit-exact. From a generator of its own, so the later
+    # inputs stay as they were.
+    size = rows * 128
+    idx_neg = torch.from_numpy(np.random.default_rng(8).integers(
+        -2 * size, 2 * size, (1, nb)).astype(np.int32)).to(dev)
+    got = seg_gather(idx_neg, seg_table)
+    line['negative_and_out_of_range'] = dict(record(
+        'seg_gather', got, seg_gather_plain(idx_neg, seg_table),
+        lambda a, b: bool(torch.equal(a, b)),
+        lambda: seg_gather(idx_neg, seg_table),
+        lambda: seg_gather_plain(idx_neg, seg_table),
+        f'(1,1,{rows},128) x {nb}, ids in [-2 size, 2 size)',
+        nbytes(idx_neg, seg_table, got), 0))
+    report['seg_gather'] = line
     vals = torch.from_numpy(rng.uniform(0, 1, (1, 5, nb)).astype(
         np.float32)).to(dev)
 
@@ -524,16 +596,41 @@ def phase2_kernels(card: str) -> dict:
     pos = pos.contiguous()
     lo, win = cell_window_bases(pos, cell_cfg)
     cell = (pos, lo, win, cell_cfg)
-    got = hash_cell_fwd(cell_table, *cell)
-    record('hash_cell_fwd', got, hash_cell_fwd_plain(cell_table, *cell),
-           lambda a, b: bool(torch.allclose(a, b, rtol=0.0, atol=1e-5)),
-           lambda: hash_cell_fwd(cell_table, *cell),
-           lambda: hash_cell_fwd_plain(cell_table, *cell),
-           f'table (16,2,4096,128) x {n} samples',
-           nbytes(pos, lo, win, got) + entry_bytes(
-               _cell_corners(pos, cell_layout(cell_cfg), lv, lo, win)[0]
-               for lv in range(16)),
-           16 * n * 8 * 6)
+
+    def record_cell_fwd(cell, what=''):
+        """#8 on one input set, a block per (sub-block, level) gathering its
+        samples' corners: each level's windows, and the output against the
+        plain version."""
+        p, lo_c, win_c, _ = cell
+        windows = cell_window_report(win_c)['levels']
+        n_c = p.shape[0]
+        print(f'phase 2: hash_cell_fwd {n_c} samples{what}: windows per '
+              f'level (base rows min/median/max): ' +
+              '; '.join(f'{lv}: {w["min"]}/{w["median"]:g}/{w["max"]}'
+                        for lv, w in enumerate(windows)), flush=True)
+        got = hash_cell_fwd(cell_table, *cell)
+        return dict(record(
+            'hash_cell_fwd', got, hash_cell_fwd_plain(cell_table, *cell),
+            lambda a, b: bool(torch.allclose(a, b, rtol=0.0, atol=1e-5)),
+            lambda: hash_cell_fwd(cell_table, *cell),
+            lambda: hash_cell_fwd_plain(cell_table, *cell),
+            f'table (16,2,4096,128) x {n_c} samples{what}',
+            nbytes(p, lo_c, win_c, got) + entry_bytes(
+                _cell_corners(p, cell_layout(cell_cfg), lv, lo_c, win_c)[0]
+                for lv in range(16)),
+            16 * n_c * 8 * 6))
+    fwd_line = record_cell_fwd(cell)
+    # A serving chunk's 196,608 samples, from a generator of their own so
+    # the later inputs stay as they were.
+    pos_s = torch.from_numpy(np.random.default_rng(9).uniform(
+        0.2, 0.8, (196608, 3)).astype(np.float32)).to(dev)
+    pos_s = pos_s[torch.sort(morton_sort_keys(pos_s), stable=True).indices]
+    pos_s = pos_s.contiguous()
+    fwd_line['serving_chunk_196608'] = record_cell_fwd(
+        (pos_s, *cell_window_bases(pos_s, cell_cfg), cell_cfg),
+        ', a serving chunk')
+    report['hash_cell_fwd'] = fwd_line
+    del pos_s
     g = torch.from_numpy(rng.normal(size=(32, n)).astype(np.float32)).to(dev)
     # #9 as the wrapper runs it (each (sub-block, level) block keeps its
     # window's gradient in shared memory when the window fits, else adds
@@ -1240,27 +1337,38 @@ def phase4_training_step(card: str, card_device: str = 'cuda') -> dict:
     return {'hash_window_bwd': launches['hash_window_bwd']}
 
 
-# #10's sample count at each launch of the main paths, by run.
-XBAR_FWD_SIZES: dict = {}
+# The sample count of each launch of the windowed and crossbar forwards
+# (#1 exact, #8, #10) on the main paths: kernel -> run -> counts.
+FWD_SIZES: dict = {}
 
 
 @contextlib.contextmanager
-def xbar_fwd_sizes(label: str):
-    """Record under ``label`` the sample count of every crossbar forward
-    (#10) launched inside the block, by wrapping its launcher; the launch
-    counts are the wrapper's, untouched."""
+def fwd_sizes(label: str):
+    """Record under ``label`` the sample count of every exact window (#1),
+    cell (#8) and crossbar (#10) forward launched inside the block, by
+    wrapping each wrapper's launcher; the launch counts are the wrappers',
+    untouched."""
+    from nerficg_torch.ops import hash_cell as hc
+    from nerficg_torch.ops import hash_window as hw
     from nerficg_torch.ops import hash_xbar as hx
-    sizes = XBAR_FWD_SIZES.setdefault(label, [])
-    launch = hx._launch_fwd
+    launchers = {'#1': hw, '#8': hc, '#10': hx}
+    originals = {kernel: mod._launch_fwd for kernel, mod in launchers.items()}
 
-    def recording(name, table, positions, *args, **kwargs):
-        sizes.append(int(positions.shape[0]))
-        return launch(name, table, positions, *args, **kwargs)
-    hx._launch_fwd = recording
+    def recording(kernel):
+        sizes = FWD_SIZES.setdefault(kernel, {}).setdefault(label, [])
+        launch = originals[kernel]
+
+        def record(name, table, positions, *args, **kwargs):
+            sizes.append(int(positions.shape[0]))
+            return launch(name, table, positions, *args, **kwargs)
+        return record
+    for kernel, mod in launchers.items():
+        mod._launch_fwd = recording(kernel)
     try:
-        yield sizes
+        yield
     finally:
-        hx._launch_fwd = launch
+        for kernel, mod in launchers.items():
+            mod._launch_fwd = originals[kernel]
 
 
 @contextlib.contextmanager
@@ -1298,24 +1406,27 @@ def print_seg_scatter_shapes(shapes) -> None:
           f'{seg_scatter_plan(feats, m, rows)})', flush=True)
 
 
-def print_xbar_fwd_sizes() -> None:
-    """The distribution of #10's sample counts over each recorded run:
-    launches, min, median, max, how many fell under the plan's
-    FWD_MIN_SAMPLES (the gather path at 2^14 entries), the commonest."""
+def print_fwd_sizes() -> None:
+    """The distribution of each forward's sample counts over each recorded
+    run: launches, min, median, max, the commonest; for #10 also how many
+    fell under the plan's FWD_MIN_SAMPLES (the gather path at 2^14
+    entries)."""
     import numpy as np
 
     from nerficg_torch.ops.hash_xbar import FWD_MIN_SAMPLES
-    for label, sizes in XBAR_FWD_SIZES.items():
-        if not sizes:
-            print(f'#10 sample counts, {label}: no launches')
-            continue
-        a = np.array(sizes)
-        common = collections.Counter(sizes).most_common(4)
-        print(f'#10 sample counts, {label}: {a.size} launches, min '
-              f'{a.min()}, median {int(np.median(a))}, max {a.max()}; '
-              f'{int((a < FWD_MIN_SAMPLES).sum())} under FWD_MIN_SAMPLES '
-              f'{FWD_MIN_SAMPLES}; commonest (N, launches) {common}',
-              flush=True)
+    for kernel, runs in FWD_SIZES.items():
+        for label, sizes in runs.items():
+            if not sizes:
+                continue
+            a = np.array(sizes)
+            common = collections.Counter(sizes).most_common(4)
+            under = (f'; {int((a < FWD_MIN_SAMPLES).sum())} under '
+                     f'FWD_MIN_SAMPLES {FWD_MIN_SAMPLES}'
+                     if kernel == '#10' else '')
+            print(f'{kernel} sample counts, {label}: {a.size} launches, '
+                  f'min {a.min()}, median {int(np.median(a))}, max '
+                  f'{a.max()}{under}; commonest (N, launches) {common}',
+                  flush=True)
 
 
 def _launches_of(run, wrappers: dict) -> tuple:
@@ -1770,7 +1881,7 @@ def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
               f'{psnr_before:.3f} dB [{card}]', flush=True)
         torch.cuda.reset_peak_memory_stats()
         start = time.perf_counter()
-        with xbar_fwd_sizes('phase 11 D-NeRF training (grid refreshes '
+        with fwd_sizes('phase 11 D-NeRF training (grid refreshes '
                             'included)'):
             result, launches = _launches_of(lambda: train.main(
                 args + [f'TRAINING.NUM_ITERATIONS={iterations}',
@@ -1834,7 +1945,7 @@ def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
         profile_device(lambda: trainer.training_iteration(None, iterations),
                        f'{tag}: profile of one training step', card)
 
-        with xbar_fwd_sizes('phase 11 D-NeRF serving'):
+        with fwd_sizes('phase 11 D-NeRF serving'):
             served, served_launches = _launches_of(lambda: inference.main(
                 ['-d', str(result['output_dir']), '-s', 'test', '-m', '-b',
                  '--repeats', '1']), wrappers)
@@ -1851,7 +1962,7 @@ def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
             fail(f'{tag}: the served test PSNR {metrics["PSNR"]:.3f} dB is '
                  f'not 5 dB above the untrained model\'s {psnr_before:.3f} dB')
 
-        with xbar_fwd_sizes('phase 11 static control training'):
+        with fwd_sizes('phase 11 static control training'):
             control, control_launches = _launches_of(lambda: train.main(
                 args + ['GLOBAL.METHOD_TYPE=InstantNGP',
                         f'TRAINING.NUM_ITERATIONS={iterations}',
@@ -2084,8 +2195,10 @@ def main_paths(card: str) -> dict:
     launch counts."""
     from nerficg_torch.data.synthetic import (make_dynamic_textured_scene,
                                               make_textured_scene)
-    launches = phase3_main_path(card)
-    launches.update(phase4_training_step(card))
+    with fwd_sizes('phase 3 (window Instant-NGP served)'):
+        launches = phase3_main_path(card)
+    with fwd_sizes('phase 4 (one exact window step)'):
+        launches.update(phase4_training_step(card))
     marcher = ('block_probe', 'seg_gather', 'seg_scatter_add')
     with tempfile.TemporaryDirectory(prefix='chip_smoke_scene_') as tmp:
         start = time.perf_counter()
@@ -2093,9 +2206,12 @@ def main_paths(card: str) -> dict:
                                     n_train=30, n_test=4)
         print(f'phases 5-9: 400x400 textured scene (30 train, 4 test views) '
               f'written in {time.perf_counter() - start:.1f} s', flush=True)
-        phase5 = phase_training(
-            card, 5, scene, 'ingp_e2e_bench.yaml', (),
-            ('hash_window_fwd_stoch', 'hash_window_bwd_cached', *marcher))
+        with fwd_sizes('phase 5 (window Instant-NGP, trained and '
+                       'served)'):
+            phase5 = phase_training(
+                card, 5, scene, 'ingp_e2e_bench.yaml', (),
+                ('hash_window_fwd_stoch', 'hash_window_bwd_cached',
+                 *marcher))
         launches.update({k: phase5[k] for k in ('hash_window_fwd_stoch',
                                                 'hash_window_bwd_cached')})
         # The parity config at its 2^19 table; its lego scene is not in the
@@ -2108,14 +2224,15 @@ def main_paths(card: str) -> dict:
         # from random weights (tests/test_torch_backends.py). 256 steps,
         # bench.py's pairing with SCALE 1.0 on this scene, give 0.74, a
         # quarter of the published threshold.
-        phase6 = phase_training(
-            card, 6, scene, 'ingp_parity.yaml',
-            ('MODEL.SCALE=1.0', 'RENDERER.MAX_SAMPLES=256'),
-            ('hash_cell_fwd', 'hash_cell_bwd', *marcher),
-            ('hash_cell_fwd', *marcher))
+        with fwd_sizes('phase 6 (cell Instant-NGP, trained and served)'):
+            phase6 = phase_training(
+                card, 6, scene, 'ingp_parity.yaml',
+                ('MODEL.SCALE=1.0', 'RENDERER.MAX_SAMPLES=256'),
+                ('hash_cell_fwd', 'hash_cell_bwd', *marcher),
+                ('hash_cell_fwd', *marcher))
         launches.update({k: phase6[k] for k in ('hash_cell_fwd',
                                                 'hash_cell_bwd')})
-        with xbar_fwd_sizes('phase 7 (crossbar Instant-NGP, trained and '
+        with fwd_sizes('phase 7 (crossbar Instant-NGP, trained and '
                             'served)'):
             phase7 = phase_training(
                 card, 7, scene, 'ingp_e2e_bench.yaml',
@@ -2147,14 +2264,14 @@ def main_paths(card: str) -> dict:
 def main() -> None:
     import torch
     card = phase0_environment()
-    phase1_build(card)
-    report = phase2_kernels(card)
+    window_global_lib = phase1_build(card)
+    report = phase2_kernels(card, window_global_lib)
     with seg_scatter_shapes() as shapes:
         launches = main_paths(card)
     print_seg_scatter_shapes(shapes)
     phase12_dnerf_step(card)
     launches.update(phase13_op_api(card))
-    print_xbar_fwd_sizes()
+    print_fwd_sizes()
     kernels = [{'name': name, 'route': route, 'source': source,
                 'replaces': replaces, 'launches': launches[name],
                 **report[name]}

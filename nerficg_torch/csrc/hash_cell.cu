@@ -21,15 +21,27 @@
 // or 16 adds (backward) per (sample, level), all in one 128-lane column of
 // an (8, 128) row block, i.e. 8 x 32-byte sectors. At the reference's 2^19
 // entries the table is 16 levels x 2 x 2 MiB = 64 MiB, larger than the 50
-// MB L2, so the fine levels' reads go to HBM in 32-byte sectors of which 4
-// bytes are used: the forward is bound by sector traffic, not by
-// arithmetic. One forward thread per (sample, level), the level on
-// blockIdx.y (uniform dense/hash branch per block, coalesced feature-major
-// loads and stores of positions, g and out); morton-sorted samples make
-// neighbouring threads hit neighbouring cells, so a warp's sectors overlap.
-// Gathering the 8 corners of a lane through shared memory, or a GPU-native
-// layout with a cell's 16 features in one 64-byte line, is the forward's
-// next redesign.
+// MB L2, so a gather's fine-level reads go to HBM in 32-byte sectors of
+// which 4 bytes are used.
+//
+// The forward's design. What carries over from the TPU kernel is the
+// window: by the wrap, every corner of a 2048-sample sub-block lies in
+// base rows [lo, lo + win) of its level. One block per (sub-block, level),
+// grid (N / 2048, L), loads its window and the wrap's reciprocal once (the
+// parent's thread per (sample, level) loaded them and divided for every
+// sample), then gathers each sample's 8 corners, two __ldg per corner, and
+// sums them with trilinear_sum (the parent's expression in the parent's
+// order, so the parent's bits). Staging the window in shared memory as
+// bf16x2 words, as #1 does, lost to this gather at every budget swept on
+// an H100 (4-56 base rows of 4 KiB; PERF.md section 6): the 64 MiB table
+// is in HBM, a staged block waits at its barrier for the window's round
+// trip, and the L1 (up to 256 KB an SM while no shared memory is
+// reserved) already keeps a fine level's window of 2-5 base rows for the
+// gathers. So the gather is the forward's one path: a staged branch kept
+// beside it, even never taken, spilled under the 32-register cap and cost
+// 10% (0.0666 against 0.0603 ms at phase 2's inputs, `kernel_timing.py
+// cell-fwd`, an NVIDIA H100 80GB HBM3 at 700 W). The middle levels'
+// gathers from L2 and HBM set its pace.
 //
 // The backward's design. The TPU kernel keeps the level's gradient in VMEM
 // and adds one window of base rows at a time; what carries over is the
@@ -100,11 +112,12 @@ __device__ __forceinline__ CellLevel cell_level(
 }
 
 // One (sample, level): the flat offset of corner 0 (row base_row*8, its
-// lane) in the level's (rows * 128) plane, and the fractional offsets.
-__device__ __forceinline__ int cell_address(
-    const float* __restrict__ pos, const int* __restrict__ lo,
-    const int* __restrict__ win, const CellLevel& lay, int i, int lvl,
-    int nsb, float frac[3]) {
+// lane) in the level's (rows * 128) plane, base_row wrapped into the
+// sub-block's window w, and the fractional offsets.
+__device__ __forceinline__ int cell_address(const float* __restrict__ pos,
+                                            const nerficg::Window& w,
+                                            const CellLevel& lay, int i,
+                                            float frac[3]) {
   int v[3];
   nerficg::level_coords(pos, i, static_cast<float>(lay.res - 1), v, frac);
   int row, lane;
@@ -122,42 +135,62 @@ __device__ __forceinline__ int cell_address(
           static_cast<int>((h >> 7) & static_cast<uint32_t>(lay.rpb - 1));
     lane = static_cast<int>(h & (kLanes - 1));
   }
-  const int sb = i / kSubBlockN;
-  const int w_lo = lo[lvl * nsb + sb];
-  const int w_win = win[lvl * nsb + sb];
-  const float inv = __fdiv_rn(1.0f, static_cast<float>(w_win));
-  const int brow = w_lo + nerficg::wrap_rel(row - w_lo, w_win, inv);
-  return brow * 8 * kLanes + lane;
+  return nerficg::wrap_into(w, row) * 8 * kLanes + lane;
 }
 
-__global__ void hash_cell_fwd_kernel(
-    const float* __restrict__ table, const float* __restrict__ pos,
-    const int* __restrict__ lo, const int* __restrict__ win,
-    const int* __restrict__ res_l, const int* __restrict__ dense_l,
-    const float* __restrict__ bscale_l, const int* __restrict__ rpb_l,
-    const int* __restrict__ rsh_l, float* __restrict__ out, int n, int nsb,
-    int rows) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+// The same, reading sample i's window from the (L, nsb) lo / win.
+__device__ __forceinline__ int cell_address(
+    const float* __restrict__ pos, const int* __restrict__ lo,
+    const int* __restrict__ win, const CellLevel& lay, int i, int lvl,
+    int nsb, float frac[3]) {
+  return cell_address(
+      pos, nerficg::window_at(lo, win, lvl * nsb + i / kSubBlockN), lay, i,
+      frac);
+}
+
+// Threads of a forward block; each takes kSubBlockN / kFwdThreads samples
+// of its sub-block, one after the other.
+constexpr int kFwdThreads = 1024;
+static_assert(kSubBlockN % kFwdThreads == 0, "whole samples per thread");
+// Blocks an SM should hold: 2048 threads, which caps a thread at 32
+// registers. At 48 (no cap, both samples' loads in flight together) an SM
+// held one block and the call took 0.0785 ms against 0.0659 with the cap
+// (phase 2's inputs, `kernel_timing.py cell-fwd`, two calls on an NVIDIA
+// H100 80GB HBM3 at 700 W).
+constexpr int kFwdMinBlocks = 2048 / kFwdThreads;
+
+// One (sub-block, level) block of the forward.
+__global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
+    hash_cell_fwd_kernel(const float* __restrict__ table,
+                         const float* __restrict__ pos,
+                         const int* __restrict__ lo,
+                         const int* __restrict__ win,
+                         const int* __restrict__ res_l,
+                         const int* __restrict__ dense_l,
+                         const float* __restrict__ bscale_l,
+                         const int* __restrict__ rpb_l,
+                         const int* __restrict__ rsh_l,
+                         float* __restrict__ out, int n, int nsb, int rows) {
+  const int sb = blockIdx.x;
   const int lvl = blockIdx.y;
-  if (i >= n) return;
+  const nerficg::Window w = nerficg::window_at(lo, win, lvl * nsb + sb);
+  const size_t plane = static_cast<size_t>(rows) * kLanes;
+  const float* tab0 = table + static_cast<size_t>(2 * lvl) * plane;
+  const float* tab1 = tab0 + plane;
   const CellLevel lay = cell_level(res_l, dense_l, bscale_l, rpb_l, rsh_l,
                                    lvl);
-  float frac[3];
-  const int at = cell_address(pos, lo, win, lay, i, lvl, nsb, frac);
-  const float* tab0 =
-      table + static_cast<size_t>(2 * lvl) * rows * kLanes + at;
-  const float* tab1 = tab0 + static_cast<size_t>(rows) * kLanes;
-  float acc0 = 0.0f;
-  float acc1 = 0.0f;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const float w =
-        nerficg::trilinear_weight(frac, (c >> 2) & 1, (c >> 1) & 1, c & 1);
-    acc0 += w * nerficg::bf16_round(__ldg(tab0 + c * kLanes));
-    acc1 += w * nerficg::bf16_round(__ldg(tab1 + c * kLanes));
+#pragma unroll 1
+  for (int r = 0; r < kSubBlockN / kFwdThreads; ++r) {
+    const int i = sb * kSubBlockN + r * kFwdThreads + threadIdx.x;
+    float frac[3];
+    const int a = cell_address(pos, w, lay, i, frac);
+    const float2 acc = nerficg::trilinear_sum(frac, [&](int c) {
+      return make_float2(nerficg::bf16_round(__ldg(tab0 + a + c * kLanes)),
+                         nerficg::bf16_round(__ldg(tab1 + a + c * kLanes)));
+    });
+    out[static_cast<size_t>(2 * lvl) * n + i] = acc.x;
+    out[static_cast<size_t>(2 * lvl + 1) * n + i] = acc.y;
   }
-  out[static_cast<size_t>(2 * lvl) * n + i] = acc0;
-  out[static_cast<size_t>(2 * lvl + 1) * n + i] = acc1;
 }
 
 // Threads of a backward block (on an H100, 512 beat 256 and 1024).
@@ -275,9 +308,9 @@ extern "C" int nerficg_hash_cell_fwd(
     const void* res, const void* dense, const void* bscale, const void* rpb,
     const void* rsh, void* out, int levels, int n, int nsb, int rows,
     void* stream) {
-  const dim3 block(256);
-  const dim3 grid((n + block.x - 1) / block.x, levels);
-  hash_cell_fwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (nsb == 0 || levels == 0) return static_cast<int>(cudaGetLastError());
+  hash_cell_fwd_kernel<<<dim3(nsb, levels), kFwdThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(table), static_cast<const float*>(pos),
       static_cast<const int*>(lo), static_cast<const int*>(win),
       static_cast<const int*>(res), static_cast<const int*>(dense),

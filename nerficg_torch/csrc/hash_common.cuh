@@ -1,8 +1,9 @@
 // Device helpers shared by the hash-encode kernels (hash_window.cu,
 // hash_cell.cu, hash_xbar.cu) and the segment scatter (seg_ops.cu): the
 // Instant-NGP hash primes, the brick morton code, the bf16 table read, the
-// window wrap, the counter hash with the stochastic-corner choice, and the
-// warp's run sum before a scatter-add.
+// window wrap, the staging of a window as bf16x2 words and the trilinear
+// sum of the windowed forwards, the counter hash with the
+// stochastic-corner choice, and the warp's run sum before a scatter-add.
 //
 // Every float operation that decides an address or a weight uses the _rn
 // intrinsics, so nvcc cannot contract it into an FMA: the plain PyTorch
@@ -23,16 +24,20 @@ constexpr uint32_t kP1 = 2654435761u;
 constexpr uint32_t kP2 = 805459861u;
 constexpr uint32_t kGolden = 0x9E3779B9u;
 
-// Generalized 3D morton code over <= kBrickBitsMax bits per dim (x at 3i+2).
-__device__ __forceinline__ int morton3(int x, int y, int z) {
+// One coordinate's share of a morton code: its low kBrickBitsMax bits, bit
+// i moved to 3i + shift.
+__device__ __forceinline__ int morton_spread(int v, int shift) {
   int m = 0;
 #pragma unroll
   for (int i = 0; i < kBrickBitsMax; ++i) {
-    m |= ((x >> i) & 1) << (3 * i + 2);
-    m |= ((y >> i) & 1) << (3 * i + 1);
-    m |= ((z >> i) & 1) << (3 * i);
+    m |= ((v >> i) & 1) << (3 * i + shift);
   }
   return m;
+}
+
+// Generalized 3D morton code over <= kBrickBitsMax bits per dim (x at 3i+2).
+__device__ __forceinline__ int morton3(int x, int y, int z) {
+  return morton_spread(x, 2) | morton_spread(y, 1) | morton_spread(z, 0);
 }
 
 // The Instant-NGP spatial hash, wrapping modulo 2^32.
@@ -46,12 +51,67 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// The two features of a table entry rounded to bf16 (bf16_round's bits),
+// packed as one word: feature 0 low, feature 1 high.
+__device__ __forceinline__ uint32_t bf16x2_word(float v0, float v1) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(v0))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(v1)))
+          << 16);
+}
+
+// A bf16x2 word's two features as f32: bf16_round's values, bit for bit.
+__device__ __forceinline__ float2 bf16x2_features(uint32_t word) {
+  return make_float2(__uint_as_float(word << 16),
+                     __uint_as_float(word & 0xFFFF0000u));
+}
+
+// Stage entries [0, count) of two feature planes p0, p1 of a window into
+// shared memory s as bf16x2 words, with 16-byte loads and stores: p0, p1
+// and s 16-byte aligned, count a multiple of 4. Called by the kThreads
+// threads of the block; the caller synchronises after it.
+template <int kThreads>
+__device__ __forceinline__ void stage_window_bf16x2(
+    const float* __restrict__ p0, const float* __restrict__ p1, int count,
+    uint32_t* __restrict__ s) {
+#pragma unroll 4
+  for (int e = 4 * threadIdx.x; e < count; e += 4 * kThreads) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p0 + e));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p1 + e));
+    *reinterpret_cast<uint4*>(s + e) =
+        make_uint4(bf16x2_word(a.x, b.x), bf16x2_word(a.y, b.y),
+                   bf16x2_word(a.z, b.z), bf16x2_word(a.w, b.w));
+  }
+}
+
 // `_wrap_rel`: fold rel into [0, win) by floor(rel * (1/win)) in f32, then
 // clamp (inv = __fdiv_rn(1, win)).
 __device__ __forceinline__ int wrap_rel(int rel, int win, float inv) {
   const float q = floorf(__fmul_rn(static_cast<float>(rel), inv));
   const int r = rel - static_cast<int>(q) * win;
   return min(max(r, 0), win - 1);
+}
+
+// A sub-block's window at one level, rows [lo, lo + win), and the wrap's
+// reciprocal: what every sample of the sub-block shares.
+struct Window {
+  int lo;
+  int win;
+  float inv;
+};
+
+__device__ __forceinline__ Window window_at(const int* __restrict__ lo,
+                                            const int* __restrict__ win,
+                                            int at) {
+  Window w;
+  w.lo = lo[at];
+  w.win = win[at];
+  w.inv = __fdiv_rn(1.0f, static_cast<float>(w.win));
+  return w;
+}
+
+// `lo + _wrap_rel(row - lo, win)`: row folded into the window.
+__device__ __forceinline__ int wrap_into(const Window& w, int row) {
+  return w.lo + wrap_rel(row - w.lo, w.win, w.inv);
 }
 
 // Per-dimension base vertex and fractional offset of one sample at a level
@@ -75,6 +135,27 @@ __device__ __forceinline__ float trilinear_weight(const float frac[3], int cx,
   const float wy = cy ? frac[1] : __fsub_rn(1.0f, frac[1]);
   const float wz = cz ? frac[2] : __fsub_rn(1.0f, frac[2]);
   return __fmul_rn(__fmul_rn(wx, wy), wz);
+}
+
+// The exact trilinear encode of one (sample, level): over the 8 corners in
+// (i, j, k) order, acc_f += w_c * v_{c,f}, where read(c) returns corner
+// c's two bf16-rounded features as a float2. The exact windowed forwards
+// sum with it (#1's window-resident and global paths, #8's gather), so
+// the sums are one expression in one order (nvcc contracts each step into
+// the same FMA) and #1's two paths give the same bits.
+template <typename Read>
+__device__ __forceinline__ float2 trilinear_sum(const float frac[3],
+                                                Read read) {
+  float acc0 = 0.0f;
+  float acc1 = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float w = trilinear_weight(frac, (c >> 2) & 1, (c >> 1) & 1, c & 1);
+    const float2 v = read(c);
+    acc0 += w * v.x;
+    acc1 += w * v.y;
+  }
+  return make_float2(acc0, acc1);
 }
 
 // Segmented warp sum over runs of equal keys in neighbouring lanes, for

@@ -10,10 +10,11 @@
 //   gather:      out[l, f, m] = table[l, f].flat[idx[l, m]]
 //   scatter-add: out[l, f].flat[idx[l, m]] += g[l, f, m], out zeroed first
 //
-// Indices may come in any order. The gather clamps out-of-range ones, as
-// XLA does. The scatter follows its oracle `_mxu_scatter_jnp` (:205),
-// whose `.at[].add` indexes as NumPy does: an index in [-size, -1] counts
-// from the end, and one past either end is dropped.
+// Indices may come in any order. Both count an index in [-size, -1] from
+// the end, as their oracles' NumPy-style indexing does. Past that they
+// differ: the gather clamps any other index into [0, size - 1], as its
+// oracle `_mxu_gather_jnp` (:116) does (XLA's gather); the scatter drops
+// it, as `_mxu_scatter_jnp` (:205) does (`.at[].add`).
 //
 // What bounds them on an H100: one index read, one value read per feature
 // and the output written once; at the serving chunk's (1, 5, 24,576) ->
@@ -93,7 +94,8 @@ __global__ void seg_gather_kernel(const int* __restrict__ idx,
   const int lf = blockIdx.y;
   const int l = lf / feats;
   int j = idx[static_cast<size_t>(l) * m + i];
-  j = min(max(j, 0), table_size - 1);  // gathers clamp, as in XLA
+  if (j < 0) j += table_size;          // from the end, then clamped
+  j = min(max(j, 0), table_size - 1);  // as XLA's gather does
   out[static_cast<size_t>(lf) * m + i] =
       __ldg(table + static_cast<size_t>(lf) * table_size + j);
 }

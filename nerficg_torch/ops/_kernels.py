@@ -24,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -34,8 +35,8 @@ import torch
 
 from nerficg_torch.core.errors import KernelError
 
-__all__ = ['load_library', 'build_library', 'check', 'ptr', 'stream_of',
-           'require_cuda']
+__all__ = ['load_library', 'build_library', 'build_variant', 'variant_source',
+           'check', 'ptr', 'stream_of', 'require_cuda']
 
 _CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 _BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
@@ -128,6 +129,55 @@ def build_library() -> tuple[Path, float]:
             obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out, time.perf_counter() - start
+
+
+def variant_source(name: str, source: Path, overrides: dict) -> Path:
+    """``source`` itself, or with each ``constexpr int CONST = ...;`` of
+    ``overrides`` set to its value, written to build/ab/<name>.cu."""
+    if not overrides:
+        return source
+    text = source.read_text()
+    for const, value in overrides.items():
+        text, hits = re.subn(rf'constexpr int {const} = [^;]+;',
+                             f'constexpr int {const} = {int(value)};', text)
+        if hits != 1:
+            raise KernelError(f'{name}: {source} defines {const} {hits} '
+                              f'times')
+    out = _BUILD_DIR / 'ab' / f'{name}.cu'
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(text)
+    return out
+
+
+def build_variant(name: str, source: Path, entries: tuple,
+                  overrides: Optional[dict] = None,
+                  signatures: Optional[dict] = None
+                  ) -> tuple[ctypes.CDLL, str]:
+    """Compile one kernel source alone into build/ab/lib<name>.so with the
+    library's flags and ``-Xptxas -v``, its ``constexpr int`` constants
+    first set to ``overrides`` (``variant_source``), and bind those of
+    ``entries`` it has, with ``signatures`` where given, else the
+    library's. Returns (the loaded library, ptxas's report).
+
+    A build with another block shape or shared-memory budget: how those
+    constants are swept, and how a check runs the path that the library's
+    own constants leave untaken on its inputs."""
+    out = _BUILD_DIR / 'ab' / f'lib{name}.so'
+    out.parent.mkdir(parents=True, exist_ok=True)
+    compiled = variant_source(name, source, overrides or {})
+    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, '-Xptxas', '-v',
+                           f'-I{source.parent}', '-o', str(out),
+                           str(compiled)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelError(f'{name}: nvcc failed:\n{proc.stderr}')
+    lib = ctypes.CDLL(str(out))
+    for entry in entries:
+        if hasattr(lib, entry):
+            getattr(lib, entry).argtypes = (signatures or {}).get(
+                entry, _SIGNATURES.get(entry))
+            getattr(lib, entry).restype = ctypes.c_int
+    return lib, proc.stderr
 
 
 def load_library() -> ctypes.CDLL:

@@ -16,7 +16,8 @@ and is ported exactly; see the JAX module for why it looks like this.
 Kernel wrappers (CUDA tensors launch the kernels of
 ``nerficg_torch/csrc/hash_cell.cu``; CPU tensors take the plain version):
   * ``hash_cell_fwd``: TPU kernel #8 ``_fwd_kernel``
-    (nerficg_tpu/ops/hash_cell.py:380);
+    (nerficg_tpu/ops/hash_cell.py:380): a block per (sub-block, level)
+    gathers its samples' corners from the table;
   * ``hash_cell_bwd``: the table gradient, #9 ``_bwd_kernel`` (:441): a
     block per (sub-block, level) keeps its window's gradient in shared
     memory where the window fits BWD_WIN_ROWS base rows, else adds to the
@@ -237,7 +238,18 @@ def hash_cell_fwd(table: torch.Tensor, positions: torch.Tensor,
     ``hash_cell_fwd_plain``."""
     if positions.device.type == 'cpu':
         return hash_cell_fwd_plain(table, positions, lo, win, config)
-    name = 'hash_cell_fwd'
+    out = _launch_fwd('hash_cell_fwd', table, positions, lo, win, config)
+    hash_cell_fwd.launches += 1
+    return out
+
+
+hash_cell_fwd.launches = 0
+
+
+def _launch_fwd(name: str, table: torch.Tensor, positions: torch.Tensor,
+                lo: torch.Tensor, win: torch.Tensor,
+                config: HashGridConfig) -> torch.Tensor:
+    """Check, allocate and launch ``nerficg_hash_cell_fwd``."""
     _kernels.require_cuda(name, table, positions, lo, win,
                           dtypes=(torch.float32, torch.float32, torch.int32,
                                   torch.int32))
@@ -257,11 +269,7 @@ def hash_cell_fwd(table: torch.Tensor, positions: torch.Tensor,
         rpb.data_ptr(), rsh.data_ptr(), out.data_ptr(), levels, n,
         n // _SB_N, rows, _kernels.stream_of(positions))
     _kernels.check(code, name)
-    hash_cell_fwd.launches += 1
     return out
-
-
-hash_cell_fwd.launches = 0
 
 
 def cell_bwd_paths(win: torch.Tensor,

@@ -49,9 +49,14 @@ SCATTER_FUSED_MAX_BYTES = 1 << 20
 
 
 def seg_gather_plain(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Plain gather, the oracle ``_mxu_gather_jnp`` (hash_mxu.py:116)."""
+    """Plain gather, the oracle ``_mxu_gather_jnp`` (hash_mxu.py:116), which
+    indexes as JAX does: an index in [-size, -1] counts from the end of the
+    level's flat planes, and any other is clamped into [0, size - 1]."""
     levels, feats, rows, _ = table.shape
-    ind = idx.long()[:, None, :].expand(levels, feats, idx.shape[1])
+    size = rows * LANES
+    ind = idx.long()
+    ind = torch.where(ind < 0, ind + size, ind).clamp(0, size - 1)
+    ind = ind[:, None, :].expand(levels, feats, idx.shape[1])
     return torch.gather(table.reshape(levels, feats, rows * LANES), 2, ind)
 
 

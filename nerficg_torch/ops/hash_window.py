@@ -13,7 +13,10 @@ Kernel wrappers (CUDA tensors launch the kernels of
 ``nerficg_torch/csrc/hash_window.cu``; CPU tensors take the plain version
 beside each, the same function in plain PyTorch):
   * ``hash_window_fwd``: exact 8 corners (TPU kernel #1 ``_fwd_kernel``,
-    nerficg_tpu/ops/hash_window.py:468);
+    nerficg_tpu/ops/hash_window.py:468): a block per (2048-sample tile,
+    level) stages its sub-block's window in shared memory as bf16x2 words
+    where it fits FWD_WIN_ROWS rows, else gathers from the table
+    (``window_fwd_paths`` says which);
   * ``hash_window_fwd_stoch``: #1 in stochastic-corner mode, optionally
     saving each corner's flat index and weight;
   * ``hash_window_bwd``: the exact table gradient (#2 ``_bwd_kernel`` :526);
@@ -51,11 +54,15 @@ __all__ = ['WindowLayout', 'window_layout', 'morton_keys_xyz',
            'hash_window_fwd_plain', 'hash_window_fwd_stoch',
            'hash_window_fwd_stoch_plain', 'hash_window_bwd',
            'hash_window_bwd_plain', 'hash_window_bwd_cached',
-           'hash_window_bwd_cached_plain', 'SUB_BLOCK']
+           'hash_window_bwd_cached_plain', 'window_fwd_paths', 'SUB_BLOCK']
 
 SUB_BLOCK = 64              # sublanes per window sub-block (64*128 = 8192)
 _SB_N = SUB_BLOCK * LANES
 _DENSE_MAX = 1 << 18
+# The widest window an exact forward block stages in shared memory, in rows
+# of 128 bf16x2 words, 512 bytes (kFwdWinRows in csrc/hash_window.cu, which
+# says how it was chosen).
+FWD_WIN_ROWS = 64
 
 
 class WindowLayout(NamedTuple):
@@ -251,10 +258,29 @@ def hash_window_fwd(table: torch.Tensor, positions: torch.Tensor,
     """Windowed encode, exact 8 corners: (L*2, N) feature-major.
 
     CUDA tensors launch the hand-written kernel; CPU tensors take
-    ``hash_window_fwd_plain``."""
+    ``hash_window_fwd_plain``. The kernel is fast only for morton-sorted
+    samples (``morton_sort_keys``), as every caller of the library passes
+    them: their windows are narrow and fit in shared memory. Unsorted
+    samples give wide windows, which send most blocks to the gather while
+    the staged blocks' shared memory takes the L1 that the gather leans
+    on: 2.0x the previous kernel's time at a serving chunk's 196,608
+    (0.1790 against 0.0887 ms, PERF.md section 6)."""
     if positions.device.type == 'cpu':
         return hash_window_fwd_plain(table, positions, lo, win, config)
-    name = 'hash_window_fwd'
+    out = _launch_fwd('hash_window_fwd', table, positions, lo, win, config)
+    hash_window_fwd.launches += 1
+    return out
+
+
+hash_window_fwd.launches = 0
+
+
+def _launch_fwd(name: str, table: torch.Tensor, positions: torch.Tensor,
+                lo: torch.Tensor, win: torch.Tensor, config: HashGridConfig,
+                lib=None) -> torch.Tensor:
+    """Check, allocate and launch ``nerficg_hash_window_fwd`` of the kernel
+    library, or of ``lib``, a build of this source with other constants
+    (``_kernels.build_variant``)."""
     _kernels.require_cuda(name, table, positions, lo, win,
                           dtypes=(torch.float32, torch.float32, torch.int32,
                                   torch.int32))
@@ -264,17 +290,23 @@ def hash_window_fwd(table: torch.Tensor, positions: torch.Tensor,
     res, dense, bscale, rpb = _layout_tensors(config, positions.device)
     out = torch.empty((levels * 2, n), dtype=torch.float32,
                       device=positions.device)
-    code = _kernels.load_library().nerficg_hash_window_fwd(
+    code = (lib or _kernels.load_library()).nerficg_hash_window_fwd(
         table.data_ptr(), positions.data_ptr(), lo.data_ptr(),
         win.data_ptr(), res.data_ptr(), dense.data_ptr(), bscale.data_ptr(),
         rpb.data_ptr(), out.data_ptr(), levels, n, n // _SB_N, rows,
         _kernels.stream_of(positions))
     _kernels.check(code, name)
-    hash_window_fwd.launches += 1
     return out
 
 
-hash_window_fwd.launches = 0
+def window_fwd_paths(win: torch.Tensor) -> torch.Tensor:
+    """(L, N/8192) bool of ``win``: which (level, sub-block) windows the
+    exact forward's blocks stage in shared memory, by the kernel's own
+    test: a window of at most FWD_WIN_ROWS rows. Morton-sorted samples
+    (the library's) keep every window of a 2^14 table within it; unsorted
+    ones send most blocks to the slower gather (``hash_window_fwd``)."""
+    return win <= FWD_WIN_ROWS
+
 
 StochOutput = tuple[torch.Tensor, Optional[torch.Tensor],
                     Optional[torch.Tensor]]

@@ -68,7 +68,19 @@ Run as a script it answers these questions on the card:
       morton-sorted samples of the 2^19 parity table and on the same samples
       unsorted, printing each level's window widths and the share of blocks
       on each path; then levels forced onto the global path one at a time
-      (shared-memory budgets are variants: ``:kWinRows=N``).
+      (shared-memory budgets are variants: ``:kWinRows=N``);
+  python -m nerficg_torch.scripts.kernel_timing cell-fwd \\
+      --variant NAME=PATH/hash_cell.cu[:kFwdThreads=N] ...
+  python -m nerficg_torch.scripts.kernel_timing window-fwd \\
+      --variant NAME=PATH/hash_window.cu[:kFwdWinRows=N] ...
+      time the exact windowed forwards, the cell encode (#8) on phase 2's
+      262,144 samples of the 2^19 parity table, a serving chunk's 196,608
+      and an occupancy-grid refresh's 4,194,304 cells, the window encode
+      (#1) on a serving chunk's 196,608 of the library's 2^14 table,
+      morton-sorted and unsorted, every output held to the first variant's
+      bit for bit, then each level alone; the
+      window encode also over 8,192-131,072 samples and its stochastic
+      forward (4 corners, saved streams held to the first variant's).
 A variant's ``:CONST=VALUE`` list sets those ``constexpr int`` constants of
 its source before the build (a copy under build/ab/).
 
@@ -349,21 +361,9 @@ def wrappers(iters: int = 10000, rounds: int = 2) -> dict:
 
 
 def _variant_source(name: str, source: Path, overrides: dict) -> Path:
-    """``source`` itself, or with each ``constexpr int NAME = ...;`` of
-    ``overrides`` set to its value, written to build/ab/<name>.cu."""
-    if not overrides:
-        return source
+    """``_kernels.variant_source``: the source with ``overrides`` set."""
     from nerficg_torch.ops import _kernels
-    text = source.read_text()
-    for const, value in overrides.items():
-        text, hits = re.subn(rf'constexpr int {const} = [^;]+;',
-                             f'constexpr int {const} = {int(value)};', text)
-        if hits != 1:
-            raise ValueError(f'{name}: {source} defines {const} {hits} times')
-    out = _kernels._BUILD_DIR / 'ab' / f'{name}.cu'
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(text)
-    return out
+    return _kernels.variant_source(name, source, overrides)
 
 
 def _source_constant(source: Path, const: str) -> int:
@@ -377,28 +377,13 @@ def _build_variant(name: str, source: Path,
                    overrides: dict | None = None,
                    signatures: dict | None = None
                    ) -> tuple[ctypes.CDLL, str]:
-    """Compile one kernel source on its own into build/ab/<name>.so with the
-    library's flags and ``-Xptxas -v`` (its constants first set to
-    ``overrides``), binding those of ``entries`` it has, with
-    ``signatures`` where given; (the loaded library, ptxas's report)."""
+    """``_kernels.build_variant``, binding a parent's entries by
+    ``_PARENT_SIGNATURES`` unless ``signatures`` gives them; (the loaded
+    library, ptxas's report)."""
     from nerficg_torch.ops import _kernels
-    out = _kernels._BUILD_DIR / 'ab' / f'lib{name}.so'
-    out.parent.mkdir(parents=True, exist_ok=True)
-    compiled = _variant_source(name, source, overrides or {})
-    proc = subprocess.run([_kernels._nvcc(), *_kernels._NVCC_FLAGS, '-Xptxas',
-                           '-v', f'-I{source.parent}', '-o', str(out),
-                           str(compiled)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f'{name}: nvcc failed:\n{proc.stderr}')
-    lib = ctypes.CDLL(str(out))
-    for entry in entries:
-        if hasattr(lib, entry):
-            getattr(lib, entry).argtypes = (signatures or {}).get(
-                entry, _PARENT_SIGNATURES.get(
-                    entry, _kernels._SIGNATURES.get(entry)))
-            getattr(lib, entry).restype = ctypes.c_int
-    return lib, proc.stderr
+    return _kernels.build_variant(
+        name, source, entries, overrides,
+        {**_PARENT_SIGNATURES, **(signatures or {})})
 
 
 def gs_bwd(variants: dict[str, tuple], rounds: int = 3) -> dict:
@@ -1439,6 +1424,232 @@ def cell_bwd(variants: dict[str, tuple], rounds: int = 3) -> dict:
     return report
 
 
+def _encode_fwd_call(lib, entry: str, table, pos, lo, win, layout,
+                     sub_block: int):
+    """A variant's windowed forward (``entry``, the cell or window encode's
+    exact forward; both take table, pos, lo, win, the layout tensors, out,
+    levels, n, nsb, rows, stream) as a callable: the wrapper's allocation
+    and the ctypes call."""
+    import torch
+    levels, _, rows, _ = table.shape
+    n = pos.shape[0]
+    ptrs = [t.data_ptr() for t in (table, pos, lo, win, *layout)]
+
+    def call():
+        out = torch.empty((2 * levels, n), device=pos.device)
+        _checked(getattr(lib, entry)(
+            *ptrs, out.data_ptr(), levels, n, n // sub_block, rows,
+            torch.cuda.current_stream().cuda_stream))
+        return out
+    return call
+
+
+def _one_level(lv: int, table, lo, win, layout) -> tuple:
+    """The inputs of a forward call that encodes level ``lv`` alone."""
+    return (table[lv:lv + 1].contiguous(), lo[lv:lv + 1].contiguous(),
+            win[lv:lv + 1].contiguous(),
+            [t[lv:lv + 1].contiguous() for t in layout])
+
+
+def _sorted_uniform(rng, n: int):
+    """``n`` positions uniform in [0.2, 0.8]^3 (phase 2's), morton-sorted,
+    and the same unsorted, on the card."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.ops.hash_window import morton_sort_keys
+    dev = torch.device('cuda')
+    pos = torch.from_numpy(rng.uniform(0.2, 0.8, (n, 3)).astype(
+        np.float32)).to(dev)
+    pos = pos[torch.sort(morton_sort_keys(pos), stable=True).indices]
+    shuffled = pos[torch.from_numpy(rng.permutation(n)).to(dev)]
+    return pos.contiguous(), shuffled.contiguous()
+
+
+def encode_fwd(kind: str, variants: dict[str, tuple],
+               rounds: int = 3) -> dict:
+    """Each variant's exact windowed forward, the cell encode (#8,
+    ``kind`` 'cell': phase 2's 262,144 samples on the (16, 2, 4096, 128)
+    table of configs/ingp_parity.yaml, and a serving chunk's 196,608) or
+    the window encode (#1, 'window': a serving chunk's 196,608 on the
+    library's (16, 2, 128, 128)), each morton-sorted and unsorted: the
+    windows per level and, for the window encode, the share of blocks that
+    stage theirs (at FWD_WIN_ROWS, and at each ``:kFwdWinRows=N``
+    variant's budget), every
+    variant's output against the first variant's with ``torch.equal`` and
+    against the plain version (atol 1e-5), then device time (CUDA graph of
+    20 calls) in turns; the cell encode also on an occupancy-grid refresh's
+    4,194,304 cells in index order; then each level alone on the sorted
+    inputs. The
+    window encode also times each variant over 8,192-196,608 sorted
+    samples, and its stochastic forward (4 corners with saves, a training
+    step's 65,536 samples), output and saved streams against the first
+    variant's."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.ops import hash_cell as hc
+    from nerficg_torch.ops import hash_window as hw
+    from nerficg_torch.ops.hashgrid import HashGridConfig
+
+    card = _card()
+    tag = f'{kind}-fwd'
+    cell = kind == 'cell'
+    mod = hc if cell else hw
+    entry = f'nerficg_hash_{kind}_fwd'
+    entries = (entry,) if cell else (entry, 'nerficg_hash_window_fwd_stoch')
+    libs = {}
+    report = {'card': card, 'ptxas': {}, 'inputs': {}, 'levels': {},
+              'sizes': {}}
+    for name, (source, overrides) in variants.items():
+        libs[name], ptxas = _build_variant(name, source, entries, overrides)
+        report['ptxas'][name] = ptxas
+        print(f'{tag}: {name} ({source} {overrides or ""}) ptxas:\n{ptxas}',
+              flush=True)
+    first = next(iter(libs))
+    config = HashGridConfig(num_levels=16, features_per_level=2,
+                            log2_table_size=19 if cell else 14,
+                            base_resolution=16, target_resolution=2048,
+                            anchor_stride=8)
+    rows = 4096 if cell else 128
+    sub_block = hc.CELL_SUB_BLOCK * 128 if cell else hw.SUB_BLOCK * 128
+    bases = hc.cell_window_bases if cell else hw.window_bases
+    plain = hc.hash_cell_fwd_plain if cell else hw.hash_window_fwd_plain
+    rng = np.random.default_rng(1)
+    table = torch.from_numpy(rng.uniform(-1, 1, (16, 2, rows, 128)).astype(
+        np.float32)).cuda()
+    layout = mod._layout_tensors(config, table.device)
+    budgets = {} if cell else {
+        name: int(overrides.get('kFwdWinRows', hw.FWD_WIN_ROWS))
+        for name, (_, overrides) in variants.items()}
+    sets = {}
+    for n in ((262144, 196608) if cell else (196608,)):
+        pos, shuffled = _sorted_uniform(rng, n)
+        sets[f'{n:,} morton-sorted'] = pos
+        sets[f'{n:,} unsorted'] = shuffled
+    if cell:
+        # An occupancy-grid refresh: every cell of two 128^3 grids in index
+        # order (x slowest), at a uniform offset in its cell.
+        cells = torch.arange(2 * 128 ** 3, device=table.device) % 128 ** 3
+        xyz = torch.stack([cells // 128 ** 2, (cells // 128) % 128,
+                           cells % 128], -1).float()
+        offsets = torch.from_numpy(rng.uniform(
+            0, 1, (cells.shape[0], 3)).astype(np.float32)).cuda()
+        sets['4,194,304 grid cells in index order'] = (
+            (xyz + offsets) / 128).clamp(max=1 - 1e-6).contiguous()
+    for label, p in sets.items():
+        lo, win = bases(p, config)
+        want = plain(table, p, lo, win, config)
+        windows = cell_window_report(win, 0 if cell else hw.FWD_WIN_ROWS)
+        entry_report = {'windows': windows, 'variants': {},
+                        'budget_share': {}}
+        staged = '' if cell else f', share staged at {hw.FWD_WIN_ROWS} rows'
+        print(f'{tag} {label}: windows per level (rows min/median/max'
+              f'{staged}): ' +
+              '; '.join(f'{lv}: {w["min"]}/{w["median"]:g}/{w["max"]}' +
+                        ('' if cell else f' {w["resident_share"]:.3f}')
+                        for lv, w in enumerate(windows['levels'])) +
+              ('' if cell else
+               f'; all levels {windows["resident_share"]:.3f}'), flush=True)
+        for b in sorted(set(budgets.values())):
+            share = float((win <= b).float().mean())
+            entry_report['budget_share'][b] = share
+            print(f'{tag} {label}: share staged at {b} rows {share:.3f}',
+                  flush=True)
+        calls = {name: _encode_fwd_call(lib, entry, table, p, lo, win,
+                                        layout, sub_block)
+                 for name, lib in libs.items()}
+        ref = calls[first]()
+        for name, call in calls.items():
+            got = call()
+            torch.cuda.synchronize()
+            entry_report['variants'][name] = {
+                'max_abs_err': float((got - want).abs().max()),
+                'close': bool(torch.allclose(got, want, rtol=0.0,
+                                             atol=1e-5)),
+                'equal_first': bool(torch.equal(got, ref))}
+        ms = _turns(calls, rounds)
+        for name, v in entry_report['variants'].items():
+            v['ms'] = ms[name]
+            print(f'{tag} {label}: {name}: device ms ' +
+                  ', '.join(f'{t:.4f}' for t in ms[name]) +
+                  f' (median {_median(ms[name]):.4f}); max_abs_err '
+                  f'{v["max_abs_err"]:.3e} '
+                  f'{"ok" if v["close"] else "MISMATCH"}, '
+                  f'{"equal to" if v["equal_first"] else "DIFFERS from"} '
+                  f'{first} [{card}]', flush=True)
+        report['inputs'][label] = entry_report
+
+    # Where the time goes by level: each level encoded alone (its table
+    # plane, windows and layout), on the first sorted input set.
+    p = next(iter(sets.values()))
+    lo, win = bases(p, config)
+    for lv in range(16):
+        args = _one_level(lv, table, lo, win, layout)
+        calls = {name: _encode_fwd_call(lib, entry, args[0], p, args[1],
+                                        args[2], args[3], sub_block)
+                 for name, lib in libs.items()}
+        ref = calls[first]()
+        same = all(torch.equal(call(), ref) for call in calls.values())
+        ms = _turns(calls, 1)
+        report['levels'][lv] = {'ms': ms, 'equal': same}
+        print(f'{tag} level {lv} alone ({next(iter(sets))}, median window '
+              f'{float(win[lv].float().median()):g} rows): ' + '; '.join(
+                  f'{name} {_median(ts):.4f}' for name, ts in ms.items()) +
+              f' (device ms, medians of 2), '
+              f'{"equal" if same else "DIFFER"} [{card}]', flush=True)
+    if cell:
+        return report
+
+    # Where staging pays: the sample counts of serving's last chunks and
+    # of smaller calls.
+    for n in (8192, 16384, 32768, 65536, 131072):
+        p, _ = _sorted_uniform(rng, n)
+        lo, win = bases(p, config)
+        calls = {name: _encode_fwd_call(lib, entry, table, p, lo, win,
+                                        layout, sub_block)
+                 for name, lib in libs.items()}
+        ref = calls[first]()
+        same = all(torch.equal(call(), ref) for call in calls.values())
+        ms = _turns(calls, 1)
+        report['sizes'][n] = {'ms': ms, 'equal': same}
+        print(f'{tag} {n:,} morton-sorted: ' + '; '.join(
+            f'{name} {_median(ts):.4f}' for name, ts in ms.items()) +
+            f' (device ms, medians of 2), {"equal" if same else "DIFFER"} '
+            f'[{card}]', flush=True)
+
+    # The stochastic forward (4 corners with saved streams) at a training
+    # step's 65,536 samples: output and streams equal to the first
+    # variant's, and its time.
+    p, _ = _sorted_uniform(rng, 65536)
+    lo, win = bases(p, config)
+    n = p.shape[0]
+
+    def stoch(lib):
+        def call():
+            out = torch.empty((32, n), device=p.device)
+            idx = torch.empty((16, 4, n), dtype=torch.int32, device=p.device)
+            w = torch.empty((16, 4, n), device=p.device)
+            _checked(lib.nerficg_hash_window_fwd_stoch(
+                *[t.data_ptr() for t in (table, p, lo, win, *layout)],
+                out.data_ptr(), idx.data_ptr(), w.data_ptr(), 16, n,
+                n // sub_block, rows, 4, 0x9E3779B9,
+                torch.cuda.current_stream().cuda_stream))
+            return out, idx, w
+        return call
+    calls = {name: stoch(lib) for name, lib in libs.items()}
+    ref = calls[first]()
+    same = all(all(torch.equal(a, b) for a, b in zip(call(), ref))
+               for call in calls.values())
+    ms = _turns(calls, rounds)
+    report['stoch'] = {'ms': ms, 'equal': same}
+    print(f'{tag} stochastic, 4 corners + saves, 65,536 morton-sorted: ' +
+          '; '.join(f'{name} {_median(ts):.4f}' for name, ts in ms.items()) +
+          f' (device ms, medians of {2 * rounds}); outputs and streams '
+          f'{"equal" if same else "DIFFER"} [{card}]', flush=True)
+    return report
+
+
 def _parse_variant(spec: str) -> tuple[str, tuple[Path, dict]]:
     """NAME=PATH[:CONST=VALUE,...] -> (NAME, (PATH, {CONST: VALUE}))."""
     name, rest = spec.split('=', 1)
@@ -1451,15 +1662,17 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('what', choices=('wrappers', 'gs-bwd', 'gs-fwd',
                                          'xbar-bwd', 'xbar-fwd',
-                                         'seg-scatter', 'cell-bwd'))
+                                         'seg-scatter', 'cell-bwd',
+                                         'cell-fwd', 'window-fwd'))
     parser.add_argument('--root', default=None,
                         help='import nerficg_torch from this checkout')
     parser.add_argument('--variant', action='append', default=[],
                         help='NAME=PATH[:CONST=VALUE,...] of a gs_tiles.cu '
                         '(gs-bwd, gs-fwd), a hash_xbar.cu (xbar-bwd, '
-                        'xbar-fwd), a seg_ops.cu (seg-scatter) or a '
-                        'hash_cell.cu (cell-bwd), its constexpr int CONSTs '
-                        'set to VALUEs')
+                        'xbar-fwd), a seg_ops.cu (seg-scatter), a '
+                        'hash_cell.cu (cell-bwd, cell-fwd) or a '
+                        'hash_window.cu (window-fwd), its constexpr int '
+                        'CONSTs set to VALUEs')
     parser.add_argument('--capture', default=str(_OUT / 'dnerf_capture.pt'),
                         help='the captured D-NeRF step (xbar-bwd, xbar-fwd)')
     args = parser.parse_args(argv)
@@ -1483,6 +1696,9 @@ def main(argv=None) -> None:
         _write('seg_scatter_ab.json', seg_scatter(variants))
     elif args.what == 'cell-bwd':
         _write('cell_bwd_ab.json', cell_bwd(variants))
+    elif args.what in ('cell-fwd', 'window-fwd'):
+        kind = args.what.split('-')[0]
+        _write(f'{kind}_fwd_ab.json', encode_fwd(kind, variants))
     else:
         _write('xbar_fwd_ab.json', xbar_fwd(variants, Path(args.capture)))
 

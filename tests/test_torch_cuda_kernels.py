@@ -3,6 +3,9 @@ card. Marked ``cuda``: without a card every test here skips. On a machine
 with one: ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``
 (chip_smoke.py runs the same comparisons at the serving path's shapes)."""
 
+import functools
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -287,6 +290,116 @@ def test_hash_cell_bwd_unsorted(cuda):
     _close_to_scatter(
         hash_cell.hash_cell_bwd(g, pos, lo, win, CELL_CFG, 4096),
         hash_cell.hash_cell_bwd_plain(g, pos, lo, win, CELL_CFG, 4096))
+
+
+@functools.lru_cache(maxsize=None)
+def _window_fwd_global_build():
+    """csrc/hash_window.cu built alone with its exact forward's
+    shared-memory budget at 0 rows: every block gathers (the parent's
+    arithmetic)."""
+    from nerficg_torch.ops import _kernels
+    csrc = Path(hash_window.__file__).resolve().parents[1] / 'csrc'
+    lib, _ = _kernels.build_variant('test_window_fwd_global',
+                                    csrc / 'hash_window.cu',
+                                    ('nerficg_hash_window_fwd',),
+                                    {'kFwdWinRows': 0})
+    return lib
+
+
+def _cell_fwd_inputs(cuda, n, seed, sort=True):
+    """chip_smoke.py's #8 inputs: a (16, 2, 4096, 128) table U(-1, 1) and
+    ``n`` samples uniform in [0.2, 0.8]^3, morton-sorted or not."""
+    rng = np.random.default_rng(seed)
+    table = torch.tensor(rng.uniform(-1, 1, (16, 2, 4096, 128)),
+                         dtype=torch.float32, device=cuda)
+    pos = torch.tensor(rng.uniform(0.2, 0.8, (n, 3)), dtype=torch.float32,
+                       device=cuda)
+    if sort:
+        pos = pos[torch.sort(hash_window.morton_sort_keys(pos)).indices]
+    pos = pos.contiguous()
+    return (table, pos, *hash_cell.cell_window_bases(pos, CELL_CFG))
+
+
+@pytest.mark.parametrize('n, sort', [(65536, True), (196608, True),
+                                     (65536, False)])
+def test_hash_cell_fwd_at_path_shapes(cuda, n, sort):
+    """#8, a block per (sub-block, level), on chip_smoke.py's table: within
+    atol 1e-5 of the plain version (FMA contraction) on sorted and
+    unsorted samples, and the same bits from call to call."""
+    table, pos, lo, win = _cell_fwd_inputs(cuda, n, seed=7, sort=sort)
+    got = hash_cell.hash_cell_fwd(table, pos, lo, win, CELL_CFG)
+    torch.testing.assert_close(
+        got, hash_cell.hash_cell_fwd_plain(table, pos, lo, win, CELL_CFG),
+        rtol=0, atol=1e-5)
+    assert torch.equal(got, hash_cell.hash_cell_fwd(table, pos, lo, win,
+                                                    CELL_CFG))
+
+
+@pytest.mark.parametrize('n, sort', [(196608, True), (24576, True),
+                                     (65536, False)])
+def test_hash_window_fwd_resident_equals_global_path(cuda, n, sort):
+    """#1 exact: the wrapper's kernel against a build with every block on
+    the global path (the parent's gather) bit for bit, both within atol
+    1e-5 of the plain version; a serving chunk's sorted windows all
+    staged (large tiles), a smaller call's partly (small tiles), unsorted
+    ones none past level 0."""
+    rng = np.random.default_rng(8)
+    table = torch.tensor(rng.uniform(-1, 1, (16, 2, 128, 128)),
+                         dtype=torch.float32, device=cuda)
+    pos = torch.tensor(rng.uniform(0.2, 0.8, (n, 3)), dtype=torch.float32,
+                       device=cuda)
+    if sort:
+        pos = pos[torch.sort(hash_window.morton_sort_keys(pos)).indices]
+    pos = pos.contiguous()
+    lo, win = hash_window.window_bases(pos, CFG)
+    paths = hash_window.window_fwd_paths(win)
+    assert bool(paths.all()) == (sort and n == 196608)
+    got = hash_window.hash_window_fwd(table, pos, lo, win, CFG)
+    assert torch.equal(got, hash_window._launch_fwd(
+        'hash_window_fwd', table, pos, lo, win, CFG,
+        _window_fwd_global_build()))
+    torch.testing.assert_close(
+        got, hash_window.hash_window_fwd_plain(table, pos, lo, win, CFG),
+        rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize('n_corners', [1, 2, 4])
+def test_hash_window_fwd_stoch_streams_at_a_training_step(cuda, n_corners):
+    """#1's stochastic forward (the parent's kernel, one thread per
+    (sample, level)) at a training step's 65,536 samples: saved corners
+    and weights bit-equal to the plain version's, output within atol 1e-5
+    and the same bits from call to call."""
+    rng = np.random.default_rng(9)
+    table = torch.tensor(rng.uniform(-1, 1, (16, 2, 128, 128)),
+                         dtype=torch.float32, device=cuda)
+    pos = torch.tensor(rng.uniform(0.2, 0.8, (65536, 3)),
+                       dtype=torch.float32, device=cuda)
+    pos = pos[torch.sort(hash_window.morton_sort_keys(pos)).indices]
+    pos = pos.contiguous()
+    lo, win = hash_window.window_bases(pos, CFG)
+    args = (table, pos, lo, win, CFG, n_corners, 0x9E3779B9)
+    out, idx, w = hash_window.hash_window_fwd_stoch(*args, save=True)
+    out_p, idx_p, w_p = hash_window.hash_window_fwd_stoch_plain(*args,
+                                                                save=True)
+    assert torch.equal(idx, idx_p) and torch.equal(w, w_p)
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5)
+    again = hash_window.hash_window_fwd_stoch(*args, save=True)
+    assert all(torch.equal(a, b) for a, b in zip(again, (out, idx, w)))
+
+
+def test_seg_gather_negative_and_out_of_range_ids(cuda):
+    """#6 on ids in [-2 size, 2 size): from the end in [-size, -1], clamped
+    past that, bit-exact against the plain version."""
+    rng = np.random.default_rng(10)
+    rows = 13
+    size = rows * 128
+    ids = rng.integers(-2 * size, 2 * size, (2, 24576))
+    ids[0, :6] = [-1, -size, -size - 1, size - 1, size, -2 * size]
+    idx = torch.tensor(ids, dtype=torch.int32, device=cuda)
+    table = torch.tensor(rng.normal(size=(2, 5, rows, 128)),
+                         dtype=torch.float32, device=cuda)
+    assert torch.equal(hash_mxu.seg_gather(idx, table),
+                       hash_mxu.seg_gather_plain(idx, table))
 
 
 def _xbar_inputs(cuda, seed=0):

@@ -35,6 +35,28 @@ def test_gather_matches(levels, feats, rows, m):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize('levels,feats,rows,m', [(1, 1, 13, 24576),
+                                                 (2, 3, 2, 777)])
+def test_gather_negative_and_out_of_range_ids_match_oracle(levels, feats,
+                                                           rows, m):
+    """Ids in [-2 size, 2 size): those in [-size, -1] count from the end
+    and the others clamp into [0, size - 1], as ``_mxu_gather_jnp``'s JAX
+    indexing does; the plain version agrees exactly, the edges included."""
+    size = rows * 128
+    rng = np.random.default_rng(3)
+    table = rng.normal(size=(levels, feats, rows, 128)).astype(np.float32)
+    idx = rng.integers(-2 * size, 2 * size, (levels, m)).astype(np.int32)
+    idx[0, :6] = [-1, -size, -size - 1, size - 1, size, -2 * size]
+    want = np.asarray(jmx._mxu_gather_jnp(jnp.asarray(idx),
+                                          jnp.asarray(table)))
+    got = tmx.seg_gather_plain(torch.from_numpy(idx), torch.from_numpy(table))
+    np.testing.assert_array_equal(got.numpy(), want)
+    flat = table.reshape(levels, feats, size)
+    np.testing.assert_array_equal(
+        got.numpy()[0, :, :6],
+        flat[0][:, [size - 1, 0, 0, size - 1, size - 1, 0]])
+
+
 @pytest.mark.parametrize('levels,feats,rows,m,sorted_ids',
                          [(1, 5, 13, 24576, True), (1, 1, 13, 24576, True),
                           (3, 2, 4, 5000, False)])
