@@ -30,7 +30,13 @@ Phases, each printing its own lines:
      as the wrapper runs it
      (each level's windows and the share of blocks that keep theirs in
      shared memory printed) and with level 12 forced onto the
-     global-atomic path;
+     global-atomic path; the cached window table gradient (#3) on its
+     level-resident path and on a 2^16 table's global path, beside one
+     index_add_ of the precomputed products; the marcher's probe from
+     world planes (block_probe_xyz, one launch) cascaded and over one
+     grid, on points along rays and on every cascade and cell boundary
+     +-1 ulp, bit-exact, beside the parent's composition of PyTorch
+     operations and block_probe_cells;
   3. serving path: write a textured synthetic scene and an Instant-NGP
      checkpoint at full library width (random weights from a numpy seed,
      a shell-shaped occupancy grid), run the port's inference entry point
@@ -89,7 +95,11 @@ Phases, each printing its own lines:
      compositor's image; xbar_permute of a 262,144 x 4 sample stream,
      held to permute_block_channels; and the crossbar's position gradient
      alone (#12, through a frozen table's hash_encode_xbar_posgrad) at
-     D-NeRF's width and 262,144 samples, held to its plain version.
+     D-NeRF's width and 262,144 samples, held to its plain version; and
+     the probe of unit coordinates (occupancy_probe_block_xyz, through
+     block_probe_cells) held to its plain version.
+Every main path (phases 3-7 and 11) must probe through block_probe_xyz and
+never through block_probe_cells.
 Every kernel's launch count is set to 0 just before the run that drives it
 and read just after; the sample counts of #1's (exact), #8's and #10's
 launches in phases 3-7 and 11 are printed at the end (min, median, max per
@@ -136,6 +146,8 @@ KERNELS = {
                                'nerficg_tpu/ops/hash_window.py:630'),
     'block_probe': ('cuda', 'nerficg_torch/csrc/block_probe.cu',
                     'nerficg_tpu/ops/xbar_gather.py:36'),
+    'block_probe_xyz': ('cuda', 'nerficg_torch/csrc/block_probe.cu',
+                        'nerficg_tpu/ops/xbar_gather.py:36'),
     'seg_gather': ('cuda', 'nerficg_torch/csrc/seg_ops.cu',
                    'nerficg_tpu/ops/hash_mxu.py:65'),
     'seg_scatter_add': ('cuda', 'nerficg_torch/csrc/seg_ops.cu',
@@ -316,14 +328,21 @@ def phase2_kernels(card: str, window_global_lib) -> dict:
                                              hash_xbar_fwd_plain,
                                              xbar_bwd_plan, xbar_fwd_plan)
     from nerficg_torch.ops.hashgrid import HashGridConfig
+    from nerficg_torch.ops.occupancy import (
+        _cascade_cell_coords, occupancy_probe_block_aabb_xyz,
+        occupancy_probe_block_aabb_xyz_plain,
+        occupancy_probe_block_cascaded_xyz,
+        occupancy_probe_block_cascaded_xyz_plain)
     from nerficg_torch.ops.xbar_gather import (block_probe_cells,
                                                block_probe_cells_plain,
                                                build_block_bitfield,
                                                xbar_permute,
                                                xbar_permute_plain)
-    from nerficg_torch.scripts.kernel_timing import (cell_window_report,
+    from nerficg_torch.scripts.kernel_timing import (boundary_values,
+                                                     cell_window_report,
                                                      device_ms, events_ms,
-                                                     host_ms)
+                                                     host_ms, index_add_call,
+                                                     probe_points)
 
     dev = torch.device('cuda')
     rng = np.random.default_rng(1)
@@ -441,6 +460,55 @@ def phase2_kernels(card: str, window_global_lib) -> dict:
            lambda: block_probe_cells_plain(*args),
            f'table {tuple(bits.shape)} x {m} probes',
            nbytes(bits, cx, cy, cz, g, got), 0)
+
+    # 2b. block_probe_xyz, the marcher's probe from world planes in one
+    # launch: the candidate pass's 344,064 probes along rays into the box,
+    # the last of them on every cascade and cell boundary +-1 ulp;
+    # cascaded at SCALE 1.0 on the same table, and over one grid at SCALE
+    # 0.5. Bit-exact against the plain composition; the parent's
+    # composition (PyTorch operations, then block_probe_cells) is timed
+    # beside it (`composition_ms`). Bytes: the three planes, the output and
+    # the table once.
+    center = torch.zeros(3, device=dev)
+    px, py, pz = probe_points(m, 1.0, seed=4,
+                              edges=boundary_values(1.0, cascades, res))
+    args = (bits, px, py, pz, center, 1.0, res, cascades, cap)
+
+    def composition():
+        c, cx, cy, cz = _cascade_cell_coords(px, py, pz, center, 1.0, res,
+                                             cascades)
+        return block_probe_cells(bits, cx, cy, cz, c, res, cap,
+                                 num_grids=cascades)
+    got = occupancy_probe_block_cascaded_xyz(*args)
+    line = record('block_probe_xyz', got,
+                  occupancy_probe_block_cascaded_xyz_plain(*args),
+                  lambda a, b: bool(torch.equal(a, b)) and bool(
+                      torch.equal(a, composition())),
+                  lambda: occupancy_probe_block_cascaded_xyz(*args),
+                  lambda: occupancy_probe_block_cascaded_xyz_plain(*args),
+                  f'cascaded, {cascades} x {res}^3, table '
+                  f'{tuple(bits.shape)} x {m} world points',
+                  nbytes(bits, px, py, pz, got), 0)
+    line['composition_ms'] = device_ms(composition)
+    print(f'phase 2: block_probe_xyz: the parent\'s composition '
+          f'{line["composition_ms"]:.4f} ms on the card (graph) [{card}]',
+          flush=True)
+    flags1 = torch.from_numpy(shell_density_grid(res, 1, 0.5) > 0).to(dev)
+    bits1 = build_block_bitfield(flags1, res, cap)
+    amin, amax = center - 0.5, center + 0.5
+    px, py, pz = probe_points(m, 0.5, seed=5,
+                              edges=boundary_values(0.5, 1, res))
+    args = (bits1, px, py, pz, amin, amax, res, cap)
+    got = occupancy_probe_block_aabb_xyz(*args)
+    aabb = record('block_probe_xyz', got,
+                  occupancy_probe_block_aabb_xyz_plain(*args),
+                  lambda a, b: bool(torch.equal(a, b)),
+                  lambda: occupancy_probe_block_aabb_xyz(*args),
+                  lambda: occupancy_probe_block_aabb_xyz_plain(*args),
+                  f'one grid, {res}^3, table {tuple(bits1.shape)} x {m} '
+                  f'world points', nbytes(bits1, px, py, pz, got), 0)
+    report['block_probe_xyz'] = line
+    line[f'aabb_{m}'] = aabb
 
     # 3./4. segment gather / scatter-add over one chunk's 24,576 blocks.
     nb, rays, rows = 24576, 1536, (1536 + 1 + 127) // 128
@@ -571,13 +639,33 @@ def phase2_kernels(card: str, window_global_lib) -> dict:
            lambda: hash_window_bwd_plain(g, pos, lo, win, config, 128),
            f'g (32,{n}) -> (16,2,128,128), 8 corners',
            nbytes(g, pos, lo, win, got), 16 * n * 8 * 6)
-    got = hash_window_bwd_cached(g, s_idx, s_w, 128)
-    record('hash_window_bwd_cached', got,
-           hash_window_bwd_cached_plain(g, s_idx, s_w, 128), scatter_ok,
-           lambda: hash_window_bwd_cached(g, s_idx, s_w, 128),
-           lambda: hash_window_bwd_cached_plain(g, s_idx, s_w, 128),
-           f'g (32,{n}) + streams (16,4,{n}) -> (16,2,128,128)',
-           nbytes(g, s_idx, s_w, got), 16 * n * 4 * 6)
+    # #3, each level's gradient in one block's shared memory; the library
+    # call is one index_add_ of the products, made before it is timed, into
+    # a zeroed plane. Then a 2^16 table (512 rows a level, past a block's
+    # shared memory: the global path) from the same samples.
+    def cached(g, s_idx, s_w, rows, label):
+        got = hash_window_bwd_cached(g, s_idx, s_w, rows)
+        _, nc, n = s_idx.shape
+        return record(
+            'hash_window_bwd_cached', got,
+            hash_window_bwd_cached_plain(g, s_idx, s_w, rows), scatter_ok,
+            lambda: hash_window_bwd_cached(g, s_idx, s_w, rows),
+            lambda: hash_window_bwd_cached_plain(g, s_idx, s_w, rows),
+            f'g (32,{n}) + streams (16,{nc},{n}) -> (16,2,{rows},128), '
+            f'{label}', nbytes(g, s_idx, s_w, got), 16 * n * nc * 6,
+            index_add_call(g, s_idx, s_w, rows))
+    line = cached(g, s_idx, s_w, 128, 'level-resident')
+    cfg16 = HashGridConfig(num_levels=16, features_per_level=2,
+                           log2_table_size=16, base_resolution=16,
+                           target_resolution=2048, anchor_stride=8)
+    table16 = torch.from_numpy(rng.uniform(-1, 1, (16, 2, 512, 128)).astype(
+        np.float32)).to(dev)
+    lo16, win16 = window_bases(pos, cfg16)
+    _, idx16, w16 = hash_window_fwd_stoch(table16, pos, lo16, win16, cfg16,
+                                          4, 0x9E3779B9, save=True)
+    line[f'global_2^16_{n}'] = cached(g, idx16, w16, 512, 'global path')
+    report['hash_window_bwd_cached'] = line
+    del table16, idx16, w16
 
     # #8/#9: the parity config's step, 262,144 morton-sorted samples on the
     # (16,2,4096,128) = 2^19 cell table (64 MiB, larger than the L2). The
@@ -1133,12 +1221,14 @@ def phase3_main_path(card: str, image_size: int = 400,
 
     from nerficg_torch.ops.hash_mxu import seg_gather, seg_scatter_add
     from nerficg_torch.ops.hash_window import hash_window_fwd
+    from nerficg_torch.ops.occupancy import block_probe_xyz
     from nerficg_torch.ops.xbar_gather import block_probe_cells
     from nerficg_torch.scripts import inference
 
     wrappers = {'hash_window_fwd': hash_window_fwd,
-                'block_probe': block_probe_cells, 'seg_gather': seg_gather,
-                'seg_scatter_add': seg_scatter_add}
+                'block_probe_xyz': block_probe_xyz, 'seg_gather': seg_gather,
+                'seg_scatter_add': seg_scatter_add,
+                'block_probe': block_probe_cells}
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
         run_dir = Path(tmp) / 'run'
         start = time.perf_counter()
@@ -1169,9 +1259,11 @@ def phase3_main_path(card: str, image_size: int = 400,
         print(f'phase 3: peak torch.cuda.max_memory_allocated '
               f'{peak:.1f} MiB [{card}]')
         print(f'phase 3: kernel launches in that run: {launches}', flush=True)
-        missing = [k for k, v in launches.items() if v <= 0]
+        missing = [k for k, v in launches.items()
+                   if v <= 0 and k != 'block_probe']
         if missing:
             fail(f'kernels never launched on the main path: {missing}')
+        probe_cells_only(launches, 'phase 3')
         if not all(np.isfinite(v) for v in (metrics['PSNR'], metrics['SSIM'],
                                               result['fps'])):
             fail(f'non-finite metrics or FPS: {metrics}, {result["fps"]}')
@@ -1218,6 +1310,7 @@ def _training_wrappers() -> dict:
                                              hash_xbar_bwd_fused,
                                              hash_xbar_bwd_pos,
                                              hash_xbar_fwd)
+    from nerficg_torch.ops.occupancy import block_probe_xyz
     from nerficg_torch.ops.xbar_gather import block_probe_cells
     return {'hash_window_fwd': hash_window_fwd,
             'hash_window_fwd_stoch': hash_window_fwd_stoch,
@@ -1227,8 +1320,19 @@ def _training_wrappers() -> dict:
             'hash_xbar_fwd': hash_xbar_fwd, 'hash_xbar_bwd': hash_xbar_bwd,
             'hash_xbar_bwd_pos': hash_xbar_bwd_pos,
             'hash_xbar_bwd_fused': hash_xbar_bwd_fused,
+            'block_probe_xyz': block_probe_xyz,
             'block_probe': block_probe_cells, 'seg_gather': seg_gather,
             'seg_scatter_add': seg_scatter_add}
+
+
+def probe_cells_only(launches: dict, tag: str) -> None:
+    """Fail if a main path reached ``block_probe_cells`` (the op API's
+    probe of integer cells) instead of the world-plane probe."""
+    if launches['block_probe'] != 0 or launches['block_probe_xyz'] <= 0:
+        fail(f'{tag}: the marcher probed through block_probe_cells '
+             f'({launches["block_probe"]} launches) and block_probe_xyz '
+             f'({launches["block_probe_xyz"]}); only the world-plane probe '
+             'should run')
 
 
 def _small_training_config(scene: Path) -> dict:
@@ -1313,6 +1417,7 @@ def phase4_training_step(card: str, card_device: str = 'cuda') -> dict:
     print(f'phase 4: kernel launches in the exact training step: {launches}')
     if launches['hash_window_bwd'] <= 0:
         fail('the exact training step never launched hash_window_bwd')
+    probe_cells_only(launches, 'phase 4')
     loss_gpu, loss_cpu = (float(logs[d]['total']) for d in ('card', 'cpu'))
     loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     print(f'phase 4: loss card {loss_gpu:.8f}, CPU {loss_cpu:.8f}, relative '
@@ -1509,6 +1614,7 @@ def phase_training(card: str, phase: int, scene: Path, config: str,
         missing = [k for k in trained if launches[k] <= 0]
         if missing:
             fail(f'{tag}: kernels never launched while training: {missing}')
+        probe_cells_only(launches, f'{tag} training')
         if len(losses) != iterations or not np.isfinite(losses).all():
             fail(f'{tag}: training loss is missing or not finite')
         if not losses[-50:].mean() < losses[:50].mean():
@@ -1542,6 +1648,7 @@ def phase_training(card: str, phase: int, scene: Path, config: str,
         missing = [k for k in served if launches[k] <= 0]
         if missing:
             fail(f'{tag}: kernels never launched while serving: {missing}')
+        probe_cells_only(launches, f'{tag} serving')
         if not all(np.isfinite(v) for v in (metrics['PSNR'], metrics['SSIM'],
                                               served_result['fps'])):
             fail(f'{tag}: non-finite served metrics or FPS: {metrics}')
@@ -1913,9 +2020,11 @@ def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
               + f' (untrained {psnr_before:.3f} dB) [{card}]')
         xbar = ('hash_xbar_fwd', 'hash_xbar_bwd', 'hash_xbar_bwd_pos',
                 'hash_xbar_bwd_fused')
-        shown = {k: launches[k] for k in xbar + ('block_probe',)}
+        shown = {k: launches[k] for k in xbar + ('block_probe_xyz',
+                                                 'block_probe')}
         print(f'{tag}: kernel launches in the training run: {shown}',
               flush=True)
+        probe_cells_only(launches, f'{tag} training')
         if launches['hash_xbar_bwd_fused'] != iterations:
             fail(f'{tag}: hash_xbar_bwd_fused launched '
                  f'{launches["hash_xbar_bwd_fused"]} times in {iterations} '
@@ -1951,6 +2060,7 @@ def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
                  '--repeats', '1']), wrappers)
         metrics = served['metrics']['test']
         shown = {k: served_launches[k] for k in ('hash_xbar_fwd',
+                                                 'block_probe_xyz',
                                                  'block_probe')}
         print(f'{tag}: inference -d RUN -s test -m -b --repeats 1: '
               f'{served["fps"]:.3f} FPS at 400x400, served test metrics: ' +
@@ -1958,6 +2068,7 @@ def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
               f'; launches {shown} [{card}]', flush=True)
         if served_launches['hash_xbar_fwd'] <= 0:
             fail(f'{tag}: serving never launched hash_xbar_fwd')
+        probe_cells_only(served_launches, f'{tag} serving')
         if not float(metrics['PSNR']) >= psnr_before + 5.0:
             fail(f'{tag}: the served test PSNR {metrics["PSNR"]:.3f} dB is '
                  f'not 5 dB above the untrained model\'s {psnr_before:.3f} dB')
@@ -1975,6 +2086,7 @@ def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
               f'{psnr:.3f} dB); launches '
               f'{ {k: control_launches[k] for k in xbar} } [{card}]',
               flush=True)
+        probe_cells_only(control_launches, f'{tag} static control')
     counts = {'hash_xbar_bwd_fused': launches['hash_xbar_bwd_fused']}
     for name in ('hash_xbar_fwd', 'hash_xbar_bwd'):
         counts[name] = launches[name] + control_launches[name] + \
@@ -2117,8 +2229,12 @@ def phase13_op_api(card: str) -> dict:
     from nerficg_torch.ops import gs_tiles_kernel as gtk
     from nerficg_torch.ops import hash_xbar as hx
     from nerficg_torch.ops.hashgrid import HashGridConfig
+    from nerficg_torch.ops.occupancy import occupancy_probe_block_xyz
     from nerficg_torch.ops.sample_sort import permute_block_channels
-    from nerficg_torch.ops.xbar_gather import xbar_permute
+    from nerficg_torch.ops.xbar_gather import (block_probe_cells,
+                                               block_probe_cells_plain,
+                                               build_block_bitfield,
+                                               xbar_permute)
     from nerficg_torch.scripts.kernel_timing import gs_frame, gs_model
 
     args16 = gs_frame(gs_model('cuda'), 1920, 1080)
@@ -2144,10 +2260,18 @@ def phase13_op_api(card: str) -> dict:
         np.float32)).cuda()
     xcot = torch.from_numpy(rng.normal(size=(n, 32)).astype(
         np.float32)).cuda()
+    # The probe of unit coordinates (the op API's; the marcher probes world
+    # planes): 262,144 points of a 128^3 shell grid, cap 2048.
+    res, cap = 128, 2048
+    ptable = build_block_bitfield(torch.from_numpy(
+        shell_density_grid(res, 1, 1.0) > 0).cuda(), res, cap)
+    units = [torch.from_numpy(rng.uniform(-0.05, 1.05, n).astype(
+        np.float32)).cuda() for _ in range(3)]
     wrappers = {'gs_tiles_fwd': gtk.gs_tiles_fwd,
                 'gs_tiles_bwd': gtk.gs_tiles_bwd,
                 'xbar_permute': xbar_permute,
-                'hash_xbar_bwd_pos': hx.hash_xbar_bwd_pos}
+                'hash_xbar_bwd_pos': hx.hash_xbar_bwd_pos,
+                'block_probe': block_probe_cells}
 
     def run():
         x = slots.detach().requires_grad_(True)
@@ -2157,8 +2281,13 @@ def phase13_op_api(card: str) -> dict:
         (hx.hash_encode_xbar_posgrad(xtable, p, xconfig) * xcot).sum() \
             .backward()
         return out.detach(), x.grad, xbar_permute(channels.T.contiguous(),
-                                                  idx), p.grad
-    (out, grad, permuted, dpos), launches = _launches_of(run, wrappers)
+                                                  idx), p.grad, \
+            occupancy_probe_block_xyz(ptable, *units, res, cap)
+    (out, grad, permuted, dpos, occupied), launches = _launches_of(
+        run, wrappers)
+    want_occupied = block_probe_cells_plain(
+        ptable, *(torch.clamp((u * res).to(torch.int32), 0, res - 1)
+                  for u in units), 0, res, cap)
     want_dpos = hx.hash_xbar_bwd_pos_plain(xtable, xpos, xcot, xconfig)
     past = torch.arange(slots.shape[1], device='cuda')[None] >= \
         counts[:, None].long()
@@ -2173,8 +2302,10 @@ def phase13_op_api(card: str) -> dict:
           f'{bool(torch.equal(permuted, want))}; position gradient of a '
           f'frozen 16 x 2^14 crossbar, {n} samples, bit-equal to '
           f'hash_xbar_bwd_pos_plain {bool(torch.equal(dpos, want_dpos))}, '
-          f'max |dpos| {float(dpos.abs().max()):.3e}; launches {launches} '
-          f'[{card}]', flush=True)
+          f'max |dpos| {float(dpos.abs().max()):.3e}; '
+          f'occupancy_probe_block_xyz of {n} unit points bit-equal to its '
+          f'plain version {bool(torch.equal(occupied, want_occupied))}; '
+          f'launches {launches} [{card}]', flush=True)
     if not err <= 1e-5 or bool(out[:, 5:].any()):
         fail('phase 13: composite_tiles disagrees with the stream compositor')
     if not bool(torch.isfinite(grad).all()) or bool(grad[past].any()):
@@ -2185,6 +2316,9 @@ def phase13_op_api(card: str) -> dict:
     if not torch.equal(dpos, want_dpos) or not float(dpos.abs().max()) > 0:
         fail('phase 13: the position gradient disagrees with '
              'hash_xbar_bwd_pos_plain or vanishes')
+    if not torch.equal(occupied, want_occupied):
+        fail('phase 13: occupancy_probe_block_xyz disagrees with '
+             'block_probe_cells_plain')
     if any(v != 1 for v in launches.values()):
         fail(f'phase 13: each op-API kernel should launch once: {launches}')
     return launches
@@ -2199,7 +2333,7 @@ def main_paths(card: str) -> dict:
         launches = phase3_main_path(card)
     with fwd_sizes('phase 4 (one exact window step)'):
         launches.update(phase4_training_step(card))
-    marcher = ('block_probe', 'seg_gather', 'seg_scatter_add')
+    marcher = ('block_probe_xyz', 'seg_gather', 'seg_scatter_add')
     with tempfile.TemporaryDirectory(prefix='chip_smoke_scene_') as tmp:
         start = time.perf_counter()
         scene = make_textured_scene(Path(tmp) / 'scene', image_size=400,

@@ -27,24 +27,49 @@
 // `_bwd_pallas_cached` :824): the table gradient from the saved streams.
 // The gradient passes straight through the bf16 read: each corner adds the
 // f32 product g[2l+f, i] * w_c, as the oracle `_bwd_jnp` (:395) does (the TPU
-// kernel rounds g*w to bf16 for its MXU; the port follows the oracle). The
-// TPU kernels zero their output at grid step 0 and accumulate over sequential
-// grid steps in VMEM; blocks here run in parallel, so the wrapper's output is
-// zeroed with cudaMemsetAsync on the stream and every corner adds with an
-// fp32 atomicAdd (summation order varies from run to run).
+// kernel rounds g*w to bf16 for its MXU; the port follows the oracle).
+// Summation order varies from run to run (atomics).
 //
 // What bounds them on an H100: 16 random 4-byte reads (forward) or 16 atomic
 // adds (backward) per (sample, level) with exact corners, 2*nc stochastic. At
 // 2^14 entries the whole table is 16 levels x 2 x 64 KiB = 2 MiB and stays in
 // the 50 MB L2, so reads and atomics are L2 operations, and the exact
 // forward's least time is its feature-major output, 8 bytes per (sample,
-// level). The gradients and the stochastic forward: one thread per (sample,
-// level) with the level on blockIdx.y keeps the dense/hash branch uniform
-// per block and the feature-major loads and stores coalesced. The
-// backward's atomics contend at coarse levels: samples arrive morton-sorted,
-// so neighbouring threads of a warp hit the same vertex (level 0 has 16^3
-// vertices for 65,536 x 8 corner adds) and same-address atomics serialise;
-// a warp-level pre-aggregation (__match_any_sync) is the next redesign.
+// level). The exact gradient and the stochastic forward: one thread per
+// (sample, level) with the level on blockIdx.y keeps the dense/hash branch
+// uniform per block and the feature-major loads and stores coalesced; the
+// exact gradient zeroes its output with cudaMemsetAsync and adds every
+// corner with an fp32 atomicAdd.
+//
+// The cached gradient's design. The TPU kernel keeps the level's gradient
+// in VMEM over its sequential grid; what carries over is the level: at the
+// library's 2^14 entries a level's gradient, both features, is 128 rows x
+// 128 x 2 x 4 bytes = 128 KiB, which one block's shared memory holds. So
+// kBwdLevelBlocks blocks share each level, grid (kBwdLevelBlocks, L): each
+// zeroes the level's two planes in its shared memory, takes a contiguous
+// share of the samples (the next chunk's cotangents and streams loaded
+// while the current one adds), and adds each corner's two products there
+// with f32 atomics (compare-and-swap loops on sm_90). Before it adds, a
+// warp whose neighbouring lanes share an entry (morton-sorted samples on
+// the coarse levels) sums its lanes of equal entries (__match_any_sync
+// and a tree of shuffles) so each entry is added once; the other warps
+// skip that sum, which costs more than the few atomics it would save.
+// Then each block adds its planes' non-zero quads to the table, zeroed by
+// cudaMemsetAsync first, with one 16-byte atomicAdd each. Tables whose
+// level exceeds kBwdMaxRows rows (a 2^16 table's 512) take the global
+// path: the same warp sums, then an fp32 atomicAdd per entry into the
+// table. Measured against this on an H100 80GB HBM3 at 700 W
+// (`kernel_timing.py window-bwd`, PERF.md section 6) and dropped: a
+// cluster per level summing its blocks' planes through distributed shared
+// memory and storing the level (0.0860 against 0.0515 ms at phase 2's
+// inputs, before the other changes), a block per (level, feature) at two
+// blocks an SM (0.0889 against 0.0521), both features of an entry in one
+// 64-bit compare-and-swap (0.0900 against 0.0519), and the warp sum in
+// every warp (0.0520 against 0.0466) or over runs of neighbouring lanes
+// only (0.0582). What bounds it: the streams' and cotangents' bytes, 40
+// per (sample, level) at 4 corners (0.0131 ms at phase 2's inputs); the
+// shared compare-and-swap loops set the pace (the time grows with the
+// corners).
 //
 // The exact forward's design. By the wrap, every corner of an 8192-sample
 // sub-block lies in rows [lo, lo + win) of its level: win x 128 entries
@@ -350,25 +375,196 @@ __global__ void hash_window_bwd_kernel(
   }
 }
 
-__global__ void hash_window_bwd_cached_kernel(
+// The cached gradient: threads of a block; the blocks of a level, 16 (one
+// block an SM, so 256 blocks run in two waves), swept on an H100 80GB
+// HBM3 at 700 W
+// (`kernel_timing.py window-bwd`, variants NAME=PATH:kBwdLevelBlocks=N;
+// PERF.md section 6), ms at phase 2's 65,536 sorted samples x 4 corners /
+// at 262,144: 8 blocks 0.0465 / 0.1595, 12 0.0484 / 0.1515, 16 0.0429 /
+// 0.1364, 24 0.0457 / 0.1329, 32 0.0473 / 0.1338; the widest level a
+// block keeps in shared memory, in rows of 128 entries x 2 features (1
+// KiB; 224 KiB of the 227 KB a block may have); and the samples of a
+// block on the global path.
+constexpr int kBwdThreads = 1024;
+constexpr int kBwdLevelBlocks = 16;
+constexpr int kBwdMaxRows = 224;
+constexpr int kBwdGlobalTile = 8192;
+
+// One thread's sample of a chunk: its two cotangents and its NC corners'
+// (entry, weight), NC = 0 for a corner count known only at run time (its
+// corners are then read where they are added).
+template <int NC>
+struct CachedSample {
+  float g0, g1;
+  int idx[NC > 0 ? NC : 1];
+  float w[NC > 0 ? NC : 1];
+};
+
+template <int NC>
+__device__ __forceinline__ CachedSample<NC> load_cached(
+    const float* __restrict__ g0, const float* __restrict__ g1,
+    const int* __restrict__ il, const float* __restrict__ wl, int n, int i,
+    int end) {
+  CachedSample<NC> s;
+  const bool in = i < end;
+  s.g0 = in ? __ldg(g0 + i) : 0.0f;
+  s.g1 = in ? __ldg(g1 + i) : 0.0f;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    s.idx[c] = in ? __ldg(il + static_cast<size_t>(c) * n + i) : -1;
+    s.w[c] = in ? __ldg(wl + static_cast<size_t>(c) * n + i) : 0.0f;
+  }
+  return s;
+}
+
+// Table gradient from the saved (L, nc, N) streams of level lvl: the
+// samples [begin, end), each corner's products summed over the warp's
+// lanes on one entry where two neighbouring lanes share one, then added
+// by add(entry, v0, v1). Padding samples (g = 0) add nothing; an entry
+// outside the level's `entries` is dropped. Called by all threads of the
+// block; begin and end are uniform.
+template <int NC, typename Add>
+__device__ __forceinline__ void add_cached(
+    const float* __restrict__ g, const int* __restrict__ save_idx,
+    const float* __restrict__ save_w, int entries, int n, int nc_run,
+    int lvl, int begin, int end, Add add) {
+  const int nc = NC > 0 ? NC : nc_run;
+  const float* g0 = g + static_cast<size_t>(2 * lvl) * n;
+  const float* g1 = g0 + n;
+  const int* il = save_idx + static_cast<size_t>(lvl) * nc * n;
+  const float* wl = save_w + static_cast<size_t>(lvl) * nc * n;
+  const auto corner = [&](bool active, int idx, float w, float g0v,
+                          float g1v) {
+    float v[2] = {__fmul_rn(g0v, w), __fmul_rn(g1v, w)};
+    const int key = active && static_cast<unsigned>(idx) <
+                                  static_cast<unsigned>(entries)
+                        ? idx
+                        : -1;
+    // One shuffle tells whether the warp's entries repeat (morton-sorted
+    // samples on the coarse levels) or not (the fine levels, unsorted
+    // samples), where the peer sum would cost more than the atomics it
+    // saves. Lanes of one entry that are not neighbours still add
+    // correctly, each with its own atomic.
+    const int prev = __shfl_up_sync(0xFFFFFFFFu, key, 1);
+    const bool repeats = __any_sync(
+        0xFFFFFFFFu, (threadIdx.x & 31) != 0 && key >= 0 && key == prev);
+    if (repeats ? nerficg::warp_peer_sum(key, v) : key >= 0) {
+      add(key, v[0], v[1]);
+    }
+  };
+  int i0 = begin;
+  CachedSample<NC> cur = load_cached<NC>(g0, g1, il, wl, n,
+                                         i0 + threadIdx.x, end);
+#pragma unroll 1
+  for (; i0 < end; i0 += kBwdThreads) {
+    const CachedSample<NC> next = load_cached<NC>(
+        g0, g1, il, wl, n, i0 + kBwdThreads + threadIdx.x, end);
+    const bool active = cur.g0 != 0.0f || cur.g1 != 0.0f;
+    if (__any_sync(0xFFFFFFFFu, active)) {
+      if constexpr (NC > 0) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          corner(active, cur.idx[c], cur.w[c], cur.g0, cur.g1);
+        }
+      } else {
+        const int i = i0 + threadIdx.x;
+        const bool in = i < end;
+        for (int c = 0; c < nc; ++c) {
+          corner(active, in ? il[static_cast<size_t>(c) * n + i] : -1,
+                 in ? wl[static_cast<size_t>(c) * n + i] : 0.0f, cur.g0,
+                 cur.g1);
+        }
+      }
+    }
+    cur = next;
+  }
+}
+
+// One of a level's kBwdLevelBlocks blocks (grid: kBwdLevelBlocks x L): the
+// level's gradient zeroed in shared memory, the block's share of the
+// samples added there, then each non-zero quad added to dtab (zeroed by
+// the caller) with one 16-byte atomic.
+template <int NC>
+__global__ void __launch_bounds__(kBwdThreads)
+    hash_window_bwd_cached_level_kernel(
     const float* __restrict__ g, const int* __restrict__ save_idx,
     const float* __restrict__ save_w, float* __restrict__ dtab, int n,
-    int nc, int rows) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    int nc_run, int rows) {
+  extern __shared__ __align__(16) float sacc[];
   const int lvl = blockIdx.y;
-  if (i >= n) return;
-  const float g0 = g[static_cast<size_t>(2 * lvl) * n + i];
-  const float g1 = g[static_cast<size_t>(2 * lvl + 1) * n + i];
-  if (g0 == 0.0f && g1 == 0.0f) return;
-  float* d0 = dtab + static_cast<size_t>(2 * lvl) * rows * kLanes;
-  float* d1 = d0 + static_cast<size_t>(rows) * kLanes;
-  for (int c = 0; c < nc; ++c) {
-    const size_t at = (static_cast<size_t>(lvl) * nc + c) * n + i;
-    const int idx = save_idx[at];
-    const float w = save_w[at];
-    atomicAdd(d0 + idx, __fmul_rn(g0, w));
-    atomicAdd(d1 + idx, __fmul_rn(g1, w));
+  const int entries = rows * kLanes;
+  const int quads = entries / 2;  // both features, 4 floats each
+  float4* s4 = reinterpret_cast<float4*>(sacc);
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int q = threadIdx.x; q < quads; q += kBwdThreads) s4[q] = zero;
+  __syncthreads();
+  // Whole 128-sample groups per block, so its loads stay aligned.
+  const int per = ((n + kBwdLevelBlocks - 1) / kBwdLevelBlocks + 127) & ~127;
+  const int begin = min(n, static_cast<int>(blockIdx.x) * per);
+  add_cached<NC>(g, save_idx, save_w, entries, n, nc_run, lvl, begin,
+                 min(n, begin + per), [&](int key, float v0, float v1) {
+                   atomicAdd(sacc + key, v0);
+                   atomicAdd(sacc + entries + key, v1);
+                 });
+  __syncthreads();
+  float4* d0 = reinterpret_cast<float4*>(
+      dtab + static_cast<size_t>(2 * lvl) * entries);
+  float4* d1 = d0 + entries / 4;
+  const auto flush = [](float4* d, const float4& v) {
+    if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f) {
+      atomicAdd(d, v);
+    }
+  };
+  for (int q = threadIdx.x; q < entries / 4; q += kBwdThreads) {
+    flush(d0 + q, s4[q]);
+    flush(d1 + q, s4[entries / 4 + q]);
   }
+}
+
+// The global path: a block's kBwdGlobalTile samples of one level, every
+// group's sum added to dtab (zeroed by the caller).
+template <int NC>
+__global__ void __launch_bounds__(kBwdThreads)
+    hash_window_bwd_cached_global_kernel(
+    const float* __restrict__ g, const int* __restrict__ save_idx,
+    const float* __restrict__ save_w, float* __restrict__ dtab, int n,
+    int nc_run, int rows) {
+  const int lvl = blockIdx.y;
+  const int entries = rows * kLanes;
+  const int begin = blockIdx.x * kBwdGlobalTile;
+  float* d0 = dtab + static_cast<size_t>(2 * lvl) * entries;
+  add_cached<NC>(g, save_idx, save_w, entries, n, nc_run, lvl, begin,
+                 min(n, begin + kBwdGlobalTile),
+                 [&](int key, float v0, float v1) {
+                   atomicAdd(d0 + key, v0);
+                   atomicAdd(d0 + entries + key, v1);
+                 });
+}
+
+template <int NC>
+cudaError_t launch_bwd_cached(const float* g, const int* idx, const float* w,
+                              float* dtab, int levels, int n, int nc,
+                              int rows, cudaStream_t stream) {
+  const size_t bytes =
+      static_cast<size_t>(levels) * 2 * rows * kLanes * sizeof(float);
+  cudaError_t err = cudaMemsetAsync(dtab, 0, bytes, stream);
+  if (err != cudaSuccess || n == 0) return err;
+  if (rows > kBwdMaxRows) {
+    const dim3 grid((n + kBwdGlobalTile - 1) / kBwdGlobalTile, levels);
+    hash_window_bwd_cached_global_kernel<NC><<<grid, kBwdThreads, 0, stream>>>(
+        g, idx, w, dtab, n, nc, rows);
+    return cudaGetLastError();
+  }
+  const int smem = rows * kLanes * 2 * static_cast<int>(sizeof(float));
+  // Per launch, not once: the attribute belongs to the current device.
+  err = cudaFuncSetAttribute(hash_window_bwd_cached_level_kernel<NC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  hash_window_bwd_cached_level_kernel<NC>
+      <<<dim3(kBwdLevelBlocks, levels), kBwdThreads, smem, stream>>>(
+          g, idx, w, dtab, n, nc, rows);
+  return cudaGetLastError();
 }
 
 template <int NC>
@@ -473,16 +669,24 @@ extern "C" int nerficg_hash_window_bwd(
 extern "C" int nerficg_hash_window_bwd_cached(
     const void* g, const void* save_idx, const void* save_w, void* dtab,
     int levels, int n, int nc, int rows, void* stream) {
+  if (levels == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t bytes =
-      static_cast<size_t>(levels) * 2 * rows * kLanes * sizeof(float);
-  cudaError_t err = cudaMemsetAsync(dtab, 0, bytes, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(256);
-  const dim3 grid((n + block.x - 1) / block.x, levels);
-  hash_window_bwd_cached_kernel<<<grid, block, 0, s>>>(
-      static_cast<const float*>(g), static_cast<const int*>(save_idx),
-      static_cast<const float*>(save_w), static_cast<float*>(dtab), n, nc,
-      rows);
-  return static_cast<int>(cudaGetLastError());
+  const float* gp = static_cast<const float*>(g);
+  const int* ip = static_cast<const int*>(save_idx);
+  const float* wp = static_cast<const float*>(save_w);
+  float* dp = static_cast<float*>(dtab);
+  switch (nc) {
+    case 1:
+      return static_cast<int>(
+          launch_bwd_cached<1>(gp, ip, wp, dp, levels, n, nc, rows, s));
+    case 2:
+      return static_cast<int>(
+          launch_bwd_cached<2>(gp, ip, wp, dp, levels, n, nc, rows, s));
+    case 4:
+      return static_cast<int>(
+          launch_bwd_cached<4>(gp, ip, wp, dp, levels, n, nc, rows, s));
+    default:
+      return static_cast<int>(
+          launch_bwd_cached<0>(gp, ip, wp, dp, levels, n, nc, rows, s));
+  }
 }

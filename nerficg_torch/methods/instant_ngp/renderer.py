@@ -38,8 +38,8 @@ from nerficg_torch.ops.occupancy import (cascade_cell_positions,
                                          downsample_occupancy_block,
                                          downsample_occupancy_cascaded_block,
                                          draw_grid_update, march_rays,
+                                         occupancy_probe_block_aabb_xyz,
                                          occupancy_probe_block_cascaded_xyz,
-                                         occupancy_probe_block_xyz,
                                          update_density_grid)
 from nerficg_torch.ops.sample_sort import permute_block_channels
 
@@ -125,11 +125,9 @@ class InstantNGPRenderer(BaseRenderer):
             return lambda px, py, pz: occupancy_probe_block_cascaded_xyz(
                 grid_binary, px, py, pz, model.center, float(model.SCALE),
                 res, self._cascades, self._cap_blocks)
-        amin, amax = model.aabb_min, model.aabb_max
-        return lambda px, py, pz: occupancy_probe_block_xyz(
-            grid_binary, (px - amin[0]) / (amax[0] - amin[0]),
-            (py - amin[1]) / (amax[1] - amin[1]),
-            (pz - amin[2]) / (amax[2] - amin[2]), res, self._cap_blocks)
+        return lambda px, py, pz: occupancy_probe_block_aabb_xyz(
+            grid_binary, px, py, pz, model.aabb_min, model.aabb_max, res,
+            self._cap_blocks)
 
     def _render_rays_impl(self, grid_binary: torch.Tensor,
                           origins: torch.Tensor, directions: torch.Tensor,

@@ -46,6 +46,7 @@ _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_F = ctypes.c_float
 # C signature of every entry point (all return int = cudaError_t).
 _SIGNATURES = {
     'nerficg_hash_window_fwd': [_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -60,6 +61,7 @@ _SIGNATURES = {
     'nerficg_hash_xbar_fwd': [_P] * 8 + [_I] * 6 + [_U, _P],
     'nerficg_hash_xbar_bwd_fused': [_P] * 9 + [_I] * 6 + [_U, _P],
     'nerficg_block_probe': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    'nerficg_block_probe_xyz': [_P] * 7 + [_I] * 6 + [_F, _F, _P],
     'nerficg_seg_gather': [_P, _P, _P, _I, _I, _I, _I, _P],
     'nerficg_seg_scatter_add': [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     'nerficg_gs_composite_fwd': [_P] * 5 + [_I] * 4 + [_P],

@@ -21,7 +21,9 @@ beside each, the same function in plain PyTorch):
     saving each corner's flat index and weight;
   * ``hash_window_bwd``: the exact table gradient (#2 ``_bwd_kernel`` :526);
   * ``hash_window_bwd_cached``: the table gradient from the saved streams
-    (#3 ``_bwd_kernel_cached`` :630).
+    (#3 ``_bwd_kernel_cached`` :630): each level's gradient accumulated
+    in shared memory by 16 blocks, each adding its non-zero quads to the
+    table; tables past a block's shared memory add to the table directly.
 ``hash_encode_win`` and ``hash_encode_win_stochastic`` are the
 differentiable entry points (``torch.autograd.Function``s), gradients to the
 table only.

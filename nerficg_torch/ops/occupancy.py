@@ -16,6 +16,12 @@ a counter hash of their flat (ray, step) index (``_hash_jitter``).
 
 Both sorts are stable, as ``jax.lax.sort`` is: equal morton keys keep their
 block order, which fixes the compaction when the budget truncates.
+
+The renderer's probes (``occupancy_probe_block_cascaded_xyz`` and
+``occupancy_probe_block_aabb_xyz``) go through ``block_probe_xyz``: on
+CUDA tensors one launch of the kernel of csrc/block_probe.cu that
+computes the cells from the world planes in registers, bit for bit as the
+plain composition computes them; on CPU tensors that composition.
 """
 
 from __future__ import annotations
@@ -23,18 +29,26 @@ from __future__ import annotations
 import math
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from nerficg_torch.core.errors import KernelError
+from nerficg_torch.ops import _kernels
 from nerficg_torch.ops.counter_rng import M32, mul32
 from nerficg_torch.ops.hash_mxu import gather_d, scatter_add_d
 from nerficg_torch.ops.hash_window import morton_keys_xyz
 from nerficg_torch.ops.xbar_gather import (block_probe_cells,
+                                           block_probe_cells_plain,
+                                           block_table_rows,
                                            build_block_bitfield)
 
 __all__ = ['MarchResults', 'march_rays', 'composite_packed', 'GridDraws',
            'draw_grid_update', 'update_density_grid',
            'downsample_occupancy_block', 'downsample_occupancy_cascaded_block',
            'occupancy_probe_block_xyz', 'occupancy_probe_block_cascaded_xyz',
+           'occupancy_probe_block_cascaded_xyz_plain',
+           'occupancy_probe_block_aabb_xyz',
+           'occupancy_probe_block_aabb_xyz_plain', 'block_probe_xyz',
            'num_cascades', 'cascade_cell_positions']
 
 
@@ -475,16 +489,110 @@ def _cascade_cell_coords(px, py, pz, center, max_half, resolution, cascades):
             _cell(rz * inv + 0.5, resolution))
 
 
+def occupancy_probe_block_cascaded_xyz_plain(
+        table: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+        pz: torch.Tensor, center: torch.Tensor, max_half: float,
+        resolution: int, cascades: int, cap_blocks: int) -> torch.Tensor:
+    """The cascaded probe in plain PyTorch: ``_cascade_cell_coords``, then
+    ``block_probe_cells_plain``."""
+    c, cx, cy, cz = _cascade_cell_coords(px, py, pz, center, max_half,
+                                         resolution, cascades)
+    return block_probe_cells_plain(table, cx, cy, cz, c, resolution,
+                                   cap_blocks, num_grids=cascades)
+
+
+def occupancy_probe_block_aabb_xyz_plain(
+        table: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+        pz: torch.Tensor, aabb_min: torch.Tensor, aabb_max: torch.Tensor,
+        resolution: int, cap_blocks: int) -> torch.Tensor:
+    """The single-grid probe in plain PyTorch: the unit coordinates
+    ``(p - aabb_min) / (aabb_max - aabb_min)`` per axis (the JAX renderer's
+    composition, nerficg_tpu/methods/instant_ngp/renderer.py:178-183), their
+    cells, then ``block_probe_cells_plain``."""
+    units = [(p - aabb_min[d]) / (aabb_max[d] - aabb_min[d])
+             for d, p in enumerate((px, py, pz))]
+    return block_probe_cells_plain(table, *(_cell(u, resolution)
+                                            for u in units),
+                                   0, resolution, cap_blocks)
+
+
+def block_probe_xyz(table: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                    pz: torch.Tensor, geo0: torch.Tensor, geo1: torch.Tensor,
+                    resolution: int, cap_blocks: int, cascades: int,
+                    max_half: float = 0.0) -> torch.Tensor:
+    """The block-bitfield probe from world-coordinate planes in one launch
+    (``nerficg_block_probe_xyz`` of csrc/block_probe.cu, which replaces the
+    TPU kernel nerficg_tpu/ops/xbar_gather.py:36 at the marcher's probes):
+    cascaded for ``cascades`` > 0 (geo0 = the grid's center, ``max_half``
+    its half-extent), else one grid over [geo0, geo1] = [aabb_min,
+    aabb_max]. Returns bool of ``px``'s shape.
+
+    CUDA tensors launch the hand-written kernel; CPU tensors take the plain
+    composition of the mode."""
+    if px.device.type == 'cpu':
+        if cascades > 0:
+            return occupancy_probe_block_cascaded_xyz_plain(
+                table, px, py, pz, geo0, max_half, resolution, cascades,
+                cap_blocks)
+        return occupancy_probe_block_aabb_xyz_plain(
+            table, px, py, pz, geo0, geo1, resolution, cap_blocks)
+    name = 'block_probe_xyz'
+    shape = px.shape
+    px, py, pz = (t.reshape(-1) for t in (px, py, pz))
+    _kernels.require_cuda(name, table, px, py, pz, geo0, geo1,
+                          dtypes=(torch.int32,) + (torch.float32,) * 5)
+    if py.shape != px.shape or pz.shape != px.shape:
+        raise KernelError(f'{name}: coordinate planes differ in shape')
+    if geo0.numel() != 3 or geo1.numel() != 3:
+        raise KernelError(f'{name}: the center or box corners must have 3 '
+                          'entries')
+    cr, rr, fr = block_table_rows(resolution, cap_blocks, max(cascades, 1))
+    if table.shape != (cr + rr + fr, 128):
+        raise KernelError(f'{name}: table must be ({cr + rr + fr}, 128), got '
+                          f'{tuple(table.shape)}')
+    # m / base_half, a CUDA tensor divided by a Python float, is PyTorch's
+    # product with the f32 reciprocal of f32(base_half); (2 * base_half) *
+    # exp2(c) multiplies by f32(2 * base_half).
+    base_half = max_half / (2 ** (cascades - 1)) if cascades > 0 else 1.0
+    inv_base_half = float(np.float32(1.0) / np.float32(base_half))
+    two_base_half = float(np.float32(2.0 * base_half))
+    n = px.shape[0]
+    out = torch.empty(n, dtype=torch.uint8, device=px.device)
+    code = _kernels.load_library().nerficg_block_probe_xyz(
+        table.data_ptr(), px.data_ptr(), py.data_ptr(), pz.data_ptr(),
+        geo0.data_ptr(), geo1.data_ptr(), out.data_ptr(), n, resolution,
+        cap_blocks, cr, rr, cascades, inv_base_half, two_base_half,
+        _kernels.stream_of(px))
+    _kernels.check(code, name)
+    block_probe_xyz.launches += 1
+    return out.view(torch.bool).reshape(shape)
+
+
+block_probe_xyz.launches = 0
+
+
 def occupancy_probe_block_cascaded_xyz(table: torch.Tensor, px: torch.Tensor,
                                        py: torch.Tensor, pz: torch.Tensor,
                                        center: torch.Tensor, max_half: float,
                                        resolution: int, cascades: int,
                                        cap_blocks: int) -> torch.Tensor:
-    """Cascaded block-bitfield probe from world-coordinate planes."""
-    c, cx, cy, cz = _cascade_cell_coords(px, py, pz, center, max_half,
-                                         resolution, cascades)
-    return block_probe_cells(table, cx, cy, cz, c, resolution, cap_blocks,
-                             num_grids=cascades)
+    """Cascaded block-bitfield probe from world-coordinate planes: one
+    ``block_probe_xyz`` launch on CUDA tensors,
+    ``occupancy_probe_block_cascaded_xyz_plain`` on CPU ones."""
+    return block_probe_xyz(table, px, py, pz, center, center, resolution,
+                           cap_blocks, cascades, max_half)
+
+
+def occupancy_probe_block_aabb_xyz(table: torch.Tensor, px: torch.Tensor,
+                                   py: torch.Tensor, pz: torch.Tensor,
+                                   aabb_min: torch.Tensor,
+                                   aabb_max: torch.Tensor, resolution: int,
+                                   cap_blocks: int) -> torch.Tensor:
+    """Single-grid block-bitfield probe from world-coordinate planes over
+    the box [aabb_min, aabb_max]: one ``block_probe_xyz`` launch on CUDA
+    tensors, ``occupancy_probe_block_aabb_xyz_plain`` on CPU ones."""
+    return block_probe_xyz(table, px, py, pz, aabb_min, aabb_max, resolution,
+                           cap_blocks, 0)
 
 
 def num_cascades(scale: float) -> int:

@@ -80,7 +80,23 @@ Run as a script it answers these questions on the card:
       morton-sorted and unsorted, every output held to the first variant's
       bit for bit, then each level alone; the
       window encode also over 8,192-131,072 samples and its stochastic
-      forward (4 corners, saved streams held to the first variant's).
+      forward (4 corners, saved streams held to the first variant's);
+  python -m nerficg_torch.scripts.kernel_timing window-bwd \\
+      --variant NAME=PATH/hash_window.cu[:kBwdLevelBlocks=N] ...
+      times the cached window table gradient (#3) from the stochastic
+      forward's saved streams: phase 2's 65,536 morton-sorted samples x 4
+      corners on the 2^14 table, 262,144 samples, 1 and 2 corners, unsorted
+      samples and a 2^16 table (the global path), each variant against the
+      plain version, beside ``index_add_`` of the precomputed products;
+  python -m nerficg_torch.scripts.kernel_timing probe
+      times the marcher's occupancy probe as ``march_rays`` calls it: the
+      parent's composition (PyTorch operations, then ``block_probe_cells``)
+      against the one-launch world-plane kernel at the candidate pass's
+      344,064 probes and a serving chunk's 196,608 samples, cascaded and
+      over one grid (device and host ms, the card's operations per call),
+      how the card divides a tensor by a Python float, then the plain
+      cascade and cells on the card against the CPU at every cascade and
+      cell boundary +-1 ulp.
 A variant's ``:CONST=VALUE`` list sets those ``constexpr int`` constants of
 its source before the build (a copy under build/ab/).
 
@@ -99,7 +115,8 @@ import time
 from pathlib import Path
 
 __all__ = ['device_ms', 'host_ms', 'events_ms', 'gs_model', 'orbit_view',
-           'gs_frame', 'gs_pair_counts']
+           'gs_frame', 'gs_pair_counts', 'boundary_values', 'probe_points',
+           'index_add_call']
 
 _OUT = Path('build') / 'kernel_timing'
 
@@ -1650,6 +1667,317 @@ def encode_fwd(kind: str, variants: dict[str, tuple],
     return report
 
 
+def _window_streams(n: int, nc: int, rows: int, sort: bool, seed: int):
+    """A training step's inputs of #3 on the card: the stochastic forward's
+    saved (16, nc, n) streams on a (16, 2, rows, 128) table (rows 128: the
+    library's 2^14; 512: 2^16), samples uniform in [0.2, 0.8]^3,
+    morton-sorted or not, and a normal cotangent (32, n)."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.ops import hash_window as hw
+    from nerficg_torch.ops.hashgrid import HashGridConfig
+
+    config = HashGridConfig(num_levels=16, features_per_level=2,
+                            log2_table_size={128: 14, 512: 16}[rows],
+                            base_resolution=16, target_resolution=2048,
+                            anchor_stride=8)
+    rng = np.random.default_rng(seed)
+    dev = torch.device('cuda')
+    table = torch.from_numpy(rng.uniform(-1, 1, (16, 2, rows, 128)).astype(
+        np.float32)).to(dev)
+    pos = torch.from_numpy(rng.uniform(0.2, 0.8, (n, 3)).astype(
+        np.float32)).to(dev)
+    if sort:
+        pos = pos[torch.sort(hw.morton_sort_keys(pos), stable=True).indices]
+    pos = pos.contiguous()
+    lo, win = hw.window_bases(pos, config)
+    _, idx, w = hw.hash_window_fwd_stoch(table, pos, lo, win, config, nc,
+                                         0x9E3779B9, save=True)
+    g = torch.from_numpy(rng.normal(size=(32, n)).astype(np.float32)).to(dev)
+    return g, idx, w
+
+
+def _window_bwd_call(lib, g, idx, w, rows):
+    """A variant's cached table gradient as the wrapper runs it: the
+    allocation and the ctypes call (the same entry in the parent)."""
+    import torch
+    levels, nc, n = idx.shape
+
+    def call():
+        d = torch.empty((levels, 2, rows, 128), device=g.device)
+        _checked(lib.nerficg_hash_window_bwd_cached(
+            g.data_ptr(), idx.data_ptr(), w.data_ptr(), d.data_ptr(), levels,
+            n, nc, rows, torch.cuda.current_stream().cuda_stream))
+        return d
+    return call
+
+
+def index_add_call(g, idx, w, rows):
+    """One ``index_add_`` of the precomputed products g * w into a zeroed
+    (L, 2, rows, 128) plane: #3's function as one library call (the
+    products are made here, outside the timed call)."""
+    import torch
+    levels, nc, n = idx.shape
+    entries = rows * 128
+    base = (torch.arange(2 * levels, device=g.device) * entries).reshape(
+        levels, 2, 1, 1)
+    flat = (base + idx.long()[:, None]).reshape(-1)
+    prods = (g.reshape(levels, 2, 1, n) * w[:, None]).reshape(-1)
+
+    def call():
+        out = torch.zeros(levels * 2 * entries, device=g.device)
+        return out.index_add_(0, flat, prods)
+    return call
+
+
+def window_bwd(variants: dict[str, tuple], rounds: int = 3) -> dict:
+    """Each variant's cached window table gradient (#3) from the stochastic
+    forward's saved streams: phase 2's 65,536 morton-sorted samples x 4
+    corners on the library's (16, 2, 128, 128) table, 262,144 samples, 1 and
+    2 corners, a 2^16 table (512 rows, past a block's shared memory: the
+    global path) and unsorted samples. Each variant against the plain
+    version (rtol 1e-4 / atol 1e-5 x max, atomics), then device time (CUDA
+    graph of 20 calls) in turns with ``index_add_`` of the precomputed
+    products into a zeroed plane (``library``), and the host's ms per call.
+    Block shapes are variants: ``NAME=PATH:kBwdLevelBlocks=N``."""
+    import torch
+
+    from nerficg_torch.ops import hash_window as hw
+
+    card = _card()
+    libs = {}
+    report = {'card': card, 'ptxas': {}, 'inputs': {}}
+    for name, (source, overrides) in variants.items():
+        libs[name], ptxas = _build_variant(
+            name, source, ('nerficg_hash_window_bwd_cached',), overrides)
+        report['ptxas'][name] = ptxas
+        print(f'window-bwd: {name} ({source} {overrides or ""}) ptxas:\n'
+              f'{ptxas}', flush=True)
+    cases = [('65,536 sorted, 4 corners', 65536, 4, 128, True),
+             ('262,144 sorted, 4 corners', 262144, 4, 128, True),
+             ('65,536 sorted, 2 corners', 65536, 2, 128, True),
+             ('65,536 sorted, 1 corner', 65536, 1, 128, True),
+             ('65,536 unsorted, 4 corners', 65536, 4, 128, False),
+             ('2^16 table, 65,536 sorted, 4 corners', 65536, 4, 512, True)]
+    for label, n, nc, rows, sort in cases:
+        g, idx, w = _window_streams(n, nc, rows, sort, seed=n + nc + rows)
+        want = hw.hash_window_bwd_cached_plain(g, idx, w, rows)
+        calls = {name: _window_bwd_call(lib, g, idx, w, rows)
+                 for name, lib in libs.items()}
+        calls['library'] = index_add_call(g, idx, w, rows)
+        entry = {'n': n, 'nc': nc, 'rows': rows, 'sorted': sort,
+                 'variants': {}}
+        for name, call in calls.items():
+            got = call().reshape(want.shape)
+            torch.cuda.synchronize()
+            entry['variants'][name] = {
+                'max_abs_err': float((got - want).abs().max()),
+                'close': bool(torch.allclose(
+                    got, want, rtol=1e-4,
+                    atol=1e-5 * float(want.abs().max())))}
+        ms = _turns(calls, rounds)
+        for name, call in calls.items():
+            v = entry['variants'][name]
+            v['ms'] = ms[name]
+            v['host_ms'], v['enqueue_ms'] = host_ms(call)
+            print(f'window-bwd {label}: {name}: device ms ' +
+                  ', '.join(f'{t:.4f}' for t in ms[name]) +
+                  f' (median {_median(ms[name]):.4f}), host '
+                  f'{v["host_ms"]:.4f} ms per call (enqueue '
+                  f'{v["enqueue_ms"]:.4f}); max_abs_err '
+                  f'{v["max_abs_err"]:.3e} '
+                  f'{"ok" if v["close"] else "MISMATCH"} [{card}]',
+                  flush=True)
+        report['inputs'][label] = entry
+    return report
+
+
+def _device_ops(fn) -> int:
+    """The card's operations (kernels, copies, memsets) in one warm
+    ``fn()``, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, 'is_user_annotation', False))
+
+
+def boundary_values(scale: float, cascades: int, res: int,
+                    center: float = 0.0):
+    """f32 coordinates along one axis of every cascade boundary and every
+    cell boundary of every cascade of a grid about ``center`` with
+    half-extent ``scale`` (one cascade: the single grid over [center -
+    scale, center + scale]), each with its neighbours one ulp below and
+    above."""
+    import numpy as np
+    base = scale / 2 ** (cascades - 1)
+    j = np.arange(res + 1, dtype=np.float32) / np.float32(res)
+    edges = np.concatenate([np.float32(center) + (j - np.float32(0.5))
+                            * np.float32(2.0) * np.float32(base * 2 ** k)
+                            for k in range(cascades)]).astype(np.float32)
+    return np.concatenate([edges, np.nextafter(edges, np.float32(-np.inf)),
+                           np.nextafter(edges, np.float32(np.inf))])
+
+
+def probe_points(n: int, scale: float, seed: int, edges=None):
+    """n world points as ``march_rays`` probes them in a served frame at
+    ``scale``: along rays from a ring of cameras at 2.5 scale toward the box
+    (the candidate pass's (rays, probes) planes or the expanded samples'
+    (blocks, 8)), as three (n // 8, 8) f32 planes on the card. With
+    ``edges`` (``boundary_values``), the last len(edges) points each take
+    one of them on one axis (cycling x, y, z)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    rays = n // 8
+    ang = rng.uniform(0, 2 * np.pi, rays)
+    origins = np.stack([2.5 * scale * np.sin(ang),
+                        rng.uniform(-0.5, 0.5, rays) * scale,
+                        2.5 * scale * np.cos(ang)], -1)
+    target = rng.uniform(-0.6, 0.6, (rays, 3)) * scale
+    d = target - origins
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = 1.5 * scale + np.sort(rng.uniform(0, 2.0 * scale, (rays, 8)), 1)
+    p = (origins[:, None] + d[:, None] * t[..., None]).astype(
+        np.float32).reshape(-1, 3)
+    if edges is not None:
+        k = np.arange(len(edges))
+        p[len(p) - len(edges) + k, k % 3] = edges
+    return [torch.from_numpy(np.ascontiguousarray(
+        p[:, d].reshape(rays, 8))).cuda() for d in range(3)]
+
+
+def probe(rounds: int = 3) -> dict:
+    """The marcher's occupancy probe as ``march_rays`` calls it at SCALE
+    1.0 (2 cascades of 128^3, cap 2048 blocks, a shell-shaped grid): the
+    parent's composition (``_cascade_cell_coords``' PyTorch operations,
+    then ``block_probe_cells``) against the world-plane kernel
+    (``occupancy_probe_block_cascaded_xyz``, one launch), at the candidate
+    pass's 344,064 probes (1536 rays x 32 blocks x 7) and a serving chunk's
+    196,608 expanded samples; then the single-grid form (SCALE 0.5) the
+    same way. Outputs held equal, device ms (CUDA graph of 20 calls) in
+    turns, host ms per call, the card's operations per call; how the card
+    divides a tensor by a Python float (against the product with the f32
+    reciprocal and the f32 quotient); and the plain composition on the card
+    against the CPU's on points at cascade and cell boundaries +-1 ulp
+    (SCALE 0.7, 1.0, 1.5, 3.0)."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.ops import occupancy as occ
+    from nerficg_torch.ops.xbar_gather import (block_probe_cells,
+                                               build_block_bitfield)
+
+    card = _card()
+    report = {'card': card, 'shapes': {}, 'card_vs_cpu': {}}
+    res, cap = 128, 2048
+    for scale, cascades in ((1.0, 2), (0.5, 1)):
+        idx = (np.arange(res, dtype=np.float32) + 0.5) / res
+        flags = []
+        for c in range(cascades):
+            half = scale / 2 ** (cascades - 1) * 2 ** c
+            ax = (idx - 0.5) * 2.0 * half
+            x, y, z = np.meshgrid(ax, ax, ax, indexing='ij')
+            r = np.sqrt(x * x + y * y + z * z)
+            flags.append((np.abs(r - 0.8 * scale) <= 4.0 * 2.0 * half / res
+                          ).reshape(-1))
+        table = build_block_bitfield(
+            torch.from_numpy(np.concatenate(flags)).cuda(), res, cap,
+            num_grids=cascades)
+        center = torch.zeros(3, device='cuda')
+        amin, amax = center - scale, center + scale
+        for label, n in (('candidate pass', 1536 * 32 * 7),
+                         ('serving chunk samples', 196608)):
+            px, py, pz = probe_points(n, scale, seed=n)
+            if cascades > 1:
+                def composition():
+                    c, cx, cy, cz = occ._cascade_cell_coords(
+                        px, py, pz, center, scale, res, cascades)
+                    return block_probe_cells(table, cx, cy, cz, c, res, cap,
+                                             num_grids=cascades)
+
+                def kernel():
+                    return occ.occupancy_probe_block_cascaded_xyz(
+                        table, px, py, pz, center, scale, res, cascades, cap)
+            else:
+                def composition():
+                    return occ.occupancy_probe_block_xyz(
+                        table, (px - amin[0]) / (amax[0] - amin[0]),
+                        (py - amin[1]) / (amax[1] - amin[1]),
+                        (pz - amin[2]) / (amax[2] - amin[2]), res, cap)
+
+                def kernel():
+                    return occ.occupancy_probe_block_aabb_xyz(
+                        table, px, py, pz, amin, amax, res, cap)
+            calls = {'parent composition': composition, 'kernel': kernel}
+            equal = bool(torch.equal(composition(), kernel()))
+            ms = _turns(calls, rounds)
+            tag = f'SCALE {scale} ({cascades} cascade(s)), {label} {n}'
+            entry = {'equal': equal, 'calls': {}}
+            for name, call in calls.items():
+                host, enqueue = host_ms(call)
+                entry['calls'][name] = {'ms': ms[name], 'host_ms': host,
+                                        'enqueue_ms': enqueue,
+                                        'device_ops': _device_ops(call)}
+                e = entry['calls'][name]
+                print(f'probe {tag}: {name}: device ms ' +
+                      ', '.join(f'{t:.4f}' for t in ms[name]) +
+                      f' (median {_median(ms[name]):.4f}), host '
+                      f'{host:.4f} ms per call (enqueue {enqueue:.4f}), '
+                      f'{e["device_ops"]} device ops per call; outputs '
+                      f'{"equal" if equal else "DIFFER"} [{card}]',
+                      flush=True)
+            report['shapes'][tag] = entry
+    # How the card divides a tensor by a Python float (m / base_half in the
+    # cascade): against the product with the f32 reciprocal, which the
+    # kernel computes, and the f32 quotient.
+    rng = np.random.default_rng(5)
+    m = rng.uniform(0.0, 4.0, 1 << 20).astype(np.float32)
+    for base_half in (0.35, 0.75, 1.5):
+        card_q = (torch.from_numpy(m).cuda() / base_half).cpu().numpy()
+        recip = m * (np.float32(1.0) / np.float32(base_half))
+        quot = m / np.float32(base_half)
+        report['card_vs_cpu'][f'm / {base_half}'] = {
+            'points': int(m.size),
+            'equal_reciprocal_product': int((card_q == recip).sum()),
+            'equal_quotient': int((card_q == quot).sum())}
+        print(f'probe: m / {base_half} on the card over {m.size} f32 m in '
+              f'[0, 4): equal to m * f32(1 / {base_half}) at '
+              f'{int((card_q == recip).sum())}, to the f32 quotient at '
+              f'{int((card_q == quot).sum())} [{card}]', flush=True)
+    # The plain composition on the card against the CPU's, at boundaries.
+    for scale in (0.7, 1.0, 1.5, 3.0):
+        cascades = occ.num_cascades(scale)
+        vals = boundary_values(scale, cascades, res)
+        p = rng.uniform(-1.3 * scale, 1.3 * scale, (3, 3 * len(vals))
+                        ).astype(np.float32)
+        for d in range(3):
+            p[d, d * len(vals):(d + 1) * len(vals)] = vals
+        cpu = occ._cascade_cell_coords(*map(torch.from_numpy, p),
+                                       torch.zeros(3), scale, res, cascades)
+        gpu = occ._cascade_cell_coords(
+            *(torch.from_numpy(a).cuda() for a in p),
+            torch.zeros(3, device='cuda'), scale, res, cascades)
+        diff = torch.zeros(p.shape[1], dtype=torch.bool)
+        for a, b in zip(cpu, gpu):
+            diff |= a != b.cpu()
+        where = np.flatnonzero(diff.numpy())
+        report['card_vs_cpu'][scale] = {
+            'points': int(p.shape[1]), 'differ': int(len(where)),
+            'examples': p[:, where[:5]].T.tolist()}
+        print(f'probe SCALE {scale}: the plain cascade and cells on the card '
+              f'against the CPU at {p.shape[1]} boundary points: '
+              f'{len(where)} differ, e.g. {p[:, where[:3]].T.tolist()} '
+              f'[{card}]', flush=True)
+    return report
+
+
 def _parse_variant(spec: str) -> tuple[str, tuple[Path, dict]]:
     """NAME=PATH[:CONST=VALUE,...] -> (NAME, (PATH, {CONST: VALUE}))."""
     name, rest = spec.split('=', 1)
@@ -1663,7 +1991,8 @@ def main(argv=None) -> None:
     parser.add_argument('what', choices=('wrappers', 'gs-bwd', 'gs-fwd',
                                          'xbar-bwd', 'xbar-fwd',
                                          'seg-scatter', 'cell-bwd',
-                                         'cell-fwd', 'window-fwd'))
+                                         'cell-fwd', 'window-fwd',
+                                         'window-bwd', 'probe'))
     parser.add_argument('--root', default=None,
                         help='import nerficg_torch from this checkout')
     parser.add_argument('--variant', action='append', default=[],
@@ -1671,7 +2000,8 @@ def main(argv=None) -> None:
                         '(gs-bwd, gs-fwd), a hash_xbar.cu (xbar-bwd, '
                         'xbar-fwd), a seg_ops.cu (seg-scatter), a '
                         'hash_cell.cu (cell-bwd, cell-fwd) or a '
-                        'hash_window.cu (window-fwd), its constexpr int '
+                        'hash_window.cu (window-fwd, window-bwd), its '
+                        'constexpr int '
                         'CONSTs set to VALUEs')
     parser.add_argument('--capture', default=str(_OUT / 'dnerf_capture.pt'),
                         help='the captured D-NeRF step (xbar-bwd, xbar-fwd)')
@@ -1685,6 +2015,9 @@ def main(argv=None) -> None:
         tag = Path(args.root).name if args.root else 'this'
         _write(f'wrappers_{tag}.json', wrappers())
         return
+    if args.what == 'probe':
+        _write('probe.json', probe())
+        return
     variants = dict(map(_parse_variant, args.variant))
     if args.what == 'gs-bwd':
         _write('gs_bwd_ab.json', gs_bwd(variants))
@@ -1696,6 +2029,8 @@ def main(argv=None) -> None:
         _write('seg_scatter_ab.json', seg_scatter(variants))
     elif args.what == 'cell-bwd':
         _write('cell_bwd_ab.json', cell_bwd(variants))
+    elif args.what == 'window-bwd':
+        _write('window_bwd_ab.json', window_bwd(variants))
     elif args.what in ('cell-fwd', 'window-fwd'):
         kind = args.what.split('-')[0]
         _write(f'{kind}_fwd_ab.json', encode_fwd(kind, variants))

@@ -14,6 +14,7 @@ from nerficg_torch.core.errors import KernelError
 from nerficg_torch.ops import (gs_rasterize, gs_tiles_kernel, hash_cell,
                                hash_mxu, hash_window, hash_xbar, xbar_gather)
 from nerficg_torch.ops.hashgrid import HashGridConfig
+from nerficg_torch.scripts.kernel_timing import boundary_values
 
 pytestmark = pytest.mark.cuda
 
@@ -195,6 +196,98 @@ def test_hash_window_bwd_cached(cuda):
     _close_to_scatter(hash_window.hash_window_bwd_cached(g, idx, w, 128),
                       hash_window.hash_window_bwd_cached_plain(g, idx, w,
                                                                128))
+
+
+def _cached_streams(cuda, n, nc, rows, sort, seed):
+    """The stochastic forward's saved (16, nc, n) streams on a (16, 2, rows,
+    128) table (rows 128: the library's 2^14, each level in one block's
+    shared memory; 512: 2^16, the global path), samples morton-sorted or
+    not, nc 8 as two 4-corner streams stacked (the run-time corner count),
+    and a cotangent with its last 3000 samples and a random tenth of the
+    others zero (padding)."""
+    cfg = HashGridConfig(num_levels=16, features_per_level=2,
+                         log2_table_size={128: 14, 512: 16}[rows],
+                         base_resolution=16, target_resolution=2048,
+                         anchor_stride=8)
+    rng = np.random.default_rng(seed)
+    table = torch.tensor(rng.uniform(-1, 1, (16, 2, rows, 128)),
+                         dtype=torch.float32, device=cuda)
+    pos = torch.tensor(rng.uniform(0.2, 0.8, (n, 3)), dtype=torch.float32,
+                       device=cuda)
+    if sort:
+        pos = pos[torch.sort(hash_window.morton_sort_keys(pos)).indices]
+    pos = pos.contiguous()
+    lo, win = hash_window.window_bases(pos, cfg)
+    streams = [hash_window.hash_window_fwd_stoch(
+        table, pos, lo, win, cfg, min(nc, 4), seed + k, save=True)[1:]
+        for k in range(max(nc // 4, 1))]
+    idx = torch.cat([i for i, _ in streams], 1).contiguous()
+    w = torch.cat([wt for _, wt in streams], 1).contiguous()
+    g = rng.normal(size=(32, n)).astype(np.float32)
+    g[:, n - 3000:] = 0.0
+    g[:, rng.uniform(size=n) < 0.1] = 0.0
+    return torch.from_numpy(g).to(cuda), idx, w
+
+
+@pytest.mark.parametrize('n, nc, rows, sort', [
+    *[(n, nc, 128, True) for n in (8192, 65536, 262144) for nc in (1, 2, 4)],
+    (65536, 1, 512, True), (65536, 4, 512, True), (65536, 4, 128, False),
+    (65536, 4, 512, False), (65536, 8, 128, True), (65536, 8, 512, True)])
+def test_hash_window_bwd_cached_paths(cuda, n, nc, rows, sort):
+    """#3 on the level-resident path (128 rows) and the global one (512),
+    against its plain version: atomics in another order."""
+    g, idx, w = _cached_streams(cuda, n, nc, rows, sort, seed=n + nc + rows)
+    _close_to_scatter(hash_window.hash_window_bwd_cached(g, idx, w, rows),
+                      hash_window.hash_window_bwd_cached_plain(g, idx, w,
+                                                               rows))
+
+
+def _probe_points(cuda, center, half, res, cascades, n=60000, seed=0):
+    """World planes on the card as (rays, 8): random points within 1.3 half
+    of the center (some outside the box), then one axis set to every
+    cascade boundary and cell boundary (of each cascade) +-1 ulp."""
+    rng = np.random.default_rng(seed)
+    center = np.asarray(center, np.float32)
+    edges = [boundary_values(half, cascades, res, c) for c in center]
+    m = -(-(n + sum(map(len, edges))) // 8) * 8
+    p = (center[:, None] + rng.uniform(-1.3 * half, 1.3 * half, (3, m))
+         ).astype(np.float32)
+    at = n
+    for d, vals in enumerate(edges):
+        p[d, at:at + len(vals)] = vals
+        at += len(vals)
+    return [torch.from_numpy(a).to(cuda).reshape(-1, 8) for a in p]
+
+
+@pytest.mark.parametrize('cascades, scale', [(1, 1.0), (2, 1.0), (2, 0.7),
+                                             (3, 1.5), (4, 3.0), (0, 0.5),
+                                             (0, 0.7)])
+def test_block_probe_xyz(cuda, cascades, scale):
+    """The world-plane probe (one launch) bit-equal to its plain version on
+    the card, cascaded (cascades > 0) and single-grid (0), at cascade and
+    cell boundaries +-1 ulp and outside the box."""
+    from nerficg_torch.ops import occupancy
+    res, cap, grids = 32, 256, max(cascades, 1)
+    rng = np.random.default_rng(cascades)
+    flags = torch.tensor(rng.uniform(size=grids * res ** 3) < 0.4,
+                         device=cuda)
+    table = xbar_gather.build_block_bitfield(flags, res, cap, grids)
+    center = torch.tensor([0.1, -0.2, 0.05], device=cuda)
+    launches = occupancy.block_probe_xyz.launches
+    if cascades > 0:
+        p = _probe_points(cuda, center.cpu().numpy(), scale, res, cascades)
+        args = (table, *p, center, scale, res, cascades, cap)
+        got = occupancy.occupancy_probe_block_cascaded_xyz(*args)
+        want = occupancy.occupancy_probe_block_cascaded_xyz_plain(*args)
+    else:
+        amin, amax = center - scale, center + scale
+        p = _probe_points(cuda, center.cpu().numpy(), scale, res, 1)
+        args = (table, *p, amin, amax, res, cap)
+        got = occupancy.occupancy_probe_block_aabb_xyz(*args)
+        want = occupancy.occupancy_probe_block_aabb_xyz_plain(*args)
+    assert occupancy.block_probe_xyz.launches == launches + 1
+    assert got.shape == p[0].shape and got.dtype == torch.bool
+    assert torch.equal(got, want)
 
 
 # The cell encode at the reference's 2^19 entries (configs/ingp_parity.yaml)

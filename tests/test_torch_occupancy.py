@@ -316,3 +316,52 @@ def test_update_density_grid_matches(warmup, key, cascades):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
     assert not np.array_equal(np.asarray(want), grid * 0.95)
+
+
+@pytest.mark.parametrize('scale', [0.5, 1.0])
+def test_march_rays_through_the_probe_op_matches_its_composition(scale):
+    """``march_rays`` with the renderer's probe op (one
+    ``block_probe_xyz`` per probe on a card) against the same march with
+    the composition the renderer called before it (cells computed by
+    PyTorch operations, then ``block_probe_cells``): every field of the
+    ``MarchResults`` equal. One grid at scale 0.5, two cascades at 1.0."""
+    cascades = tocc.num_cascades(scale)
+    res, cap = 32, 128
+    flags = torch.from_numpy(_grid(res, cascades, scale))
+    if cascades > 1:
+        table = tocc.downsample_occupancy_cascaded_block(
+            flags.float() * 100.0, res, res, 1.0, cascades, cap)
+    else:
+        table = tocc.downsample_occupancy_block(flags.float() * 100.0, res,
+                                                res, 1.0, cap)
+    origins, dirs = map(torch.from_numpy, _rays(256))
+    amin = torch.full((3,), -scale)
+    amax = torch.full((3,), scale)
+    center = torch.zeros(3)
+
+    def composition(px, py, pz):
+        if cascades > 1:
+            c, cx, cy, cz = tocc._cascade_cell_coords(px, py, pz, center,
+                                                      scale, res, cascades)
+            return tocc.block_probe_cells(table, cx, cy, cz, c, res, cap,
+                                          num_grids=cascades)
+        return tocc.occupancy_probe_block_xyz(
+            table, (px - amin[0]) / (amax[0] - amin[0]),
+            (py - amin[1]) / (amax[1] - amin[1]),
+            (pz - amin[2]) / (amax[2] - amin[2]), res, cap)
+
+    def op(px, py, pz):
+        if cascades > 1:
+            return tocc.occupancy_probe_block_cascaded_xyz(
+                table, px, py, pz, center, scale, res, cascades, cap)
+        return tocc.occupancy_probe_block_aabb_xyz(table, px, py, pz, amin,
+                                                   amax, res, cap)
+
+    kw = dict(max_steps=64, sample_budget=256 * 16, block=8,
+              exponential=cascades > 1, morton=True, probes_per_block=7,
+              seed=11)
+    want = tocc.march_rays(origins, dirs, amin, amax, composition, **kw)
+    got = tocc.march_rays(origins, dirs, amin, amax, op, **kw)
+    assert int(got.num_blocks) > 0
+    for name, a, b in zip(got._fields, got, want):
+        assert torch.equal(a, b), name
