@@ -30,9 +30,11 @@ Phases, each printing its own lines:
      as the wrapper runs it
      (each level's windows and the share of blocks that keep theirs in
      shared memory printed) and with level 12 forced onto the
-     global-atomic path; the cached window table gradient (#3) on its
-     level-resident path and on a 2^16 table's global path, beside one
-     index_add_ of the precomputed products; the marcher's probe from
+     global-atomic path; the exact window table gradient (#2) on its
+     level-resident path at 65,536 and 262,144 samples and on a 2^16
+     table's global path, and the cached one (#3) on its level-resident
+     path and the 2^16 table's global path, each beside one index_add_ of
+     the precomputed products; the marcher's probe from
      world planes (block_probe_xyz, one launch) cascaded and over one
      grid, on points along rays and on every cascade and cell boundary
      +-1 ulp, bit-exact, beside the parent's composition of PyTorch
@@ -53,6 +55,11 @@ Phases, each printing its own lines:
      score the test set, and check that the training kernels launched, the
      loss fell and the test PSNR rose by at least 5 dB over the untrained
      model's; then profile one warm training step;
+ 5x. the same config and scene trained the same way with exact corners
+     (MODEL.STOCHASTIC_CORNERS=0, the JAX model's documented exact mode):
+     the exact forward (#1) and the exact table gradient (#2) launched
+     once per step, the same checks, no serving; the profile of one warm
+     step also gives #2's share of its busy time;
   6. the cell encode at the reference's size: configs/ingp_parity.yaml
      (16 levels x 2^19 entries, ENCODING_BACKEND cell, 262,144 samples per
      step) trained the same way for 300 iterations (its 30,000 cut; its
@@ -318,7 +325,7 @@ def phase2_kernels(card: str, window_global_lib) -> dict:
         hash_window_bwd_cached_plain, hash_window_bwd_plain, hash_window_fwd,
         hash_window_fwd_plain, hash_window_fwd_stoch,
         hash_window_fwd_stoch_plain, morton_sort_keys, window_bases,
-        window_fwd_paths, window_layout)
+        window_bwd_path, window_fwd_paths, window_layout)
     from nerficg_torch.ops.hash_xbar import (hash_xbar_bwd,
                                              hash_xbar_bwd_fused,
                                              hash_xbar_bwd_plain,
@@ -341,6 +348,7 @@ def phase2_kernels(card: str, window_global_lib) -> dict:
     from nerficg_torch.scripts.kernel_timing import (boundary_values,
                                                      cell_window_report,
                                                      device_ms, events_ms,
+                                                     exact_index_add_call,
                                                      host_ms, index_add_call,
                                                      probe_points)
 
@@ -632,17 +640,46 @@ def phase2_kernels(card: str, window_global_lib) -> dict:
     def scatter_ok(a, b):
         return bool(torch.allclose(a, b, rtol=1e-4,
                                    atol=1e-5 * float(b.abs().max())))
-    got = hash_window_bwd(g, pos, lo, win, config, 128)
-    record('hash_window_bwd', got,
-           hash_window_bwd_plain(g, pos, lo, win, config, 128), scatter_ok,
-           lambda: hash_window_bwd(g, pos, lo, win, config, 128),
-           lambda: hash_window_bwd_plain(g, pos, lo, win, config, 128),
-           f'g (32,{n}) -> (16,2,128,128), 8 corners',
-           nbytes(g, pos, lo, win, got), 16 * n * 8 * 6)
-    # #3, each level's gradient in one block's shared memory; the library
-    # call is one index_add_ of the products, made before it is timed, into
-    # a zeroed plane. Then a 2^16 table (512 rows a level, past a block's
-    # shared memory: the global path) from the same samples.
+
+    # #2 and #3, each level's gradient in one block's shared memory; the
+    # library call is one index_add_ of the products (#2's: of its 8 exact
+    # corners), made before it is timed, into a zeroed plane. Then a 2^16
+    # table (512 rows a level, past a block's shared memory: the global
+    # path) from the same samples, and #2 at 262,144 samples, from a
+    # generator of its own, so the later inputs stay as they were.
+    def exact(g, pos, lo, win, cfg, rows, plain_iters=50):
+        got = hash_window_bwd(g, pos, lo, win, cfg, rows)
+        n = pos.shape[0]
+        path = window_bwd_path(rows)
+        return dict(record(
+            'hash_window_bwd', got,
+            hash_window_bwd_plain(g, pos, lo, win, cfg, rows), scatter_ok,
+            lambda: hash_window_bwd(g, pos, lo, win, cfg, rows),
+            lambda: hash_window_bwd_plain(g, pos, lo, win, cfg, rows),
+            f'g (32,{n}) -> (16,2,{rows},128), 8 corners, {path} path',
+            nbytes(g, pos, lo, win, got), 16 * n * 8 * 6,
+            exact_index_add_call(g, pos, lo, win, cfg, rows),
+            plain_iters=plain_iters), path=path)
+    cfg16 = HashGridConfig(num_levels=16, features_per_level=2,
+                           log2_table_size=16, base_resolution=16,
+                           target_resolution=2048, anchor_stride=8)
+    lo16, win16 = window_bases(pos, cfg16)
+    line = exact(g, pos, lo, win, config, 128)
+    line[f'global_2^16_{n}'] = exact(g, pos, lo16, win16, cfg16, 512)
+    rng_e = np.random.default_rng(12)
+    n_e = 262144
+    pos_e = torch.from_numpy(rng_e.uniform(0.2, 0.8, (n_e, 3)).astype(
+        np.float32)).to(dev)
+    pos_e = pos_e[torch.sort(morton_sort_keys(pos_e), stable=True).indices]
+    pos_e = pos_e.contiguous()
+    lo_e, win_e = window_bases(pos_e, config)
+    g_e = torch.from_numpy(rng_e.normal(size=(32, n_e)).astype(
+        np.float32)).to(dev)
+    line[f'level_{n_e}'] = exact(g_e, pos_e, lo_e, win_e, config, 128,
+                                 plain_iters=3)
+    report['hash_window_bwd'] = line
+    del pos_e, g_e, lo_e, win_e
+
     def cached(g, s_idx, s_w, rows, label):
         got = hash_window_bwd_cached(g, s_idx, s_w, rows)
         _, nc, n = s_idx.shape
@@ -655,12 +692,8 @@ def phase2_kernels(card: str, window_global_lib) -> dict:
             f'{label}', nbytes(g, s_idx, s_w, got), 16 * n * nc * 6,
             index_add_call(g, s_idx, s_w, rows))
     line = cached(g, s_idx, s_w, 128, 'level-resident')
-    cfg16 = HashGridConfig(num_levels=16, features_per_level=2,
-                           log2_table_size=16, base_resolution=16,
-                           target_resolution=2048, anchor_stride=8)
     table16 = torch.from_numpy(rng.uniform(-1, 1, (16, 2, 512, 128)).astype(
         np.float32)).to(dev)
-    lo16, win16 = window_bases(pos, cfg16)
     _, idx16, w16 = hash_window_fwd_stoch(table16, pos, lo16, win16, cfg16,
                                           4, 0x9E3779B9, save=True)
     line[f'global_2^16_{n}'] = cached(g, idx16, w16, 512, 'global path')
@@ -1165,10 +1198,12 @@ def render_views(run_dir: Path, device: str) -> list[dict]:
             for view in views]
 
 
-def profile_device(fn, label: str, card: str) -> None:
+def profile_device(fn, label: str, card: str,
+                   share_of: str | None = None) -> None:
     """torch.profiler over one warm call of ``fn``: wall time, the card's
     busy time (sum of kernel and memcpy/memset time), and the largest
-    device-time entries by name."""
+    device-time entries by name; with ``share_of``, the time and share of
+    the busy time of the kernels whose name holds it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1203,6 +1238,12 @@ def profile_device(fn, label: str, card: str) -> None:
           f'device ops [{card}]')
     for name, (ms, count) in top:
         print(f'{label}:   {ms:9.3f} ms {count:6d}x  {name[:90]}')
+    if share_of is not None:
+        ms, count = (sum(v[i] for k, v in by_name.items() if share_of in k)
+                     for i in (0, 1))
+        print(f'{label}: kernels named *{share_of}*: {ms:.4f} ms over '
+              f'{count} launches, {100 * ms / busy_ms:.2f}% of the busy '
+              f'time [{card}]')
 
 
 def profile_frame(run_dir: Path, card: str) -> None:
@@ -1546,9 +1587,10 @@ def _launches_of(run, wrappers: dict) -> tuple:
     return result, {k: fn.launches for k, fn in wrappers.items()}
 
 
-def phase_training(card: str, phase: int, scene: Path, config: str,
+def phase_training(card: str, phase: int | str, scene: Path, config: str,
                    overrides: tuple, trained: tuple, served: tuple = (),
-                   iterations: int = 300, repeats: int = 1) -> dict:
+                   iterations: int = 300, repeats: int = 1,
+                   profile_share: str | None = None) -> dict:
     """The port's training entry point on ``config`` with ``overrides`` for
     ``iterations`` iterations on the 400x400 textured ``scene``, after an
     untrained run (0 iterations: carving and the warm-up grid) for the
@@ -1557,7 +1599,8 @@ def phase_training(card: str, phase: int, scene: Path, config: str,
     ``served``) launched in those runs, that the loss fell, that the test
     PSNR rose by at least 5 dB over the untrained model's, in the trainer's
     test render and in the served one, and that the served metrics are
-    finite; profiles one warm training step. Returns the launch
+    finite; profiles one warm training step (with ``profile_share``, the
+    share of its busy time in the kernels so named). Returns the launch
     counts of the kernels it checks, training and serving runs summed."""
     import numpy as np
     import torch
@@ -1623,7 +1666,8 @@ def phase_training(card: str, phase: int, scene: Path, config: str,
             fail(f'{tag}: test PSNR {psnr:.3f} dB is not 5 dB above the '
                  f'untrained model\'s {psnr_before:.3f} dB')
         profile_device(lambda: trainer.training_iteration(None, iterations),
-                       f'{tag}: profile of one training step', card)
+                       f'{tag}: profile of one training step', card,
+                       profile_share)
         counts = {k: launches[k] for k in trained}
         if not served:
             return counts
@@ -2348,6 +2392,17 @@ def main_paths(card: str) -> dict:
                  *marcher))
         launches.update({k: phase5[k] for k in ('hash_window_fwd_stoch',
                                                 'hash_window_bwd_cached')})
+        # The same config trained with exact corners, the JAX model's
+        # documented exact mode: #1 exact and #2 once per step (#2's
+        # level-resident kernel is the profile's *PositionCorners*).
+        with fwd_sizes('phase 5x (exact window Instant-NGP, trained)'):
+            phase5x = phase_training(
+                card, '5x', scene, 'ingp_e2e_bench.yaml',
+                ('MODEL.STOCHASTIC_CORNERS=0',),
+                ('hash_window_fwd', 'hash_window_bwd', *marcher),
+                profile_share='PositionCorners')
+        for name in ('hash_window_fwd', 'hash_window_bwd'):
+            launches[name] += phase5x[name]
         # The parity config at its 2^19 table; its lego scene is not in the
         # repository and its box half-extent 0.5 would clip the textured
         # scene, so the scene and MODEL.SCALE are set on the command line.

@@ -35,41 +35,44 @@
 // 2^14 entries the whole table is 16 levels x 2 x 64 KiB = 2 MiB and stays in
 // the 50 MB L2, so reads and atomics are L2 operations, and the exact
 // forward's least time is its feature-major output, 8 bytes per (sample,
-// level). The exact gradient and the stochastic forward: one thread per
-// (sample, level) with the level on blockIdx.y keeps the dense/hash branch
-// uniform per block and the feature-major loads and stores coalesced; the
-// exact gradient zeroes its output with cudaMemsetAsync and adds every
-// corner with an fp32 atomicAdd.
+// level). The stochastic forward: one thread per (sample, level) with the
+// level on blockIdx.y keeps the dense/hash branch uniform per block and the
+// feature-major loads and stores coalesced.
 //
-// The cached gradient's design. The TPU kernel keeps the level's gradient
-// in VMEM over its sequential grid; what carries over is the level: at the
-// library's 2^14 entries a level's gradient, both features, is 128 rows x
-// 128 x 2 x 4 bytes = 128 KiB, which one block's shared memory holds. So
-// kBwdLevelBlocks blocks share each level, grid (kBwdLevelBlocks, L): each
-// zeroes the level's two planes in its shared memory, takes a contiguous
-// share of the samples (the next chunk's cotangents and streams loaded
-// while the current one adds), and adds each corner's two products there
-// with f32 atomics (compare-and-swap loops on sm_90). Before it adds, a
-// warp whose neighbouring lanes share an entry (morton-sorted samples on
-// the coarse levels) sums its lanes of equal entries (__match_any_sync
-// and a tree of shuffles) so each entry is added once; the other warps
-// skip that sum, which costs more than the few atomics it would save.
-// Then each block adds its planes' non-zero quads to the table, zeroed by
-// cudaMemsetAsync first, with one 16-byte atomicAdd each. Tables whose
-// level exceeds kBwdMaxRows rows (a 2^16 table's 512) take the global
-// path: the same warp sums, then an fp32 atomicAdd per entry into the
-// table. Measured against this on an H100 80GB HBM3 at 700 W
-// (`kernel_timing.py window-bwd`, PERF.md section 6) and dropped: a
-// cluster per level summing its blocks' planes through distributed shared
-// memory and storing the level (0.0860 against 0.0515 ms at phase 2's
-// inputs, before the other changes), a block per (level, feature) at two
-// blocks an SM (0.0889 against 0.0521), both features of an entry in one
-// 64-bit compare-and-swap (0.0900 against 0.0519), and the warp sum in
-// every warp (0.0520 against 0.0466) or over runs of neighbouring lanes
-// only (0.0582). What bounds it: the streams' and cotangents' bytes, 40
-// per (sample, level) at 4 corners (0.0131 ms at phase 2's inputs); the
-// shared compare-and-swap loops set the pace (the time grows with the
-// corners).
+// The table gradients' design, one accumulation for both (`accumulate`,
+// templated on where a sample's corners come from: #3's saved streams, or
+// #2's positions, whose 8 corners are computed in registers from #1's
+// per-dimension terms and the same _rn address math). The TPU kernels
+// keep the level's gradient in VMEM over their sequential grid; what
+// carries over is the level: at the library's 2^14 entries a level's
+// gradient, both features, is 128 rows x 128 x 2 x 4 bytes = 128 KiB,
+// which one block's shared memory holds. So kBwdLevelBlocks blocks share
+// each level, grid (kBwdLevelBlocks, L): each zeroes the level's two
+// planes in its shared memory, takes a contiguous share of the samples in
+// whole 128-sample groups (the next chunk's cotangents and streams or
+// positions loaded while the current one adds), and adds each corner's two
+// products there with f32 atomics (compare-and-swap loops on sm_90).
+// Before it adds, a warp whose neighbouring lanes share an entry
+// (morton-sorted samples on the coarse levels) sums its lanes of equal
+// entries (__match_any_sync and a tree of shuffles) so each entry is added
+// once; the other warps skip that sum, which costs more than the few
+// atomics it would save. Then each block adds its planes' non-zero quads
+// to the table, zeroed by cudaMemsetAsync first, with one 16-byte
+// atomicAdd each. Tables whose level exceeds kBwdMaxRows rows (a 2^16
+// table's 512) take the global path: the same warp sums, then an fp32
+// atomicAdd per entry into the table. Measured against this for #3 on an
+// H100 80GB HBM3 at 700 W (`kernel_timing.py window-bwd`, PERF.md section
+// 6) and dropped: a cluster per level summing its blocks' planes through
+// distributed shared memory and storing the level (0.0860 against 0.0515
+// ms at phase 2's inputs, before the other changes), a block per (level,
+// feature) at two blocks an SM (0.0889 against 0.0521), both features of
+// an entry in one 64-bit compare-and-swap (0.0900 against 0.0519), and the
+// warp sum in every warp (0.0520 against 0.0466) or over runs of
+// neighbouring lanes only (0.0582). What bounds them: #3, the streams' and
+// cotangents' bytes, 40 per (sample, level) at 4 corners (0.0131 ms at
+// phase 2's inputs); #2, its 20 bytes of positions and cotangents and its
+// table; the shared compare-and-swap loops set the pace (#3's time grows
+// with the corners).
 //
 // The exact forward's design. By the wrap, every corner of an 8192-sample
 // sub-block lies in rows [lo, lo + win) of its level: win x 128 entries
@@ -349,39 +352,14 @@ __global__ void hash_window_fwd_stoch_kernel(
   out[static_cast<size_t>(2 * lvl + 1) * n + i] = acc1;
 }
 
-__global__ void hash_window_bwd_kernel(
-    const float* __restrict__ g, const float* __restrict__ pos,
-    const int* __restrict__ lo, const int* __restrict__ win,
-    const int* __restrict__ res_l, const int* __restrict__ dense_l,
-    const float* __restrict__ bscale_l, const int* __restrict__ rpb_l,
-    float* __restrict__ dtab, int n, int nsb, int rows) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int lvl = blockIdx.y;
-  if (i >= n) return;
-  const float g0 = g[static_cast<size_t>(2 * lvl) * n + i];
-  const float g1 = g[static_cast<size_t>(2 * lvl + 1) * n + i];
-  if (g0 == 0.0f && g1 == 0.0f) return;  // padding samples add nothing
-  const LevelLayout lay = level_layout(res_l, dense_l, bscale_l, rpb_l, lvl);
-  const SampleLevel s = sample_level(pos, lo, win, lay, i, lvl, nsb);
-  float* d0 = dtab + static_cast<size_t>(2 * lvl) * rows * kLanes;
-  float* d1 = d0 + static_cast<size_t>(rows) * kLanes;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int cx = (c >> 2) & 1, cy = (c >> 1) & 1, cz = c & 1;
-    const int idx = corner_index(lay, s, cx, cy, cz);
-    const float w = nerficg::trilinear_weight(s.frac, cx, cy, cz);
-    atomicAdd(d0 + idx, __fmul_rn(g0, w));
-    atomicAdd(d1 + idx, __fmul_rn(g1, w));
-  }
-}
-
-// The cached gradient: threads of a block; the blocks of a level, 16 (one
-// block an SM, so 256 blocks run in two waves), swept on an H100 80GB
-// HBM3 at 700 W
-// (`kernel_timing.py window-bwd`, variants NAME=PATH:kBwdLevelBlocks=N;
-// PERF.md section 6), ms at phase 2's 65,536 sorted samples x 4 corners /
-// at 262,144: 8 blocks 0.0465 / 0.1595, 12 0.0484 / 0.1515, 16 0.0429 /
-// 0.1364, 24 0.0457 / 0.1329, 32 0.0473 / 0.1338; the widest level a
+// The table gradients' blocks: threads of a block; the blocks of a level,
+// 16 (one block an SM, so 256 blocks run in two waves), swept on an H100
+// 80GB HBM3 at 700 W (`kernel_timing.py window-bwd`, variants
+// NAME=PATH:kBwdLevelBlocks=N; PERF.md section 6), ms of #3 at phase 2's
+// 65,536 sorted samples x 4 corners / at 262,144: 8 blocks 0.0465 /
+// 0.1595, 12 0.0484 / 0.1515, 16 0.0429 / 0.1364, 24 0.0457 / 0.1329, 32
+// 0.0473 / 0.1338; of #2 at 65,536 x 8 corners / at 262,144: 8 0.0843 /
+// 0.3166, 16 0.0743 / 0.2688, 24 0.0778 / 0.2590; the widest level a
 // block keeps in shared memory, in rows of 128 entries x 2 features (1
 // KiB; 224 KiB of the 227 KB a block may have); and the samples of a
 // block on the global path.
@@ -390,49 +368,146 @@ constexpr int kBwdLevelBlocks = 16;
 constexpr int kBwdMaxRows = 224;
 constexpr int kBwdGlobalTile = 8192;
 
-// One thread's sample of a chunk: its two cotangents and its NC corners'
-// (entry, weight), NC = 0 for a corner count known only at run time (its
-// corners are then read where they are added).
+// A corner source of the table gradients' accumulation (`accumulate`):
+// what a thread loads of one sample (its two cotangents first, as g0 and
+// g1) and how it turns that into the sample's corners at one level. Each
+// is built per block from its kernel arguments (Args) and the level.
+
+// #3's source: one level's saved (nc, N) streams. NC = 0 for a corner
+// count known only at run time (its corners are then read where they are
+// added).
 template <int NC>
-struct CachedSample {
-  float g0, g1;
-  int idx[NC > 0 ? NC : 1];
-  float w[NC > 0 ? NC : 1];
+struct StreamCorners {
+  struct Args {
+    const float* g;
+    const int* idx;
+    const float* w;
+    int n;
+    int nc;
+  };
+  struct Sample {
+    float g0, g1;
+    int idx[NC > 0 ? NC : 1];
+    float w[NC > 0 ? NC : 1];
+  };
+  const float* g0;
+  const float* g1;
+  const int* il;
+  const float* wl;
+  int n;
+  int nc;
+
+  __device__ __forceinline__ StreamCorners(const Args& a, int lvl)
+      : g0(a.g + static_cast<size_t>(2 * lvl) * a.n),
+        g1(g0 + a.n),
+        il(a.idx + static_cast<size_t>(lvl) * a.nc * a.n),
+        wl(a.w + static_cast<size_t>(lvl) * a.nc * a.n),
+        n(a.n),
+        nc(NC > 0 ? NC : a.nc) {}
+
+  __device__ __forceinline__ Sample load(int i, int end) const {
+    Sample s;
+    const bool in = i < end;
+    s.g0 = in ? __ldg(g0 + i) : 0.0f;
+    s.g1 = in ? __ldg(g1 + i) : 0.0f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      s.idx[c] = in ? __ldg(il + static_cast<size_t>(c) * n + i) : -1;
+      s.w[c] = in ? __ldg(wl + static_cast<size_t>(c) * n + i) : 0.0f;
+    }
+    return s;
+  }
+
+  // f(entry, weight) for each corner of sample i.
+  template <typename F>
+  __device__ __forceinline__ void corners(const Sample& s, int i, int end,
+                                          F f) const {
+    if constexpr (NC > 0) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) f(s.idx[c], s.w[c]);
+    } else {
+      const bool in = i < end;
+      for (int c = 0; c < nc; ++c) {
+        f(in ? il[static_cast<size_t>(c) * n + i] : -1,
+          in ? wl[static_cast<size_t>(c) * n + i] : 0.0f);
+      }
+    }
+  }
 };
 
-template <int NC>
-__device__ __forceinline__ CachedSample<NC> load_cached(
-    const float* __restrict__ g0, const float* __restrict__ g1,
-    const int* __restrict__ il, const float* __restrict__ wl, int n, int i,
-    int end) {
-  CachedSample<NC> s;
-  const bool in = i < end;
-  s.g0 = in ? __ldg(g0 + i) : 0.0f;
-  s.g1 = in ? __ldg(g1 + i) : 0.0f;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    s.idx[c] = in ? __ldg(il + static_cast<size_t>(c) * n + i) : -1;
-    s.w[c] = in ? __ldg(wl + static_cast<size_t>(c) * n + i) : 0.0f;
-  }
-  return s;
-}
+// #2's source: one level's positions and windows, 20 bytes a sample; its 8
+// corners are computed in registers from their per-dimension terms
+// (corner_terms, #1's), each entry and weight by the forward's _rn math.
+struct PositionCorners {
+  struct Args {
+    const float* g;
+    const float* pos;
+    const int* lo;
+    const int* win;
+    const int* res;
+    const int* dense;
+    const float* bscale;
+    const int* rpb;
+    int n;
+    int nsb;
+  };
+  struct Sample {
+    float g0, g1;
+    float p[3];
+  };
+  const float* g0;
+  const float* g1;
+  const float* pos;
+  const int* lo;  // the level's (nsb,) windows
+  const int* win;
+  LevelLayout lay;
 
-// Table gradient from the saved (L, nc, N) streams of level lvl: the
-// samples [begin, end), each corner's products summed over the warp's
-// lanes on one entry where two neighbouring lanes share one, then added
-// by add(entry, v0, v1). Padding samples (g = 0) add nothing; an entry
-// outside the level's `entries` is dropped. Called by all threads of the
-// block; begin and end are uniform.
-template <int NC, typename Add>
-__device__ __forceinline__ void add_cached(
-    const float* __restrict__ g, const int* __restrict__ save_idx,
-    const float* __restrict__ save_w, int entries, int n, int nc_run,
-    int lvl, int begin, int end, Add add) {
-  const int nc = NC > 0 ? NC : nc_run;
-  const float* g0 = g + static_cast<size_t>(2 * lvl) * n;
-  const float* g1 = g0 + n;
-  const int* il = save_idx + static_cast<size_t>(lvl) * nc * n;
-  const float* wl = save_w + static_cast<size_t>(lvl) * nc * n;
+  __device__ __forceinline__ PositionCorners(const Args& a, int lvl)
+      : g0(a.g + static_cast<size_t>(2 * lvl) * a.n),
+        g1(g0 + a.n),
+        pos(a.pos),
+        lo(a.lo + lvl * a.nsb),
+        win(a.win + lvl * a.nsb),
+        lay(level_layout(a.res, a.dense, a.bscale, a.rpb, lvl)) {}
+
+  __device__ __forceinline__ Sample load(int i, int end) const {
+    Sample s;
+    const bool in = i < end;
+    s.g0 = in ? __ldg(g0 + i) : 0.0f;
+    s.g1 = in ? __ldg(g1 + i) : 0.0f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) s.p[d] = in ? __ldg(pos + 3 * i + d) : 0.0f;
+    return s;
+  }
+
+  template <typename F>
+  __device__ __forceinline__ void corners(const Sample& s, int i, int end,
+                                          F f) const {
+    // Sample i's own sub-block's window (a block's share crosses
+    // sub-blocks); a lane past the end takes the last sample's.
+    const SampleLevel sl = sample_level(
+        s.p, nerficg::window_at(lo, win, min(i, end - 1) / kSubBlockN), lay,
+        0);
+    const CornerTerms t = corner_terms(lay, sl);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int cx = (c >> 2) & 1, cy = (c >> 1) & 1, cz = c & 1;
+      f(corner_index(lay, sl, t, cx, cy, cz),
+        nerficg::trilinear_weight(sl.frac, cx, cy, cz));
+    }
+  }
+};
+
+// The accumulation both table gradients share: the samples [begin, end) of
+// the source's level, the next chunk loaded while the current one adds,
+// each corner's products summed over the warp's lanes on one entry where
+// two neighbouring lanes share one, then added by add(entry, v0, v1).
+// Padding samples (g = 0) add nothing; an entry outside the level's
+// `entries` is dropped. Called by all threads of the block; begin and end
+// are uniform.
+template <typename Source, typename Add>
+__device__ __forceinline__ void accumulate(const Source& src, int entries,
+                                           int begin, int end, Add add) {
   const auto corner = [&](bool active, int idx, float w, float g0v,
                           float g1v) {
     float v[2] = {__fmul_rn(g0v, w), __fmul_rn(g1v, w)};
@@ -453,28 +528,16 @@ __device__ __forceinline__ void add_cached(
     }
   };
   int i0 = begin;
-  CachedSample<NC> cur = load_cached<NC>(g0, g1, il, wl, n,
-                                         i0 + threadIdx.x, end);
+  typename Source::Sample cur = src.load(i0 + threadIdx.x, end);
 #pragma unroll 1
   for (; i0 < end; i0 += kBwdThreads) {
-    const CachedSample<NC> next = load_cached<NC>(
-        g0, g1, il, wl, n, i0 + kBwdThreads + threadIdx.x, end);
+    const typename Source::Sample next =
+        src.load(i0 + kBwdThreads + threadIdx.x, end);
     const bool active = cur.g0 != 0.0f || cur.g1 != 0.0f;
     if (__any_sync(0xFFFFFFFFu, active)) {
-      if constexpr (NC > 0) {
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          corner(active, cur.idx[c], cur.w[c], cur.g0, cur.g1);
-        }
-      } else {
-        const int i = i0 + threadIdx.x;
-        const bool in = i < end;
-        for (int c = 0; c < nc; ++c) {
-          corner(active, in ? il[static_cast<size_t>(c) * n + i] : -1,
-                 in ? wl[static_cast<size_t>(c) * n + i] : 0.0f, cur.g0,
-                 cur.g1);
-        }
-      }
+      src.corners(cur, i0 + threadIdx.x, end, [&](int idx, float w) {
+        corner(active, idx, w, cur.g0, cur.g1);
+      });
     }
     cur = next;
   }
@@ -484,12 +547,10 @@ __device__ __forceinline__ void add_cached(
 // level's gradient zeroed in shared memory, the block's share of the
 // samples added there, then each non-zero quad added to dtab (zeroed by
 // the caller) with one 16-byte atomic.
-template <int NC>
+template <typename Source>
 __global__ void __launch_bounds__(kBwdThreads)
-    hash_window_bwd_cached_level_kernel(
-    const float* __restrict__ g, const int* __restrict__ save_idx,
-    const float* __restrict__ save_w, float* __restrict__ dtab, int n,
-    int nc_run, int rows) {
+    hash_window_bwd_level_kernel(const typename Source::Args args,
+                                 float* __restrict__ dtab, int rows) {
   extern __shared__ __align__(16) float sacc[];
   const int lvl = blockIdx.y;
   const int entries = rows * kLanes;
@@ -499,13 +560,14 @@ __global__ void __launch_bounds__(kBwdThreads)
   for (int q = threadIdx.x; q < quads; q += kBwdThreads) s4[q] = zero;
   __syncthreads();
   // Whole 128-sample groups per block, so its loads stay aligned.
+  const int n = args.n;
   const int per = ((n + kBwdLevelBlocks - 1) / kBwdLevelBlocks + 127) & ~127;
   const int begin = min(n, static_cast<int>(blockIdx.x) * per);
-  add_cached<NC>(g, save_idx, save_w, entries, n, nc_run, lvl, begin,
-                 min(n, begin + per), [&](int key, float v0, float v1) {
-                   atomicAdd(sacc + key, v0);
-                   atomicAdd(sacc + entries + key, v1);
-                 });
+  accumulate(Source(args, lvl), entries, begin, min(n, begin + per),
+             [&](int key, float v0, float v1) {
+               atomicAdd(sacc + key, v0);
+               atomicAdd(sacc + entries + key, v1);
+             });
   __syncthreads();
   float4* d0 = reinterpret_cast<float4*>(
       dtab + static_cast<size_t>(2 * lvl) * entries);
@@ -523,47 +585,46 @@ __global__ void __launch_bounds__(kBwdThreads)
 
 // The global path: a block's kBwdGlobalTile samples of one level, every
 // group's sum added to dtab (zeroed by the caller).
-template <int NC>
+template <typename Source>
 __global__ void __launch_bounds__(kBwdThreads)
-    hash_window_bwd_cached_global_kernel(
-    const float* __restrict__ g, const int* __restrict__ save_idx,
-    const float* __restrict__ save_w, float* __restrict__ dtab, int n,
-    int nc_run, int rows) {
+    hash_window_bwd_global_kernel(const typename Source::Args args,
+                                  float* __restrict__ dtab, int rows) {
   const int lvl = blockIdx.y;
   const int entries = rows * kLanes;
   const int begin = blockIdx.x * kBwdGlobalTile;
   float* d0 = dtab + static_cast<size_t>(2 * lvl) * entries;
-  add_cached<NC>(g, save_idx, save_w, entries, n, nc_run, lvl, begin,
-                 min(n, begin + kBwdGlobalTile),
-                 [&](int key, float v0, float v1) {
-                   atomicAdd(d0 + key, v0);
-                   atomicAdd(d0 + entries + key, v1);
-                 });
+  accumulate(Source(args, lvl), entries, begin,
+             min(args.n, begin + kBwdGlobalTile),
+             [&](int key, float v0, float v1) {
+               atomicAdd(d0 + key, v0);
+               atomicAdd(d0 + entries + key, v1);
+             });
 }
 
-template <int NC>
-cudaError_t launch_bwd_cached(const float* g, const int* idx, const float* w,
-                              float* dtab, int levels, int n, int nc,
-                              int rows, cudaStream_t stream) {
+// dtab zeroed, then the level-resident kernel, or the global one for a
+// level of more than kBwdMaxRows rows.
+template <typename Source>
+cudaError_t launch_bwd(const typename Source::Args& args, float* dtab,
+                       int levels, int rows, cudaStream_t stream) {
   const size_t bytes =
       static_cast<size_t>(levels) * 2 * rows * kLanes * sizeof(float);
   cudaError_t err = cudaMemsetAsync(dtab, 0, bytes, stream);
-  if (err != cudaSuccess || n == 0) return err;
+  if (err != cudaSuccess || args.n == 0 || levels == 0) return err;
   if (rows > kBwdMaxRows) {
-    const dim3 grid((n + kBwdGlobalTile - 1) / kBwdGlobalTile, levels);
-    hash_window_bwd_cached_global_kernel<NC><<<grid, kBwdThreads, 0, stream>>>(
-        g, idx, w, dtab, n, nc, rows);
+    const dim3 grid((args.n + kBwdGlobalTile - 1) / kBwdGlobalTile, levels);
+    hash_window_bwd_global_kernel<Source>
+        <<<grid, kBwdThreads, 0, stream>>>(args, dtab, rows);
     return cudaGetLastError();
   }
   const int smem = rows * kLanes * 2 * static_cast<int>(sizeof(float));
   // Per launch, not once: the attribute belongs to the current device.
-  err = cudaFuncSetAttribute(hash_window_bwd_cached_level_kernel<NC>,
+  err = cudaFuncSetAttribute(hash_window_bwd_level_kernel<Source>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
-  hash_window_bwd_cached_level_kernel<NC>
+  hash_window_bwd_level_kernel<Source>
       <<<dim3(kBwdLevelBlocks, levels), kBwdThreads, smem, stream>>>(
-          g, idx, w, dtab, n, nc, rows);
+          args, dtab, rows);
   return cudaGetLastError();
 }
 
@@ -648,20 +709,15 @@ extern "C" int nerficg_hash_window_bwd(
     const void* g, const void* pos, const void* lo, const void* win,
     const void* res, const void* dense, const void* bscale, const void* rpb,
     void* dtab, int levels, int n, int nsb, int rows, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t bytes =
-      static_cast<size_t>(levels) * 2 * rows * kLanes * sizeof(float);
-  cudaError_t err = cudaMemsetAsync(dtab, 0, bytes, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(256);
-  const dim3 grid((n + block.x - 1) / block.x, levels);
-  hash_window_bwd_kernel<<<grid, block, 0, s>>>(
-      static_cast<const float*>(g), static_cast<const float*>(pos),
-      static_cast<const int*>(lo), static_cast<const int*>(win),
-      static_cast<const int*>(res), static_cast<const int*>(dense),
+  const PositionCorners::Args args{
+      static_cast<const float*>(g),     static_cast<const float*>(pos),
+      static_cast<const int*>(lo),      static_cast<const int*>(win),
+      static_cast<const int*>(res),     static_cast<const int*>(dense),
       static_cast<const float*>(bscale), static_cast<const int*>(rpb),
-      static_cast<float*>(dtab), n, nsb, rows);
-  return static_cast<int>(cudaGetLastError());
+      n,                                nsb};
+  return static_cast<int>(launch_bwd<PositionCorners>(
+      args, static_cast<float*>(dtab), levels, rows,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // g (L*2, N) f32; save_idx (L, nc, N) i32; save_w (L, nc, N) f32;
@@ -669,7 +725,6 @@ extern "C" int nerficg_hash_window_bwd(
 extern "C" int nerficg_hash_window_bwd_cached(
     const void* g, const void* save_idx, const void* save_w, void* dtab,
     int levels, int n, int nc, int rows, void* stream) {
-  if (levels == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* gp = static_cast<const float*>(g);
   const int* ip = static_cast<const int*>(save_idx);
@@ -677,16 +732,16 @@ extern "C" int nerficg_hash_window_bwd_cached(
   float* dp = static_cast<float*>(dtab);
   switch (nc) {
     case 1:
-      return static_cast<int>(
-          launch_bwd_cached<1>(gp, ip, wp, dp, levels, n, nc, rows, s));
+      return static_cast<int>(launch_bwd<StreamCorners<1>>(
+          {gp, ip, wp, n, nc}, dp, levels, rows, s));
     case 2:
-      return static_cast<int>(
-          launch_bwd_cached<2>(gp, ip, wp, dp, levels, n, nc, rows, s));
+      return static_cast<int>(launch_bwd<StreamCorners<2>>(
+          {gp, ip, wp, n, nc}, dp, levels, rows, s));
     case 4:
-      return static_cast<int>(
-          launch_bwd_cached<4>(gp, ip, wp, dp, levels, n, nc, rows, s));
+      return static_cast<int>(launch_bwd<StreamCorners<4>>(
+          {gp, ip, wp, n, nc}, dp, levels, rows, s));
     default:
-      return static_cast<int>(
-          launch_bwd_cached<0>(gp, ip, wp, dp, levels, n, nc, rows, s));
+      return static_cast<int>(launch_bwd<StreamCorners<0>>(
+          {gp, ip, wp, n, nc}, dp, levels, rows, s));
   }
 }

@@ -19,11 +19,14 @@ beside each, the same function in plain PyTorch):
     (``window_fwd_paths`` says which);
   * ``hash_window_fwd_stoch``: #1 in stochastic-corner mode, optionally
     saving each corner's flat index and weight;
-  * ``hash_window_bwd``: the exact table gradient (#2 ``_bwd_kernel`` :526);
+  * ``hash_window_bwd``: the exact table gradient (#2 ``_bwd_kernel`` :526),
+    each sample's 8 corners computed in registers from its position;
   * ``hash_window_bwd_cached``: the table gradient from the saved streams
-    (#3 ``_bwd_kernel_cached`` :630): each level's gradient accumulated
-    in shared memory by 16 blocks, each adding its non-zero quads to the
-    table; tables past a block's shared memory add to the table directly.
+    (#3 ``_bwd_kernel_cached`` :630).
+Both gradients share one accumulation: each level's gradient in shared
+memory, BWD_LEVEL_BLOCKS blocks a level, each adding its non-zero quads to
+the table; tables of more than BWD_MAX_ROWS rows a level add to the table
+directly (``window_bwd_path``).
 ``hash_encode_win`` and ``hash_encode_win_stochastic`` are the
 differentiable entry points (``torch.autograd.Function``s), gradients to the
 table only.
@@ -56,7 +59,8 @@ __all__ = ['WindowLayout', 'window_layout', 'morton_keys_xyz',
            'hash_window_fwd_plain', 'hash_window_fwd_stoch',
            'hash_window_fwd_stoch_plain', 'hash_window_bwd',
            'hash_window_bwd_plain', 'hash_window_bwd_cached',
-           'hash_window_bwd_cached_plain', 'window_fwd_paths', 'SUB_BLOCK']
+           'hash_window_bwd_cached_plain', 'window_fwd_paths',
+           'window_bwd_path', 'SUB_BLOCK']
 
 SUB_BLOCK = 64              # sublanes per window sub-block (64*128 = 8192)
 _SB_N = SUB_BLOCK * LANES
@@ -65,6 +69,11 @@ _DENSE_MAX = 1 << 18
 # of 128 bf16x2 words, 512 bytes (kFwdWinRows in csrc/hash_window.cu, which
 # says how it was chosen).
 FWD_WIN_ROWS = 64
+# The table gradients' blocks a level on their level-resident path, and the
+# widest level, in rows, that a block keeps in shared memory (kBwdLevelBlocks
+# and kBwdMaxRows in csrc/hash_window.cu, which says how they were chosen).
+BWD_LEVEL_BLOCKS = 16
+BWD_MAX_ROWS = 224
 
 
 class WindowLayout(NamedTuple):
@@ -310,6 +319,16 @@ def window_fwd_paths(win: torch.Tensor) -> torch.Tensor:
     return win <= FWD_WIN_ROWS
 
 
+def window_bwd_path(rows: int) -> str:
+    """The path both table gradients (#2, #3) take on a table of ``rows``
+    rows a level, by the kernel's own test: 'level' (each level's gradient
+    in a block's shared memory, BWD_LEVEL_BLOCKS blocks a level) up to
+    BWD_MAX_ROWS rows, the library's 2^14 entries (128 rows) among them;
+    else 'global' (atomics into the table), as 2^16 (512 rows) and larger
+    tables take."""
+    return 'level' if rows <= BWD_MAX_ROWS else 'global'
+
+
 StochOutput = tuple[torch.Tensor, Optional[torch.Tensor],
                     Optional[torch.Tensor]]
 
@@ -409,7 +428,7 @@ def hash_window_bwd(g: torch.Tensor, positions: torch.Tensor,
                     config: HashGridConfig, rows: int) -> torch.Tensor:
     """Table gradient of the exact windowed encode (#2): g (L*2, N)
     feature-major cotangent -> (L, 2, rows, 128). The position cotangent is
-    zero, as in the JAX package.
+    zero, as in the JAX package. The kernel takes ``window_bwd_path(rows)``.
 
     CUDA tensors launch the hand-written kernel; CPU tensors take
     ``hash_window_bwd_plain``."""

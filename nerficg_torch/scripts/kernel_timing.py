@@ -83,11 +83,13 @@ Run as a script it answers these questions on the card:
       forward (4 corners, saved streams held to the first variant's);
   python -m nerficg_torch.scripts.kernel_timing window-bwd \\
       --variant NAME=PATH/hash_window.cu[:kBwdLevelBlocks=N] ...
-      times the cached window table gradient (#3) from the stochastic
-      forward's saved streams: phase 2's 65,536 morton-sorted samples x 4
-      corners on the 2^14 table, 262,144 samples, 1 and 2 corners, unsorted
-      samples and a 2^16 table (the global path), each variant against the
-      plain version, beside ``index_add_`` of the precomputed products;
+      times the window table gradients: the exact one (#2) from positions,
+      phase 2's 65,536 morton-sorted samples x 8 corners on the 2^14
+      table, 262,144 samples, unsorted samples and a 2^16 table (the global
+      path); then the cached one (#3) from the stochastic forward's saved
+      streams, 65,536 x 4 corners, 262,144, 1 and 2 corners, unsorted and
+      the 2^16 table; each variant against the plain version, beside
+      ``index_add_`` of the precomputed products;
   python -m nerficg_torch.scripts.kernel_timing probe
       times the marcher's occupancy probe as ``march_rays`` calls it: the
       parent's composition (PyTorch operations, then ``block_probe_cells``)
@@ -116,7 +118,7 @@ from pathlib import Path
 
 __all__ = ['device_ms', 'host_ms', 'events_ms', 'gs_model', 'orbit_view',
            'gs_frame', 'gs_pair_counts', 'boundary_values', 'probe_points',
-           'index_add_call']
+           'index_add_call', 'exact_index_add_call']
 
 _OUT = Path('build') / 'kernel_timing'
 
@@ -1667,11 +1669,11 @@ def encode_fwd(kind: str, variants: dict[str, tuple],
     return report
 
 
-def _window_streams(n: int, nc: int, rows: int, sort: bool, seed: int):
-    """A training step's inputs of #3 on the card: the stochastic forward's
-    saved (16, nc, n) streams on a (16, 2, rows, 128) table (rows 128: the
-    library's 2^14; 512: 2^16), samples uniform in [0.2, 0.8]^3,
-    morton-sorted or not, and a normal cotangent (32, n)."""
+def _window_positions(n: int, rows: int, sort: bool, rng):
+    """A training step's inputs of #2 on the card, drawn from ``rng``:
+    samples uniform in [0.2, 0.8]^3, morton-sorted or not, their windows on
+    a (16, 2, rows, 128) table's layout (rows 128: the library's 2^14; 512:
+    2^16), and a normal cotangent (32, n)."""
     import numpy as np
     import torch
 
@@ -1682,19 +1684,32 @@ def _window_streams(n: int, nc: int, rows: int, sort: bool, seed: int):
                             log2_table_size={128: 14, 512: 16}[rows],
                             base_resolution=16, target_resolution=2048,
                             anchor_stride=8)
-    rng = np.random.default_rng(seed)
     dev = torch.device('cuda')
-    table = torch.from_numpy(rng.uniform(-1, 1, (16, 2, rows, 128)).astype(
-        np.float32)).to(dev)
     pos = torch.from_numpy(rng.uniform(0.2, 0.8, (n, 3)).astype(
         np.float32)).to(dev)
     if sort:
         pos = pos[torch.sort(hw.morton_sort_keys(pos), stable=True).indices]
     pos = pos.contiguous()
     lo, win = hw.window_bases(pos, config)
+    g = torch.from_numpy(rng.normal(size=(32, n)).astype(np.float32)).to(dev)
+    return g, pos, lo, win, config
+
+
+def _window_streams(n: int, nc: int, rows: int, sort: bool, seed: int):
+    """A training step's inputs of #3 on the card: a (16, 2, rows, 128)
+    table, then ``_window_positions``' samples and cotangent, from one
+    generator, and the stochastic forward's saved (16, nc, n) streams."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.ops import hash_window as hw
+
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.uniform(-1, 1, (16, 2, rows, 128)).astype(
+        np.float32)).to(torch.device('cuda'))
+    g, pos, lo, win, config = _window_positions(n, rows, sort, rng)
     _, idx, w = hw.hash_window_fwd_stoch(table, pos, lo, win, config, nc,
                                          0x9E3779B9, save=True)
-    g = torch.from_numpy(rng.normal(size=(32, n)).astype(np.float32)).to(dev)
     return g, idx, w
 
 
@@ -1731,16 +1746,53 @@ def index_add_call(g, idx, w, rows):
     return call
 
 
+def _window_bwd_exact_call(lib, g, pos, lo, win, config, rows):
+    """A variant's exact table gradient (#2) as the wrapper runs it: the
+    allocation and the ctypes call (the same entry in the parent)."""
+    import torch
+
+    from nerficg_torch.ops import hash_window as hw
+    levels, n = config.num_levels, pos.shape[0]
+    layout = hw._layout_tensors(config, pos.device)
+
+    def call():
+        d = torch.empty((levels, 2, rows, 128), device=g.device)
+        _checked(lib.nerficg_hash_window_bwd(
+            g.data_ptr(), pos.data_ptr(), lo.data_ptr(), win.data_ptr(),
+            *(t.data_ptr() for t in layout), d.data_ptr(), levels, n,
+            n // 8192, rows, torch.cuda.current_stream().cuda_stream))
+        return d
+    return call
+
+
+def exact_index_add_call(g, pos, lo, win, config, rows):
+    """#2's function as one library call: ``index_add_call`` of the 8 exact
+    corners (the plain version's entries and weights, made here, outside
+    the timed call)."""
+    import torch
+
+    from nerficg_torch.ops import hash_window as hw
+    lay = hw.window_layout(config)
+    corners = [hw._exact_corners(pos, lay, lv, lo, win)
+               for lv in range(config.num_levels)]
+    idx = torch.stack([i.T for i, _ in corners])
+    w = torch.stack([wt.T for _, wt in corners])
+    return index_add_call(g, idx, w, rows)
+
+
 def window_bwd(variants: dict[str, tuple], rounds: int = 3) -> dict:
-    """Each variant's cached window table gradient (#3) from the stochastic
-    forward's saved streams: phase 2's 65,536 morton-sorted samples x 4
-    corners on the library's (16, 2, 128, 128) table, 262,144 samples, 1 and
-    2 corners, a 2^16 table (512 rows, past a block's shared memory: the
-    global path) and unsorted samples. Each variant against the plain
-    version (rtol 1e-4 / atol 1e-5 x max, atomics), then device time (CUDA
-    graph of 20 calls) in turns with ``index_add_`` of the precomputed
-    products into a zeroed plane (``library``), and the host's ms per call.
-    Block shapes are variants: ``NAME=PATH:kBwdLevelBlocks=N``."""
+    """Each variant's window table gradients. The exact one (#2), from
+    positions: phase 2's 65,536 morton-sorted samples x 8 corners on the
+    library's (16, 2, 128, 128) table, 262,144 samples, unsorted samples
+    and a 2^16 table (512 rows, past a block's shared memory: the global
+    path). The cached one (#3), from the stochastic forward's saved
+    streams: 65,536 sorted x 4 corners, 262,144, 1 and 2 corners, unsorted
+    and the 2^16 table. Each variant against the plain version (rtol 1e-4 /
+    atol 1e-5 x max, atomics), then device time (CUDA graph of 20 calls)
+    in turns with one ``index_add_`` of the precomputed products into a
+    zeroed plane (``library``), and the host's ms per call. Block shapes
+    are variants: ``NAME=PATH:kBwdLevelBlocks=N``."""
+    import numpy as np
     import torch
 
     from nerficg_torch.ops import hash_window as hw
@@ -1750,24 +1802,13 @@ def window_bwd(variants: dict[str, tuple], rounds: int = 3) -> dict:
     report = {'card': card, 'ptxas': {}, 'inputs': {}}
     for name, (source, overrides) in variants.items():
         libs[name], ptxas = _build_variant(
-            name, source, ('nerficg_hash_window_bwd_cached',), overrides)
+            name, source, ('nerficg_hash_window_bwd',
+                           'nerficg_hash_window_bwd_cached'), overrides)
         report['ptxas'][name] = ptxas
         print(f'window-bwd: {name} ({source} {overrides or ""}) ptxas:\n'
               f'{ptxas}', flush=True)
-    cases = [('65,536 sorted, 4 corners', 65536, 4, 128, True),
-             ('262,144 sorted, 4 corners', 262144, 4, 128, True),
-             ('65,536 sorted, 2 corners', 65536, 2, 128, True),
-             ('65,536 sorted, 1 corner', 65536, 1, 128, True),
-             ('65,536 unsorted, 4 corners', 65536, 4, 128, False),
-             ('2^16 table, 65,536 sorted, 4 corners', 65536, 4, 512, True)]
-    for label, n, nc, rows, sort in cases:
-        g, idx, w = _window_streams(n, nc, rows, sort, seed=n + nc + rows)
-        want = hw.hash_window_bwd_cached_plain(g, idx, w, rows)
-        calls = {name: _window_bwd_call(lib, g, idx, w, rows)
-                 for name, lib in libs.items()}
-        calls['library'] = index_add_call(g, idx, w, rows)
-        entry = {'n': n, 'nc': nc, 'rows': rows, 'sorted': sort,
-                 'variants': {}}
+
+    def timed(label, entry, want, calls):
         for name, call in calls.items():
             got = call().reshape(want.shape)
             torch.cuda.synchronize()
@@ -1790,6 +1831,40 @@ def window_bwd(variants: dict[str, tuple], rounds: int = 3) -> dict:
                   f'{"ok" if v["close"] else "MISMATCH"} [{card}]',
                   flush=True)
         report['inputs'][label] = entry
+
+    exact = [('#2 65,536 sorted, 8 corners', 65536, 128, True),
+             ('#2 262,144 sorted, 8 corners', 262144, 128, True),
+             ('#2 65,536 unsorted, 8 corners', 65536, 128, False),
+             ('#2 2^16 table, 65,536 sorted, 8 corners', 65536, 512, True)]
+    for label, n, rows, sort in exact:
+        g, pos, lo, win, config = _window_positions(
+            n, rows, sort, np.random.default_rng(n + rows))
+        want = hw.hash_window_bwd_plain(g, pos, lo, win, config, rows)
+        calls = {name: _window_bwd_exact_call(lib, g, pos, lo, win, config,
+                                              rows)
+                 for name, lib in libs.items()}
+        calls['library'] = exact_index_add_call(g, pos, lo, win, config,
+                                                rows)
+        timed(label, {'kernel': 2, 'n': n, 'nc': 8, 'rows': rows,
+                      'sorted': sort, 'path': hw.window_bwd_path(rows),
+                      'variants': {}}, want, calls)
+        del calls, want
+    cached = [('#3 65,536 sorted, 4 corners', 65536, 4, 128, True),
+              ('#3 262,144 sorted, 4 corners', 262144, 4, 128, True),
+              ('#3 65,536 sorted, 2 corners', 65536, 2, 128, True),
+              ('#3 65,536 sorted, 1 corner', 65536, 1, 128, True),
+              ('#3 65,536 unsorted, 4 corners', 65536, 4, 128, False),
+              ('#3 2^16 table, 65,536 sorted, 4 corners', 65536, 4, 512,
+               True)]
+    for label, n, nc, rows, sort in cached:
+        g, idx, w = _window_streams(n, nc, rows, sort, seed=n + nc + rows)
+        want = hw.hash_window_bwd_cached_plain(g, idx, w, rows)
+        calls = {name: _window_bwd_call(lib, g, idx, w, rows)
+                 for name, lib in libs.items()}
+        calls['library'] = index_add_call(g, idx, w, rows)
+        timed(label, {'kernel': 3, 'n': n, 'nc': nc, 'rows': rows,
+                      'sorted': sort, 'path': hw.window_bwd_path(rows),
+                      'variants': {}}, want, calls)
     return report
 
 

@@ -198,35 +198,42 @@ def test_hash_window_bwd_cached(cuda):
                                                                128))
 
 
-def _cached_streams(cuda, n, nc, rows, sort, seed):
-    """The stochastic forward's saved (16, nc, n) streams on a (16, 2, rows,
-    128) table (rows 128: the library's 2^14, each level in one block's
-    shared memory; 512: 2^16, the global path), samples morton-sorted or
-    not, nc 8 as two 4-corner streams stacked (the run-time corner count),
-    and a cotangent with its last 3000 samples and a random tenth of the
-    others zero (padding)."""
+def _window_inputs(cuda, n, rows, sort, rng):
+    """From ``rng``: n samples uniform in [0.2, 0.8]^3 on a (16, 2, rows,
+    128) table's layout (rows 128: the library's 2^14, each level in one
+    block's shared memory; 512: 2^16, the global path), morton-sorted or
+    not, their windows, and a cotangent with its last 3000 samples and a
+    random tenth of the others zero (padding): (config, pos, lo, win, g)."""
     cfg = HashGridConfig(num_levels=16, features_per_level=2,
                          log2_table_size={128: 14, 512: 16}[rows],
                          base_resolution=16, target_resolution=2048,
                          anchor_stride=8)
-    rng = np.random.default_rng(seed)
-    table = torch.tensor(rng.uniform(-1, 1, (16, 2, rows, 128)),
-                         dtype=torch.float32, device=cuda)
     pos = torch.tensor(rng.uniform(0.2, 0.8, (n, 3)), dtype=torch.float32,
                        device=cuda)
     if sort:
         pos = pos[torch.sort(hash_window.morton_sort_keys(pos)).indices]
     pos = pos.contiguous()
     lo, win = hash_window.window_bases(pos, cfg)
+    g = rng.normal(size=(32, n)).astype(np.float32)
+    g[:, n - 3000:] = 0.0
+    g[:, rng.uniform(size=n) < 0.1] = 0.0
+    return cfg, pos, lo, win, torch.from_numpy(g).to(cuda)
+
+
+def _cached_streams(cuda, n, nc, rows, sort, seed):
+    """The stochastic forward's saved (16, nc, n) streams of
+    ``_window_inputs``' samples on a random table, nc 8 as two 4-corner
+    streams stacked (the run-time corner count), and the cotangent."""
+    rng = np.random.default_rng(seed)
+    table = torch.tensor(rng.uniform(-1, 1, (16, 2, rows, 128)),
+                         dtype=torch.float32, device=cuda)
+    cfg, pos, lo, win, g = _window_inputs(cuda, n, rows, sort, rng)
     streams = [hash_window.hash_window_fwd_stoch(
         table, pos, lo, win, cfg, min(nc, 4), seed + k, save=True)[1:]
         for k in range(max(nc // 4, 1))]
     idx = torch.cat([i for i, _ in streams], 1).contiguous()
     w = torch.cat([wt for _, wt in streams], 1).contiguous()
-    g = rng.normal(size=(32, n)).astype(np.float32)
-    g[:, n - 3000:] = 0.0
-    g[:, rng.uniform(size=n) < 0.1] = 0.0
-    return torch.from_numpy(g).to(cuda), idx, w
+    return g, idx, w
 
 
 @pytest.mark.parametrize('n, nc, rows, sort', [
@@ -240,6 +247,20 @@ def test_hash_window_bwd_cached_paths(cuda, n, nc, rows, sort):
     _close_to_scatter(hash_window.hash_window_bwd_cached(g, idx, w, rows),
                       hash_window.hash_window_bwd_cached_plain(g, idx, w,
                                                                rows))
+
+
+@pytest.mark.parametrize('n', [8192, 65536, 262144])
+@pytest.mark.parametrize('rows', [128, 512])
+@pytest.mark.parametrize('sort', [True, False])
+def test_hash_window_bwd_paths(cuda, n, rows, sort):
+    """#2 on the level-resident path (128 rows) and the global one (512),
+    sorted and unsorted, with padding, against its plain version: atomics
+    in another order."""
+    cfg, pos, lo, win, g = _window_inputs(
+        cuda, n, rows, sort, np.random.default_rng(n + rows + sort))
+    _close_to_scatter(
+        hash_window.hash_window_bwd(g, pos, lo, win, cfg, rows),
+        hash_window.hash_window_bwd_plain(g, pos, lo, win, cfg, rows))
 
 
 def _probe_points(cuda, center, half, res, cascades, n=60000, seed=0):
