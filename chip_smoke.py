@@ -38,7 +38,11 @@ Phases, each printing its own lines:
      world planes (block_probe_xyz, one launch) cascaded and over one
      grid, on points along rays and on every cascade and cell boundary
      +-1 ulp, bit-exact, beside the parent's composition of PyTorch
-     operations and block_probe_cells;
+     operations and block_probe_cells; the flat table gather
+     (xbar_gather, #4's generic entry) at the dense probe's 344,064 ids
+     into 2 cascades of 128^3 bits, bit-exact (also on the table's f32
+     view), beside torch.take, and the dense cascaded probe on the card
+     against the CPU at every cascade and cell boundary +-1 ulp;
   3. serving path: write a textured synthetic scene and an Instant-NGP
      checkpoint at full library width (random weights from a numpy seed,
      a shell-shaped occupancy grid), run the port's inference entry point
@@ -105,13 +109,25 @@ Phases, each printing its own lines:
      D-NeRF's width and 262,144 samples, held to its plain version; and
      the probe of unit coordinates (occupancy_probe_block_xyz, through
      block_probe_cells) held to its plain version.
-Every main path (phases 3-7 and 11) must probe through block_probe_xyz and
-never through block_probe_cells.
+ 14. vanilla NeRF: nerficg_torch/configs/nerf.yaml at the library's width
+     (8 x 256 coarse and fine blocks, 256 samples per ray, 1024 rays per
+     step) on the 400x400 textured scene through the training entry point
+     for 2000 of its 500,000 iterations (loss falls, test PSNR at least 5
+     dB above the untrained model's), a profile of one step with the
+     GEMMs' share, served through the inference entry point, and the
+     trained model's 32x32 render on the card against the CPU (>= 45 dB);
+ 15. the dense probe: configs/ingp_e2e_bench.yaml with
+     RENDERER.PROBE_MODE=dense trained 300 iterations and served, as phase
+     5 is: xbar_gather launched, block_probe_xyz and block_probe_cells
+     never.
+Every main path of phases 3-7 and 11 must probe through block_probe_xyz
+alone, never through block_probe_cells or xbar_gather; phase 15 through
+xbar_gather alone.
 Every kernel's launch count is set to 0 just before the run that drives it
 and read just after; the sample counts of #1's (exact), #8's and #10's
-launches in phases 3-7 and 11 are printed at the end (min, median, max per
-run), and after phase 11 the largest segment scatter-add of phases 3-11
-with the path its plan took.
+launches in phases 3-7, 11 and 15 are printed at the end (min, median, max
+per run), and after phase 11 the largest segment scatter-add of phases 3-11
+and 15 with the path its plan took.
 Each kernel's line
 reports its time against the least time the card could take for the same
 work (`bound_ms`: each input read once and each output written once at
@@ -184,6 +200,8 @@ KERNELS = {
                      'nerficg_tpu/ops/gs_tiles_kernel.py:200'),
     'xbar_permute': ('cuda', 'nerficg_torch/csrc/block_probe.cu',
                      'nerficg_tpu/ops/xbar_gather.py:88'),
+    'xbar_gather': ('cuda', 'nerficg_torch/csrc/block_probe.cu',
+                    'nerficg_tpu/ops/xbar_gather.py:36'),
 }
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32
@@ -336,13 +354,16 @@ def phase2_kernels(card: str, window_global_lib) -> dict:
                                              xbar_bwd_plan, xbar_fwd_plan)
     from nerficg_torch.ops.hashgrid import HashGridConfig
     from nerficg_torch.ops.occupancy import (
-        _cascade_cell_coords, occupancy_probe_block_aabb_xyz,
-        occupancy_probe_block_aabb_xyz_plain,
+        _cascade_cell_coords, downsample_occupancy_cascaded,
+        occupancy_probe_block_aabb_xyz, occupancy_probe_block_aabb_xyz_plain,
         occupancy_probe_block_cascaded_xyz,
-        occupancy_probe_block_cascaded_xyz_plain)
+        occupancy_probe_block_cascaded_xyz_plain,
+        occupancy_probe_cascaded_xyz)
     from nerficg_torch.ops.xbar_gather import (block_probe_cells,
                                                block_probe_cells_plain,
                                                build_block_bitfield,
+                                               xbar_gather,
+                                               xbar_gather_plain,
                                                xbar_permute,
                                                xbar_permute_plain)
     from nerficg_torch.scripts.kernel_timing import (boundary_values,
@@ -517,6 +538,48 @@ def phase2_kernels(card: str, window_global_lib) -> dict:
                   f'world points', nbytes(bits1, px, py, pz, got), 0)
     report['block_probe_xyz'] = line
     line[f'aabb_{m}'] = aabb
+
+    # 2c. xbar_gather, #4's generic entry, as the dense probe (PROBE_MODE
+    # 'dense') calls it: the words of 2 cascades of 128^3 cells (the shell
+    # grid above, downsampled as the renderer does: (2, 512, 128) int32,
+    # 512 KiB, L2-resident) at the candidate pass's 344,064 probes, the
+    # last on every cascade and cell boundary +-1 ulp; bit-exact, also on
+    # the table's f32 view; bytes: the ids read and the words written. Then
+    # the whole dense probe on the card against the CPU on the same points.
+    dense = downsample_occupancy_cascaded(flags.float(), res, res, 0.5,
+                                          cascades)
+    px, py, pz = probe_points(m, 1.0, seed=6,
+                              edges=boundary_values(1.0, cascades, res))
+    c, cx, cy, cz = _cascade_cell_coords(px, py, pz, center, 1.0, res,
+                                         cascades)
+    local = (cx * res + cy) * res + cz
+    words = dense.reshape(-1, 128)
+    word_idx = (c * (dense.shape[1] * 128) + (local >> 5)).reshape(-1)
+    word_idx64 = word_idx.long()
+    got = xbar_gather(words, word_idx)
+    line = record('xbar_gather', got, xbar_gather_plain(words, word_idx),
+                  lambda a, b: bool(torch.equal(a, b)),
+                  lambda: xbar_gather(words, word_idx),
+                  lambda: xbar_gather_plain(words, word_idx),
+                  f'table {tuple(words.shape)} int32 x {m} ids (the dense '
+                  f'probe of {cascades} x {res}^3)', nbytes(word_idx, got), 0,
+                  lambda: torch.take(words, word_idx64))
+    as_f32 = words.view(torch.float32)
+    if not torch.equal(xbar_gather(as_f32, word_idx).view(torch.int32),
+                       xbar_gather_plain(as_f32, word_idx).view(torch.int32)):
+        fail('xbar_gather moved the bits of an f32 table inexactly')
+    args = (dense, px, py, pz, center, 1.0, res)
+    on_card = occupancy_probe_cascaded_xyz(*args)
+    on_cpu = occupancy_probe_cascaded_xyz(*(
+        a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+    if not torch.equal(on_card.cpu(), on_cpu):
+        fail('the dense cascaded probe differs between the card and the CPU')
+    line['dense_probe_ms'] = device_ms(
+        lambda: occupancy_probe_cascaded_xyz(*args))
+    print(f'phase 2: xbar_gather: f32 view bit-exact; the dense cascaded '
+          f'probe on the card equals the CPU\'s on {m} points '
+          f'({int(on_cpu.sum())} occupied), {line["dense_probe_ms"]:.4f} ms '
+          f'on the card (graph) [{card}]', flush=True)
 
     # 3./4. segment gather / scatter-add over one chunk's 24,576 blocks.
     nb, rays, rows = 24576, 1536, (1536 + 1 + 127) // 128
@@ -1239,8 +1302,8 @@ def profile_device(fn, label: str, card: str,
     for name, (ms, count) in top:
         print(f'{label}:   {ms:9.3f} ms {count:6d}x  {name[:90]}')
     if share_of is not None:
-        ms, count = (sum(v[i] for k, v in by_name.items() if share_of in k)
-                     for i in (0, 1))
+        ms, count = (sum(v[i] for k, v in by_name.items()
+                         if share_of.lower() in k.lower()) for i in (0, 1))
         print(f'{label}: kernels named *{share_of}*: {ms:.4f} ms over '
               f'{count} launches, {100 * ms / busy_ms:.2f}% of the busy '
               f'time [{card}]')
@@ -1263,13 +1326,13 @@ def phase3_main_path(card: str, image_size: int = 400,
     from nerficg_torch.ops.hash_mxu import seg_gather, seg_scatter_add
     from nerficg_torch.ops.hash_window import hash_window_fwd
     from nerficg_torch.ops.occupancy import block_probe_xyz
-    from nerficg_torch.ops.xbar_gather import block_probe_cells
+    from nerficg_torch.ops.xbar_gather import block_probe_cells, xbar_gather
     from nerficg_torch.scripts import inference
 
     wrappers = {'hash_window_fwd': hash_window_fwd,
                 'block_probe_xyz': block_probe_xyz, 'seg_gather': seg_gather,
                 'seg_scatter_add': seg_scatter_add,
-                'block_probe': block_probe_cells}
+                'block_probe': block_probe_cells, 'xbar_gather': xbar_gather}
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
         run_dir = Path(tmp) / 'run'
         start = time.perf_counter()
@@ -1301,10 +1364,10 @@ def phase3_main_path(card: str, image_size: int = 400,
               f'{peak:.1f} MiB [{card}]')
         print(f'phase 3: kernel launches in that run: {launches}', flush=True)
         missing = [k for k, v in launches.items()
-                   if v <= 0 and k != 'block_probe']
+                   if v <= 0 and k not in ('block_probe', 'xbar_gather')]
         if missing:
             fail(f'kernels never launched on the main path: {missing}')
-        probe_cells_only(launches, 'phase 3')
+        probe_only(launches, 'phase 3')
         if not all(np.isfinite(v) for v in (metrics['PSNR'], metrics['SSIM'],
                                               result['fps'])):
             fail(f'non-finite metrics or FPS: {metrics}, {result["fps"]}')
@@ -1352,7 +1415,7 @@ def _training_wrappers() -> dict:
                                              hash_xbar_bwd_pos,
                                              hash_xbar_fwd)
     from nerficg_torch.ops.occupancy import block_probe_xyz
-    from nerficg_torch.ops.xbar_gather import block_probe_cells
+    from nerficg_torch.ops.xbar_gather import block_probe_cells, xbar_gather
     return {'hash_window_fwd': hash_window_fwd,
             'hash_window_fwd_stoch': hash_window_fwd_stoch,
             'hash_window_bwd': hash_window_bwd,
@@ -1362,17 +1425,23 @@ def _training_wrappers() -> dict:
             'hash_xbar_bwd_pos': hash_xbar_bwd_pos,
             'hash_xbar_bwd_fused': hash_xbar_bwd_fused,
             'block_probe_xyz': block_probe_xyz,
-            'block_probe': block_probe_cells, 'seg_gather': seg_gather,
-            'seg_scatter_add': seg_scatter_add}
+            'block_probe': block_probe_cells, 'xbar_gather': xbar_gather,
+            'seg_gather': seg_gather, 'seg_scatter_add': seg_scatter_add}
 
 
-def probe_cells_only(launches: dict, tag: str) -> None:
-    """Fail if a main path reached ``block_probe_cells`` (the op API's
-    probe of integer cells) instead of the world-plane probe."""
-    if launches['block_probe'] != 0 or launches['block_probe_xyz'] <= 0:
-        fail(f'{tag}: the marcher probed through block_probe_cells '
-             f'({launches["block_probe"]} launches) and block_probe_xyz '
-             f'({launches["block_probe_xyz"]}); only the world-plane probe '
+PROBES = ('block_probe_xyz', 'block_probe', 'xbar_gather')
+
+
+def probe_only(launches: dict, tag: str,
+               probe: str = 'block_probe_xyz') -> None:
+    """Fail unless the marcher probed through ``probe`` alone: the block
+    probe from world planes (PROBE_MODE 'block'), never ``block_probe``
+    (the op API's probe of integer cells), or, in PROBE_MODE 'dense',
+    ``xbar_gather``."""
+    counts = {k: launches[k] for k in PROBES}
+    if counts[probe] <= 0 or any(v for k, v in counts.items()
+                                 if k != probe):
+        fail(f'{tag}: the marcher\'s probe launches {counts}; only {probe} '
              'should run')
 
 
@@ -1458,7 +1527,7 @@ def phase4_training_step(card: str, card_device: str = 'cuda') -> dict:
     print(f'phase 4: kernel launches in the exact training step: {launches}')
     if launches['hash_window_bwd'] <= 0:
         fail('the exact training step never launched hash_window_bwd')
-    probe_cells_only(launches, 'phase 4')
+    probe_only(launches, 'phase 4')
     loss_gpu, loss_cpu = (float(logs[d]['total']) for d in ('card', 'cpu'))
     loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     print(f'phase 4: loss card {loss_gpu:.8f}, CPU {loss_cpu:.8f}, relative '
@@ -1541,13 +1610,13 @@ def print_seg_scatter_shapes(shapes) -> None:
     (F, M, rows) and the path each plan took."""
     from nerficg_torch.ops.hash_mxu import seg_scatter_plan
     if not shapes:
-        fail('no segment scatter-add was launched in phases 3-11')
+        fail('no segment scatter-add was launched in phases 3-11 and 15')
     paths = collections.Counter()
     for (feats, m, rows), count in shapes.items():
         paths[seg_scatter_plan(feats, m, rows)] += count
     feats, m, rows = max(shapes, key=lambda k: k[0] * k[2])
-    print(f'#7 calls, phases 3-11: {sum(shapes.values())} launches of '
-          f'{len(shapes)} shapes, by path {dict(paths)}; largest planes '
+    print(f'#7 calls, phases 3-11 and 15: {sum(shapes.values())} launches '
+          f'of {len(shapes)} shapes, by path {dict(paths)}; largest planes '
           f'F = {feats}, M = {m}, rows = {rows} ({feats * rows * 512} bytes, '
           f'{seg_scatter_plan(feats, m, rows)})', flush=True)
 
@@ -1590,7 +1659,8 @@ def _launches_of(run, wrappers: dict) -> tuple:
 def phase_training(card: str, phase: int | str, scene: Path, config: str,
                    overrides: tuple, trained: tuple, served: tuple = (),
                    iterations: int = 300, repeats: int = 1,
-                   profile_share: str | None = None) -> dict:
+                   profile_share: str | None = None,
+                   probe: str = 'block_probe_xyz') -> dict:
     """The port's training entry point on ``config`` with ``overrides`` for
     ``iterations`` iterations on the 400x400 textured ``scene``, after an
     untrained run (0 iterations: carving and the warm-up grid) for the
@@ -1599,9 +1669,11 @@ def phase_training(card: str, phase: int | str, scene: Path, config: str,
     ``served``) launched in those runs, that the loss fell, that the test
     PSNR rose by at least 5 dB over the untrained model's, in the trainer's
     test render and in the served one, and that the served metrics are
-    finite; profiles one warm training step (with ``profile_share``, the
-    share of its busy time in the kernels so named). Returns the launch
-    counts of the kernels it checks, training and serving runs summed."""
+    finite, and that the marcher probed through ``probe`` alone
+    (``probe_only``); profiles one warm training step (with
+    ``profile_share``, the share of its busy time in the kernels so
+    named). Returns the launch counts of the kernels it checks, training
+    and serving runs summed."""
     import numpy as np
     import torch
 
@@ -1657,7 +1729,7 @@ def phase_training(card: str, phase: int | str, scene: Path, config: str,
         missing = [k for k in trained if launches[k] <= 0]
         if missing:
             fail(f'{tag}: kernels never launched while training: {missing}')
-        probe_cells_only(launches, f'{tag} training')
+        probe_only(launches, f'{tag} training', probe)
         if len(losses) != iterations or not np.isfinite(losses).all():
             fail(f'{tag}: training loss is missing or not finite')
         if not losses[-50:].mean() < losses[:50].mean():
@@ -1692,7 +1764,7 @@ def phase_training(card: str, phase: int | str, scene: Path, config: str,
         missing = [k for k in served if launches[k] <= 0]
         if missing:
             fail(f'{tag}: kernels never launched while serving: {missing}')
-        probe_cells_only(launches, f'{tag} serving')
+        probe_only(launches, f'{tag} serving', probe)
         if not all(np.isfinite(v) for v in (metrics['PSNR'], metrics['SSIM'],
                                               served_result['fps'])):
             fail(f'{tag}: non-finite served metrics or FPS: {metrics}')
@@ -2068,7 +2140,7 @@ def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
                                                  'block_probe')}
         print(f'{tag}: kernel launches in the training run: {shown}',
               flush=True)
-        probe_cells_only(launches, f'{tag} training')
+        probe_only(launches, f'{tag} training')
         if launches['hash_xbar_bwd_fused'] != iterations:
             fail(f'{tag}: hash_xbar_bwd_fused launched '
                  f'{launches["hash_xbar_bwd_fused"]} times in {iterations} '
@@ -2112,7 +2184,7 @@ def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
               f'; launches {shown} [{card}]', flush=True)
         if served_launches['hash_xbar_fwd'] <= 0:
             fail(f'{tag}: serving never launched hash_xbar_fwd')
-        probe_cells_only(served_launches, f'{tag} serving')
+        probe_only(served_launches, f'{tag} serving')
         if not float(metrics['PSNR']) >= psnr_before + 5.0:
             fail(f'{tag}: the served test PSNR {metrics["PSNR"]:.3f} dB is '
                  f'not 5 dB above the untrained model\'s {psnr_before:.3f} dB')
@@ -2130,7 +2202,7 @@ def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
               f'{psnr:.3f} dB); launches '
               f'{ {k: control_launches[k] for k in xbar} } [{card}]',
               flush=True)
-        probe_cells_only(control_launches, f'{tag} static control')
+        probe_only(control_launches, f'{tag} static control')
     counts = {'hash_xbar_bwd_fused': launches['hash_xbar_bwd_fused']}
     for name in ('hash_xbar_fwd', 'hash_xbar_bwd'):
         counts[name] = launches[name] + control_launches[name] + \
@@ -2368,9 +2440,130 @@ def phase13_op_api(card: str) -> dict:
     return launches
 
 
+# NeRF's iterations in phase 14: 2000 of the config's 500,000, for the time
+# limit.
+NERF_ITERATIONS = 2000
+
+
+def render_small(run_dir: Path, scene: Path, device: str) -> dict:
+    """The first test view of ``scene`` rendered on ``device`` by a run
+    dir's model, through the port's registry."""
+    from nerficg_torch.core.registry import Datasets, Methods
+    from nerficg_torch.core.setup import setup
+    ctx = setup(run_dir / 'training_config.yaml', [f'DATASET.PATH={scene}'],
+                device=device)
+    view = Datasets.get_dataset(ctx.config).subsets['test'][0]
+    model = Methods.get_model(ctx.config, device=ctx.device,
+                              checkpoint=str(run_dir / 'checkpoints' /
+                                             'final.ckpt'))
+    out = Methods.get_renderer(ctx.config, model).render_image(view)
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+def phase14_nerf(card: str, scene: Path,
+                 iterations: int = NERF_ITERATIONS) -> None:
+    """Vanilla NeRF at the library's width (nerficg_torch/configs/nerf.yaml:
+    8 x 256 coarse and fine blocks, 256 samples per ray, 1024 rays per
+    step) through the training entry point on the 400x400 textured scene
+    for ``iterations`` of its 500,000, after an untrained run for the
+    baseline PSNR; the loss must fall and the test PSNR rise by 5 dB.
+    Then a profile of one warm step (the GEMMs' share of its busy time),
+    serving through the inference entry point (the served PSNR 5 dB above
+    the untrained one), and the card's render of a 32x32 view against the
+    CPU's (>= 45 dB). NeRF runs no kernel of the port: its MLPs are GEMMs,
+    its sampling and compositing plain PyTorch."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.core.setup import Directories
+    from nerficg_torch.data.synthetic import make_textured_scene
+    from nerficg_torch.scripts import inference, train
+
+    tag = 'phase 14'
+    wrappers = _training_wrappers()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_nerf_') as tmp:
+        Directories.base = Path(tmp) / 'output'
+        args = ['-c', str(ROOT / 'nerficg_torch' / 'configs' / 'nerf.yaml'),
+                f'DATASET.PATH={scene}']
+        start = time.perf_counter()
+        before = train.main(args + ['TRAINING.NUM_ITERATIONS=0',
+                                    'TRAINING.MODEL_NAME=untrained'])
+        psnr_before = float(before['metrics']['PSNR'])
+        print(f'{tag}: untrained NeRF: test PSNR {psnr_before:.3f} dB, '
+              f'whole run (4 test views rendered) '
+              f'{time.perf_counter() - start:.1f} s [{card}]', flush=True)
+
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        result, launches = _launches_of(lambda: train.main(
+            args + [f'TRAINING.NUM_ITERATIONS={iterations}',
+                    'TRAINING.MODEL_NAME=chip_smoke']), wrappers)
+        wall = time.perf_counter() - start
+        trainer = result['trainer']
+        losses = torch.stack(trainer.losses).float().cpu().numpy()
+        psnr = float(result['metrics']['PSNR'])
+        step = trainer.timers['training_iteration']
+        print(f'{tag}: train.main nerf.yaml TRAINING.NUM_ITERATIONS='
+              f'{iterations}: whole run {wall:.1f} s, '
+              f'{step.mean * 1e3:.2f} ms per training_iteration = '
+              f'{1.0 / step.mean:.2f} it/s [{card}]')
+        for line in (Path(result['output_dir']) / 'timings.txt'
+                     ).read_text().splitlines():
+            print(f'{tag}: timings.txt: {line}')
+        print(f'{tag}: peak torch.cuda.max_memory_allocated of the training '
+              f'run {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB '
+              f'[{card}]')
+        print(f'{tag}: loss mean of iterations 0-49 {losses[:50].mean():.6f}'
+              f', of the last 50 {losses[-50:].mean():.6f}')
+        print(f'{tag}: test metrics after {iterations} iterations: ' +
+              ', '.join(f'{k}={v:.4f}' for k, v in result['metrics'].items())
+              + f' (untrained {psnr_before:.3f} dB) [{card}]')
+        print(f'{tag}: the port\'s kernels launched in the training run '
+              f'(none expected): { {k: v for k, v in launches.items() if v} }',
+              flush=True)
+        if len(losses) != iterations or not np.isfinite(losses).all():
+            fail(f'{tag}: training loss is missing or not finite')
+        if not losses[-50:].mean() < losses[:50].mean():
+            fail(f'{tag}: the training loss did not fall')
+        if not (np.isfinite(psnr) and psnr >= psnr_before + 5.0):
+            fail(f'{tag}: test PSNR {psnr:.3f} dB is not 5 dB above the '
+                 f'untrained model\'s {psnr_before:.3f} dB')
+        profile_device(lambda: trainer.training_iteration(None, iterations),
+                       f'{tag}: profile of one training step', card, 'gemm')
+
+        run_dir = Path(result['output_dir'])
+        start = time.perf_counter()
+        served = inference.main(['-d', str(run_dir), '-s', 'test', '-m',
+                                 '-b', '--repeats', '1'])
+        metrics = served['metrics']['test']
+        print(f'{tag}: inference -d RUN -s test -m -b --repeats 1: '
+              f'{served["fps"]:.3f} FPS at 400x400, whole run '
+              f'{time.perf_counter() - start:.1f} s; served test metrics: ' +
+              ', '.join(f'{k}={v:.4f}' for k, v in metrics.items()) +
+              f' [{card}]', flush=True)
+        if not all(np.isfinite(v) for v in (metrics['PSNR'], served['fps'])):
+            fail(f'{tag}: non-finite served metrics or FPS: {metrics}')
+        if not float(metrics['PSNR']) >= psnr_before + 5.0:
+            fail(f'{tag}: the served test PSNR {metrics["PSNR"]:.3f} dB is '
+                 f'not 5 dB above the untrained model\'s {psnr_before:.3f} '
+                 'dB')
+
+        small = make_textured_scene(Path(tmp) / 'small', image_size=32,
+                                    n_train=1, n_test=1)
+        gpu = render_small(run_dir, small, 'cuda')
+        cpu = render_small(run_dir, small, 'cpu')
+        for key in ('rgb', 'alpha'):
+            db = _psnr_db(gpu[key], cpu[key])
+            print(f'{tag}: 32x32 {key} of the trained model, card vs CPU: '
+                  f'PSNR {db:.1f} dB (limit 45)')
+            if not db >= 45.0:
+                fail(f'{tag}: card and CPU renders disagree on {key}: '
+                     f'{db:.1f} dB')
+
+
 def main_paths(card: str) -> dict:
-    """Phases 3-11, the methods' serving and training paths; the kernels'
-    launch counts."""
+    """Phases 3-11, 14 and 15, the methods' serving and training paths;
+    the kernels' launch counts."""
     from nerficg_torch.data.synthetic import (make_dynamic_textured_scene,
                                               make_textured_scene)
     with fwd_sizes('phase 3 (window Instant-NGP served)'):
@@ -2434,6 +2627,20 @@ def main_paths(card: str) -> dict:
         launches.update(phase9_gs_training(card, scene))
         launches['gs_composite_fwd_packed'] += \
             served['gs_composite_fwd_packed']
+        # The dense probe: the e2e config with PROBE_MODE 'dense', the
+        # skip grid as (2, 512, 128) bitfields probed through xbar_gather
+        # (#4's generic entry), never through the block probes.
+        with fwd_sizes('phase 15 (window Instant-NGP, dense probe, trained '
+                       'and served)'):
+            phase15 = phase_training(
+                card, 15, scene, 'ingp_e2e_bench.yaml',
+                ('RENDERER.PROBE_MODE=dense',),
+                ('hash_window_fwd_stoch', 'hash_window_bwd_cached',
+                 'xbar_gather', 'seg_gather', 'seg_scatter_add'),
+                ('hash_window_fwd', 'xbar_gather', 'seg_gather',
+                 'seg_scatter_add'), probe='xbar_gather')
+        launches['xbar_gather'] = phase15['xbar_gather']
+        phase14_nerf(card, scene)
     phase10_gs_step(card)
     with tempfile.TemporaryDirectory(prefix='chip_smoke_dynamic_') as tmp:
         start = time.perf_counter()

@@ -28,6 +28,7 @@ class MethodEntry:
 
 
 _BUILTIN_METHOD_MODULES = {
+    'NeRF': 'nerficg_torch.methods.nerf',
     'InstantNGP': 'nerficg_torch.methods.instant_ngp',
     'GaussianSplatting': 'nerficg_torch.methods.gaussian_splatting',
     'DNeRF': 'nerficg_torch.methods.dnerf',

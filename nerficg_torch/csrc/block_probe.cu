@@ -1,4 +1,5 @@
-// Two-level block-bitfield occupancy probe, and the row permutation.
+// Two-level block-bitfield occupancy probe, the flat table gather, and the
+// row permutation.
 //
 // Replaces the TPU kernel nerficg_tpu/ops/xbar_gather.py `_gather_kernel`
 // (:36, launched by `xbar_gather` :52) where the marcher reaches it: the
@@ -33,6 +34,21 @@
 // world-plane kernel adds 12 bytes read and 1 written per probe; at a
 // serving chunk's 344,064 probes its least time is ~0.0014 ms, below a
 // launch's latency.
+//
+// Flat table gather. `xbar_gather_kernel` replaces `_gather_kernel` (:36) at
+// its generic entry `xbar_gather` (:52-56), which the dense occupancy probe
+// reaches (`occupancy_probe_xyz` :172 and
+// nerficg_tpu/ops/occupancy.py `occupancy_probe_cascaded_xyz` :696): out =
+// table.reshape(-1)[idx] for a (R, 128) table of any 32-bit type, the bits
+// moved exactly (the TPU kernel gathers the int32 bitcast). The TPU loops
+// over every 128-lane row of the table, selecting where (idx >> 7) == row,
+// because its only fast random access is within a row; a GPU reads any
+// word directly, so one thread per index, one 4-byte load each. The table
+// of a dense probe is small (2 cascades of 128^3 cells: 2 x 512 rows, 512
+// KiB) and stays in the L2, so the kernel is bound by the index read and
+// the output written, 8 bytes per index: at a serving chunk's 344,064
+// probes ~0.0008 ms, below a launch's latency. Ids past either end are
+// clamped into the table, as JAX's gather clamps them.
 //
 // Row permutation. `xbar_permute` replaces `_permute_kernel` (:88, launched
 // by `xbar_permute` :111): out = mat[idx] for an (N, C) matrix of any 32-bit
@@ -143,6 +159,16 @@ __global__ void block_probe_xyz_kernel(
                       coarse_rows, rank_rows);
 }
 
+__global__ void xbar_gather_kernel(const uint32_t* __restrict__ table,
+                                   const int* __restrict__ idx,
+                                   uint32_t* __restrict__ out, int n,
+                                   int64_t total) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int64_t k = __ldg(idx + i);
+  out[i] = __ldg(table + (k < 0 ? 0 : (k >= total ? total - 1 : k)));
+}
+
 __global__ void xbar_permute_kernel(const uint32_t* __restrict__ mat,
                                     const int* __restrict__ idx,
                                     uint32_t* __restrict__ out, int64_t total,
@@ -208,6 +234,20 @@ extern "C" int nerficg_block_probe_xyz(const void* table, const void* px,
         t, x, y, z, g0, g1, o, n, res, cap_blocks, coarse_rows, rank_rows, 1,
         inv_base_half, two_base_half);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// table (total,) 32-bit words (a (R, 128) table flat); idx (N,) i32, clamped
+// into [0, total); out (N,) 32-bit words.
+extern "C" int nerficg_xbar_gather(const void* table, const void* idx,
+                                   void* out, int n, int64_t total,
+                                   void* stream) {
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  const int block = 256;
+  xbar_gather_kernel<<<(n + block - 1) / block, block, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(table), static_cast<const int*>(idx),
+      static_cast<uint32_t*>(out), n, total);
   return static_cast<int>(cudaGetLastError());
 }
 

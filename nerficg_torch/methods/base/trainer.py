@@ -33,7 +33,7 @@ from nerficg_torch.methods.base.callbacks import (MAIN, POST, PRE,
 from nerficg_torch.methods.base.model import BaseModel
 from nerficg_torch.methods.base.renderer import BaseRenderer
 
-__all__ = ['BaseTrainer']
+__all__ = ['BaseTrainer', 'adam_state_to_numpy', 'adam_state_from_numpy']
 
 
 @Configurable.configure(
@@ -258,6 +258,36 @@ class BaseTrainer(Configurable):
             self.test_metrics = self.renderer.render_subset(
                 dataset, 'test', output_dir=self.output_dir / 'test',
                 compute_metrics=True)
+
+
+def adam_state_to_numpy(optimizer: torch.optim.Adam, named_params,
+                        step: int) -> dict:
+    """An Adam optimizer's moments by parameter name, and its step
+    count, as numpy arrays for the npz resume file."""
+    state = {'step': np.asarray(step, np.int64), 'exp_avg': {},
+             'exp_avg_sq': {}}
+    for name, p in named_params:
+        s = optimizer.state.get(p)
+        if s:
+            state['exp_avg'][name] = s['exp_avg'].detach().cpu().numpy()
+            state['exp_avg_sq'][name] = s['exp_avg_sq'].detach().cpu().numpy()
+    return state
+
+
+def adam_state_from_numpy(optimizer: torch.optim.Adam, named_params,
+                          state: dict) -> int:
+    """Load ``adam_state_to_numpy``'s arrays into ``optimizer``; returns
+    the step count."""
+    step = int(np.asarray(state['step']))
+    for name, p in named_params:
+        if name in state.get('exp_avg', {}):
+            optimizer.state[p] = {
+                'step': torch.tensor(float(step)),
+                'exp_avg': torch.as_tensor(state['exp_avg'][name],
+                                           device=p.device),
+                'exp_avg_sq': torch.as_tensor(state['exp_avg_sq'][name],
+                                              device=p.device)}
+    return step
 
 
 class _NullTimer:

@@ -29,7 +29,9 @@ from nerficg_torch.data.types import BasicPointCloud
 from nerficg_torch.methods.base.callbacks import (post_training_callback,
                                                   pre_training_callback,
                                                   training_callback)
-from nerficg_torch.methods.base.trainer import BaseTrainer
+from nerficg_torch.methods.base.trainer import (BaseTrainer,
+                                                adam_state_from_numpy,
+                                                adam_state_to_numpy)
 from nerficg_torch.methods.gaussian_splatting.convert import PARAM_KEYS
 from nerficg_torch.optim.losses import dssim, l1
 from nerficg_torch.optim.lr import lr_decay_policy
@@ -73,26 +75,12 @@ class GaussianSplattingTrainer(BaseTrainer):
 
     # -- optimizer state ------------------------------------------------------
     def get_optimizer_state(self) -> dict:
-        state = {'step': np.asarray(self.updates, np.int64),
-                 'exp_avg': {}, 'exp_avg_sq': {}}
-        for key, p in self.model.params.items():
-            s = self.optimizer.state.get(p)
-            if s:
-                state['exp_avg'][key] = s['exp_avg'].detach().cpu().numpy()
-                state['exp_avg_sq'][key] = \
-                    s['exp_avg_sq'].detach().cpu().numpy()
-        return state
+        return adam_state_to_numpy(self.optimizer, self.model.params.items(),
+                                   self.updates)
 
     def set_optimizer_state(self, state: dict) -> None:
-        self.updates = int(np.asarray(state['step']))
-        for key, p in self.model.params.items():
-            if key in state.get('exp_avg', {}):
-                self.optimizer.state[p] = {
-                    'step': torch.tensor(float(self.updates)),
-                    'exp_avg': torch.as_tensor(state['exp_avg'][key],
-                                               device=p.device),
-                    'exp_avg_sq': torch.as_tensor(state['exp_avg_sq'][key],
-                                                  device=p.device)}
+        self.updates = adam_state_from_numpy(
+            self.optimizer, self.model.params.items(), state)
 
     def get_resume_metadata(self) -> dict:
         return {'num_active': int(self.model.num_active),

@@ -2,9 +2,11 @@
 
 Port of nerficg_tpu/methods/instant_ngp/renderer.py (reference:
 src/Methods/InstantNGP/Renderer.py:39-272). An image is rendered
-in fixed-size ray chunks: each chunk is marched through the two-level block
-bitfield at INFERENCE_SAMPLES_PER_RAY samples per ray, its samples are
-encoded and shaded (in morton order for the windowed encodes, 'window' and
+in fixed-size ray chunks: each chunk is marched through the skip grid
+(PROBE_MODE 'block': the two-level block bitfield, probed by
+``block_probe_xyz``; 'dense': flat packed bitfields, probed through
+``xbar_gather``) at INFERENCE_SAMPLES_PER_RAY samples per ray, its samples
+are encoded and shaded (in morton order for the windowed encodes, 'window' and
 'cell'; in ray order for 'xbar') and composited in ray order; then the
 rays the budget truncated while still transmissive are marched again at
 INFERENCE_REFINE_FACTOR x the budget and merged back (the static-shape
@@ -35,11 +37,14 @@ from nerficg_torch.methods.base.renderer import BaseRenderer
 from nerficg_torch.methods.instant_ngp.model import InstantNGPModel
 from nerficg_torch.ops.occupancy import (cascade_cell_positions,
                                          composite_packed,
+                                         downsample_occupancy,
                                          downsample_occupancy_block,
+                                         downsample_occupancy_cascaded,
                                          downsample_occupancy_cascaded_block,
                                          draw_grid_update, march_rays,
                                          occupancy_probe_block_aabb_xyz,
                                          occupancy_probe_block_cascaded_xyz,
+                                         occupancy_probe_cascaded_xyz,
                                          update_density_grid)
 from nerficg_torch.ops.sample_sort import permute_block_channels
 
@@ -49,7 +54,8 @@ __all__ = ['InstantNGPRenderer']
 @Configurable.configure(
     MAX_SAMPLES=512,            # marching steps per ray (reference: 1024)
     MARCH_RESOLUTION=128,       # skip-grid resolution probed by the marcher
-    PROBE_MODE='block',         # two-level rank-compacted block bitfield
+    PROBE_MODE='block',         # 'block': two-level rank-compacted block
+                                # bitfield; 'dense': flat packed bitfields
     PROBE_CAP_BLOCKS=0,         # 0 = auto (total_blocks/4, min 256)
     AVG_SAMPLES_PER_RAY=24,     # training compaction budget per ray
     INFERENCE_SAMPLES_PER_RAY=128,
@@ -74,9 +80,10 @@ class InstantNGPRenderer(BaseRenderer):
 
     def __init__(self, config, model):
         super().__init__(config, model)
-        if str(self.PROBE_MODE) != 'block':
-            raise RendererError(f'PROBE_MODE={self.PROBE_MODE!r} is not ported '
-                                "yet; the port has 'block'")
+        if str(self.PROBE_MODE) not in ('block', 'dense'):
+            raise RendererError(f'unknown PROBE_MODE {self.PROBE_MODE!r}; '
+                                "one of 'block', 'dense'")
+        self._probe_block = str(self.PROBE_MODE) == 'block'
         # Skip-grid resolution cannot exceed the density grid's.
         self._march_res = min(int(self.MARCH_RESOLUTION),
                               int(self.model.GRID_RESOLUTION))
@@ -103,24 +110,41 @@ class InstantNGPRenderer(BaseRenderer):
         return float(self.DENSITY_THRESHOLD) / mean_step
 
     def grid_binary(self) -> torch.Tensor:
-        """The marching skip grid as a packed block bitfield, cached while
-        the density grid tensor stays the same object."""
+        """The marching skip grid, cached while the density grid tensor
+        stays the same object: 'block', one packed block bitfield over all
+        cascades; 'dense', (C, words, 128) bitfields with several
+        cascades, else one (words, 128) bitfield (nerficg_tpu renderer.py:
+        115-144)."""
         grid = self.model.buffers['density_grid']
         if self._grid_cache_src is not grid:
-            res = int(self.model.GRID_RESOLUTION)
-            if self._cascades > 1:
-                self._grid_binary_cache = downsample_occupancy_cascaded_block(
-                    grid, res, self._march_res, self.density_threshold,
-                    self._cascades, self._cap_blocks)
+            res, mres = int(self.model.GRID_RESOLUTION), self._march_res
+            threshold, cascades = self.density_threshold, self._cascades
+            if self._probe_block and cascades > 1:
+                binary = downsample_occupancy_cascaded_block(
+                    grid, res, mres, threshold, cascades, self._cap_blocks)
+            elif self._probe_block:
+                binary = downsample_occupancy_block(grid, res, mres,
+                                                    threshold,
+                                                    self._cap_blocks)
+            elif cascades > 1:
+                binary = downsample_occupancy_cascaded(grid, res, mres,
+                                                       threshold, cascades)
             else:
-                self._grid_binary_cache = downsample_occupancy_block(
-                    grid, res, self._march_res, self.density_threshold,
-                    self._cap_blocks)
+                binary = downsample_occupancy(grid, res, mres, threshold)
+            self._grid_binary_cache = binary
             self._grid_cache_src = grid
         return self._grid_binary_cache
 
     def _probe_fn(self, grid_binary: torch.Tensor):
+        """The marcher's probe of world planes; None for one dense grid,
+        which the marcher probes itself."""
         res, model = self._march_res, self.model
+        if not self._probe_block:
+            if self._cascades == 1:
+                return None
+            return lambda px, py, pz: occupancy_probe_cascaded_xyz(
+                grid_binary, px, py, pz, model.center, float(model.SCALE),
+                res)
         if self._cascades > 1:
             return lambda px, py, pz: occupancy_probe_block_cascaded_xyz(
                 grid_binary, px, py, pz, model.center, float(model.SCALE),
@@ -147,7 +171,8 @@ class InstantNGPRenderer(BaseRenderer):
             self._probe_fn(grid_binary), max_steps=int(self.MAX_SAMPLES),
             sample_budget=n * samples_per_ray, block=block,
             exponential=self._exponential, morton=windowed,
-            probes_per_block=self._probes_per_block, seed=jitter_seed)
+            probes_per_block=self._probes_per_block, seed=jitter_seed,
+            grid_binary=grid_binary, grid_resolution=self._march_res)
         sample_times = None
         if timestamps is not None:
             # Ray ids are constant over a block: the owning ray's time is

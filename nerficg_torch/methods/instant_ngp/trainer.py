@@ -25,7 +25,9 @@ from nerficg_torch.core.errors import TrainerError
 from nerficg_torch.core.logging import Logger
 from nerficg_torch.methods.base.callbacks import (pre_training_callback,
                                                   training_callback)
-from nerficg_torch.methods.base.trainer import BaseTrainer
+from nerficg_torch.methods.base.trainer import (BaseTrainer,
+                                                adam_state_from_numpy,
+                                                adam_state_to_numpy)
 from nerficg_torch.optim.lr import multistep_lr
 from nerficg_torch.optim.metrics import mse_to_psnr
 
@@ -74,26 +76,12 @@ class InstantNGPTrainer(BaseTrainer):
         return list(self.model.module.named_parameters())
 
     def get_optimizer_state(self) -> dict:
-        state = {'step': np.asarray(self.updates, np.int64),
-                 'exp_avg': {}, 'exp_avg_sq': {}}
-        for name, p in self._named_params():
-            s = self.optimizer.state.get(p)
-            if s:
-                state['exp_avg'][name] = s['exp_avg'].detach().cpu().numpy()
-                state['exp_avg_sq'][name] = \
-                    s['exp_avg_sq'].detach().cpu().numpy()
-        return state
+        return adam_state_to_numpy(self.optimizer, self._named_params(),
+                                   self.updates)
 
     def set_optimizer_state(self, state: dict) -> None:
-        self.updates = int(np.asarray(state['step']))
-        for name, p in self._named_params():
-            if name in state.get('exp_avg', {}):
-                self.optimizer.state[p] = {
-                    'step': torch.tensor(float(self.updates)),
-                    'exp_avg': torch.as_tensor(state['exp_avg'][name],
-                                               device=p.device),
-                    'exp_avg_sq': torch.as_tensor(state['exp_avg_sq'][name],
-                                                  device=p.device)}
+        self.updates = adam_state_from_numpy(self.optimizer,
+                                             self._named_params(), state)
 
     def on_resume(self, dataset) -> None:
         self._init_samplers(dataset)

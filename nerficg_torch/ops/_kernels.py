@@ -47,6 +47,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_L = ctypes.c_int64
 # C signature of every entry point (all return int = cudaError_t).
 _SIGNATURES = {
     'nerficg_hash_window_fwd': [_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -70,6 +71,7 @@ _SIGNATURES = {
     'nerficg_gs_tiles_fwd': [_P] * 4 + [_I, _I, _P],
     'nerficg_gs_tiles_bwd': [_P] * 6 + [_I, _I, _P],
     'nerficg_xbar_permute': [_P] * 3 + [_I, _I, _P],
+    'nerficg_xbar_gather': [_P] * 3 + [_I, _L, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

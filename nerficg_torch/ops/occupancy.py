@@ -17,11 +17,15 @@ a counter hash of their flat (ray, step) index (``_hash_jitter``).
 Both sorts are stable, as ``jax.lax.sort`` is: equal morton keys keep their
 block order, which fixes the compaction when the budget truncates.
 
-The renderer's probes (``occupancy_probe_block_cascaded_xyz`` and
+The renderer's block probes (``occupancy_probe_block_cascaded_xyz`` and
 ``occupancy_probe_block_aabb_xyz``) go through ``block_probe_xyz``: on
 CUDA tensors one launch of the kernel of csrc/block_probe.cu that
 computes the cells from the world planes in registers, bit for bit as the
-plain composition computes them; on CPU tensors that composition.
+plain composition computes them; on CPU tensors that composition. The
+dense probes (PROBE_MODE 'dense': ``occupancy_probe_cascaded_xyz`` on
+(C, words, 128) bitfields, or, without a ``probe_fn``, the marcher's own
+``occupancy_probe_xyz`` on one (words, 128) bitfield) compute their cells
+in PyTorch and gather the words through ``xbar_gather``.
 """
 
 from __future__ import annotations
@@ -37,19 +41,25 @@ from nerficg_torch.ops import _kernels
 from nerficg_torch.ops.counter_rng import M32, mul32
 from nerficg_torch.ops.hash_mxu import gather_d, scatter_add_d
 from nerficg_torch.ops.hash_window import morton_keys_xyz
+from nerficg_torch.ops.ray_aabb import ray_aabb_intersect
 from nerficg_torch.ops.xbar_gather import (block_probe_cells,
                                            block_probe_cells_plain,
                                            block_table_rows,
-                                           build_block_bitfield)
+                                           build_block_bitfield,
+                                           occupancy_probe_xyz, pack_bits,
+                                           probe_packed_bits)
 
 __all__ = ['MarchResults', 'march_rays', 'composite_packed', 'GridDraws',
            'draw_grid_update', 'update_density_grid',
+           'downsample_occupancy', 'downsample_occupancy_cascaded',
            'downsample_occupancy_block', 'downsample_occupancy_cascaded_block',
            'occupancy_probe_block_xyz', 'occupancy_probe_block_cascaded_xyz',
            'occupancy_probe_block_cascaded_xyz_plain',
            'occupancy_probe_block_aabb_xyz',
            'occupancy_probe_block_aabb_xyz_plain', 'block_probe_xyz',
-           'num_cascades', 'cascade_cell_positions']
+           'num_cascades', 'cascade_of_positions',
+           'occupancy_probe_cascaded_xyz', 'occupancy_probe_cascaded',
+           'cascade_cell_positions']
 
 
 class MarchResults(NamedTuple):
@@ -82,42 +92,47 @@ def _hash_jitter(flat_ids: torch.Tensor, seed: int) -> torch.Tensor:
     return (h >> 8).to(torch.float32) / 16777216.0
 
 
-def _ray_aabb(origins, directions, aabb_min, aabb_max, min_near):
-    tiny = torch.where(directions >= 0, 1e-10, -1e-10)
-    inv = 1.0 / torch.where(directions.abs() < 1e-10, tiny, directions)
-    t0 = (aabb_min - origins) * inv
-    t1 = (aabb_max - origins) * inv
-    t_near = torch.clamp(torch.minimum(t0, t1).amax(-1), min=min_near)
-    t_far = torch.maximum(t0, t1).amin(-1)
-    return t_near, t_far
-
-
 def march_rays(origins: torch.Tensor, directions: torch.Tensor,
                aabb_min: torch.Tensor, aabb_max: torch.Tensor,
-               probe_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
-                                  torch.Tensor],
+               probe_fn: Optional[Callable[[torch.Tensor, torch.Tensor,
+                                            torch.Tensor], torch.Tensor]],
                max_steps: int, sample_budget: int, min_near: float = 0.05,
                block: int = 32, exponential: bool = False,
                morton: bool = False,
                probes_per_block: int = 2,
-               seed: Optional[int] = None) -> MarchResults:
+               seed: Optional[int] = None,
+               grid_binary: Optional[torch.Tensor] = None,
+               grid_resolution: int = 0) -> MarchResults:
     """Fixed-step occupancy-skipping ray marcher (replaces CUDA N4).
 
     origins/directions: (R, 3), directions unit-norm. ``probe_fn`` maps
-    per-axis world-coordinate planes to occupancy. ``seed`` (uint32) jitters
+    per-axis world-coordinate planes to occupancy; without one, the
+    samples' unit coordinates in the box are probed in ``grid_binary``, a
+    (words, 128) ``pack_bits`` bitfield of the flat (res^3,) flags at
+    ``grid_resolution`` (``occupancy_probe_xyz``, the JAX marcher's
+    default). ``seed`` (uint32) jitters
     each sample within its step (training; the JAX marcher's
     ``jax.random.bits(rng, uint32)``); without it samples sit at step
     midpoints. ``exponential``: geometric step spacing for multi-cascade
     scenes. Returns compacted samples with a static budget.
     """
+    if probe_fn is None and (grid_binary is None or grid_binary.ndim != 2):
+        raise ValueError('march_rays needs a probe_fn or a (words, 128) '
+                         'grid_binary')
+
+    def probe_at(px, py, pz, ux, uy, uz):
+        if probe_fn is not None:
+            return probe_fn(px, py, pz)
+        return occupancy_probe_xyz(grid_binary, ux, uy, uz, grid_resolution)
+
     num_rays = origins.shape[0]
     device = origins.device
     block = min(block, max_steps)
     if max_steps % block:
         raise ValueError('max_steps must divide by the block size')
     sample_budget = -(-sample_budget // block) * block
-    t_near, t_far = _ray_aabb(origins, directions, aabb_min, aabb_max,
-                              min_near)
+    t_near, t_far = ray_aabb_intersect(origins, directions, aabb_min,
+                                       aabb_max, min_near)
     # Degenerate (zero) directions come from batch padding: misses.
     nonzero_dir = (directions * directions).sum(-1) > 1e-12
     hit = (t_near < t_far) & nonzero_dir
@@ -149,7 +164,7 @@ def march_rays(origins: torch.Tensor, directions: torch.Tensor,
     uz = (pz - aabb_min[2]) / ext[2]
     in_box = ((ux >= 0.0) & (ux < 1.0) & (uy >= 0.0) & (uy < 1.0) &
               (uz >= 0.0) & (uz < 1.0))
-    occupied = probe_fn(px, py, pz)
+    occupied = probe_at(px, py, pz, ux, uy, uz)
     block_any2 = (occupied & in_box).reshape(
         num_rays, blocks_per_ray, probes_per_block).any(2) & hit[:, None]
 
@@ -216,7 +231,8 @@ def march_rays(origins: torch.Tensor, directions: torch.Tensor,
             suz = (spz - aabb_min[2]) / ext[2]
             in_box_s = ((sux >= 0.0) & (sux < 1.0) & (suy >= 0.0) &
                         (suy < 1.0) & (suz >= 0.0) & (suz < 1.0))
-            valid_s = probe_fn(spx, spy, spz) & in_box_s & blk_valid[:, None]
+            valid_s = probe_at(spx, spy, spz, sux, suy, suz) & in_box_s & \
+                blk_valid[:, None]
         else:
             valid_s = blk_valid[:, None].expand(safe_blk.shape[0], block)
         out_pos = torch.stack([spx, spy, spz], dim=-1)         # (Bb, blk, 3)
@@ -430,6 +446,33 @@ def update_density_grid(density_grid: torch.Tensor,
 # Occupancy grids: two-level block bitfields over one or more cascades
 # ---------------------------------------------------------------------------
 
+def downsample_occupancy(density_grid: torch.Tensor, resolution: int,
+                         march_resolution: int,
+                         threshold: float) -> torch.Tensor:
+    """Max-pool the (res^3,) density grid to the marching resolution and
+    pack its flags above ``threshold`` as a (words, 128) int32 bitfield
+    (``pack_bits``): a coarse cell is occupied if any of its children is."""
+    factor = resolution // march_resolution
+    g = density_grid.reshape(march_resolution, factor, march_resolution,
+                             factor, march_resolution, factor)
+    return pack_bits((g.amax(dim=(1, 3, 5)) > threshold).reshape(-1))
+
+
+def downsample_occupancy_cascaded(density_grid: torch.Tensor,
+                                  resolution: int, march_resolution: int,
+                                  threshold: float,
+                                  cascades: int) -> torch.Tensor:
+    """(C*res^3,) density -> (C, words, 128) bitfields, one per cascade,
+    each padded to whole 4096-bit rows by ``pack_bits``."""
+    factor = resolution // march_resolution
+    g = density_grid.reshape(cascades, march_resolution, factor,
+                             march_resolution, factor,
+                             march_resolution, factor)
+    coarse = g.amax(dim=(2, 4, 6)) > threshold
+    return torch.stack([pack_bits(coarse[c].reshape(-1))
+                        for c in range(cascades)])
+
+
 def downsample_occupancy_block(density_grid: torch.Tensor, resolution: int,
                                march_resolution: int, threshold: float,
                                cap_blocks: int) -> torch.Tensor:
@@ -599,6 +642,42 @@ def num_cascades(scale: float) -> int:
     """cascades = max(1 + ceil(log2(2*scale)), 1)
     (reference: InstantNGP/Model.py:53)."""
     return max(1 + int(math.ceil(math.log2(max(2.0 * scale, 1e-6)))), 1)
+
+
+def cascade_of_positions(positions: torch.Tensor, center: torch.Tensor,
+                         max_half: float, cascades: int) -> torch.Tensor:
+    """Finest cascade containing each position (..., 3) -> (...,) int32;
+    cascade c covers the box of half-extent max_half * 2^(c - (C-1))
+    (reference: the NGP mip selection, raymarching.cu mip_from_pos)."""
+    m = (positions - center).abs().amax(-1)
+    base_half = max_half / (2 ** (cascades - 1))
+    c = torch.ceil(torch.log2(torch.clamp(m / base_half, min=1.0)))
+    return torch.clamp(c.to(torch.int32), 0, cascades - 1)
+
+
+def occupancy_probe_cascaded_xyz(packed: torch.Tensor, px: torch.Tensor,
+                                 py: torch.Tensor, pz: torch.Tensor,
+                                 center: torch.Tensor, max_half: float,
+                                 resolution: int) -> torch.Tensor:
+    """Occupancy (bool, shape of ``px``) of world-coordinate planes in
+    (C, words, 128) bitfields (``downsample_occupancy_cascaded``), each
+    point tested in its finest containing cascade. Cascade c's words start
+    at c * words * 128: ``pack_bits`` pads each cascade to whole rows, so
+    the offset is not (c * res^3) >> 5 unless res^3 fills them."""
+    c, cx, cy, cz = _cascade_cell_coords(px, py, pz, center, max_half,
+                                         resolution, packed.shape[0])
+    local = (cx * resolution + cy) * resolution + cz
+    word_idx = c * (packed.shape[1] * 128) + (local >> 5)
+    return probe_packed_bits(packed.reshape(-1, 128), word_idx, local & 31)
+
+
+def occupancy_probe_cascaded(packed: torch.Tensor, positions: torch.Tensor,
+                             center: torch.Tensor, max_half: float,
+                             resolution: int) -> torch.Tensor:
+    """``occupancy_probe_cascaded_xyz`` of world positions (..., 3)."""
+    return occupancy_probe_cascaded_xyz(
+        packed, positions[..., 0], positions[..., 1], positions[..., 2],
+        center, max_half, resolution)
 
 
 def cascade_cell_positions(cells: torch.Tensor, offsets: torch.Tensor,

@@ -1,5 +1,14 @@
-"""Two-level rank-compacted block bitfield and its occupancy probe: a port
-of nerficg_tpu/ops/xbar_gather.py (:204-328).
+"""The flat 32-bit table gather, bit-packed occupancy probes, and the
+two-level rank-compacted block bitfield with its probe: a port of
+nerficg_tpu/ops/xbar_gather.py (:52-56, :158-201, :204-328).
+
+``xbar_gather`` is ``table.reshape(-1)[idx]`` for a (R, 128) table of any
+32-bit dtype, the bits moved exactly: on CUDA tensors one launch of the
+kernel in ``nerficg_torch/csrc/block_probe.cu`` that replaces the TPU
+crossbar gather ``_gather_kernel`` (:36) at its generic entry (:52); on
+CPU tensors ``xbar_gather_plain``. The dense occupancy probe
+(``occupancy_probe_xyz``) reaches it through a ``pack_bits`` bitfield of
+the flat (res^3,) occupancy flags, 32 cells a word.
 
 The skip grid is split into 8^3-cell blocks; only occupied blocks keep their
 16 fine words, packed in block-rank order. One (rows, 128) int32 table holds
@@ -30,7 +39,9 @@ import torch
 from nerficg_torch.core.errors import KernelError
 from nerficg_torch.ops import _kernels
 
-__all__ = ['build_block_bitfield', 'block_probe_cells',
+__all__ = ['xbar_gather', 'xbar_gather_plain', 'pack_bits',
+           'probe_packed_bits', 'occupancy_probe_xyz', 'occupancy_probe',
+           'build_block_bitfield', 'block_probe_cells',
            'block_probe_cells_plain', 'block_table_rows', 'xbar_permute',
            'xbar_permute_plain']
 
@@ -62,6 +73,87 @@ def _as_int32(words: torch.Tensor) -> torch.Tensor:
     """uint32 values held in int64 -> int32 with the same bits."""
     return torch.where(words >= 1 << 31, words - (1 << 32), words).to(
         torch.int32)
+
+
+def xbar_gather_plain(table: torch.Tensor, idx: torch.Tensor
+                      ) -> torch.Tensor:
+    """``table.reshape(-1)[idx]``, ids clamped into [0, R*128) as the
+    kernel clamps them (JAX's gather clamps those past the end)."""
+    flat = table.reshape(-1)
+    return flat[torch.clamp(idx.long(), 0, flat.shape[0] - 1)]
+
+
+def xbar_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(R, 128) table of any 32-bit dtype, int32 ids (N,) in [0, R*128) ->
+    (N,) entries of the flat table, the bits moved exactly
+    (nerficg_tpu/ops/xbar_gather.py:52, #4's generic entry).
+
+    CUDA tensors launch the hand-written kernel; CPU tensors take
+    ``xbar_gather_plain``."""
+    if table.device.type == 'cpu':
+        return xbar_gather_plain(table, idx)
+    name = 'xbar_gather'
+    if table.ndim != 2 or table.shape[1] != _LANES or \
+            table.element_size() != 4 or idx.ndim != 1:
+        raise KernelError(f'{name}: table must be (R, 128) of a 32-bit dtype '
+                          f'and idx (N,), got {tuple(table.shape)} '
+                          f'{table.dtype} and {tuple(idx.shape)}')
+    _kernels.require_cuda(name, table, idx, dtypes=(table.dtype, torch.int32))
+    out = torch.empty(idx.shape[0], dtype=table.dtype, device=table.device)
+    code = _kernels.load_library().nerficg_xbar_gather(
+        table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+        table.numel(), _kernels.stream_of(table))
+    _kernels.check(code, name)
+    xbar_gather.launches += 1
+    return out
+
+
+xbar_gather.launches = 0
+
+
+def pack_bits(flags: torch.Tensor) -> torch.Tensor:
+    """(M,) bool or 0/1 flags -> (ceil(M / 4096), 128) int32 bitfield, bit
+    b of word w = flag[32 w + b] (reference: the ``packbits`` CUDA kernel,
+    raymarching.cu:123-160). The tail is padded with zeros to whole
+    128-word rows."""
+    m = flags.shape[0]
+    f = torch.nn.functional.pad(flags.reshape(-1).long(),
+                                (0, (-m) % (32 * _LANES)))
+    weights = torch.ones(32, dtype=torch.int64, device=f.device) << \
+        torch.arange(32, device=f.device)
+    words = (f.reshape(-1, 32) * weights).sum(-1)
+    return _as_int32(words).reshape(-1, _LANES)
+
+
+def probe_packed_bits(table: torch.Tensor, word_idx: torch.Tensor,
+                      bit: torch.Tensor) -> torch.Tensor:
+    """Bit ``bit`` (0-31) of word ``word_idx`` of a (R, 128) int32 bitfield,
+    as bool of ``word_idx``'s shape; the words come from ``xbar_gather``."""
+    words = xbar_gather(table, word_idx.reshape(-1)).long() & _M32
+    return (((words >> bit.reshape(-1).long()) & 1) == 1).reshape(
+        word_idx.shape)
+
+
+def occupancy_probe_xyz(packed: torch.Tensor, ux: torch.Tensor,
+                        uy: torch.Tensor, uz: torch.Tensor,
+                        resolution: int) -> torch.Tensor:
+    """Occupancy (bool, shape of ``ux``) of unit-coordinate planes in a
+    ``pack_bits`` bitfield of the flat (res^3,) flags: each coordinate
+    times ``resolution``, truncated toward zero, then clipped to
+    [0, res)."""
+    def cell(u):
+        return torch.clamp((u * resolution).to(torch.int32), 0,
+                           resolution - 1)
+    flat = (cell(ux) * resolution + cell(uy)) * resolution + cell(uz)
+    return probe_packed_bits(packed, flat >> 5, flat & 31)
+
+
+def occupancy_probe(packed: torch.Tensor, positions_unit: torch.Tensor,
+                    resolution: int) -> torch.Tensor:
+    """``occupancy_probe_xyz`` of positions (..., 3) in [0, 1]^3."""
+    return occupancy_probe_xyz(packed, positions_unit[..., 0],
+                               positions_unit[..., 1],
+                               positions_unit[..., 2], resolution)
 
 
 def build_block_bitfield(flags: torch.Tensor, resolution: int,

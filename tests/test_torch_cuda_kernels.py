@@ -311,6 +311,61 @@ def test_block_probe_xyz(cuda, cascades, scale):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize('dtype', [torch.int32, torch.float32])
+def test_xbar_gather(cuda, dtype):
+    """The flat table gather bit-exact to its plain version, with random
+    32-bit patterns (as float32: NaNs and denormals among them) and ids at
+    0 and R*128 - 1."""
+    rng = np.random.default_rng(3)
+    rows = 37
+    bits = rng.integers(-2 ** 31, 2 ** 31, (rows, 128), np.int64).astype(
+        np.int32)
+    table = torch.from_numpy(bits).to(cuda).view(dtype)
+    idx = torch.tensor(np.concatenate([[0, rows * 128 - 1], rng.integers(
+        0, rows * 128, 100000)]), dtype=torch.int32, device=cuda)
+    launches = xbar_gather.xbar_gather.launches
+    got = xbar_gather.xbar_gather(table, idx)
+    assert xbar_gather.xbar_gather.launches == launches + 1
+    assert got.dtype == dtype and got.shape == idx.shape
+    assert torch.equal(got.view(torch.int32),
+                       xbar_gather.xbar_gather_plain(table, idx).view(
+                           torch.int32))
+
+
+@pytest.mark.parametrize('cascades, scale', [(1, 0.5), (2, 1.0), (2, 0.7),
+                                             (4, 3.0)])
+def test_dense_probe_card_equals_cpu(cuda, cascades, scale):
+    """The dense probes (cell math in PyTorch, words through xbar_gather)
+    on the card equal the CPU's at cascade and cell boundaries +-1 ulp:
+    one grid (unit coordinates in the box) and cascades (world planes)."""
+    from nerficg_torch.ops import occupancy
+    res = 24                      # 24^3 bits: not whole 4096-bit rows
+    rng = np.random.default_rng(cascades)
+    flags = rng.uniform(size=(cascades, res ** 3)) < 0.4
+    packed = torch.stack([xbar_gather.pack_bits(torch.from_numpy(f))
+                          for f in flags])
+    center = np.asarray([0.1, -0.2, 0.05], np.float32)
+    p = _probe_points(cuda, center, scale, res, cascades)
+    launches = xbar_gather.xbar_gather.launches
+    if cascades > 1:
+        def probe(table, planes, c):
+            return occupancy.occupancy_probe_cascaded_xyz(table, *planes, c,
+                                                          scale, res)
+    else:
+        packed = packed[0]
+
+        def probe(table, planes, c):
+            # The marcher's unit coordinates: quotients by 0-dim tensors.
+            lo, ext = c - scale, (c + scale) - (c - scale)
+            units = [(q - lo[d]) / ext[d] for d, q in enumerate(planes)]
+            return xbar_gather.occupancy_probe_xyz(table, *units, res)
+    got = probe(packed.to(cuda), p, torch.from_numpy(center).to(cuda))
+    assert xbar_gather.xbar_gather.launches == launches + 1
+    want = probe(packed, [q.cpu() for q in p], torch.from_numpy(center))
+    assert 0 < int(want.sum()) < want.numel()
+    assert torch.equal(got.cpu(), want)
+
+
 # The cell encode at the reference's 2^19 entries (configs/ingp_parity.yaml)
 # and the crossbar at the library's 2^14.
 CELL_CFG = HashGridConfig(num_levels=16, features_per_level=2,

@@ -60,7 +60,8 @@ def scene(tmp_path_factory):
     return make_textured_scene(root, image_size=32, n_train=8, n_test=2)
 
 
-def _config(scene, iterations=200, seed=0, backend='window'):
+def _config(scene, iterations=200, seed=0, backend='window',
+            probe_mode='block'):
     return {'GLOBAL': {'METHOD_TYPE': 'InstantNGP', 'DATASET_TYPE': 'NeRF',
                        'RANDOM_SEED': seed, 'LOG_LEVEL': 'SILENT',
                        'NUM_DEVICES': 1},
@@ -70,7 +71,7 @@ def _config(scene, iterations=200, seed=0, backend='window'):
                       'GRID_RESOLUTION': 32, 'SCALE': 1.0,
                       'STOCHASTIC_CORNERS': 0, 'ENCODING_BACKEND': backend},
             'RENDERER': {'MAX_SAMPLES': 64, 'RAY_BATCH_SIZE': 1024,
-                         'OCCUPANCY_SAMPLES': 4096},
+                         'OCCUPANCY_SAMPLES': 4096, 'PROBE_MODE': probe_mode},
             'TRAINING': {'NUM_ITERATIONS': iterations,
                          'INITIAL_RAYS_PER_BATCH': 256,
                          'TARGET_BATCH_SIZE': 8192, 'RENDER_TESTSET': True,
@@ -91,10 +92,10 @@ def _shell_grid(resolution, cascades, scale):
     return np.concatenate(grids).astype(np.float32)
 
 
-def _trainers(scene, backend='window'):
+def _trainers(scene, backend='window', probe_mode='block'):
     """A JAX and a port trainer with the same weights (table U(-0.1, 0.1),
     He-uniform MLPs from a numpy seed) and density grid, ray pools built."""
-    cfg = _config(scene, backend=backend)
+    cfg = _config(scene, backend=backend, probe_mode=probe_mode)
     jt = JMethods.get_training_instance(JConfigNode(cfg))
     tt = TMethods.get_training_instance(TConfigNode(cfg), device='cpu')
     rng = np.random.default_rng(0)
@@ -144,11 +145,11 @@ def _batch(trainer):
     return ids, bg
 
 
-def check_one_step(scene, backend):
+def check_one_step(scene, backend, probe_mode='block'):
     """One exact training step of each package's trainer with the given
-    encoding backend: loss to LOSS_RTOL, gradients to FROBENIUS_RTOL and
-    their norms to NORM_RTOL."""
-    jt, tt = _trainers(scene, backend)
+    encoding backend and probe mode: loss to LOSS_RTOL, gradients to
+    FROBENIUS_RTOL and their norms to NORM_RTOL."""
+    jt, tt = _trainers(scene, backend, probe_mode)
     key = jax.random.PRNGKey(11)
     ids, bg = _batch(jt)
     jr = jt.renderer
