@@ -120,6 +120,16 @@ Phases, each printing its own lines:
      RENDERER.PROBE_MODE=dense trained 300 iterations and served, as phase
      5 is: xbar_gather launched, block_probe_xyz and block_probe_cells
      never.
+ 16. the COLMAP capture path of 3DGS: phases 5-9's scene written as a
+     Mip-NeRF 360 capture (images_4 of 400x300, a 1600x1200 PINHOLE model,
+     100,000 SfM points on the sphere and 2% outliers), then the port's
+     create_config -m GaussianSplatting -d MipNeRF360, train (0 iterations
+     for the SfM-initialised baseline, then 1000 of 30,000: five
+     densifications), convert_to_ply and inference -s test ellipse_path
+     -m -b: #15 and #16 once per step, the packed #15 once per served and
+     trajectory frame, the loss falls, test PSNR at least 3 dB above the
+     baseline, the PLY equal to the checkpoint bit for bit, 120 finite
+     trajectory frames.
 Every main path of phases 3-7 and 11 must probe through block_probe_xyz
 alone, never through block_probe_cells or xbar_gather; phase 15 through
 xbar_gather alone.
@@ -2561,9 +2571,276 @@ def phase14_nerf(card: str, scene: Path,
                      f'{db:.1f} dB')
 
 
+# Phase 16's capture: the 400x400 textured scene as a Mip-NeRF 360 capture,
+# images_4 cropped to rows 50-349 (400x300) beside a 1600x1200 model, and
+# an SfM cloud of 100,000 points on the sphere plus 2% outliers.
+CAPTURE_ROWS = (50, 350)
+CAPTURE_POINTS = 100_000
+CAPTURE_ITERATIONS = 1000
+
+
+def write_capture(root: Path, scene: Path, rows=CAPTURE_ROWS,
+                  n_points: int = CAPTURE_POINTS, outlier_share: float = 0.02,
+                  seed: int = 0) -> Path:
+    """A COLMAP capture of a ``make_textured_scene`` directory in Mip-NeRF
+    360's layout (the same writer as tests/test_torch_colmap.py's
+    ``write_capture``, binary only): every view (train, then test) as
+    ``images_4/{k:03d}.png`` (RGB on black, rows ``rows`` kept);
+    ``sparse/0/cameras.bin``, one PINHOLE camera at 4x the images' size
+    whose centre moves with the crop; ``images.bin``, each view's w2c
+    (the inverse of the NeRF loader's ``opengl_to_colmap`` c2w) as a wxyz
+    quaternion and translation, with two 2D observations; ``points3D.bin``,
+    ``n_points`` on the sphere (radius 0.8) coloured as the images show
+    them and ``outlier_share`` more uniform in a cube of side 8, each with
+    a two-entry track."""
+    import math
+    import struct
+
+    import numpy as np
+    from PIL import Image
+
+    from nerficg_torch.cameras.pose import rotation_matrix_to_quaternion
+    from nerficg_torch.data.loaders.nerf import (BLENDER_TO_COLMAP_WORLD,
+                                                 opengl_to_colmap)
+    from nerficg_torch.data.synthetic import _texture_fn
+
+    model = root / 'sparse' / '0'
+    model.mkdir(parents=True, exist_ok=True)
+    (root / 'images_4').mkdir(parents=True, exist_ok=True)
+    top, bottom = rows
+    images, index = [], 0
+    for split in ('train', 'test'):
+        meta = json.loads((scene / f'transforms_{split}.json').read_text())
+        for frame in meta['frames']:
+            rgba = np.asarray(Image.open(scene / (frame['file_path'][2:] +
+                                                  '.png')))
+            height, width = rgba.shape[:2]
+            name = f'{index:03d}.png'
+            Image.fromarray(rgba[top:bottom, :, :3]).save(
+                root / 'images_4' / name)
+            w2c = np.linalg.inv(opengl_to_colmap(
+                np.asarray(frame['transform_matrix'])))
+            images.append((index + 1,
+                           rotation_matrix_to_quaternion(w2c[:3, :3]),
+                           w2c[:3, 3], name))
+            index += 1
+        focal = 0.5 * width / math.tan(0.5 * meta['camera_angle_x'])
+    with open(model / 'cameras.bin', 'wb') as f:
+        f.write(struct.pack('<QiiQQ4d', 1, 1, 1, width * 4,
+                            (bottom - top) * 4, focal * 4, focal * 4,
+                            width / 2 * 4, (height / 2 - top) * 4))
+    with open(model / 'images.bin', 'wb') as f:
+        f.write(struct.pack('<Q', len(images)))
+        for image_id, qvec, tvec, name in images:
+            f.write(struct.pack('<i7di', image_id, *qvec, *tvec, 1))
+            f.write(name.encode() + b'\x00')
+            f.write(struct.pack('<Qddqddq', 2, 1.5, 2.5, 0, 3.5, 4.5, -1))
+    rng = np.random.default_rng(seed)
+    normals = rng.normal(size=(n_points, 3))
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    light = np.array([0.5, 0.7, 0.5]) / np.linalg.norm([0.5, 0.7, 0.5])
+    texture = _texture_fn(np.random.default_rng(0), (3.0, 8.0, 14.0))
+    colors = texture(0.8 * normals) * \
+        (0.35 + 0.65 * np.maximum(normals @ light, 0.0))[:, None]
+    outliers = int(round(n_points * outlier_share))
+    xyz = np.concatenate([0.8 * normals,
+                          rng.uniform(-4.0, 4.0, (outliers, 3))])
+    colors = np.concatenate([colors, rng.random((outliers, 3))])
+    record = np.dtype([('id', '<u8'), ('xyz', '<f8', 3), ('rgb', 'u1', 3),
+                       ('error', '<f8'), ('track_length', '<u8'),
+                       ('track', '<i4', 4)])
+    table = np.zeros(len(xyz), record)
+    table['id'] = np.arange(1, len(xyz) + 1)
+    table['xyz'] = xyz @ BLENDER_TO_COLMAP_WORLD[:3, :3].T
+    table['rgb'] = np.round(colors * 255).astype(np.uint8)
+    table['error'] = 0.5
+    table['track_length'] = 2
+    table['track'] = [1, 0, 2, 1]
+    with open(model / 'points3D.bin', 'wb') as f:
+        f.write(struct.pack('<Q', len(table)))
+        f.write(table.tobytes())
+    return root
+
+
+def phase16_capture(card: str, scene: Path,
+                    iterations: int = CAPTURE_ITERATIONS) -> dict:
+    """The COLMAP capture path of 3DGS through the port's four entry
+    points on ``write_capture``'s capture of ``scene``: create_config -m
+    GaussianSplatting -d MipNeRF360 (the library's defaults: SH 4,
+    DOWNSAMPLE 4, TEST_STEP 8, PCA alignment); train for 0 iterations (the
+    SfM-initialised model, its test PSNR the baseline) and ``iterations``
+    of the config's 30,000 (densification every 100 from 600); a profile
+    of one warm step; convert_to_ply; inference -s test ellipse_path -m -b.
+    Checks: #15 (16-wide) and #16 once per step, the packed #15 once per
+    served, trajectory and benchmark frame; the loss falls; the test PSNR
+    rises by 3 dB; the PLY holds one vertex per active Gaussian, equal to
+    the final checkpoint's parameters bit for bit; the trajectory's 120
+    frames are finite and of the camera's shape. Returns the GS kernels'
+    launches of the training run (#15, #16) and the serving run (packed)."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.core.checkpoint import load_checkpoint
+    from nerficg_torch.core.registry import Datasets
+    from nerficg_torch.core.setup import Directories
+    from nerficg_torch.data.ply import read_ply_vertices
+    from nerficg_torch.scripts import (convert_to_ply, create_config,
+                                       inference, train)
+    from nerficg_torch.visual.trajectories import CameraTrajectory
+
+    tag = 'phase 16'
+    phase_start = time.perf_counter()
+    wrappers = _gs_wrappers()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_capture_') as tmp:
+        tmp = Path(tmp)
+        start = time.perf_counter()
+        capture = write_capture(tmp / 'capture', scene)
+        config = tmp / 'm360.yaml'
+        create_config.main(['-m', 'GaussianSplatting', '-d', 'MipNeRF360',
+                            '-o', str(config), '-p', str(capture)])
+        print(f'{tag}: Mip-NeRF 360 capture of the 400x400 scene (34 views '
+              f'as images_4 of 400x300, a 1600x1200 PINHOLE model, '
+              f'{CAPTURE_POINTS} SfM points + 2% outliers) and '
+              f'create_config -m GaussianSplatting -d MipNeRF360 in '
+              f'{time.perf_counter() - start:.1f} s', flush=True)
+        Directories.base = tmp / 'output'
+        args = ['-c', str(config)]
+        before = train.main(args + ['TRAINING.NUM_ITERATIONS=0',
+                                    'TRAINING.MODEL_NAME=untrained'])
+        psnr_before = float(before['metrics']['PSNR'])
+        dataset = Datasets.get_dataset(before['trainer']._config)
+        camera = dataset.subsets['train'][0].camera
+        n_test = len(dataset.subsets['test'])
+        start_count = len(dataset.point_cloud)
+        print(f'{tag}: the SfM-initialised model (iteration 0, '
+              f'{start_count} Gaussians): test PSNR {psnr_before:.3f} dB on '
+              f'{n_test} test views of {camera.width}x{camera.height} '
+              f'[{card}]', flush=True)
+
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        result, launches = _launches_of(lambda: train.main(
+            args + [f'TRAINING.NUM_ITERATIONS={iterations}',
+                    'TRAINING.MODEL_NAME=chip_smoke']), wrappers)
+        wall = time.perf_counter() - start
+        peak = torch.cuda.max_memory_allocated()
+        trainer = result['trainer']
+        losses = torch.stack(trainer.losses).float().cpu().numpy()
+        psnr = float(result['metrics']['PSNR'])
+        step = trainer.timers['training_iteration']
+        print(f'{tag}: train.main TRAINING.NUM_ITERATIONS={iterations}: '
+              f'whole run {wall:.1f} s, {step.mean * 1e3:.2f} ms per '
+              f'training_iteration, Gaussians {start_count} at start, '
+              f'{trainer.model.num_active} after the bake; peak '
+              f'torch.cuda.max_memory_allocated {peak / 2 ** 20:.1f} MiB '
+              f'[{card}]')
+        for line in (Path(result['output_dir']) / 'timings.txt'
+                     ).read_text().splitlines():
+            print(f'{tag}: timings.txt: {line}')
+        print(f'{tag}: loss mean of iterations 0-49 {losses[:50].mean():.6f}'
+              f', of the last 50 {losses[-50:].mean():.6f}; test metrics: ' +
+              ', '.join(f'{k}={v:.4f}' for k, v in result['metrics'].items())
+              + f' (iteration 0: {psnr_before:.3f} dB) [{card}]')
+        print(f'{tag}: kernel launches in the training run: {launches}',
+              flush=True)
+        for name in ('gs_composite_fwd', 'gs_composite_bwd'):
+            if launches[name] != iterations:
+                fail(f'{tag}: {name} launched {launches[name]} times in '
+                     f'{iterations} steps')
+        if len(losses) != iterations or not np.isfinite(losses).all():
+            fail(f'{tag}: training loss is missing or not finite')
+        if not losses[-50:].mean() < losses[:50].mean():
+            fail(f'{tag}: the training loss did not fall')
+        if not (np.isfinite(psnr) and psnr >= psnr_before + 3.0):
+            fail(f'{tag}: test PSNR {psnr:.3f} dB is not 3 dB above the '
+                 f'SfM-initialised model\'s {psnr_before:.3f} dB')
+        # One warm step on the baked model, with a fresh optimizer.
+        trainer._build_optimizer()
+        trainer._reset_densify_stats()
+        profile_device(lambda: trainer.training_iteration(dataset,
+                                                          iterations),
+                       f'{tag}: profile of one training step', card)
+
+        run_dir = Path(result['output_dir'])
+        ply = convert_to_ply.main(['-d', str(run_dir)])
+        vertices = read_ply_vertices(ply)
+        params = load_checkpoint(run_dir / 'checkpoints' / 'final.ckpt'
+                                 )['params']
+        active = trainer.model.num_active
+        rest = params['features_rest'][:active].transpose(0, 2, 1).reshape(
+            active, -1)
+        columns = {'positions': ('x', 'y', 'z'),
+                   'features_dc': tuple(f'f_dc_{i}' for i in range(3)),
+                   'features_rest': tuple(f'f_rest_{i}'
+                                          for i in range(rest.shape[1])),
+                   'opacities': ('opacity',),
+                   'scales': tuple(f'scale_{i}' for i in range(3)),
+                   'rotations': tuple(f'rot_{i}' for i in range(4))}
+        want = {'features_rest': rest,
+                'features_dc': params['features_dc'][:active, 0]}
+        equal = len(vertices['x']) == active
+        for key, names in columns.items():
+            got = np.stack([vertices[n] for n in names], -1)
+            value = want.get(key, params[key][:active])
+            equal = equal and got.shape == value.shape and \
+                np.array_equal(got, value)
+        print(f'{tag}: convert_to_ply: {ply.stat().st_size} bytes, '
+              f'{len(vertices["x"])} vertices ({active} active Gaussians), '
+              f'{len(vertices)} properties, equal to final.ckpt bit for bit: '
+              f'{equal}', flush=True)
+        if not equal:
+            fail(f'{tag}: the PLY does not hold the checkpoint\'s '
+                 'parameters')
+
+        repeats = 3
+        served, served_launches = _launches_of(lambda: inference.main(
+            ['-d', str(run_dir), '-s', 'test', 'ellipse_path', '-m', '-b',
+             '--repeats', str(repeats)]), wrappers)
+        metrics = served['metrics']['test']
+        frames = sorted((run_dir / 'ellipse_path' / 'rgb').iterdir())
+        expected = n_test + len(frames) + 1 + repeats * n_test
+        print(f'{tag}: inference -s test ellipse_path -m -b --repeats '
+              f'{repeats}: {served["fps"]:.3f} FPS at '
+              f'{camera.width}x{camera.height}; served test metrics: ' +
+              ', '.join(f'{k}={v:.4f}' for k, v in metrics.items()) +
+              f'; {len(frames)} trajectory frames; launches '
+              f'{served_launches} ({expected} frames) [{card}]', flush=True)
+        if served_launches['gs_composite_fwd_packed'] != expected or \
+                served_launches['gs_composite_fwd'] or \
+                served_launches['gs_composite_bwd']:
+            fail(f'{tag}: serving should launch the packed #15 once per '
+                 f'frame ({expected}) and nothing else: {served_launches}')
+        if not abs(float(metrics['PSNR']) - psnr) <= 0.05:
+            fail(f'{tag}: the served test PSNR {metrics["PSNR"]:.3f} dB is '
+                 f'not the trainer\'s {psnr:.3f} dB')
+        # The trajectory's frames again, as tensors: finite, of the
+        # camera's shape.
+        renderer, _ = load_renderer(run_dir, 'cuda')
+        views = CameraTrajectory.get('ellipse_path').generate(dataset, 120)
+        shapes = set()
+        finite = True
+        for view in views:
+            out = renderer.render_image(view)
+            shapes.add(tuple(out['rgb'].shape))
+            finite = finite and all(bool(torch.isfinite(v).all())
+                                    for v in out.values())
+        seconds = time.perf_counter() - phase_start
+        print(f'{tag}: ellipse_path: {len(views)} frames, rgb shapes '
+              f'{sorted(shapes)}, finite {finite}; the phase took '
+              f'{seconds:.1f} s [{card}]', flush=True)
+        if len(frames) != 120 or shapes != {(camera.height, camera.width,
+                                             3)} or not finite:
+            fail(f'{tag}: the trajectory\'s frames are missing, misshapen or '
+                 'not finite')
+    return {'gs_composite_fwd': launches['gs_composite_fwd'],
+            'gs_composite_bwd': launches['gs_composite_bwd'],
+            'gs_composite_fwd_packed':
+                served_launches['gs_composite_fwd_packed']}
+
+
 def main_paths(card: str) -> dict:
-    """Phases 3-11, 14 and 15, the methods' serving and training paths;
-    the kernels' launch counts."""
+    """Phases 3-11 and 14-16, the methods' serving and training paths;
+    the kernels' launch counts (#15 and #16: phases 8, 9 and 16 summed)."""
     from nerficg_torch.data.synthetic import (make_dynamic_textured_scene,
                                               make_textured_scene)
     with fwd_sizes('phase 3 (window Instant-NGP served)'):
@@ -2627,6 +2904,8 @@ def main_paths(card: str) -> dict:
         launches.update(phase9_gs_training(card, scene))
         launches['gs_composite_fwd_packed'] += \
             served['gs_composite_fwd_packed']
+        for name, count in phase16_capture(card, scene).items():
+            launches[name] += count
         # The dense probe: the e2e config with PROBE_MODE 'dense', the
         # skip grid as (2, 512, 128) bitfields probed through xbar_gather
         # (#4's generic entry), never through the block probes.

@@ -99,10 +99,19 @@ def recursive_update(base: ConfigNode, update: Mapping, warn_unknown: bool = Fal
 
 
 def default_global_config() -> ConfigNode:
-    """Global defaults (reference: Framework.py:202-212)."""
+    """Global defaults (reference: Framework.py:202-212), the JAX package's
+    keys, so that both packages write the same config files. The port runs
+    on one card: the Instant-NGP trainer refuses NUM_DEVICES > 1 and setup
+    refuses ANOMALY_DETECTION; MESH_AXES (the JAX device mesh) and the two
+    dtypes, which neither package reads, are carried as they are."""
     return ConfigNode({
         'LOG_LEVEL': 'NORMAL',
         'RANDOM_SEED': 42,
+        'NUM_DEVICES': None,
+        'MESH_AXES': {'data': -1},
+        'DEFAULT_DTYPE': 'float32',
+        'COMPUTE_DTYPE': 'bfloat16',
+        'ANOMALY_DETECTION': False,
         'FILTER_WARNINGS': True,
         'METHOD_TYPE': None,
         'DATASET_TYPE': None,

@@ -36,6 +36,11 @@ _BUILTIN_METHOD_MODULES = {
 _BUILTIN_DATASET_MODULES = {
     'NeRF': 'nerficg_torch.data.loaders.nerf',
     'DNeRF': 'nerficg_torch.data.loaders.dnerf',
+    'Colmap': 'nerficg_torch.data.loaders.colmap',
+    'MipNeRF360': 'nerficg_torch.data.loaders.mipnerf360',
+    'TanksAndTemples': 'nerficg_torch.data.loaders.tanks_and_temples',
+    'TanksAndTemples_3DGS': 'nerficg_torch.data.loaders.tanks_and_temples_3dgs',
+    'Empty': 'nerficg_torch.data.loaders.empty',
 }
 
 _methods: dict[str, MethodEntry] = {}
@@ -87,6 +92,14 @@ class Methods:
     ``device='cpu'``; without a card they raise (``KernelError``)."""
 
     @staticmethod
+    def options() -> list[str]:
+        return sorted(set(_methods) | set(_BUILTIN_METHOD_MODULES))
+
+    @staticmethod
+    def get_entry(name: str) -> MethodEntry:
+        return _resolve_method(name)
+
+    @staticmethod
     def get_model(config, name: str | None = None,
                   checkpoint: str | None = None,
                   device: torch.device | str = 'cuda'):
@@ -121,6 +134,14 @@ class Methods:
 
 class Datasets:
     """Dataset lookup facade (reference: Implementations.Datasets, :93)."""
+
+    @staticmethod
+    def options() -> list[str]:
+        return sorted(set(_datasets) | set(_BUILTIN_DATASET_MODULES))
+
+    @staticmethod
+    def get_class(name: str) -> type:
+        return _resolve_dataset(name)
 
     @staticmethod
     def get_dataset(config, name: str | None = None, path: str | None = None):

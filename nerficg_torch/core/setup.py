@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from nerficg_torch.core.config import ConfigNode, load_config
-from nerficg_torch.core.errors import KernelError
+from nerficg_torch.core.errors import ConfigError, KernelError
 from nerficg_torch.core.logging import Logger
 
 __all__ = ['FrameworkContext', 'setup', 'teardown', 'Directories',
@@ -81,6 +81,8 @@ def setup(config_path: str | None = None, overrides=(), *,
     # TF32; the port keeps float32 products in full float32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if g.get('ANOMALY_DETECTION', False):
+        raise ConfigError('GLOBAL.ANOMALY_DETECTION is not ported')
 
     seed = int(g.get('RANDOM_SEED', 42))
     random.seed(seed)

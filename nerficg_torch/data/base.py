@@ -1,7 +1,6 @@
-"""Dataset base class: views in subsets, the training ray pool, the point
-cloud and the scene's bounding box, a port of nerficg_tpu/data/base.py
-(reference: src/Datasets/Base.py:29-244). Scene normalization is not ported
-yet."""
+"""Dataset base class: views in subsets, scene normalization, the training
+ray pool, the point cloud and the scene's bounding box, a port of
+nerficg_tpu/data/base.py (reference: src/Datasets/Base.py:29-244)."""
 
 from __future__ import annotations
 
@@ -12,6 +11,8 @@ import numpy as np
 import torch
 
 from nerficg_torch.cameras.base import SharedCameraSettings
+from nerficg_torch.cameras.pose import (recenter_poses,
+                                        rescale_poses_to_unit_cube)
 from nerficg_torch.core.config import ConfigNode, Configurable
 from nerficg_torch.core.errors import DatasetError
 from nerficg_torch.core.logging import Logger
@@ -31,14 +32,14 @@ __all__ = ['BaseDataset']
     FAR_PLANE=100.0,
 )
 class BaseDataset(Configurable):
-    """Loads views into train/test/val subsets (reference: Base.py:56-74)."""
+    """Loads views into train/test/val subsets (reference: Base.py:56-74),
+    optionally normalizes the scene into the unit cube, and estimates its
+    bounding box."""
 
     SUBSETS = ('train', 'test', 'val')
 
     def __init__(self, config: ConfigNode | None, path: str | None = None):
         super().__init__(config, 'DATASET')
-        if self.NORMALIZE_RECENTER or self.NORMALIZE_CUBE:
-            raise DatasetError('scene normalization is not ported yet')
         if path is not None:
             self.PATH = path
         self.path = Path(self.PATH)
@@ -48,6 +49,7 @@ class BaseDataset(Configurable):
         self.subsets: dict[str, list[View]] = {s: [] for s in self.SUBSETS}
         self.point_cloud: BasicPointCloud | None = None
         self.bounding_box: AxisAlignedBox | None = None
+        self._applied_transform = np.eye(4)
 
         start = time.perf_counter()
         self.load()
@@ -56,6 +58,8 @@ class BaseDataset(Configurable):
                     f'{time.perf_counter() - start:.2f}s')
         for i, view in enumerate(self.all_views()):
             view.global_frame_idx = i
+        if self.NORMALIZE_RECENTER or self.NORMALIZE_CUBE:
+            self.normalize_scene()
         if self.bounding_box is None:
             self.bounding_box = self.estimate_bounding_box()
 
@@ -86,6 +90,38 @@ class BaseDataset(Configurable):
                 corners, np.full(4, cam.far, np.float32)))
         points = np.concatenate([np.atleast_2d(p) for p in points], axis=0)
         return AxisAlignedBox(np.stack([points.min(0), points.max(0)]))
+
+    def normalize_scene(self) -> None:
+        """Recenter and/or rescale every pose, the planes, the bounding box
+        and the point cloud into the unit cube (reference:
+        Datasets/Base.py:218-244; nerficg_tpu/data/base.py:128-158)."""
+        views = self.all_views()
+        if not views:
+            return
+        c2ws = np.stack([v.c2w for v in views])
+        transform = np.eye(4)
+        if self.NORMALIZE_RECENTER:
+            c2ws, t = recenter_poses(c2ws)
+            transform = t @ transform
+        scale = 1.0
+        if self.NORMALIZE_CUBE:
+            aabb = None if self.point_cloud is None else \
+                self.point_cloud.filter_outliers().get_aabb().bounds
+            c2ws, t = rescale_poses_to_unit_cube(c2ws, aabb=aabb)
+            scale = float(t[0, 0])
+            transform = t @ transform
+        for view, c2w in zip(views, c2ws):
+            view.c2w = c2w
+            if view.depth_data.exists():
+                view.depth_data.update_data_scale(scale)
+        if scale != 1.0:
+            self.camera_settings.near *= scale
+            self.camera_settings.far *= scale
+        if self.point_cloud is not None:
+            self.point_cloud = self.point_cloud.transform(transform)
+        if self.bounding_box is not None:
+            self.bounding_box = self.bounding_box.transform(transform)
+        self._applied_transform = transform
 
     def preload(self) -> None:
         """Decode every image now (reference: Trainer.py:122-161)."""

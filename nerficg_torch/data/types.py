@@ -36,6 +36,7 @@ class ImageData:
     scale_factor: Optional[float] = None
     load_fn: Optional[Callable] = None
     data: Optional[np.ndarray] = None       # eager data (HWC float32)
+    data_scale: float = 1.0                 # multiplicative rescale (depth units)
 
     def exists(self) -> bool:
         return self.data is not None or (self.path is not None and Path(self.path).is_file())
@@ -64,7 +65,14 @@ class ImageData:
             out = self._decode()
         if self.channels is not None:
             out = out[..., self.channels]
+        if self.data_scale != 1.0:
+            out = out * self.data_scale
         return out
+
+    def update_data_scale(self, scale: float) -> None:
+        """Multiply the values at load (depth under scene normalization;
+        reference: Datasets/utils.py:756-763)."""
+        self.data_scale *= scale
 
 
 _RAY_FIELDS = ('origins', 'directions', 'view_directions', 'rgb', 'alpha',
@@ -133,13 +141,17 @@ class RayCollection:
 
 class View:
     """One observation: camera + pose + lazy image slots
-    (reference: Datasets/utils.py:766-1086)."""
+    (reference: Datasets/utils.py:766-1086). The JAX package's
+    segmentation, flow and misc slots are not ported."""
+
+    IMAGE_SLOTS = ('rgb', 'alpha', 'depth')
 
     def __init__(self, camera: BaseCamera, c2w: np.ndarray,
                  camera_index: int = 0, frame_idx: int = 0,
                  global_frame_idx: int | None = None,
                  timestamp: float = 0.0,
-                 rgb: ImageData | None = None, alpha: ImageData | None = None):
+                 rgb: ImageData | None = None, alpha: ImageData | None = None,
+                 depth: ImageData | None = None):
         self.camera = camera
         self.c2w = c2w  # validated setter below
         self.camera_index = camera_index
@@ -148,6 +160,7 @@ class View:
         self.timestamp = float(timestamp)
         self.rgb_data = rgb if rgb is not None else ImageData()
         self.alpha_data = alpha if alpha is not None else ImageData()
+        self.depth_data = depth if depth is not None else ImageData()
 
     @property
     def c2w(self) -> np.ndarray:
@@ -181,8 +194,8 @@ class View:
         return self.cam_to_world(cam_pts)
 
     def prefetch(self) -> 'View':
-        self.rgb_data.prefetch()
-        self.alpha_data.prefetch()
+        for slot in self.IMAGE_SLOTS:
+            getattr(self, f'{slot}_data').prefetch()
         return self
 
     @property
@@ -192,6 +205,10 @@ class View:
     @property
     def alpha(self) -> Optional[np.ndarray]:
         return self.alpha_data.load()
+
+    @property
+    def depth(self) -> Optional[np.ndarray]:
+        return self.depth_data.load()
 
     def get_rays(self, with_images: bool = True,
                  device: torch.device | str = 'cpu') -> RayBatch:
@@ -237,6 +254,10 @@ class BasicPointCloud:
     def __len__(self) -> int:
         return self.positions.shape[0]
 
+    def transform(self, mat4: np.ndarray) -> 'BasicPointCloud':
+        pos = self.positions @ mat4[:3, :3].T + mat4[:3, 3]
+        return BasicPointCloud(pos, self.colors, self.normals)
+
     def filter_outliers(self, quantile: float = 0.97) -> 'BasicPointCloud':
         """Drop points far from the median (reference: utils.py:352-367)."""
         center = np.median(self.positions, axis=0)
@@ -250,6 +271,15 @@ class BasicPointCloud:
     def get_aabb(self) -> 'AxisAlignedBox':
         return AxisAlignedBox(np.stack([self.positions.min(0),
                                         self.positions.max(0)]))
+
+    @staticmethod
+    def from_ply(path: str | Path) -> 'BasicPointCloud':
+        from nerficg_torch.data.ply import read_ply_pointcloud
+        return read_ply_pointcloud(path)
+
+    def save_ply(self, path: str | Path) -> None:
+        from nerficg_torch.data.ply import write_ply_pointcloud
+        write_ply_pointcloud(self, path)
 
 
 @dataclass
@@ -278,3 +308,16 @@ class AxisAlignedBox:
     @property
     def size(self) -> np.ndarray:
         return self.bounds[1] - self.bounds[0]
+
+    def transform(self, mat4: np.ndarray) -> 'AxisAlignedBox':
+        """The box around the transformed corners."""
+        corners = np.stack(np.meshgrid(*zip(self.bounds[0], self.bounds[1]),
+                                       indexing='ij'), axis=-1).reshape(-1, 3)
+        corners = corners @ mat4[:3, :3].T + mat4[:3, 3]
+        return AxisAlignedBox(np.stack([corners.min(0), corners.max(0)]))
+
+    def cube(self) -> 'AxisAlignedBox':
+        """Smallest enclosing cube (reference: utils.py:440-448)."""
+        half = self.size.max() * 0.5
+        return AxisAlignedBox(np.stack([self.center - half,
+                                        self.center + half]))

@@ -54,6 +54,11 @@ class BaseModel(Configurable):
         """Load parameters from the JAX package's tree of numpy arrays."""
         raise NotImplementedError
 
+    def get_ply_dict(self) -> dict:
+        """Point-based export hook (reference: Model.py:37): PLY vertex
+        properties by name; {} if the method has none."""
+        return {}
+
     # -- checkpointing ----------------------------------------------------------
     def save(self, path: str | Path) -> None:
         """(reference: Model.py:103-111)"""

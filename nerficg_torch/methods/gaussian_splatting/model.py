@@ -5,7 +5,7 @@ src/Methods/GaussianSplatting/Model.py:18-317): raw positions, SH features
 (DC and rest), log-scales, quaternions and logit opacities, initialised from
 a point cloud with RMS-kNN scales and opacity 0.1; clone / split / prune
 densification with the optimizer's moments carried through the row edits;
-opacity reset; Morton-ordered baking.
+opacity reset; Morton-ordered baking; the standard 3DGS PLY export.
 
 The Gaussians live in FIXED-CAPACITY tensors with a host-side active count,
 as in the JAX package: capacity grows in CAPACITY_GRANULARITY steps, and the
@@ -144,6 +144,30 @@ class GaussianSplattingModel(BaseModel):
         model.active_sh_degree = int(buffers['active_sh_degree']) \
             if 'active_sh_degree' in buffers else int(model.SH_DEGREE)
         return model
+
+    def get_ply_dict(self) -> dict:
+        """The active Gaussians in the standard 3DGS PLY vertex layout
+        (reference: Model.py:286-317; nerficg_tpu :260-280): the raw
+        parameters, the SH rest coefficients channel-major."""
+        n = self.num_active
+        host = {k: v[:n] for k, v in self.params_tree().items()}
+        out = {
+            'x': host['positions'][:, 0], 'y': host['positions'][:, 1],
+            'z': host['positions'][:, 2],
+            'nx': np.zeros(n, np.float32), 'ny': np.zeros(n, np.float32),
+            'nz': np.zeros(n, np.float32),
+        }
+        for i in range(3):
+            out[f'f_dc_{i}'] = host['features_dc'][:, 0, i]
+        rest = host['features_rest'].transpose(0, 2, 1).reshape(n, -1)
+        for i in range(rest.shape[1]):
+            out[f'f_rest_{i}'] = rest[:, i]
+        out['opacity'] = host['opacities'][:, 0]
+        for i in range(3):
+            out[f'scale_{i}'] = host['scales'][:, i]
+        for i in range(4):
+            out[f'rot_{i}'] = host['rotations'][:, i]
+        return out
 
     # -- activations -----------------------------------------------------------
     @staticmethod

@@ -5,8 +5,7 @@ src/Methods/GaussianSplatting/Renderer.py:27-188). ``render_impl`` is one
 differentiable render; its zero (N, 2) ``means2d_offset`` input stands for
 the reference's retained viewspace points, and its gradient is the
 densification statistic. ``render_image`` serves through the packed
-stream (``gs_composite_fwd_packed``). The JAX renderer's PROJECT_CHUNK, a
-TPU memory workaround, is not ported: the frontend runs unchunked.
+stream (``gs_composite_fwd_packed``).
 """
 
 from __future__ import annotations
@@ -29,7 +28,13 @@ __all__ = ['GaussianSplattingRenderer']
 @Configurable.configure(
     MAX_PER_TILE=256,           # front-to-back budget k per 16x16 tile
     MAX_TILES_PER_GAUSSIAN=6,   # linearized rect cover: any <= 6-tile rect
+    # TILE_CHUNK and PROJECT_CHUNK are the JAX renderer's TPU memory chunks
+    # (tiles per compositor call, Gaussians per frontend map), kept so that
+    # both packages write the same config files; the result does not depend
+    # on them, and the port runs the compositor and the frontend unchunked.
+    TILE_CHUNK=64,
     LOW_PASS_FILTER=0.3,
+    PROJECT_CHUNK=262144,
 )
 class GaussianSplattingRenderer(BaseRenderer):
 

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Render subsets from a trained output dir; metrics; FPS benchmark.
+"""Render subsets and camera trajectories from a trained output dir;
+metrics; FPS benchmark.
 
 Port of scripts/inference.py (reference: scripts/inference.py:20-103):
 render the named subsets (with -m, 8-bit PSNR/SSIM against the ground
-truth), and with -b run the online FPS benchmark (a warm-up render, then
-repeated test-set renders timed to the last device sync) into
-``performance_<iters>.txt``. Camera trajectories are not ported yet.
+truth) and camera trajectories (120 frames each, ``visual/trajectories``),
+each into RUN_DIR/<name>/, and with -b run the online FPS benchmark (a
+warm-up render, then repeated test-set renders timed to the last device
+sync) into ``performance_<iters>.txt``.
 
-  python -m nerficg_torch.scripts.inference -d RUN_DIR -s test -m -b --repeats N \
-      [--device cpu]
+  python -m nerficg_torch.scripts.inference -d RUN_DIR -s test ellipse_path \
+      -m -b --repeats N [--device cpu]
 
 It runs on the first CUDA card and refuses to start without one, unless
 ``--device cpu`` asks for the CPU (the kernels' plain versions).
@@ -25,6 +27,7 @@ import torch
 from nerficg_torch.core.logging import Logger
 from nerficg_torch.core.registry import Datasets, Methods
 from nerficg_torch.core.setup import setup, teardown
+from nerficg_torch.visual.trajectories import CameraTrajectory
 
 __all__ = ['benchmark_fps', 'main']
 
@@ -58,12 +61,15 @@ def benchmark_fps(renderer, dataset, subset: str = 'test', repeats: int = 100,
 
 
 def main(argv: list[str] | None = None) -> dict:
-    """Returns {'metrics': {subset: {...}}, 'fps': float or None}."""
+    """Returns {'metrics': {subset: {...}}, 'fps': float or None}; a
+    trajectory's entry is empty (no ground truth)."""
     parser = argparse.ArgumentParser(description='render from a trained model')
     parser.add_argument('-d', '--run-dir', required=True,
                         help='training output dir (contains training_config.yaml)')
     parser.add_argument('-s', '--subsets', nargs='*', default=['test'],
-                        help='subsets to render')
+                        help='subsets (train, test, val) and/or camera '
+                             'trajectories to render: ' +
+                             ', '.join(CameraTrajectory.list_options()))
     parser.add_argument('-m', '--metrics', action='store_true')
     parser.add_argument('-b', '--benchmark', action='store_true')
     parser.add_argument('--repeats', type=int, default=100)
@@ -83,12 +89,15 @@ def main(argv: list[str] | None = None) -> dict:
 
     result: dict = {'metrics': {}, 'fps': None}
     for name in args.subsets:
+        if name not in dataset.subsets and \
+                name in CameraTrajectory.list_options():
+            CameraTrajectory.get(name).add_to_dataset(dataset)
         if name in dataset.subsets:
             result['metrics'][name] = renderer.render_subset(
                 dataset, name, output_dir=run_dir / name,
                 compute_metrics=args.metrics)
         else:
-            Logger.warning(f'unknown subset {name!r}; skipped')
+            Logger.warning(f'unknown subset/trajectory {name!r}; skipped')
     if args.benchmark:
         result['fps'] = benchmark_fps(renderer, dataset, repeats=args.repeats,
                                       output_dir=run_dir,
