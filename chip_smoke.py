@@ -93,7 +93,7 @@ Phases, each printing its own lines:
  11. D-NeRF: nerficg_torch/configs/dnerf.yaml (16 levels x 2^14 on the
      crossbar, exact corners, a 48 -> 128 x 3 -> 3 deformation MLP, 262,144
      samples per step) on a 400x400 make_dynamic_textured_scene through the
-     training entry point for 2000 of its 30,000 iterations (#11 and #12
+     training entry point for 1000 of its 30,000 iterations (#11 and #12
      from one fused call per iteration, loss falls, the deformation
      trains, test PSNR at least 5 dB above the untrained model's), a
      profile of one step, served through the
@@ -112,7 +112,7 @@ Phases, each printing its own lines:
  14. vanilla NeRF: nerficg_torch/configs/nerf.yaml at the library's width
      (8 x 256 coarse and fine blocks, 256 samples per ray, 1024 rays per
      step) on the 400x400 textured scene through the training entry point
-     for 2000 of its 500,000 iterations (loss falls, test PSNR at least 5
+     for 500 of its 500,000 iterations (loss falls, test PSNR at least 5
      dB above the untrained model's), a profile of one step with the
      GEMMs' share, served through the inference entry point, and the
      trained model's 32x32 render on the card against the CPU (>= 45 dB);
@@ -130,11 +130,27 @@ Phases, each printing its own lines:
      trajectory frame, the loss falls, test PSNR at least 3 dB above the
      baseline, the PLY equal to the checkpoint bit for bit, 120 finite
      trajectory frames.
+ 17. the interactive viewer, each run as a user starts it
+     (`python -m nerficg_torch.scripts.gui`) in a subprocess of its own,
+     driven over HTTP on a free port at the viewer's 800x800: phase 16's
+     3DGS run (5 poses) and phase 5's Instant-NGP run (2 poses) viewed
+     with `-d RUN_DIR`, each pose posted to /camera until /frame.jpg
+     shows it (held to this process's render of the pose, both JPEG at
+     quality 90, >= 40 dB), /status's FPS, /terminate; the hand-off's
+     host cost apart (push_frame, pop_frame, _encode_jpeg of an 800x800
+     float32 frame); and `--train` on the GS config for 300 iterations
+     with TRAINING.TIMING.PROFILE over 5 of them, /status from training
+     to idle, the post-training frame held to the final checkpoint's
+     render, /terminate, final.ckpt, #15 and #16 in the trace, then the
+     same run in this process without the viewer for the GUI's cost per
+     step. Any traceback `catch` logged in a viewer process, a missed
+     deadline or a non-zero exit fails the phase.
 Every main path of phases 3-7 and 11 must probe through block_probe_xyz
 alone, never through block_probe_cells or xbar_gather; phase 15 through
 xbar_gather alone.
 Every kernel's launch count is set to 0 just before the run that drives it
-and read just after; the sample counts of #1's (exact), #8's and #10's
+and read just after (phase 17: in each viewer process, from its start to
+its end); the sample counts of #1's (exact), #8's and #10's
 launches in phases 3-7, 11 and 15 are printed at the end (min, median, max
 per run), and after phase 11 the largest segment scatter-add of phases 3-11
 and 15 with the path its plan took.
@@ -1666,11 +1682,20 @@ def _launches_of(run, wrappers: dict) -> tuple:
     return result, {k: fn.launches for k, fn in wrappers.items()}
 
 
+def _work_dir(work: Path | None, prefix: str):
+    """``work`` as a context (kept), or a new temporary directory."""
+    if work is not None:
+        work.mkdir(parents=True, exist_ok=True)
+        return contextlib.nullcontext(work)
+    return tempfile.TemporaryDirectory(prefix=prefix)
+
+
 def phase_training(card: str, phase: int | str, scene: Path, config: str,
                    overrides: tuple, trained: tuple, served: tuple = (),
                    iterations: int = 300, repeats: int = 1,
                    profile_share: str | None = None,
-                   probe: str = 'block_probe_xyz') -> dict:
+                   probe: str = 'block_probe_xyz',
+                   work: Path | None = None) -> dict:
     """The port's training entry point on ``config`` with ``overrides`` for
     ``iterations`` iterations on the 400x400 textured ``scene``, after an
     untrained run (0 iterations: carving and the warm-up grid) for the
@@ -1683,7 +1708,8 @@ def phase_training(card: str, phase: int | str, scene: Path, config: str,
     (``probe_only``); profiles one warm training step (with
     ``profile_share``, the share of its busy time in the kernels so
     named). Returns the launch counts of the kernels it checks, training
-    and serving runs summed."""
+    and serving runs summed. The run directories go under ``work`` when it
+    is given (and stay), else under a temporary directory."""
     import numpy as np
     import torch
 
@@ -1692,7 +1718,7 @@ def phase_training(card: str, phase: int | str, scene: Path, config: str,
 
     tag = f'phase {phase}'
     wrappers = _training_wrappers()
-    with tempfile.TemporaryDirectory(prefix='chip_smoke_train_') as tmp:
+    with _work_dir(work, 'chip_smoke_train_') as tmp:
         Directories.base = Path(tmp) / 'output'
         args = ['-c', str(ROOT / 'configs' / config), f'DATASET.PATH={scene}',
                 'TRAINING.RENDER_TESTSET=True', *overrides]
@@ -2081,7 +2107,15 @@ def _dnerf_config_path() -> Path:
     return ROOT / 'nerficg_torch' / 'configs' / 'dnerf.yaml'
 
 
-def phase11_dnerf(card: str, scene: Path, iterations: int = 2000) -> dict:
+# D-NeRF's iterations in phase 11 (and its static control's): 1000 of the
+# config's 30,000, for the time limit (2000 until phase 17 came; on an
+# H100 they raised the test PSNR from 12.2 to 23.8 dB, above the +5 dB
+# checked, and moved the deformation's offsets by up to 0.68).
+DNERF_ITERATIONS = 1000
+
+
+def phase11_dnerf(card: str, scene: Path,
+                  iterations: int = DNERF_ITERATIONS) -> dict:
     """D-NeRF: nerficg_torch/configs/dnerf.yaml through the training entry
     point on the 400x400 dynamic scene for ``iterations`` of its 30,000
     (which also compresses the deformation rate's decay, tied to
@@ -2450,9 +2484,10 @@ def phase13_op_api(card: str) -> dict:
     return launches
 
 
-# NeRF's iterations in phase 14: 2000 of the config's 500,000, for the time
-# limit.
-NERF_ITERATIONS = 2000
+# NeRF's iterations in phase 14: 500 of the config's 500,000, for the time
+# limit (2000 until phase 17 came; on an H100 2000 raised the served test
+# PSNR from 9.6 to 25.0 dB and 1000 to 24.1, far above the +5 dB checked).
+NERF_ITERATIONS = 500
 
 
 def render_small(run_dir: Path, scene: Path, device: str) -> dict:
@@ -2663,7 +2698,8 @@ def write_capture(root: Path, scene: Path, rows=CAPTURE_ROWS,
 
 
 def phase16_capture(card: str, scene: Path,
-                    iterations: int = CAPTURE_ITERATIONS) -> dict:
+                    iterations: int = CAPTURE_ITERATIONS,
+                    work: Path | None = None) -> dict:
     """The COLMAP capture path of 3DGS through the port's four entry
     points on ``write_capture``'s capture of ``scene``: create_config -m
     GaussianSplatting -d MipNeRF360 (the library's defaults: SH 4,
@@ -2676,7 +2712,9 @@ def phase16_capture(card: str, scene: Path,
     rises by 3 dB; the PLY holds one vertex per active Gaussian, equal to
     the final checkpoint's parameters bit for bit; the trajectory's 120
     frames are finite and of the camera's shape. Returns the GS kernels'
-    launches of the training run (#15, #16) and the serving run (packed)."""
+    launches of the training run (#15, #16) and the serving run (packed).
+    The capture and run directories go under ``work`` when it is given
+    (and stay)."""
     import numpy as np
     import torch
 
@@ -2691,7 +2729,7 @@ def phase16_capture(card: str, scene: Path,
     tag = 'phase 16'
     phase_start = time.perf_counter()
     wrappers = _gs_wrappers()
-    with tempfile.TemporaryDirectory(prefix='chip_smoke_capture_') as tmp:
+    with _work_dir(work, 'chip_smoke_capture_') as tmp:
         tmp = Path(tmp)
         start = time.perf_counter()
         capture = write_capture(tmp / 'capture', scene)
@@ -2838,9 +2876,458 @@ def phase16_capture(card: str, scene: Path,
                 served_launches['gs_composite_fwd_packed']}
 
 
+# Phase 17: the interactive viewer. Poses are posted as a browser would
+# (theta, phi) at the median distance of the run's training cameras from
+# the origin, which each scene's objects surround; 5 for 3DGS, 2 for
+# Instant-NGP, whose 800x800 frames take seconds each.
+VIEWER_POSES = ((0.0, 0.25), (1.3, -0.2), (2.6, 0.35), (3.9, 0.1),
+                (5.2, -0.3))
+VIEWER_INGP_POSES = 2
+# A served frame shows a pose when its decoded JPEG is this close to the
+# JPEG of the smoke's own render of the pose (both PIL quality 90): #7's
+# atomic sums differ in their last bits between the two processes.
+VIEWER_MIN_PSNR_DB = 40.0
+# Two poses' renders must lie this far apart, so that a frame of one pose
+# cannot pass for the next.
+VIEWER_POSES_APART_DB = 30.0
+VIEWER_DEADLINE_S = 120.0
+GUI_TRAIN_ITERATIONS = 300
+GUI_PROFILE_AT = 150
+GUI_PROFILE_STEPS = 5
+# #15's 16-wide forward and #16 as named in a trace: gs_tiles.cu's
+# gs_fwd_kernel with the stream layout (0) and saved transmittance, and
+# gs_bwd_kernel with the stream layout.
+TRACE_KERNELS = {'gs_composite_fwd': 'gs_fwd_kernel<0, true>',
+                 'gs_composite_bwd': 'gs_bwd_kernel<0>'}
+
+
+def viewer_child(argv_json: str, result_path: str) -> None:
+    """Phase 17's subprocess: ``nerficg_torch.scripts.gui.main`` with the
+    given arguments, as ``python -m nerficg_torch.scripts.gui`` runs it,
+    then its kernel launches, every traceback ``catch`` logged and the
+    training run's directory written to ``result_path`` as JSON."""
+    import torch
+
+    from nerficg_torch.core import errors
+    from nerficg_torch.scripts import gui
+    wrappers = {**_training_wrappers(), **_gs_wrappers()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    trainer = gui.main(json.loads(argv_json))
+    torch.cuda.synchronize()
+    Path(result_path).write_text(json.dumps({
+        'launches': {k: fn.launches for k, fn in wrappers.items()},
+        'caught': sorted(errors._seen_tracebacks),
+        'output_dir': None if trainer is None else
+            str(Path(trainer.output_dir).resolve())}))
+
+
+class ViewerProcess:
+    """``python -m nerficg_torch.scripts.gui`` with ``argv`` in a
+    subprocess of its own process group (the viewer it spawns included),
+    its output in ``log``, and HTTP to its viewer on a free port."""
+
+    def __init__(self, argv: list, cwd: Path, tag: str):
+        import os
+        import socket
+        with socket.socket() as probe:
+            probe.bind(('127.0.0.1', 0))
+            self.port = probe.getsockname()[1]
+        self.tag = tag
+        self.log = cwd / 'viewer.log'
+        self.result = cwd / 'viewer.json'
+        code = (f'import sys; sys.path.insert(0, {str(ROOT)!r}); '
+                'import chip_smoke; chip_smoke.viewer_child(*sys.argv[1:])')
+        self.started = time.perf_counter()
+        with open(self.log, 'w') as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, '-c', code,
+                 json.dumps([*argv, '--port', str(self.port)]),
+                 str(self.result)], cwd=cwd, stdout=log,
+                stderr=subprocess.STDOUT, start_new_session=True,
+                env={**os.environ, 'PYTHONUNBUFFERED': '1'})
+
+    def url(self, path: str) -> str:
+        return f'http://127.0.0.1:{self.port}{path}'
+
+    def get(self, path: str) -> bytes:
+        import urllib.request
+        with urllib.request.urlopen(self.url(path), timeout=30) as reply:
+            return reply.read()
+
+    def post(self, path: str, body: dict | None = None) -> None:
+        import urllib.request
+        request = urllib.request.Request(
+            self.url(path), data=json.dumps(body or {}).encode(),
+            method='POST')
+        urllib.request.urlopen(request, timeout=30).read()
+
+    def status(self) -> dict:
+        return json.loads(self.get('/status'))
+
+    def alive(self) -> bool:
+        return self.proc.poll() is None
+
+    def wait_listening(self, frame: bool = False) -> float:
+        """Seconds from the start until ``/status`` answers or, with
+        ``frame``, until ``/frame.jpg`` holds a first frame (the viewer
+        answers while the model loads)."""
+        import numpy as np
+
+        from nerficg_torch.gui.web_viewer import _encode_jpeg
+        placeholder = _encode_jpeg(np.zeros((8, 8, 3), np.float32))
+        while True:
+            if not self.alive():
+                self.fail_with_log('exited before its viewer answered')
+            try:
+                if not frame:
+                    self.status()
+                    return time.perf_counter() - self.started
+                if self.get('/frame.jpg') != placeholder:
+                    return time.perf_counter() - self.started
+            except OSError:
+                pass
+            if time.perf_counter() - self.started > VIEWER_DEADLINE_S:
+                self.fail_with_log('viewer did not answer')
+            time.sleep(0.05)
+
+    def finish(self) -> dict:
+        """``/terminate``, then the exit (code 0 within the deadline) and
+        the child's JSON; fails on any traceback ``catch`` logged."""
+        self.post('/terminate')
+        try:
+            code = self.proc.wait(timeout=VIEWER_DEADLINE_S)
+        except subprocess.TimeoutExpired:
+            self.fail_with_log('did not exit after /terminate')
+        if code != 0:
+            self.fail_with_log(f'exited with code {code}')
+        result = json.loads(self.result.read_text())
+        logged = self.log.read_text().count('caught exception')
+        if result['caught'] or logged:
+            self.fail_with_log(f'{len(result["caught"])} tracebacks caught '
+                               f'({logged} in the log): {result["caught"]}')
+        return result
+
+    def stop(self) -> None:
+        """Kill the process group if anything is left of it."""
+        import os
+        import signal
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+
+    def fail_with_log(self, message: str) -> None:
+        print(self.log.read_text()[-6000:], flush=True)
+        self.stop()
+        fail(f'{self.tag}: the viewer process {message}')
+
+
+def _jpeg_rgb(data: bytes):
+    import io
+
+    import numpy as np
+    from PIL import Image
+    return np.asarray(Image.open(io.BytesIO(data)).convert('RGB'),
+                      np.float32) / 255.0
+
+
+def _viewer_scene(run_dir: Path):
+    """(renderer, dataset, orbit radius) of a run dir on the card."""
+    import numpy as np
+
+    from nerficg_torch.core.registry import Datasets, Methods
+    from nerficg_torch.core.setup import setup
+    ctx = setup(run_dir / 'training_config.yaml', device='cuda')
+    dataset = Datasets.get_dataset(ctx.config)
+    model = Methods.get_model(ctx.config, device=ctx.device,
+                              checkpoint=str(run_dir / 'checkpoints' /
+                                             'final.ckpt'))
+    radius = float(np.median([np.linalg.norm(v.position)
+                              for v in dataset.subsets['train']]))
+    return Methods.get_renderer(ctx.config, model), dataset, radius
+
+
+def _expected_frames(renderer, dataset, radius: float, poses) -> list:
+    """The smoke's own render of each (theta, phi) pose at the viewer's
+    800x800, JPEG-encoded as the viewer encodes, decoded; checks that the
+    frames show something and that no two poses look alike."""
+    import numpy as np
+
+    from nerficg_torch.gui.trainer import GuiTrainerMixin
+    from nerficg_torch.gui.web_viewer import _encode_jpeg, _orbit_pose
+    mixin = GuiTrainerMixin()
+    frames = []
+    for theta, phi in poses:
+        pose = _orbit_pose(theta, phi, radius, 800, 800)
+        rgb = renderer.render_image(mixin._pose_to_view(pose, dataset))['rgb']
+        frames.append(_jpeg_rgb(_encode_jpeg(rgb.float().cpu().numpy())))
+    for i, frame in enumerate(frames):
+        if not (frame.shape == (800, 800, 3) and float(frame.std()) > 0.02):
+            fail(f'phase 17: the direct render of pose {i} is empty or '
+                 f'misshapen: {frame.shape}, std {float(frame.std()):.4f}')
+        if i and _psnr_db(frame, frames[i - 1]) >= VIEWER_POSES_APART_DB:
+            fail(f'phase 17: poses {i - 1} and {i} render alike')
+    return frames
+
+
+def _serve_poses(viewer: ViewerProcess, poses, frames, radius: float
+                 ) -> list[tuple[float, float]]:
+    """Post each pose and poll ``/frame.jpg`` until it shows the pose;
+    returns (seconds from the post to that frame, PSNR) per pose."""
+    out = []
+    for (theta, phi), want in zip(poses, frames):
+        seen = viewer.get('/frame.jpg')
+        start = time.perf_counter()
+        viewer.post('/camera', {'theta': theta, 'phi': phi,
+                                'radius': radius})
+        while True:
+            data = viewer.get('/frame.jpg')
+            if data != seen:
+                seen = data
+                got = _jpeg_rgb(data)
+                if got.shape == want.shape:
+                    db = _psnr_db(got, want)
+                    if db >= VIEWER_MIN_PSNR_DB:
+                        out.append((time.perf_counter() - start, db))
+                        break
+            if time.perf_counter() - start > VIEWER_DEADLINE_S:
+                viewer.fail_with_log(f'never served pose ({theta}, {phi})')
+            if not viewer.alive():
+                viewer.fail_with_log('exited while serving')
+            time.sleep(0.002)
+    return out
+
+
+def _status_fps(viewer: ViewerProcess, seconds: float) -> list[float]:
+    """``/status``'s FPS, read every half second for ``seconds``."""
+    readings = []
+    end = time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        time.sleep(0.5)
+        readings.append(float(viewer.status()['fps']))
+    return readings
+
+
+def phase17_checkpoint_viewer(card: str, name: str, run_dir: Path,
+                              poses, tmp: Path) -> dict:
+    """``python -m nerficg_torch.scripts.gui -d RUN_DIR`` in a subprocess:
+    each pose posted to ``/camera`` until ``/frame.jpg`` shows it (held to
+    the smoke's own render of the pose), ``/status``'s FPS, then
+    ``/terminate``. Returns the subprocess's kernel launches."""
+    import numpy as np
+
+    tag = f'phase 17 {name} viewer'
+    work = tmp / name
+    work.mkdir()
+    start = time.perf_counter()
+    viewer = ViewerProcess(['-d', str(run_dir)], work, tag)
+    try:
+        renderer, dataset, radius = _viewer_scene(run_dir)
+        frames = _expected_frames(renderer, dataset, radius, poses)
+        del renderer
+        first = viewer.wait_listening(frame=True)
+        served = _serve_poses(viewer, poses, frames, radius)
+        fps = _status_fps(viewer, 3.0)
+        result = viewer.finish()
+    finally:
+        viewer.stop()
+    latencies = [s for s, _ in served]
+    print(f'{tag}: gui -d RUN_DIR at 800x800: the first frame (the first '
+          f'train view) {first:.1f} s after the start; {len(poses)} poses, '
+          f'pose-to-frame latency '
+          f'median {np.median(latencies) * 1e3:.1f} ms (each: ' +
+          ', '.join(f'{s * 1e3:.1f}' for s in latencies) + ' ms), served '
+          'frames vs the direct render ' +
+          ', '.join(f'{db:.1f}' for _, db in served) + ' dB (limit '
+          f'{VIEWER_MIN_PSNR_DB:.0f}); /status FPS on the last pose ' +
+          ', '.join(f'{f:.2f}' for f in fps) + f'; the run '
+          f'{time.perf_counter() - start:.1f} s [{card}]', flush=True)
+    launches = {k: v for k, v in result['launches'].items() if v}
+    print(f'{tag}: kernel launches in the viewer process: {launches}',
+          flush=True)
+    return result['launches']
+
+
+def phase17_handoff(card: str) -> None:
+    """The viewer hand-off's host cost at 800x800, apart from any render:
+    ``SharedState.push_frame`` (the float32 frame pickled through the
+    Manager), ``pop_frame`` (the viewer's side) and ``_encode_jpeg``."""
+    import numpy as np
+
+    from nerficg_torch.gui.state import SharedState
+    from nerficg_torch.gui.web_viewer import _encode_jpeg
+    frame = np.random.default_rng(0).random((800, 800, 3)).astype(np.float32)
+    state = SharedState()
+    times = {'push_frame': [], 'pop_frame': [], '_encode_jpeg': []}
+    for _ in range(20):
+        for name, fn in (('push_frame', lambda: state.push_frame(frame)),
+                         ('pop_frame', lambda: state.pop_frame()),
+                         ('_encode_jpeg', lambda: _encode_jpeg(frame))):
+            start = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - start) * 1e3)
+    print('phase 17: hand-off of an 800x800 float32 frame (7.68 MB), host '
+          'ms over 20 calls, median (min-max): ' + '; '.join(
+              f'{k} {np.median(v):.2f} ({min(v):.2f}-{max(v):.2f})'
+              for k, v in times.items()) + f' [{card}]', flush=True)
+    state._manager.shutdown()
+
+
+def _timings(run_dir: Path) -> dict:
+    """timings.txt as {callback: (total s, calls)}."""
+    out = {}
+    for line in (run_dir / 'timings.txt').read_text().splitlines():
+        if ': total ' in line:
+            name, rest = line.split(': total ')
+            total, calls = rest.split('s over ')
+            out[name] = (float(total), int(calls.split()[0]))
+    return out
+
+
+def phase17_gui_training(card: str, scene: Path, tmp: Path) -> dict:
+    """``python -m nerficg_torch.scripts.gui --train`` on the GS config
+    (the library's defaults, 100k random points) on the 400x400 scene for
+    GUI_TRAIN_ITERATIONS iterations with TRAINING.TIMING.PROFILE over 5 of
+    them in the middle, a pose posted so that the frames every 25
+    iterations are 800x800; ``/status`` from training to idle, then the
+    post-training frame held to the smoke's render of the final
+    checkpoint at that pose, ``/terminate``, final.ckpt and a trace that
+    holds #15 and #16. Then the same run (its profile window included) in
+    this process without the viewer (phase 9's protocol) for the GUI's
+    cost per step. Returns the subprocess's kernel launches."""
+    import numpy as np
+
+    from nerficg_torch.core.setup import Directories
+    from nerficg_torch.scripts import train
+
+    tag = 'phase 17 GUI-attached 3DGS training'
+    work = tmp / 'gui_train'
+    work.mkdir()
+    args = ['-c', str(_gs_config_path()), f'DATASET.PATH={scene}',
+            f'TRAINING.NUM_ITERATIONS={GUI_TRAIN_ITERATIONS}',
+            'TRAINING.MODEL_NAME=gui']
+    pose = {'theta': 0.8, 'phi': 0.3, 'radius': 4.0}
+    start = time.perf_counter()
+    profile = [f'TRAINING.TIMING.PROFILE={GUI_PROFILE_AT}',
+               f'TRAINING.TIMING.PROFILE_STEPS={GUI_PROFILE_STEPS}']
+    viewer = ViewerProcess(['--train', *args, *profile], work, tag)
+    try:
+        viewer.wait_listening()
+        viewer.post('/camera', pose)
+        seen_training, iterations = False, []
+        while True:
+            status = viewer.status()
+            seen_training |= bool(status['is_training'])
+            iterations.append(status['training_iteration'])
+            if seen_training and not status['is_training']:
+                break
+            if time.perf_counter() - start > 4 * VIEWER_DEADLINE_S:
+                viewer.fail_with_log('training never ended')
+            if not viewer.alive():
+                viewer.fail_with_log('exited while training')
+            time.sleep(0.2)
+        trained = time.perf_counter() - start
+        time.sleep(1.0)
+        fps = _status_fps(viewer, 2.0)
+        served = _jpeg_rgb(viewer.get('/frame.jpg'))
+        result = viewer.finish()
+    finally:
+        viewer.stop()
+    run_dir = Path(result['output_dir'])
+    renderer, dataset, _ = _viewer_scene(run_dir)
+    want = _expected_frames(renderer, dataset, pose['radius'],
+                            [(pose['theta'], pose['phi'])])[0]
+    db = _psnr_db(served, want) if served.shape == want.shape else 0.0
+    trace_path = run_dir / 'profile' / 'trace.json'
+    events = json.loads(trace_path.read_text())['traceEvents']
+    in_trace = {k: sum(1 for e in events if pattern in e.get('name', ''))
+                for k, pattern in TRACE_KERNELS.items()}
+    timings = _timings(run_dir)
+    print(f'{tag}: gui --train gaussian_splatting.yaml '
+          f'TRAINING.NUM_ITERATIONS={GUI_TRAIN_ITERATIONS} '
+          f'TIMING.PROFILE={GUI_PROFILE_AT}: /status training -> idle after '
+          f'{trained:.1f} s (iterations seen {min(iterations)}-'
+          f'{max(iterations)}); post-training /status FPS ' +
+          ', '.join(f'{f:.2f}' for f in fps) + f'; the served frame vs the '
+          f'final checkpoint\'s render {db:.1f} dB (limit '
+          f'{VIEWER_MIN_PSNR_DB:.0f}); trace {trace_path.stat().st_size} '
+          f'bytes, {len(events)} events, kernels {in_trace}; final.ckpt '
+          f'{(run_dir / "checkpoints" / "final.ckpt").exists()} [{card}]',
+          flush=True)
+    print(f'{tag}: kernel launches in the viewer process: '
+          f'{ {k: v for k, v in result["launches"].items() if v} }',
+          flush=True)
+    if db < VIEWER_MIN_PSNR_DB:
+        fail(f'{tag}: the served frame is not the final model\'s render '
+             f'({db:.1f} dB)')
+    if not (run_dir / 'checkpoints' / 'final.ckpt').exists():
+        fail(f'{tag}: no final.ckpt')
+    if not all(in_trace.values()):
+        fail(f'{tag}: the profile trace lacks a GS kernel: {in_trace}')
+    for name in ('gs_composite_fwd', 'gs_composite_bwd'):
+        if result['launches'][name] != GUI_TRAIN_ITERATIONS:
+            fail(f'{tag}: {name} launched {result["launches"][name]} times '
+                 f'in {GUI_TRAIN_ITERATIONS} steps')
+
+    Directories.base = work / 'plain'
+    plain = train.main(args + profile + ['TRAINING.MODEL_NAME=plain'])
+    plain_timings = _timings(Path(plain['output_dir']))
+    loop = ('training_iteration', '_densify', '_reset_opacity',
+            '_increase_sh_degree', '_log_progress')
+    for label, t in (('with the viewer', timings),
+                     ('without (in this process)', plain_timings)):
+        step = t['training_iteration']
+        gui = t.get('_gui_render_frame', (0.0, 0))
+        loop_s = sum(t[k][0] for k in (*loop, '_gui_render_frame')
+                     if k in t)
+        print(f'{tag}: {label}: {step[0] / step[1] * 1e3:.2f} ms per '
+              f'training_iteration, _gui_render_frame {gui[0]:.3f} s over '
+              f'{gui[1]} calls, training loop {loop_s:.2f} s = '
+              f'{loop_s / GUI_TRAIN_ITERATIONS * 1e3:.2f} ms a step '
+              f'[{card}]', flush=True)
+    print(f'{tag}: the phase took {time.perf_counter() - start:.1f} s',
+          flush=True)
+    return result['launches']
+
+
+def phase17_viewer(card: str, scene: Path, ingp_run: Path,
+                   gs_run: Path) -> dict:
+    """The interactive viewer on the card: the 3DGS and Instant-NGP
+    checkpoint viewers, the hand-off's host cost, GUI-attached 3DGS
+    training. Returns the kernel launches of its three viewer processes,
+    summed."""
+    start = time.perf_counter()
+    launches = collections.Counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_viewer_') as tmp:
+        tmp = Path(tmp)
+        launches.update(phase17_checkpoint_viewer(card, '3DGS', gs_run,
+                                                  VIEWER_POSES, tmp))
+        phase17_handoff(card)
+        launches.update(phase17_checkpoint_viewer(
+            card, 'Instant-NGP', ingp_run, VIEWER_POSES[:VIEWER_INGP_POSES],
+            tmp))
+        launches.update(phase17_gui_training(card, scene, tmp))
+    for name in ('hash_window_fwd', 'block_probe_xyz', 'seg_gather',
+                 'seg_scatter_add', 'gs_composite_fwd',
+                 'gs_composite_fwd_packed', 'gs_composite_bwd'):
+        if launches[name] <= 0:
+            fail(f'phase 17: {name} never launched by the viewers')
+    print(f'phase 17: the phase took {time.perf_counter() - start:.1f} s '
+          f'[{card}]', flush=True)
+    return dict(launches)
+
+
+def _run_dir(work: Path, method: str) -> Path:
+    """The trained run ('chip_smoke_*') that a phase left under ``work``."""
+    return next((work / 'output' / method).glob('chip_smoke_*'))
+
+
 def main_paths(card: str) -> dict:
-    """Phases 3-11 and 14-16, the methods' serving and training paths;
-    the kernels' launch counts (#15 and #16: phases 8, 9 and 16 summed)."""
+    """Phases 3-11 and 14-17, the methods' serving and training paths and
+    the viewer; the kernels' launch counts (#15 and #16: phases 8, 9, 16
+    and 17 summed)."""
     from nerficg_torch.data.synthetic import (make_dynamic_textured_scene,
                                               make_textured_scene)
     with fwd_sizes('phase 3 (window Instant-NGP served)'):
@@ -2854,12 +3341,14 @@ def main_paths(card: str) -> dict:
                                     n_train=30, n_test=4)
         print(f'phases 5-9: 400x400 textured scene (30 train, 4 test views) '
               f'written in {time.perf_counter() - start:.1f} s', flush=True)
+        # Phase 5's and 16's run directories stay for phase 17's viewers.
+        kept = Path(tmp) / 'kept'
         with fwd_sizes('phase 5 (window Instant-NGP, trained and '
                        'served)'):
             phase5 = phase_training(
                 card, 5, scene, 'ingp_e2e_bench.yaml', (),
                 ('hash_window_fwd_stoch', 'hash_window_bwd_cached',
-                 *marcher))
+                 *marcher), work=kept / 'phase5')
         launches.update({k: phase5[k] for k in ('hash_window_fwd_stoch',
                                                 'hash_window_bwd_cached')})
         # The same config trained with exact corners, the JAX model's
@@ -2904,7 +3393,8 @@ def main_paths(card: str) -> dict:
         launches.update(phase9_gs_training(card, scene))
         launches['gs_composite_fwd_packed'] += \
             served['gs_composite_fwd_packed']
-        for name, count in phase16_capture(card, scene).items():
+        for name, count in phase16_capture(card, scene,
+                                           work=kept / 'phase16').items():
             launches[name] += count
         # The dense probe: the e2e config with PROBE_MODE 'dense', the
         # skip grid as (2, 512, 128) bitfields probed through xbar_gather
@@ -2920,6 +3410,14 @@ def main_paths(card: str) -> dict:
                  'seg_scatter_add'), probe='xbar_gather')
         launches['xbar_gather'] = phase15['xbar_gather']
         phase14_nerf(card, scene)
+        # The viewers: #1 exact, #4, #6 and #7 serve Instant-NGP, the
+        # packed #15 serves 3DGS, and #15 and #16 train it under the GUI.
+        for name, count in phase17_viewer(
+                card, scene,
+                _run_dir(kept / 'phase5', 'InstantNGPModel'),
+                _run_dir(kept / 'phase16', 'GaussianSplattingModel')).items():
+            if name in launches:
+                launches[name] += count
     phase10_gs_step(card)
     with tempfile.TemporaryDirectory(prefix='chip_smoke_dynamic_') as tmp:
         start = time.perf_counter()
@@ -2938,15 +3436,19 @@ def main_paths(card: str) -> dict:
 
 def main() -> None:
     import torch
+    start = time.perf_counter()
     card = phase0_environment()
     window_global_lib = phase1_build(card)
     report = phase2_kernels(card, window_global_lib)
+    print(f'phases 0-2 took {time.perf_counter() - start:.1f} s', flush=True)
     with seg_scatter_shapes() as shapes:
         launches = main_paths(card)
     print_seg_scatter_shapes(shapes)
     phase12_dnerf_step(card)
     launches.update(phase13_op_api(card))
     print_fwd_sizes()
+    print(f'every phase passed in {time.perf_counter() - start:.1f} s '
+          f'[{card}]', flush=True)
     kernels = [{'name': name, 'route': route, 'source': source,
                 'replaces': replaces, 'launches': launches[name],
                 **report[name]}

@@ -1,10 +1,15 @@
 """Framework exception taxonomy.
 
 Port of nerficg_tpu/core/errors.py (reference: src/Framework.py:360-428):
-a typed hierarchy whose members log through ``Logger.error`` when raised.
+a typed hierarchy whose members log through ``Logger.error`` when raised,
+and ``catch``, which keeps a callback's failure from ending a run.
 """
 
 from __future__ import annotations
+
+import functools
+import traceback
+from typing import Callable
 
 from nerficg_torch.core.logging import Logger
 
@@ -12,7 +17,7 @@ __all__ = [
     'FrameworkError', 'ConfigError', 'CheckpointError', 'DatasetError',
     'CameraError', 'ModelError', 'RendererError', 'TrainerError',
     'MethodError',
-    'VisualizationError', 'KernelError',
+    'VisualizationError', 'KernelError', 'GuiError', 'catch',
 ]
 
 
@@ -63,3 +68,36 @@ class VisualizationError(FrameworkError):
 
 class KernelError(FrameworkError):
     """CUDA kernel build, argument or launch failure."""
+
+
+class GuiError(FrameworkError):
+    """Viewer process or shared-state failure."""
+
+
+# Every traceback ``catch`` has logged in this process, so that a callback
+# failing on every call logs once (and a caller can see what was caught).
+_seen_tracebacks: set[str] = set()
+
+
+def catch(cleanup: Callable | None = None):
+    """Decorator: swallow and log exceptions, deduplicated by traceback
+    (reference: ``Framework.catch``, src/Framework.py:327-356), so that the
+    viewer's callbacks cannot kill a training run."""
+
+    def decorator(fn: Callable):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            try:
+                return fn(*args, **kwargs)
+            except Exception:
+                tb = traceback.format_exc()
+                if tb not in _seen_tracebacks:
+                    _seen_tracebacks.add(tb)
+                    Logger.error(f'caught exception in {fn.__qualname__}:\n'
+                                 f'{tb}')
+                if cleanup is not None:
+                    cleanup(*args, **kwargs)
+                return None
+        return wrapper
+
+    return decorator

@@ -234,6 +234,14 @@ class View:
             view_ids=torch.full((n, 1), self.global_frame_idx,
                                 dtype=torch.int32, device=device))
 
+    def to_simple(self) -> 'View':
+        """Camera/pose-only copy without image handles (the viewer's first
+        view; reference: utils.py:1076-1086)."""
+        return View(camera=self.camera, c2w=self._c2w.copy(),
+                    camera_index=self.camera_index, frame_idx=self.frame_idx,
+                    global_frame_idx=self.global_frame_idx,
+                    timestamp=self.timestamp)
+
 
 
 @dataclass

@@ -65,9 +65,11 @@ class BaseRenderer(Configurable):
 
     def render_subset(self, dataset, subset: str = 'test',
                       output_dir: str | Path | None = None,
-                      compute_metrics: bool = True) -> dict[str, float]:
+                      compute_metrics: bool = True,
+                      visualize_errors: bool = False) -> dict[str, float]:
         """Render a dataset split to per-output-key image dirs + metrics
-        (reference: Renderer.py:206-271)."""
+        (reference: Renderer.py:206-271); with ``visualize_errors``, each
+        view's L1 error map under ``error/``."""
         views = dataset.subsets[subset]
         if not views:
             Logger.warning(f'render_subset: no views in {subset!r}')
@@ -86,6 +88,9 @@ class BaseRenderer(Configurable):
             if output_dir is not None:
                 for key, img in processed.items():
                     save_image(img, output_dir / key / f'{i:05d}.png')
+                if visualize_errors and gt is not None:
+                    save_image(self.visualize_error(processed['rgb'], gt),
+                               output_dir / 'error' / f'{i:05d}.png')
             if compute_metrics and gt is not None:
                 # The reference's 8-bit protocol: quantize both images first
                 # (Renderer.py:103-161).
@@ -124,3 +129,15 @@ class BaseRenderer(Configurable):
             for i, m in enumerate(per_image):
                 f.write(f'{i:05d}: ' + ' '.join(f'{k}={v:.6f}' for k, v in m.items()) + '\n')
             f.write('mean: ' + ' '.join(f'{k}={v:.6f}' for k, v in mean.items()) + '\n')
+
+    @staticmethod
+    def visualize_error(pred: np.ndarray, gt: np.ndarray,
+                        mode: str = 'l1') -> np.ndarray:
+        """Per-pixel L1 or L2 error through the INFERNO colormap, scaled to
+        the largest error (reference: Renderer.py:163-204)."""
+        diff = np.asarray(pred, np.float32) - np.asarray(gt[..., :3],
+                                                         np.float32)
+        err = np.abs(diff).mean(-1) if mode == 'l1' else (diff ** 2).mean(-1)
+        return apply_color_map(torch.from_numpy(err), 'INFERNO',
+                               min_value=0.0,
+                               max_value=max(float(err.max()), 1e-6)).numpy()

@@ -6,13 +6,15 @@ training callback per iteration steps the model, post-training callbacks save
 the final checkpoint and render the test set. Every callback is timed into
 ``timings.txt``; device memory goes to ``vram_stats.txt``. The resume file is
 the npz checkpoint container with the optimizer state as numpy arrays.
-
-Not ported: wandb logging and ``TIMING.PROFILE`` traces (both raise when
-switched on).
+``TIMING.PROFILE`` traces a window of iterations with ``torch.profiler``
+into ``<output_dir>/profile/trace.json``; ``WANDB.ACTIVATE`` logs losses,
+render grids and sweep metrics through ``core/wandb_utils.py``.
 """
 
 from __future__ import annotations
 
+import math
+import random
 from pathlib import Path
 from typing import Optional
 
@@ -58,10 +60,6 @@ class BaseTrainer(Configurable):
     def __init__(self, config: ConfigNode | None, model: BaseModel,
                  renderer: BaseRenderer):
         super().__init__(config, 'TRAINING')
-        if self.WANDB.get('ACTIVATE', False):
-            raise TrainerError('TRAINING.WANDB.ACTIVATE is not ported yet')
-        if self.TIMING.get('PROFILE', None) is not None:
-            raise TrainerError('TRAINING.TIMING.PROFILE is not ported yet')
         self._config = config
         self.model = model
         self.renderer = renderer
@@ -75,6 +73,7 @@ class BaseTrainer(Configurable):
         # from a CPU generator, so no step waits on the card.
         self.generator = torch.Generator().manual_seed(self.seed)
         self.test_metrics: dict[str, float] = {}
+        self._wandb = None
 
     def next_seed(self) -> int:
         """A fresh uint32 seed from the trainer's generator."""
@@ -91,6 +90,12 @@ class BaseTrainer(Configurable):
             save_config(self._config, self.output_dir / 'training_config.yaml')
         if self.device.type == 'cuda':
             torch.cuda.reset_peak_memory_stats(self.device)
+        if self.WANDB.get('ACTIVATE', False) and self._wandb is None:
+            from nerficg_torch.core.wandb_utils import WandbSession
+            self._wandb = WandbSession(
+                config=self._config.to_dict() if self._config else {},
+                project=self.WANDB.get('PROJECT', 'nerficg_tpu'),
+                run_name=self.MODEL_NAME)
 
         if self.iteration == 0:
             for _, callback in gather_callbacks(self, PRE):
@@ -104,11 +109,22 @@ class BaseTrainer(Configurable):
 
         main_callbacks = gather_callbacks(self, MAIN)
         num_iterations = int(self.NUM_ITERATIONS)
+        # TIMING.PROFILE: the first traced iteration; the trace covers
+        # PROFILE_STEPS iterations or ends with the loop.
+        profile_at = self.TIMING.get('PROFILE', None)
+        profile_end = None if profile_at is None else \
+            int(profile_at) + int(self.TIMING.get('PROFILE_STEPS', 5))
+        profiler = None
         try:
             for iteration in Logger.progress(
                     range(self.iteration, num_iterations), desc='training',
                     total=num_iterations):
                 self.iteration = iteration
+                if profile_at is not None and iteration == int(profile_at):
+                    profiler = self._start_profile()
+                elif profiler is not None and iteration == profile_end:
+                    self._stop_profile(profiler)
+                    profiler = None
                 for meta, callback in main_callbacks:
                     if meta.is_due(iteration):
                         with self._timer(callback.__name__):
@@ -117,6 +133,8 @@ class BaseTrainer(Configurable):
         except KeyboardInterrupt:
             Logger.warning('training interrupted; running post-training '
                            'callbacks')
+        if profiler is not None:
+            self._stop_profile(profiler)
 
         self._log_memory_stats()
         for _, callback in gather_callbacks(self, POST):
@@ -124,6 +142,32 @@ class BaseTrainer(Configurable):
                 callback(dataset)
         if self.TIMING.get('ACTIVATE', True):
             self._write_timings()
+
+    # -- profile -------------------------------------------------------------------------
+    def _start_profile(self):
+        """A ``torch.profiler`` window over the host and, on a card, the
+        card's kernels (reference: SURVEY §5.1's profiler hook)."""
+        from torch.profiler import ProfilerActivity, profile, \
+            supported_activities
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == 'cuda':
+            if ProfilerActivity.CUDA not in supported_activities():
+                raise TrainerError('TRAINING.TIMING.PROFILE: this torch '
+                                   'build cannot trace the card')
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler) -> None:
+        """End the window and write its Chrome trace."""
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        path = self.output_dir / 'profile' / 'trace.json'
+        path.parent.mkdir(parents=True, exist_ok=True)
+        profiler.export_chrome_trace(str(path))
+        Logger.info(f'wrote profiler trace to {path}')
 
     # -- timing / memory ---------------------------------------------------------------
     def _timer(self, name: str):
@@ -226,6 +270,82 @@ class BaseTrainer(Configurable):
         """Image preloading (reference: Trainer.py:122-161)."""
         if self.PRELOAD_DATASET:
             dataset.preload()
+
+    @training_callback(priority=10, active='WANDB.ACTIVATE',
+                       iteration_stride='WANDB.INTERVAL')
+    def _wandb_log(self, dataset, iteration: int) -> None:
+        """Interval loss logging (reference: Trainer.py:308-351)."""
+        logs = getattr(self, '_last_logs', None)
+        if self._wandb is not None and self._wandb.active and logs:
+            self._wandb.log({k: float(v) for k, v in logs.items()},
+                            step=iteration)
+
+    @training_callback(priority=9, active='WANDB.ACTIVATE',
+                       iteration_stride='WANDB.IMAGE_INTERVAL')
+    def _wandb_log_images(self, dataset, iteration: int) -> None:
+        """Train/validation render grids (reference: Trainer.py:308-346):
+        the render beside the ground-truth image."""
+        if self._wandb is None or not self._wandb.active or \
+                not self.WANDB.get('LOG_IMAGES', False):
+            return
+        for subset, index_key, name in (
+                ('train', 'INDEX_TRAINING', 'training'),
+                ('val', 'INDEX_VALIDATION', 'validation')):
+            views = dataset.subsets[subset]
+            if not views:
+                continue
+            view = views[int(self.WANDB.get(index_key, 0)) % len(views)]
+            panels = [self.renderer.render_image(view)['rgb'].cpu().numpy()]
+            if view.rgb_data.exists():
+                panels.append(np.asarray(view.rgb))
+            grid = np.concatenate([np.clip(p, 0.0, 1.0) for p in panels],
+                                  axis=1)
+            self._wandb.log_image(name, grid, step=iteration)
+
+    @training_callback(priority=8, active='WANDB.SWEEP_MODE.ACTIVE',
+                       start_iteration='WANDB.SWEEP_MODE.START_ITERATION',
+                       iteration_stride='WANDB.SWEEP_MODE.ITERATION_STRIDE')
+    def _wandb_sweep_metrics(self, dataset, iteration: int) -> None:
+        """Test-set PSNR/SSIM and the MipNeRF geometric-mean combined
+        metric for hyperparameter sweeps (reference: Trainer.py:353-395).
+        The port has no LPIPS, so ``test_lpips`` is nan and the combined
+        metric takes PSNR and SSIM."""
+        if self._wandb is None or not self._wandb.active:
+            Logger.warning('sweep mode requires wandb; skipping test metrics')
+            return
+        from nerficg_torch.optim.metrics import psnr, ssim
+        views = dataset.subsets['test']
+        if not views:
+            return
+        indices = list(range(len(views)))
+        cap = int(self.WANDB['SWEEP_MODE'].get('NUM_IMAGES', 0))
+        if 0 < cap < len(indices):
+            indices = random.sample(indices, k=cap)
+        psnrs, ssims = [], []
+        for i in indices:
+            view = views[i]
+            pred = torch.clamp(self.renderer.render_image(view)['rgb'],
+                               0.0, 1.0).cpu()
+            gt = view.rgb
+            if view.alpha_data.exists():
+                alpha = view.alpha
+                gt = gt * alpha + view.camera.background_color * (1.0 - alpha)
+            gt = torch.as_tensor(gt, dtype=torch.float32)
+            psnrs.append(float(psnr(pred, gt)))
+            ssims.append(float(ssim(pred, gt)))
+        m_psnr = sum(psnrs) / len(psnrs)
+        m_ssim = sum(ssims) / len(ssims)
+        terms = [-0.1 * math.log(10.0) * m_psnr,
+                 math.log(math.sqrt(max(1.0 - m_ssim, 1e-12)))]
+        combined = math.exp(sum(terms) / len(terms))
+        self._wandb.log({'test_psnr': m_psnr, 'test_ssim': m_ssim,
+                         'test_lpips': float('nan'),
+                         'combined_metrics': combined}, step=iteration)
+
+    @post_training_callback(priority=100)
+    def _wandb_finish(self, dataset) -> None:
+        if self._wandb is not None:
+            self._wandb.finish()
 
     @training_callback(priority=6, active='CHECKPOINT.INTERVAL',
                        start_iteration='CHECKPOINT.INTERVAL',

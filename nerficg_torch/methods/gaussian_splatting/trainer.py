@@ -33,6 +33,7 @@ from nerficg_torch.methods.base.trainer import (BaseTrainer,
                                                 adam_state_from_numpy,
                                                 adam_state_to_numpy)
 from nerficg_torch.methods.gaussian_splatting.convert import PARAM_KEYS
+from nerficg_torch.ops.encoding import SH_C0
 from nerficg_torch.optim.losses import dssim, l1
 from nerficg_torch.optim.lr import lr_decay_policy
 from nerficg_torch.optim.metrics import mse_to_psnr
@@ -278,6 +279,24 @@ class GaussianSplattingTrainer(BaseTrainer):
             self.model.active_sh_degree += 1
             Logger.verbose(f'iter {iteration}: SH degree -> '
                            f'{self.model.active_sh_degree}')
+
+    @training_callback(priority=45, iteration_stride='LOG_INTERVAL',
+                       start_iteration='LOG_INTERVAL')
+    def _wandb_log_primitives(self, dataset, iteration: int) -> None:
+        """Primitive count and the Gaussians' means as a 3D panel
+        (reference: src/Methods/GaussianSplatting/Trainer.py:133-140 logs
+        the count; the panel mirrors Instant-NGP's occupancy panel)."""
+        if self._wandb is None or not self._wandb.active:
+            return
+        n = int(self.model.num_active)
+        self._wandb.log({'gaussians/count': n}, step=iteration)
+        if n:
+            params = self.model.params
+            points = params['positions'][:n].detach().cpu().numpy()
+            colors = np.clip(params['features_dc'][:n, 0].detach().cpu()
+                             .numpy() * SH_C0 + 0.5, 0.0, 1.0)
+            self._wandb.log_point_cloud('gaussians/means', points,
+                                        colors=colors, step=iteration)
 
     @training_callback(priority=50, iteration_stride='LOG_INTERVAL')
     def _log_progress(self, dataset, iteration: int) -> None:

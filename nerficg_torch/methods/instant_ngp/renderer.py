@@ -303,6 +303,24 @@ class InstantNGPRenderer(BaseRenderer):
         return {}
 
     @torch.no_grad()
+    def occupied_cell_centers(self, max_points: int = 65536) -> np.ndarray:
+        """World-space centers of the occupied grid cells, at most
+        ``max_points`` of them (a seeded subset): the wandb occupancy
+        panel's points (reference: src/Methods/InstantNGP/utils.py:20-64)."""
+        model = self.model
+        grid = model.buffers['density_grid'].cpu().numpy()
+        occ = np.nonzero(grid > self.density_threshold)[0]
+        if occ.size > max_points:
+            occ = occ[np.random.default_rng(0).choice(occ.size, max_points,
+                                                      replace=False)]
+        cells = torch.as_tensor(occ, dtype=torch.int32, device=model.device)
+        centers = cascade_cell_positions(
+            cells, torch.full((cells.shape[0], 3), 0.5, device=model.device),
+            model.center, float(model.SCALE), int(model.GRID_RESOLUTION),
+            self._cascades)
+        return centers.cpu().numpy()
+
+    @torch.no_grad()
     def carve_occupancy_grid(self, views, dilate: int = 1) -> None:
         """Frustum carving: cells outside every training camera's frustum
         (with a 10% margin) stay empty; the visible set is dilated by

@@ -267,6 +267,21 @@ class InstantNGPTrainer(BaseTrainer):
                            'blocks/ray)')
             self.rays_per_batch = bucket
 
+    @training_callback(priority=45, iteration_stride='LOG_INTERVAL',
+                       start_iteration='LOG_INTERVAL')
+    def _wandb_log_occupancy(self, dataset, iteration: int) -> None:
+        """Occupancy-grid 3D panel and occupied-cell count (reference:
+        src/Methods/InstantNGP/utils.py:20-64 logs the grid as a wandb
+        Object3D point cloud)."""
+        if self._wandb is None or not self._wandb.active:
+            return
+        centers = self.renderer.occupied_cell_centers()
+        self._wandb.log({'occupancy/occupied_cells': int(centers.shape[0])},
+                        step=iteration)
+        if centers.shape[0]:
+            self._wandb.log_point_cloud('occupancy/grid', centers,
+                                        step=iteration)
+
     @training_callback(priority=50, iteration_stride='LOG_INTERVAL')
     def _log_progress(self, dataset, iteration: int) -> None:
         if self._last_logs:
