@@ -145,15 +145,31 @@ Phases, each printing its own lines:
      same run in this process without the viewer for the GUI's cost per
      step. Any traceback `catch` logged in a viewer process, a missed
      deadline or a non-zero exit fails the phase.
-Every main path of phases 3-7 and 11 must probe through block_probe_xyz
-alone, never through block_probe_cells or xbar_gather; phase 15 through
-xbar_gather alone.
+ 18. the data layer: Instant-NGP with configs/ingp_e2e_bench.yaml's MODEL,
+     RENDERER and TRAINING (16 x 2^14 window encode, 4 stochastic corners)
+     through create_config, train (0 iterations for the carved untrained
+     baseline, then 300) and inference -s test -m -b on (a) phases 5-9's
+     scene as a Colmap capture whose views alternate between a 400x300
+     PINHOLE camera and a 320x240 one (0.8 x its intrinsics, the images
+     resized), DATASET.NORMALIZE_PCA=False, and (b) 30 Ricoh360 panoramas
+     of 256x128 of the scene's sphere from its ring (4 test views), with
+     a fixed background: the ray pool on the card against the CPU's
+     (origins and directions to 1e-6, the rest exactly) and its path
+     (grouped over 2 cameras in (a), shared in (b)), the stochastic
+     forward and cached backward once per step (the forward also once per
+     grid refresh), the marcher's kernels in training and serving, the
+     loss falling, test PSNR 3 dB above the untrained model's trained and
+     served, finite served renders; load seconds, step ms, FPS and peak
+     memory of each run.
+Every main path of phases 3-7, 11 and 18 must probe through
+block_probe_xyz alone, never through block_probe_cells or xbar_gather;
+phase 15 through xbar_gather alone.
 Every kernel's launch count is set to 0 just before the run that drives it
 and read just after (phase 17: in each viewer process, from its start to
 its end); the sample counts of #1's (exact), #8's and #10's
-launches in phases 3-7, 11 and 15 are printed at the end (min, median, max
-per run), and after phase 11 the largest segment scatter-add of phases 3-11
-and 15 with the path its plan took.
+launches in phases 3-7, 11, 15 and 18 are printed at the end (min, median,
+max per run), and after phase 11 the largest segment scatter-add of phases
+3-11, 15 and 18 with the path its plan took.
 Each kernel's line
 reports its time against the least time the card could take for the same
 work (`bound_ms`: each input read once and each output written once at
@@ -2616,18 +2632,22 @@ CAPTURE_ITERATIONS = 1000
 
 def write_capture(root: Path, scene: Path, rows=CAPTURE_ROWS,
                   n_points: int = CAPTURE_POINTS, outlier_share: float = 0.02,
-                  seed: int = 0) -> Path:
-    """A COLMAP capture of a ``make_textured_scene`` directory in Mip-NeRF
-    360's layout (the same writer as tests/test_torch_colmap.py's
-    ``write_capture``, binary only): every view (train, then test) as
-    ``images_4/{k:03d}.png`` (RGB on black, rows ``rows`` kept);
-    ``sparse/0/cameras.bin``, one PINHOLE camera at 4x the images' size
-    whose centre moves with the crop; ``images.bin``, each view's w2c
-    (the inverse of the NeRF loader's ``opengl_to_colmap`` c2w) as a wxyz
-    quaternion and translation, with two 2D observations; ``points3D.bin``,
-    ``n_points`` on the sphere (radius 0.8) coloured as the images show
-    them and ``outlier_share`` more uniform in a cube of side 8, each with
-    a two-entry track."""
+                  seed: int = 0, image_dir: str = 'images_4',
+                  model_scale: int = 4,
+                  second_scale: float | None = None) -> Path:
+    """A COLMAP capture of a ``make_textured_scene`` directory, by default
+    in Mip-NeRF 360's layout (the same writer as tests/
+    test_torch_colmap.py's ``write_capture``, binary only): every view
+    (train, then test) as ``image_dir/{k:03d}.png`` (RGB on black, rows
+    ``rows`` kept); ``sparse/0/cameras.bin``, one PINHOLE camera at
+    ``model_scale`` x the images' size whose centre moves with the crop,
+    and with ``second_scale`` a second one at that factor of the first,
+    which every odd view has, its image resized by the factor (Lanczos);
+    ``images.bin``, each view's w2c (the inverse of the NeRF loader's
+    ``opengl_to_colmap`` c2w) as a wxyz quaternion and translation, with
+    two 2D observations; ``points3D.bin``, ``n_points`` on the sphere
+    (radius 0.8) coloured as the images show them and ``outlier_share``
+    more uniform in a cube of side 8, each with a two-entry track."""
     import math
     import struct
 
@@ -2641,7 +2661,7 @@ def write_capture(root: Path, scene: Path, rows=CAPTURE_ROWS,
 
     model = root / 'sparse' / '0'
     model.mkdir(parents=True, exist_ok=True)
-    (root / 'images_4').mkdir(parents=True, exist_ok=True)
+    (root / image_dir).mkdir(parents=True, exist_ok=True)
     top, bottom = rows
     images, index = [], 0
     for split in ('train', 'test'):
@@ -2651,23 +2671,34 @@ def write_capture(root: Path, scene: Path, rows=CAPTURE_ROWS,
                                                   '.png')))
             height, width = rgba.shape[:2]
             name = f'{index:03d}.png'
-            Image.fromarray(rgba[top:bottom, :, :3]).save(
-                root / 'images_4' / name)
+            image = Image.fromarray(rgba[top:bottom, :, :3])
+            camera_id = 1
+            if second_scale is not None and index % 2:
+                camera_id = 2
+                image = image.resize(
+                    (round(width * second_scale),
+                     round((bottom - top) * second_scale)), Image.LANCZOS)
+            image.save(root / image_dir / name)
             w2c = np.linalg.inv(opengl_to_colmap(
                 np.asarray(frame['transform_matrix'])))
             images.append((index + 1,
                            rotation_matrix_to_quaternion(w2c[:3, :3]),
-                           w2c[:3, 3], name))
+                           w2c[:3, 3], camera_id, name))
             index += 1
         focal = 0.5 * width / math.tan(0.5 * meta['camera_angle_x'])
+    scales = [model_scale] if second_scale is None else \
+        [model_scale, model_scale * second_scale]
     with open(model / 'cameras.bin', 'wb') as f:
-        f.write(struct.pack('<QiiQQ4d', 1, 1, 1, width * 4,
-                            (bottom - top) * 4, focal * 4, focal * 4,
-                            width / 2 * 4, (height / 2 - top) * 4))
+        f.write(struct.pack('<Q', len(scales)))
+        for camera_id, s in enumerate(scales, 1):
+            f.write(struct.pack('<iiQQ4d', camera_id, 1, round(width * s),
+                                round((bottom - top) * s), focal * s,
+                                focal * s, width / 2 * s,
+                                (height / 2 - top) * s))
     with open(model / 'images.bin', 'wb') as f:
         f.write(struct.pack('<Q', len(images)))
-        for image_id, qvec, tvec, name in images:
-            f.write(struct.pack('<i7di', image_id, *qvec, *tvec, 1))
+        for image_id, qvec, tvec, camera_id, name in images:
+            f.write(struct.pack('<i7di', image_id, *qvec, *tvec, camera_id))
             f.write(name.encode() + b'\x00')
             f.write(struct.pack('<Qddqddq', 2, 1.5, 2.5, 0, 3.5, 4.5, -1))
     rng = np.random.default_rng(seed)
@@ -3319,6 +3350,330 @@ def phase17_viewer(card: str, scene: Path, ingp_run: Path,
     return dict(launches)
 
 
+# Phase 18: the data layer on the card. (a) phase 16's scene as a Colmap
+# capture whose views alternate between two PINHOLE cameras, the odd ones
+# resized to 320x240 (0.8 x 400x300); (b) a Ricoh360 capture of 30
+# panoramas of 256x128 (every 8th a test view: 4). Both train Instant-NGP
+# with configs/ingp_e2e_bench.yaml's MODEL, RENDERER and TRAINING.
+DATA_ITERATIONS = 300
+PANORAMA_VIEWS = 30
+PANORAMA_SIZE = (256, 128)
+SECOND_CAMERA_SCALE = 0.8
+
+
+def write_panoramas(root: Path, count: int = PANORAMA_VIEWS,
+                    size=PANORAMA_SIZE, ss: int = 2) -> Path:
+    """A Ricoh360 capture (the writer of tests/test_torch_data_loaders.py's
+    ``write_panoramas``, one split): ``transforms_train.json`` and
+    ``count`` RGB PNGs of ``size``, each an equirectangular image of
+    ``make_textured_scene``'s sphere (its texture, seed 0, Lambertian
+    shading on black, ``ss`` x supersampled; pixel centres at
+    EquirectangularCamera's angles), its camera on the scene's ring
+    (distance 4, elevations 20 and -25 degrees alternating, facing the
+    origin)."""
+    import math
+
+    import numpy as np
+    from PIL import Image
+
+    from nerficg_torch.data.synthetic import (_pose_on_ring, _shade_sphere,
+                                              _texture_fn)
+
+    texture = _texture_fn(np.random.default_rng(0), (3.0, 8.0, 14.0))
+    width, height = size
+    ys, xs = np.mgrid[0:height * ss, 0:width * ss].astype(np.float64) + 0.5
+    theta = (xs / (width * ss) - 0.5) * 2.0 * math.pi
+    phi = (0.5 - ys / (height * ss)) * math.pi
+    local = np.stack([np.cos(phi) * np.sin(theta), -np.sin(phi),
+                      np.cos(phi) * np.cos(theta)], -1)
+    (root / 'train').mkdir(parents=True, exist_ok=True)
+    frames = []
+    for i in range(count):
+        c2w = _pose_on_ring(2 * math.pi * i / count,
+                            math.radians(-25.0 if i % 2 else 20.0))
+        rgb, _ = _shade_sphere(texture, c2w[:3, 3], local @ c2w[:3, :3].T,
+                               np.zeros(3))
+        rgb = rgb.reshape(height, ss, width, ss, 3).mean(axis=(1, 3))
+        Image.fromarray((np.clip(rgb, 0, 1) * 255).astype(np.uint8)).save(
+            root / 'train' / f'r_{i}.png')
+        c2w_gl = c2w.copy()
+        c2w_gl[:3, 1:3] *= -1
+        frames.append({'file_path': f'./train/r_{i}',
+                       'time': i / max(count - 1, 1),
+                       'transform_matrix': c2w_gl.tolist()})
+    (root / 'transforms_train.json').write_text(json.dumps({'frames': frames}))
+    return root
+
+
+def e2e_overrides() -> list[str]:
+    """configs/ingp_e2e_bench.yaml's seed, MODEL, RENDERER and TRAINING as
+    command-line overrides (but its iterations, run name and test render)."""
+    import yaml
+    config = yaml.safe_load((ROOT / 'configs' / 'ingp_e2e_bench.yaml')
+                            .read_text())
+    out = [f'GLOBAL.RANDOM_SEED={config["GLOBAL"]["RANDOM_SEED"]}']
+    for section in ('MODEL', 'RENDERER', 'TRAINING'):
+        out += [f'{section}.{key}={value}'
+                for key, value in config[section].items()
+                if key not in ('NUM_ITERATIONS', 'MODEL_NAME',
+                               'RENDER_TESTSET')]
+    return out
+
+
+@contextlib.contextmanager
+def ray_pool_paths():
+    """Counts the calls of BaseDataset's two pool paths while open:
+    {'shared': calls of ``_shared_camera_rays`` (the grouped path calls it
+    once per camera), 'grouped': the camera groups of each
+    ``_grouped_rays`` call}."""
+    from nerficg_torch.data.base import BaseDataset
+    shared = BaseDataset._shared_camera_rays
+    grouped = BaseDataset._grouped_rays.__func__
+    calls = {'shared': 0, 'grouped': []}
+
+    def count_shared(views, device):
+        calls['shared'] += 1
+        return shared(views, device)
+
+    def count_grouped(cls, views, groups, device):
+        calls['grouped'].append(len(groups))
+        return grouped(cls, views, groups, device)
+
+    BaseDataset._shared_camera_rays = staticmethod(count_shared)
+    BaseDataset._grouped_rays = classmethod(count_grouped)
+    try:
+        yield calls
+    finally:
+        BaseDataset._shared_camera_rays = staticmethod(shared)
+        BaseDataset._grouped_rays = classmethod(grouped)
+
+
+def check_ray_pool(tag: str, dataset, groups: int, card: str) -> dict:
+    """The training pool built on the card against the one built on the
+    CPU (origins and directions to 1e-6, every other field exactly), and
+    the path it took: ``_grouped_rays`` once with ``groups`` cameras, or
+    (``groups`` 1) the shared path alone. Returns its seconds and size."""
+    import torch
+    with ray_pool_paths() as paths:
+        start = time.perf_counter()
+        on_card = dataset.precompute_rays('train', device='cuda')
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    on_host = dataset.precompute_rays('train', device='cpu')
+    worst, unequal = 0.0, []
+    for name in ('origins', 'directions', 'view_directions', 'rgb', 'alpha',
+                 'depth', 'timestamps', 'pixel_ids', 'view_ids'):
+        a, b = getattr(on_card.rays, name), getattr(on_host.rays, name)
+        if a is None and b is None:
+            continue
+        if a is None or b is None or a.shape != b.shape or \
+                a.dtype != b.dtype:
+            unequal.append(name)
+        elif name in ('origins', 'directions', 'view_directions'):
+            worst = max(worst, float((a.cpu() - b).abs().max()))
+        elif not torch.equal(a.cpu(), b):
+            unequal.append(name)
+    rays = len(on_card.rays)
+    expected = {'shared': groups, 'grouped': [groups] if groups > 1 else []}
+    print(f'{tag}: precompute_rays(train) on the card: {rays} rays of '
+          f'{len(on_card.view_slices)} views in {seconds:.3f} s, paths '
+          f'{paths} (expected {expected}); against the CPU pool: origins '
+          f'and directions max |diff| {worst:.3e} (limit 1e-6), other fields '
+          f'{"equal" if not unequal else f"UNEQUAL {unequal}"}, slices '
+          f'equal {on_card.view_slices == on_host.view_slices} [{card}]',
+          flush=True)
+    if paths != expected:
+        fail(f'{tag}: the pool took the paths {paths}, not {expected}')
+    if worst > 1e-6 or unequal or on_card.view_slices != on_host.view_slices:
+        fail(f'{tag}: the pool on the card differs from the CPU\'s')
+    if on_card.rays.origins.device.type != 'cuda':
+        fail(f'{tag}: the pool asked for on cuda is on '
+             f'{on_card.rays.origins.device}')
+    return {'seconds': seconds, 'rays': rays}
+
+
+def phase18_run(card: str, run: str, capture: Path, dataset_type: str,
+                overrides: tuple, groups: int, tmp: Path) -> dict:
+    """One capture through the port's entry points: create_config -m
+    InstantNGP -d ``dataset_type``; train with the e2e config's MODEL,
+    RENDERER and TRAINING and ``overrides`` for 0 iterations (carving and
+    the warm-up grid: the baseline) and DATA_ITERATIONS; the pool's check;
+    inference -d RUN -s test -m -b. Checks the kernels' launches (the
+    stochastic forward once per step and grid refresh, the cached backward
+    once per step; the marcher's
+    probe, gather and scatter in training and serving; the exact forward
+    in serving; never block_probe_cells or xbar_gather), the loss falling,
+    the test PSNR 3 dB above the baseline trained and served, and finite
+    served renders. Returns the launches, training and serving summed."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.core.registry import Datasets
+    from nerficg_torch.core.setup import Directories
+    from nerficg_torch.scripts import create_config, inference, train
+
+    tag = f'phase 18{run}'
+    wrappers = _training_wrappers()
+    config = tmp / f'{dataset_type}.yaml'
+    create_config.main(['-m', 'InstantNGP', '-d', dataset_type, '-o',
+                        str(config), '-p', str(capture)])
+    Directories.base = tmp / 'output'
+    args = ['-c', str(config), *e2e_overrides(), 'TRAINING.RENDER_TESTSET=True',
+            *overrides]
+    before = train.main(args + ['TRAINING.NUM_ITERATIONS=0',
+                                'TRAINING.MODEL_NAME=untrained'])
+    psnr_before = float(before['metrics']['PSNR'])
+    cfg = before['trainer']._config
+
+    start = time.perf_counter()
+    dataset = Datasets.get_dataset(cfg)
+    load_s = time.perf_counter() - start
+    start = time.perf_counter()
+    dataset.preload()
+    decode_s = time.perf_counter() - start
+    cameras = {id(v.camera): v.camera for v in dataset.all_views()}
+    sizes = sorted(f'{type(c).__name__} {c.width}x{c.height}'
+                   for c in cameras.values())
+    print(f'{tag}: create_config -m InstantNGP -d {dataset_type}; '
+          f'{len(dataset.subsets["train"])} train and '
+          f'{len(dataset.subsets["test"])} test views, cameras {sizes}; '
+          f'normalisation DATASET.NORMALIZE_PCA='
+          f'{cfg.DATASET.get("NORMALIZE_PCA", "n/a")} NORMALIZE_CUBE='
+          f'{cfg.DATASET.NORMALIZE_CUBE} NORMALIZE_RECENTER='
+          f'{cfg.DATASET.NORMALIZE_RECENTER}, MODEL.SCALE={cfg.MODEL.SCALE} '
+          f'(the sphere, radius 0.8 at the origin, inside the box of half '
+          f'extent {cfg.MODEL.SCALE}); load: dataset {load_s:.3f} s, decode '
+          f'{decode_s:.3f} s; untrained model (carved, warm-up grid): test '
+          f'PSNR {psnr_before:.3f} dB [{card}]', flush=True)
+    pool = check_ray_pool(tag, dataset, groups, card)
+    del dataset
+
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    result, launches = _launches_of(lambda: train.main(
+        args + [f'TRAINING.NUM_ITERATIONS={DATA_ITERATIONS}',
+                'TRAINING.MODEL_NAME=chip_smoke']), wrappers)
+    wall = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    trainer = result['trainer']
+    losses = torch.stack(trainer.losses).float().cpu().numpy()
+    psnr = float(result['metrics']['PSNR'])
+    step = trainer.timers['training_iteration']
+    trained = ('hash_window_fwd_stoch', 'hash_window_bwd_cached',
+               'block_probe_xyz', 'seg_gather', 'seg_scatter_add')
+    print(f'{tag}: train.main TRAINING.NUM_ITERATIONS={DATA_ITERATIONS}: '
+          f'whole run {wall:.1f} s, {step.mean * 1e3:.2f} ms per '
+          f'training_iteration, final rays/batch {trainer.rays_per_batch}, '
+          f'peak torch.cuda.max_memory_allocated {peak:.1f} MiB [{card}]')
+    print(f'{tag}: loss mean of iterations 0-49 {losses[:50].mean():.6f}, '
+          f'of the last 50 {losses[-50:].mean():.6f}; test metrics: ' +
+          ', '.join(f'{k}={v:.4f}' for k, v in result['metrics'].items()) +
+          f' (untrained {psnr_before:.3f} dB) [{card}]')
+    # The grid refreshes (the warm-up's and one every 16 iterations) encode
+    # their cells through the stochastic forward too.
+    refreshes = sum(trainer.timers[k].count for k in
+                    ('_warmup_occupancy', '_update_occupancy'))
+    print(f'{tag}: kernel launches in the training run: '
+          f'{ {k: launches[k] for k in trained} } ({DATA_ITERATIONS} steps, '
+          f'{refreshes} grid refreshes)', flush=True)
+    if launches['hash_window_bwd_cached'] != DATA_ITERATIONS or \
+            launches['hash_window_fwd_stoch'] != DATA_ITERATIONS + refreshes:
+        fail(f'{tag}: the stochastic forward and the cached backward should '
+             'launch once per step (the forward once per grid refresh too)')
+    missing = [k for k in trained if launches[k] <= 0]
+    if missing:
+        fail(f'{tag}: kernels never launched while training: {missing}')
+    probe_only(launches, f'{tag} training')
+    if len(losses) != DATA_ITERATIONS or not np.isfinite(losses).all():
+        fail(f'{tag}: training loss is missing or not finite')
+    if not losses[-50:].mean() < losses[:50].mean():
+        fail(f'{tag}: the training loss did not fall')
+    if not (np.isfinite(psnr) and psnr >= psnr_before + 3.0):
+        fail(f'{tag}: test PSNR {psnr:.3f} dB is not 3 dB above the '
+             f'untrained model\'s {psnr_before:.3f} dB')
+    counts = {k: launches[k] for k in trained}
+
+    run_dir = Path(result['output_dir'])
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    served, launches = _launches_of(lambda: inference.main(
+        ['-d', str(run_dir), '-s', 'test', '-m', '-b', '--repeats', '1']),
+        wrappers)
+    wall = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    metrics = served['metrics']['test']
+    serving = ('hash_window_fwd', 'block_probe_xyz', 'seg_gather',
+               'seg_scatter_add')
+    print(f'{tag}: inference -d RUN -s test -m -b --repeats 1: '
+          f'{served["fps"]:.3f} FPS, whole run {wall:.1f} s, peak '
+          f'torch.cuda.max_memory_allocated {peak:.1f} MiB; served test '
+          f'metrics: ' + ', '.join(f'{k}={v:.4f}' for k, v in metrics.items())
+          + f'; launches { {k: launches[k] for k in serving} } [{card}]',
+          flush=True)
+    missing = [k for k in serving if launches[k] <= 0]
+    if missing:
+        fail(f'{tag}: kernels never launched while serving: {missing}')
+    probe_only(launches, f'{tag} serving')
+    if not float(metrics['PSNR']) >= psnr_before + 3.0:
+        fail(f'{tag}: the served test PSNR {metrics["PSNR"]:.3f} dB is not '
+             f'3 dB above the untrained model\'s {psnr_before:.3f} dB')
+    renderer, views = load_renderer(run_dir, 'cuda')
+    finite = all(bool(torch.isfinite(value).all())
+                 for view in views
+                 for value in renderer.render_image(view).values())
+    if not (finite and np.isfinite(served['fps'])):
+        fail(f'{tag}: a served render or the FPS is not finite')
+    for name in serving:
+        counts[name] = counts.get(name, 0) + launches[name]
+    counts['pool_rays'] = pool['rays']
+    return counts
+
+
+def phase18_data_layer(card: str, scene: Path) -> dict:
+    """Instant-NGP on the two captures only the data layer's new modules
+    load: (a) the Colmap capture with two cameras (``write_capture``,
+    images beside a model at their size, phase 16's 100,000 points;
+    DATASET.NORMALIZE_PCA=False keeps the scene where the e2e config's
+    MODEL.SCALE 1.0 box holds it), the grouped pool path with 2 groups;
+    (b) the Ricoh360 panoramas (``write_panoramas``), one
+    EquirectangularCamera, the shared path, with a fixed background.
+    Returns the kernels' launches of both runs summed."""
+    phase_start = time.perf_counter()
+    launches: dict = collections.Counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_data_') as tmp:
+        tmp = Path(tmp)
+        start = time.perf_counter()
+        capture = write_capture(tmp / 'capture', scene, image_dir='images',
+                                model_scale=1,
+                                second_scale=SECOND_CAMERA_SCALE)
+        print(f'phase 18a: Colmap capture of the 400x400 scene (34 views, '
+              f'rows {CAPTURE_ROWS[0]}-{CAPTURE_ROWS[1] - 1}: even views '
+              f'400x300 on PINHOLE camera 1, odd ones resized to 320x240 on '
+              f'camera 2 with 0.8 x its intrinsics; {CAPTURE_POINTS} SfM '
+              f'points + 2%) written in {time.perf_counter() - start:.1f} s',
+              flush=True)
+        launches.update(phase18_run(card, 'a', capture, 'Colmap',
+                                    ('DATASET.NORMALIZE_PCA=False',), 2,
+                                    tmp / 'a'))
+        start = time.perf_counter()
+        panoramas = write_panoramas(tmp / 'panoramas')
+        print(f'phase 18b: {PANORAMA_VIEWS} Ricoh360 panoramas of '
+              f'{PANORAMA_SIZE[0]}x{PANORAMA_SIZE[1]} on the ring written in '
+              f'{time.perf_counter() - start:.1f} s', flush=True)
+        # Departure from the e2e config: a fixed (black) background. The
+        # panoramas have no alpha, so their black is part of the target, and
+        # ~97% of their rays miss the box: a random background would add a
+        # per-step constant of ~1/3 to the loss for each and hide its fall.
+        launches.update(phase18_run(card, 'b', panoramas, 'Ricoh360',
+                                    ('TRAINING.RANDOM_BACKGROUND=False',), 1,
+                                    tmp / 'b'))
+    launches.pop('pool_rays')
+    print(f'phase 18: the phase took {time.perf_counter() - phase_start:.1f} '
+          f's; kernel launches of both runs, trained and served: '
+          f'{dict(launches)} [{card}]', flush=True)
+    return dict(launches)
+
+
 def _run_dir(work: Path, method: str) -> Path:
     """The trained run ('chip_smoke_*') that a phase left under ``work``."""
     return next((work / 'output' / method).glob('chip_smoke_*'))
@@ -3396,6 +3751,12 @@ def main_paths(card: str) -> dict:
         for name, count in phase16_capture(card, scene,
                                            work=kept / 'phase16').items():
             launches[name] += count
+        # The data layer: a Colmap capture with two cameras and Ricoh360
+        # panoramas, Instant-NGP's e2e config trained and served on each.
+        with fwd_sizes('phase 18 (window Instant-NGP on two cameras and on '
+                       'panoramas, trained and served)'):
+            for name, count in phase18_data_layer(card, scene).items():
+                launches[name] = launches.get(name, 0) + count
         # The dense probe: the e2e config with PROBE_MODE 'dense', the
         # skip grid as (2, 512, 128) bitfields probed through xbar_gather
         # (#4's generic entry), never through the block probes.

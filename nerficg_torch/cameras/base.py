@@ -15,7 +15,13 @@ import torch
 
 from nerficg_torch.core.errors import CameraError
 
-__all__ = ['SharedCameraSettings', 'BaseCamera', 'generate_rays']
+__all__ = ['SharedCameraSettings', 'BaseCamera', 'generate_rays',
+           'array_module']
+
+
+def array_module(*arrays):
+    """torch for tensor inputs, numpy otherwise: the camera math's backend."""
+    return torch if any(isinstance(a, torch.Tensor) for a in arrays) else np
 
 
 @dataclass

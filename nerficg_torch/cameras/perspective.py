@@ -9,16 +9,12 @@ import math
 import numpy as np
 import torch
 
-from nerficg_torch.cameras.base import BaseCamera, SharedCameraSettings
+from nerficg_torch.cameras.base import (BaseCamera, SharedCameraSettings,
+                                        array_module)
 from nerficg_torch.cameras.distortion import RadialTangentialDistortion
 from nerficg_torch.cameras.pose import fov_to_focal
 
 __all__ = ['PerspectiveCamera']
-
-
-def _xp(*arrays):
-    """torch for tensor inputs, numpy otherwise."""
-    return torch if any(isinstance(a, torch.Tensor) for a in arrays) else np
 
 
 def _cat(xp, arrays):
@@ -55,7 +51,7 @@ class PerspectiveCamera(BaseCamera):
 
     def cam_to_screen(self, points_cam):
         """(..., 3) camera space -> (..., 3) = (px, py, depth)."""
-        xp = _xp(points_cam)
+        xp = array_module(points_cam)
         z = points_cam[..., 2:3]
         xy = points_cam[..., :2] / xp.where(xp.abs(z) < 1e-12, 1e-12, z)
         lens = self._lens()
@@ -67,7 +63,7 @@ class PerspectiveCamera(BaseCamera):
 
     def screen_to_cam(self, pixels, depth):
         """(..., 2) pixels + (...,) depth -> (..., 3) camera space."""
-        xp = _xp(pixels, depth)
+        xp = array_module(pixels, depth)
         x = (pixels[..., 0] - self.center_x) / self.focal_x
         y = (pixels[..., 1] - self.center_y) / self.focal_y
         xy = xp.stack([x, y], -1)

@@ -2,7 +2,7 @@
 
 Port of nerficg_tpu/core/registry.py (reference: src/Implementations.py):
 plugins register themselves when imported, and a lazy import table maps
-names to the modules the port has so far.
+names to their modules.
 """
 
 from __future__ import annotations
@@ -40,6 +40,12 @@ _BUILTIN_DATASET_MODULES = {
     'MipNeRF360': 'nerficg_torch.data.loaders.mipnerf360',
     'TanksAndTemples': 'nerficg_torch.data.loaders.tanks_and_temples',
     'TanksAndTemples_3DGS': 'nerficg_torch.data.loaders.tanks_and_temples_3dgs',
+    'NvidiaShort': 'nerficg_torch.data.loaders.nvidia_short',
+    'PlenopticVideoBlender': 'nerficg_torch.data.loaders.plenoptic_video_blender',
+    'OmniBlender': 'nerficg_torch.data.loaders.omni_blender',
+    'Ricoh360': 'nerficg_torch.data.loaders.ricoh360',
+    'RaRPano': 'nerficg_torch.data.loaders.rar_pano',
+    'RTMV': 'nerficg_torch.data.loaders.rtmv',
     'Empty': 'nerficg_torch.data.loaders.empty',
 }
 

@@ -47,6 +47,7 @@ class BaseDataset(Configurable):
             background_color=np.asarray(self.BACKGROUND_COLOR, np.float32),
             near=float(self.NEAR_PLANE), far=float(self.FAR_PLANE))
         self.subsets: dict[str, list[View]] = {s: [] for s in self.SUBSETS}
+        self.mode: str = 'train'
         self.point_cloud: BasicPointCloud | None = None
         self.bounding_box: AxisAlignedBox | None = None
         self._applied_transform = np.eye(4)
@@ -66,6 +67,33 @@ class BaseDataset(Configurable):
     def load(self) -> None:
         """Populate ``self.subsets`` (reference: Datasets/Base.py:76-79)."""
         raise NotImplementedError
+
+    def set_mode(self, mode: str) -> 'BaseDataset':
+        """Select the subset that ``views``, ``len`` and indexing read
+        (reference: Datasets/Base.py:56-74)."""
+        if mode not in self.SUBSETS:
+            raise DatasetError(f'unknown subset {mode!r}; expected {self.SUBSETS}')
+        self.mode = mode
+        return self
+
+    @property
+    def views(self) -> list[View]:
+        return self.subsets[self.mode]
+
+    def train(self) -> 'BaseDataset':
+        return self.set_mode('train')
+
+    def test(self) -> 'BaseDataset':
+        return self.set_mode('test')
+
+    def val(self) -> 'BaseDataset':
+        return self.set_mode('val')
+
+    def __len__(self) -> int:
+        return len(self.views)
+
+    def __getitem__(self, idx: int) -> View:
+        return self.views[idx]
 
     def all_views(self) -> list[View]:
         return [v for s in self.SUBSETS for v in self.subsets[s]]
@@ -130,17 +158,32 @@ class BaseDataset(Configurable):
 
     def precompute_rays(self, subset: str = 'train',
                         device: torch.device | str = 'cpu') -> RayCollection:
-        """All rays of a subset in one RayBatch pool on ``device``
-        (reference: Datasets/Base.py:172-216; nerficg_tpu/data/base.py:
-        161-227). Views that share a camera are generated in one batched
-        rotation over their stacked c2w matrices."""
+        """All rays of a subset in one RayBatch pool on ``device``, in view
+        order, each view's slice in ``view_slices`` (reference:
+        Datasets/Base.py:172-216; nerficg_tpu/data/base.py:161-227). Views
+        that share a camera are generated in one batched rotation over
+        their stacked c2w matrices (``_shared_camera_rays``); views with
+        different cameras, one such rotation per camera, then one gather
+        per field into view order (``_grouped_rays``)."""
         views = self.subsets[subset]
         if not views:
             raise DatasetError(f'no views in subset {subset!r}')
+        groups: dict[int, list[int]] = {}
+        for i, view in enumerate(views):
+            groups.setdefault(id(view.camera), []).append(i)
+        if len(groups) == 1:
+            rays = self._shared_camera_rays(views, device)
+        else:
+            rays = self._grouped_rays(views, list(groups.values()), device)
+        bounds = np.cumsum([0] + [v.camera.width * v.camera.height
+                                  for v in views]).tolist()
+        return RayCollection(rays, list(zip(bounds[:-1], bounds[1:])))
+
+    @staticmethod
+    def _shared_camera_rays(views: list[View],
+                            device: torch.device | str) -> RayBatch:
+        """The rays of ``views``, which share one camera, in their order."""
         camera = views[0].camera
-        if not all(v.camera is camera for v in views):
-            raise DatasetError('precompute_rays needs views that share one '
-                               'camera; per-view cameras are not ported yet')
         local = camera.local_ray_directions(device)             # (N, 3)
         c2w = torch.as_tensor(np.stack([v.c2w for v in views]),
                               dtype=torch.float32, device=device)
@@ -161,15 +204,32 @@ class BaseDataset(Configurable):
             return torch.as_tensor(np.repeat(np.asarray(values), n)[:, None],
                                    dtype=dtype, device=device)
 
-        rays = RayBatch(
+        return RayBatch(
             origins=o.reshape(-1, 3), directions=d.reshape(-1, 3),
             view_directions=d.reshape(-1, 3), rgb=stack_images('rgb'),
-            alpha=stack_images('alpha'),
+            alpha=stack_images('alpha'), depth=stack_images('depth'),
             timestamps=per_view([view.timestamp for view in views],
                                 torch.float32),
             pixel_ids=torch.arange(n, dtype=torch.int32,
                                    device=device).repeat(v)[:, None],
             view_ids=per_view([view.global_frame_idx for view in views],
                               torch.int32))
-        return RayCollection(rays, [(i * n, (i + 1) * n) for i in range(v)])
 
+    @classmethod
+    def _grouped_rays(cls, views: list[View], groups: list[list[int]],
+                      device: torch.device | str) -> RayBatch:
+        """The rays of ``views`` with different cameras: each group of view
+        indices (one camera) through ``_shared_camera_rays``, the groups
+        concatenated, then gathered into view order. A field is None unless
+        every view has it."""
+        rays = RayBatch.cat([cls._shared_camera_rays(
+            [views[i] for i in group], device) for group in groups])
+        counts = [v.camera.width * v.camera.height for v in views]
+        starts, offset = [0] * len(views), 0
+        for group in groups:
+            for i in group:
+                starts[i] = offset
+                offset += counts[i]
+        order = np.concatenate([np.arange(start, start + count)
+                                for start, count in zip(starts, counts)])
+        return rays[torch.as_tensor(order, device=device)]

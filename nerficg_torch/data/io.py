@@ -1,15 +1,24 @@
-"""Image IO, ported from nerficg_tpu/data/io.py (the part the serving path
-uses; reference: src/Datasets/utils.py:134-225). Decoding and encoding go
-through PIL."""
+"""Image, optical-flow and color-space IO, ported from nerficg_tpu/data/io.py
+(reference: src/Datasets/utils.py: load_images :134-149, save_image
+:207-225, Middlebury .flo IO :82-99,228-278, sRGB conversions :38-47, flow
+visualization :281-297). Decoding and encoding go through PIL; parallel
+decoding uses a thread pool (PIL releases the GIL while it decodes)."""
 
 from __future__ import annotations
 
+import struct
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Callable, Sequence
 
 import numpy as np
 from PIL import Image
 
-__all__ = ['load_image', 'save_image', 'resize_image']
+__all__ = ['load_image', 'save_image', 'resize_image', 'load_images_parallel',
+           'read_flow', 'write_flow', 'flow_to_color',
+           'srgb_to_linear', 'linear_to_srgb']
+
+_FLO_MAGIC = 202021.25
 
 
 def load_image(path: str | Path, scale_factor: float | None = None) -> np.ndarray:
@@ -33,13 +42,19 @@ def load_image(path: str | Path, scale_factor: float | None = None) -> np.ndarra
 
 
 def resize_image(image: np.ndarray, scale_factor: float) -> np.ndarray:
-    """Resize a float32 HWC image (1, 3 or 4 channels) with Lanczos filtering."""
+    """Resize a float32 HWC image: 1, 3 or 4 channels through 8 bits with
+    Lanczos filtering, any other count (2-channel flow) channel by channel
+    in float with bilinear filtering."""
     if scale_factor == 1.0:
         return image
     h, w = image.shape[:2]
     new_size = (max(int(round(w * scale_factor)), 1),
                 max(int(round(h * scale_factor)), 1))
     channels = image.shape[2]
+    if channels not in (1, 3, 4):
+        return np.stack([np.asarray(Image.fromarray(image[..., c]).resize(
+            new_size, Image.BILINEAR)) for c in range(channels)],
+            axis=-1).astype(np.float32)
     img = Image.fromarray(
         (np.clip(image.squeeze(-1) if channels == 1 else image, 0, 1)
          * 255).astype(np.uint8))
@@ -58,3 +73,73 @@ def save_image(image: np.ndarray, path: str | Path) -> None:
         arr = arr[..., 0]
     arr = (np.clip(arr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
     Image.fromarray(arr).save(path)
+
+
+def load_images_parallel(paths: Sequence[str | Path],
+                         scale_factor: float | None = None,
+                         load_fn: Callable | None = None,
+                         max_workers: int = 8) -> list[np.ndarray]:
+    """Decode ``paths`` on a thread pool, in order (reference: load_images,
+    Datasets/utils.py:134-149)."""
+    fn = load_fn if load_fn is not None else load_image
+    with ThreadPoolExecutor(max_workers=max_workers) as pool:
+        return list(pool.map(lambda p: fn(p, scale_factor), paths))
+
+
+def read_flow(path: str | Path) -> np.ndarray:
+    """Middlebury .flo -> (H, W, 2) float32 (reference: utils.py:228-252)."""
+    with open(path, 'rb') as f:
+        magic = struct.unpack('f', f.read(4))[0]
+        if abs(magic - _FLO_MAGIC) > 1e-3:
+            raise ValueError(f'{path}: bad .flo magic {magic}')
+        width = struct.unpack('i', f.read(4))[0]
+        height = struct.unpack('i', f.read(4))[0]
+        data = np.frombuffer(f.read(width * height * 2 * 4), dtype=np.float32)
+    return data.reshape(height, width, 2).copy()
+
+
+def write_flow(flow: np.ndarray, path: str | Path) -> None:
+    """(H, W, 2) -> Middlebury .flo in float32 (reference: utils.py:254-278)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    h, w = flow.shape[:2]
+    with open(path, 'wb') as f:
+        f.write(struct.pack('f', _FLO_MAGIC))
+        f.write(struct.pack('i', w))
+        f.write(struct.pack('i', h))
+        f.write(flow.astype(np.float32).tobytes())
+
+
+def flow_to_color(flow: np.ndarray, max_radius: float | None = None) -> np.ndarray:
+    """Optical flow -> color-wheel RGB: hue from the direction, saturation
+    from the magnitude over ``max_radius`` (default: the largest)
+    (reference: utils.py:281-297)."""
+    u, v = flow[..., 0], flow[..., 1]
+    radius = np.sqrt(u * u + v * v)
+    if max_radius is None:
+        max_radius = max(radius.max(), 1e-6)
+    radius = np.clip(radius / max_radius, 0.0, 1.0)
+    hue = (np.arctan2(-v, -u) / np.pi + 1.0) / 2.0          # [0, 1]
+    h6 = hue * 6.0
+    sector = (np.floor(h6).astype(np.int32) % 6)[..., None]
+    f = h6 - np.floor(h6)
+    s, value = radius, np.ones_like(radius)
+    p, q, t = value * (1 - s), value * (1 - f * s), value * (1 - (1 - f) * s)
+    rgb = np.select(
+        [sector == k for k in range(6)],
+        [np.stack(c, -1) for c in ((value, t, p), (q, value, p),
+                                   (p, value, t), (p, q, value),
+                                   (t, p, value), (value, p, q))])
+    return rgb.astype(np.float32)
+
+
+def srgb_to_linear(srgb: np.ndarray) -> np.ndarray:
+    """(reference: Datasets/utils.py:38-42)"""
+    return np.where(srgb <= 0.04045, srgb / 12.92,
+                    ((srgb + 0.055) / 1.055) ** 2.4)
+
+
+def linear_to_srgb(linear: np.ndarray) -> np.ndarray:
+    """(reference: Datasets/utils.py:44-47)"""
+    return np.where(linear <= 0.0031308, linear * 12.92,
+                    1.055 * np.clip(linear, 1e-12, None) ** (1.0 / 2.4) - 0.055)

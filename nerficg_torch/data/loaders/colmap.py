@@ -2,8 +2,7 @@
 nerficg_tpu/data/loaders/colmap.py (reference: src/Datasets/Colmap.py:20-174):
 a sparse model's cameras (the six models of ``ColmapCamera.intrinsics``)
 with their distortion, optional masks and monocular depth, Zip-NeRF PCA
-pose alignment, the SfM point cloud and an every-Nth test split. Flow
-annotations are not ported.
+pose alignment, the SfM point cloud and an every-Nth test split.
 """
 
 from __future__ import annotations

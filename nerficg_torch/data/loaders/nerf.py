@@ -2,7 +2,8 @@
 nerficg_tpu/data/loaders/nerf.py (reference: src/Datasets/NeRF.py:42-107):
 transforms_{split}.json with camera_angle_x and per-frame OpenGL
 camera-to-world matrices; RGBA images split into rgb + alpha; OpenGL ->
-COLMAP axis conversion. Test-set depth maps are not ported yet."""
+COLMAP axis conversion; with LOAD_TEST_DEPTH, the test views' Blender depth
+maps (``*_depth_0001.png``)."""
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from nerficg_torch.core.config import Configurable
 from nerficg_torch.core.errors import DatasetError
 from nerficg_torch.core.registry import register_dataset
 from nerficg_torch.data.base import BaseDataset
+from nerficg_torch.data.io import load_image
 from nerficg_torch.data.types import ImageData, View
 
 __all__ = ['NeRFDataset', 'opengl_to_colmap']
@@ -53,8 +55,6 @@ class NeRFDataset(BaseDataset):
                    'val': 'transforms_val.json'}
 
     def load(self) -> None:
-        if self.LOAD_TEST_DEPTH:
-            raise DatasetError('LOAD_TEST_DEPTH is not ported yet')
         if not self.path.is_dir():
             raise DatasetError(f'NeRF dataset path not found: {self.path}')
         cameras: dict[tuple, PerspectiveCamera] = {}
@@ -82,13 +82,29 @@ class NeRFDataset(BaseDataset):
                     cameras[key] = PerspectiveCamera(
                         width=width, height=height, focal_x=focal,
                         focal_y=focal, settings=self.camera_settings)
-                self.subsets[subset].append(View(
+                view = View(
                     camera=cameras[key],
                     c2w=opengl_to_colmap(np.asarray(frame['transform_matrix'])),
                     camera_index=0, frame_idx=frame_idx,
                     rgb=ImageData(path=img_path, channels=slice(0, 3),
                                   scale_factor=scale),
                     alpha=ImageData(path=img_path, channels=slice(3, 4),
-                                    scale_factor=scale)))
+                                    scale_factor=scale))
+                if self.LOAD_TEST_DEPTH and subset == 'test':
+                    depth_path = img_path.with_name(
+                        img_path.stem + '_depth_0001.png')
+                    if depth_path.is_file():
+                        view.depth_data = ImageData(
+                            path=depth_path, channels=slice(0, 1),
+                            scale_factor=scale,
+                            load_fn=self._load_blender_depth)
+                self.subsets[subset].append(view)
         if not any(self.subsets.values()):
             raise DatasetError(f'no views found in {self.path}')
+
+    @staticmethod
+    def _load_blender_depth(path, scale_factor=None):
+        """Blender's test-set depth, stored as 8 - 8 * red
+        (reference: Datasets/NeRF.py:90-107)."""
+        img = load_image(path, scale_factor)
+        return 8.0 - img[..., :1] * 8.0

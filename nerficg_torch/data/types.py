@@ -1,18 +1,18 @@
 """Core data model: lazy images, views, ray batches, point clouds, boxes.
 
-Port of nerficg_tpu/data/types.py (the part the ported methods use;
-reference: src/Datasets/utils.py ImageData :693-763, View :766-1086,
-RayBatch :536-670, BasicPointCloud :300-403, AxisAlignedBox :406-457).
-Images stay numpy HWC on the host until a step consumes them; rays are
-generated on the requested device.
+Port of nerficg_tpu/data/types.py (reference: src/Datasets/utils.py
+ImageData :693-763, View :766-1086, RayBatch :536-670, RayCollection
+:673-690, BasicPointCloud :300-403, AxisAlignedBox :406-457). Images stay
+numpy HWC on the host until a step consumes them; rays are generated on
+the requested device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,16 +37,20 @@ class ImageData:
     load_fn: Optional[Callable] = None
     data: Optional[np.ndarray] = None       # eager data (HWC float32)
     data_scale: float = 1.0                 # multiplicative rescale (depth units)
+    _cache: Optional[np.ndarray] = field(default=None, repr=False)
 
     def exists(self) -> bool:
         return self.data is not None or (self.path is not None and Path(self.path).is_file())
 
     def prefetch(self) -> 'ImageData':
-        """Decode now and keep the decoded image (reference:
-        ImageData.prefetch)."""
-        if self.data is None and self.path is not None:
-            self.data = self._decode()
+        """Decode now and keep the decoded image until ``release``
+        (reference: ImageData.prefetch)."""
+        if self.data is None and self._cache is None and self.path is not None:
+            self._cache = self._decode()
         return self
+
+    def release(self) -> None:
+        self._cache = None
 
     def _decode(self) -> np.ndarray:
         fn = self.load_fn if self.load_fn is not None else load_image
@@ -59,6 +63,8 @@ class ImageData:
         """Decode (or return eager) image -> HWC float32."""
         if self.data is not None:
             out = self.data
+        elif self._cache is not None:
+            out = self._cache
         else:
             if self.path is None:
                 return None
@@ -113,6 +119,19 @@ class RayBatch:
     def __getitem__(self, idx) -> 'RayBatch':
         return self._map(lambda a: a[idx])
 
+    def split(self, chunk_size: int) -> list['RayBatch']:
+        return [self[i:i + chunk_size] for i in range(0, len(self), chunk_size)]
+
+    @staticmethod
+    def cat(batches: Sequence['RayBatch']) -> 'RayBatch':
+        """Concatenated along the rays; a field is None if any batch's is."""
+        fields = {}
+        for name in _RAY_FIELDS:
+            values = [getattr(b, name) for b in batches]
+            fields[name] = None if any(v is None for v in values) \
+                else torch.cat(values, 0)
+        return RayBatch(**fields)
+
     def pad_to(self, size: int) -> 'RayBatch':
         """Pad with zero rays to a fixed ray count (static chunking)."""
         n = len(self)
@@ -141,26 +160,31 @@ class RayCollection:
 
 class View:
     """One observation: camera + pose + lazy image slots
-    (reference: Datasets/utils.py:766-1086). The JAX package's
-    segmentation, flow and misc slots are not ported."""
+    (reference: Datasets/utils.py:766-1086)."""
 
-    IMAGE_SLOTS = ('rgb', 'alpha', 'depth')
+    IMAGE_SLOTS = ('rgb', 'alpha', 'depth', 'segmentation',
+                   'flow_fwd', 'flow_bwd', 'misc')
 
     def __init__(self, camera: BaseCamera, c2w: np.ndarray,
                  camera_index: int = 0, frame_idx: int = 0,
                  global_frame_idx: int | None = None,
                  timestamp: float = 0.0,
                  rgb: ImageData | None = None, alpha: ImageData | None = None,
-                 depth: ImageData | None = None):
+                 depth: ImageData | None = None,
+                 segmentation: ImageData | None = None,
+                 flow_fwd: ImageData | None = None,
+                 flow_bwd: ImageData | None = None,
+                 misc: ImageData | None = None):
         self.camera = camera
         self.c2w = c2w  # validated setter below
         self.camera_index = camera_index
         self.frame_idx = frame_idx
         self.global_frame_idx = frame_idx if global_frame_idx is None else global_frame_idx
         self.timestamp = float(timestamp)
-        self.rgb_data = rgb if rgb is not None else ImageData()
-        self.alpha_data = alpha if alpha is not None else ImageData()
-        self.depth_data = depth if depth is not None else ImageData()
+        slots = (rgb, alpha, depth, segmentation, flow_fwd, flow_bwd, misc)
+        for slot, data in zip(self.IMAGE_SLOTS, slots):
+            setattr(self, f'{slot}_data',
+                    data if data is not None else ImageData())
 
     @property
     def c2w(self) -> np.ndarray:
@@ -183,8 +207,18 @@ class View:
     def position(self) -> np.ndarray:
         return self._c2w[:3, 3]
 
+    def world_to_cam(self, points: np.ndarray) -> np.ndarray:
+        w2c = self.w2c
+        return points @ w2c[:3, :3].T + w2c[:3, 3]
+
     def cam_to_world(self, points: np.ndarray) -> np.ndarray:
         return points @ self._c2w[:3, :3].T + self._c2w[:3, 3]
+
+    def project_points(self, points_world: np.ndarray) -> np.ndarray:
+        """World points (M, 3) -> (px, py, depth) (M, 3), on the host
+        (reference: utils.py:980-1005)."""
+        return np.asarray(self.camera.cam_to_screen(
+            np.asarray(self.world_to_cam(points_world), np.float32)))
 
     def unproject_points(self, pixels: np.ndarray,
                          depth: np.ndarray) -> np.ndarray:
@@ -198,6 +232,10 @@ class View:
             getattr(self, f'{slot}_data').prefetch()
         return self
 
+    def release_images(self) -> None:
+        for slot in self.IMAGE_SLOTS:
+            getattr(self, f'{slot}_data').release()
+
     @property
     def rgb(self) -> Optional[np.ndarray]:
         return self.rgb_data.load()
@@ -209,6 +247,22 @@ class View:
     @property
     def depth(self) -> Optional[np.ndarray]:
         return self.depth_data.load()
+
+    @property
+    def segmentation(self) -> Optional[np.ndarray]:
+        return self.segmentation_data.load()
+
+    @property
+    def flow_fwd(self) -> Optional[np.ndarray]:
+        return self.flow_fwd_data.load()
+
+    @property
+    def flow_bwd(self) -> Optional[np.ndarray]:
+        return self.flow_bwd_data.load()
+
+    @property
+    def misc(self) -> Optional[np.ndarray]:
+        return self.misc_data.load()
 
     def get_rays(self, with_images: bool = True,
                  device: torch.device | str = 'cpu') -> RayBatch:
@@ -228,7 +282,7 @@ class View:
         return RayBatch(
             origins=origins, directions=directions,
             view_directions=directions, rgb=image(self.rgb_data),
-            alpha=image(self.alpha_data),
+            alpha=image(self.alpha_data), depth=image(self.depth_data),
             timestamps=torch.full((n, 1), self.timestamp, device=device),
             pixel_ids=torch.arange(n, dtype=torch.int32, device=device)[:, None],
             view_ids=torch.full((n, 1), self.global_frame_idx,
@@ -241,7 +295,6 @@ class View:
                     camera_index=self.camera_index, frame_idx=self.frame_idx,
                     global_frame_idx=self.global_frame_idx,
                     timestamp=self.timestamp)
-
 
 
 @dataclass

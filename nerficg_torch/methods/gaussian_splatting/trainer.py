@@ -15,7 +15,8 @@ a Morton-ordered bake after training.
 The training view comes from ``np.random.default_rng(RANDOM_SEED)`` as in
 the JAX trainer, so both trainers see the same views. The densification
 statistics stay on the model's device; densification itself runs on the
-host. wandb logging is not ported.
+host. With wandb active, the primitive count and the Gaussians' means are
+logged (``_wandb_log_primitives``).
 """
 
 from __future__ import annotations

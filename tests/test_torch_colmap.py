@@ -15,8 +15,8 @@ other test files of the COLMAP capture path import them from here.
   distortion, masks, depth with normalization), MipNeRF360, TanksAndTemples,
   TanksAndTemples_3DGS and Empty give the same splits and view order, c2w
   (np.array_equal), intrinsics, near and far, point cloud and bounding box.
-* The registry lists the five, and the new modules import with ``jax``
-  blocked.
+* The registry lists all 13 datasets, and the data layer's modules import
+  with ``jax`` blocked.
 """
 
 import json
@@ -146,16 +146,19 @@ def _sphere_points(count, outlier_share, seed):
 
 def write_capture(root, scene, image_dir='images', model_scale=1,
                   rows=None, n_points=2000, outlier_share=0.02, seed=0,
-                  binary=True):
+                  binary=True, second_scale=None):
     """A COLMAP capture of a ``make_textured_scene`` directory.
 
     Every view (train, then test) becomes ``{k:03d}.png`` in
     ``root/image_dir`` (RGB, composited on black, rows ``rows`` kept), and
     one PINHOLE camera at ``model_scale`` x the images' size (Mip-NeRF
     360's images_4 beside a full-size model), whose centre moves with the
-    crop. Each pose is the NeRF loader's c2w (``opengl_to_colmap``) written
-    as the w2c's wxyz quaternion and translation. The points: ``n_points``
-    on the sphere and ``outlier_share`` outliers (``_sphere_points``)."""
+    crop. With ``second_scale``, every odd view's image is resized by that
+    factor (Lanczos) and it has a second PINHOLE camera, the first's
+    intrinsics times the factor. Each pose is the NeRF loader's c2w
+    (``opengl_to_colmap``) written as the w2c's wxyz quaternion and
+    translation. The points: ``n_points`` on the sphere and
+    ``outlier_share`` outliers (``_sphere_points``)."""
     root, scene = Path(root), Path(scene)
     images, index = [], 0
     for split in ('train', 'test'):
@@ -167,21 +170,32 @@ def write_capture(root, scene, image_dir='images', model_scale=1,
             top, bottom = rows if rows is not None else (0, height)
             name = f'{index:03d}.png'
             (root / image_dir).mkdir(parents=True, exist_ok=True)
-            Image.fromarray(rgba[top:bottom, :, :3]).save(
-                root / image_dir / name)
+            image = Image.fromarray(rgba[top:bottom, :, :3])
+            camera_id = 1
+            if second_scale is not None and index % 2:
+                camera_id = 2
+                image = image.resize(
+                    (round(width * second_scale),
+                     round((bottom - top) * second_scale)), Image.LANCZOS)
+            image.save(root / image_dir / name)
             w2c = np.linalg.inv(opengl_to_colmap(
                 np.asarray(frame['transform_matrix'])))
             images.append((index + 1,
                            rotation_matrix_to_quaternion(w2c[:3, :3]),
-                           w2c[:3, 3], 1, name))
+                           w2c[:3, 3], camera_id, name))
             index += 1
         focal = 0.5 * width / math.tan(0.5 * meta['camera_angle_x'])
-    s = model_scale
-    camera = (1, 'PINHOLE', width * s, (bottom - top) * s,
-              [focal * s, focal * s, width / 2 * s,
-               (height / 2 - top) * s])
+    cameras = []
+    for camera_id, s in ((1, model_scale),
+                         (2, None if second_scale is None
+                          else model_scale * second_scale)):
+        if s is not None:
+            cameras.append((camera_id, 'PINHOLE', round(width * s),
+                            round((bottom - top) * s),
+                            [focal * s, focal * s, width / 2 * s,
+                             (height / 2 - top) * s]))
     xyz, rgb = _sphere_points(n_points, outlier_share, seed)
-    write_colmap_model(root / 'sparse' / '0', [camera], images,
+    write_colmap_model(root / 'sparse' / '0', cameras, images,
                        (xyz @ BLENDER_TO_COLMAP_WORLD[:3, :3].T, rgb), binary=binary)
     return root
 
@@ -417,9 +431,13 @@ def test_mipnerf360_intrinsics_scaled_once(rich_capture):
 
 
 def test_registry_lists_the_new_datasets():
+    """All 13 of the JAX package's datasets, with its defaults."""
     names = TDatasets.options()
+    assert names == JDatasets.options()
     for name in ('Colmap', 'MipNeRF360', 'TanksAndTemples',
-                 'TanksAndTemples_3DGS', 'Empty', 'NeRF', 'DNeRF'):
+                 'TanksAndTemples_3DGS', 'Empty', 'NeRF', 'DNeRF',
+                 'NvidiaShort', 'PlenopticVideoBlender', 'OmniBlender',
+                 'Ricoh360', 'RaRPano', 'RTMV'):
         assert name in names
         assert TDatasets.get_class(name).default_parameters() == \
             JDatasets.get_class(name).default_parameters()
@@ -434,6 +452,13 @@ _NEW_MODULES = [
     'nerficg_torch.data.loaders.tanks_and_temples',
     'nerficg_torch.data.loaders.tanks_and_temples_3dgs',
     'nerficg_torch.data.loaders.empty', 'nerficg_torch.core.registry',
+    'nerficg_torch.cameras.equirectangular', 'nerficg_torch.data.io',
+    'nerficg_torch.data.synthetic', 'nerficg_torch.data.loaders.nerf',
+    'nerficg_torch.data.loaders.omni_blender',
+    'nerficg_torch.data.loaders.ricoh360',
+    'nerficg_torch.data.loaders.rar_pano', 'nerficg_torch.data.loaders.rtmv',
+    'nerficg_torch.data.loaders.nvidia_short',
+    'nerficg_torch.data.loaders.plenoptic_video_blender',
     'nerficg_torch.methods.gaussian_splatting',
     'nerficg_torch.visual.trajectories',
     'nerficg_torch.scripts.convert_to_ply',

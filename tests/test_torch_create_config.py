@@ -39,8 +39,10 @@ def test_the_port_registers_what_it_should():
     assert TMethods.options() == ['DNeRF', 'GaussianSplatting',
                                   'InstantNGP', 'NeRF']
     assert TDatasets.options() == ['Colmap', 'DNeRF', 'Empty',
-                                   'MipNeRF360', 'NeRF', 'TanksAndTemples',
-                                   'TanksAndTemples_3DGS']
+                                   'MipNeRF360', 'NeRF', 'NvidiaShort',
+                                   'OmniBlender', 'PlenopticVideoBlender',
+                                   'RTMV', 'RaRPano', 'Ricoh360',
+                                   'TanksAndTemples', 'TanksAndTemples_3DGS']
 
 
 @pytest.mark.parametrize('method,dataset', PAIRS)
