@@ -55,7 +55,7 @@ Phases, each printing its own lines:
   5. training path: train configs/ingp_e2e_bench.yaml at full library width
      on a 400x400 textured scene through the port's training entry point
      (`python -m nerficg_torch.scripts.train -c ...`) in this process for
-     300 iterations (the config's 2000, cut for the time limit), render and
+     200 iterations (the config's 2000, cut for the time limit), render and
      score the test set, and check that the training kernels launched, the
      loss fell and the test PSNR rose by at least 5 dB over the untrained
      model's; then profile one warm training step;
@@ -66,7 +66,7 @@ Phases, each printing its own lines:
      step also gives #2's share of its busy time;
   6. the cell encode at the reference's size: configs/ingp_parity.yaml
      (16 levels x 2^19 entries, ENCODING_BACKEND cell, 262,144 samples per
-     step) trained the same way for 300 iterations (its 30,000 cut; its
+     step) trained the same way for 200 iterations (its 30,000 cut; its
      scene, which the repository does not hold, replaced by the textured
      one; MODEL.SCALE=1.0 so the box holds that scene; and
      RENDERER.MAX_SAMPLES=256, a quarter of the config's occupancy
@@ -76,7 +76,7 @@ Phases, each printing its own lines:
      (`python -m nerficg_torch.scripts.inference -d RUN -s test -m -b`);
   7. the crossbar encode: configs/ingp_e2e_bench.yaml with
      MODEL.ENCODING_BACKEND=xbar (2^14 entries, 4 stochastic corners in
-     training), trained for 300 iterations and served the same way;
+     training), trained for 200 iterations and served the same way;
   8. 3D Gaussian Splatting serving at full width: a checkpoint of bench.py's
      100k-Gaussian model (numpy seed 0, SH degree 4 with all four bands
      active) served through the inference entry point on the textured
@@ -93,7 +93,7 @@ Phases, each printing its own lines:
  11. D-NeRF: nerficg_torch/configs/dnerf.yaml (16 levels x 2^14 on the
      crossbar, exact corners, a 48 -> 128 x 3 -> 3 deformation MLP, 262,144
      samples per step) on a 400x400 make_dynamic_textured_scene through the
-     training entry point for 1000 of its 30,000 iterations (#11 and #12
+     training entry point for 500 of its 30,000 iterations (#11 and #12
      from one fused call per iteration, loss falls, the deformation
      trains, test PSNR at least 5 dB above the untrained model's), a
      profile of one step, served through the
@@ -112,12 +112,12 @@ Phases, each printing its own lines:
  14. vanilla NeRF: nerficg_torch/configs/nerf.yaml at the library's width
      (8 x 256 coarse and fine blocks, 256 samples per ray, 1024 rays per
      step) on the 400x400 textured scene through the training entry point
-     for 500 of its 500,000 iterations (loss falls, test PSNR at least 5
+     for 250 of its 500,000 iterations (loss falls, test PSNR at least 5
      dB above the untrained model's), a profile of one step with the
      GEMMs' share, served through the inference entry point, and the
      trained model's 32x32 render on the card against the CPU (>= 45 dB);
  15. the dense probe: configs/ingp_e2e_bench.yaml with
-     RENDERER.PROBE_MODE=dense trained 300 iterations and served, as phase
+     RENDERER.PROBE_MODE=dense trained 200 iterations and served, as phase
      5 is: xbar_gather launched, block_probe_xyz and block_probe_cells
      never.
  16. the COLMAP capture path of 3DGS: phases 5-9's scene written as a
@@ -138,7 +138,7 @@ Phases, each printing its own lines:
      shows it (held to this process's render of the pose, both JPEG at
      quality 90, >= 40 dB), /status's FPS, /terminate; the hand-off's
      host cost apart (push_frame, pop_frame, _encode_jpeg of an 800x800
-     float32 frame); and `--train` on the GS config for 300 iterations
+     float32 frame); and `--train` on the GS config for 200 iterations
      with TRAINING.TIMING.PROFILE over 5 of them, /status from training
      to idle, the post-training frame held to the final checkpoint's
      render, /terminate, final.ckpt, #15 and #16 in the trace, then the
@@ -161,6 +161,23 @@ Phases, each printing its own lines:
      loss falling, test PSNR 3 dB above the untrained model's trained and
      served, finite served renders; load seconds, step ms, FPS and peak
      memory of each run.
+ 19. the offline tools and the metric layer, after phase 13: the doctor
+     (`nerficg_torch.scripts.install.main`, exit 0); LPIPS from a
+     weights npz of random VGG16 weights (`optim/lpips.py`,
+     init_random_weights(0)), masked SSIM and masked PSNR of five
+     400x400 pairs (one mask empty, one full) on the card against the CPU
+     (1e-4 relative), and the card's LPIPS ms a pair; with
+     NERFICG_LPIPS_WEIGHTS at that npz, the dataset sweep
+     (`nerficg_torch.scripts.benchmark_sweep -m InstantNGP -d NeRF`) over
+     two 200x200 textured scenes (2 test views each) with the e2e config's
+     MODEL, RENDERER and TRAINING at 150 iterations, each scene a child
+     process (a finite LPIPS= in each metrics_8bit.txt, test PSNR above
+     the untrained model's, a summary.txt row each), sequential_train
+     over the first scene's config, and generate_tables -m masks over the
+     runs' test renders laid out as root/scene/InstantNGP beside gt/ and
+     masks/ (the views' alpha), every value recomputed on the CPU (1e-4
+     relative). Its kernels run in the children and are not counted:
+     phase 18 counts the same config's.
 Every main path of phases 3-7, 11 and 18 must probe through
 block_probe_xyz alone, never through block_probe_cells or xbar_gather;
 phase 15 through xbar_gather alone.
@@ -1708,7 +1725,7 @@ def _work_dir(work: Path | None, prefix: str):
 
 def phase_training(card: str, phase: int | str, scene: Path, config: str,
                    overrides: tuple, trained: tuple, served: tuple = (),
-                   iterations: int = 300, repeats: int = 1,
+                   iterations: int = 200, repeats: int = 1,
                    profile_share: str | None = None,
                    probe: str = 'block_probe_xyz',
                    work: Path | None = None) -> dict:
@@ -2123,11 +2140,12 @@ def _dnerf_config_path() -> Path:
     return ROOT / 'nerficg_torch' / 'configs' / 'dnerf.yaml'
 
 
-# D-NeRF's iterations in phase 11 (and its static control's): 1000 of the
-# config's 30,000, for the time limit (2000 until phase 17 came; on an
-# H100 they raised the test PSNR from 12.2 to 23.8 dB, above the +5 dB
-# checked, and moved the deformation's offsets by up to 0.68).
-DNERF_ITERATIONS = 1000
+# D-NeRF's iterations in phase 11 (and its static control's): 500 of the
+# config's 30,000, for the time limit (2000 until phase 17 came, 1000
+# until phase 19 came; on an H100 2000 raised the test PSNR from 12.2 to
+# 23.8 dB and 1000 to 23.2, above the +5 dB checked, and 2000 moved the
+# deformation's offsets by up to 0.68).
+DNERF_ITERATIONS = 500
 
 
 def phase11_dnerf(card: str, scene: Path,
@@ -2500,10 +2518,11 @@ def phase13_op_api(card: str) -> dict:
     return launches
 
 
-# NeRF's iterations in phase 14: 500 of the config's 500,000, for the time
-# limit (2000 until phase 17 came; on an H100 2000 raised the served test
-# PSNR from 9.6 to 25.0 dB and 1000 to 24.1, far above the +5 dB checked).
-NERF_ITERATIONS = 500
+# NeRF's iterations in phase 14: 250 of the config's 500,000, for the time
+# limit (2000 until phase 17 came, 500 until phase 19 came; on an H100
+# 2000 raised the served test PSNR from 9.6 to 25.0 dB, 1000 to 24.1 and
+# 500 to 22.0, far above the +5 dB checked).
+NERF_ITERATIONS = 250
 
 
 def render_small(run_dir: Path, scene: Path, device: str) -> dict:
@@ -2922,7 +2941,7 @@ VIEWER_MIN_PSNR_DB = 40.0
 # cannot pass for the next.
 VIEWER_POSES_APART_DB = 30.0
 VIEWER_DEADLINE_S = 120.0
-GUI_TRAIN_ITERATIONS = 300
+GUI_TRAIN_ITERATIONS = 200
 GUI_PROFILE_AT = 150
 GUI_PROFILE_STEPS = 5
 # #15's 16-wide forward and #16 as named in a trace: gs_tiles.cu's
@@ -3674,6 +3693,307 @@ def phase18_data_layer(card: str, scene: Path) -> dict:
     return dict(launches)
 
 
+# Phase 19: the offline tools and the metric layer.
+TOOLS_LPIPS_SEED = 0
+TOOLS_PAIRS = 5
+TOOLS_PAIR_SIZE = 400
+TOOLS_SCENE_SIZE = 200
+TOOLS_ITERATIONS = 150
+# LPIPS, mSSIM and mPSNR on the card against the CPU: float32 convolutions
+# by other algorithms (cuDNN with TF32 off, against oneDNN).
+TOOLS_RTOL = 1e-4
+
+
+def _close(got: float, want: float, rtol: float = TOOLS_RTOL) -> bool:
+    """Within ``rtol`` relative, or absolute below 1."""
+    return abs(got - want) <= rtol * max(1.0, abs(want))
+
+
+def vgg_flops(height: int, width: int) -> float:
+    """The VGG16 trunk's convolution operations (2 per multiply-add) on one
+    image, as optim/lpips.py computes it."""
+    from nerficg_torch.optim.lpips import _VGG_CFG
+    total, cin = 0.0, 3
+    for block, (n_convs, cout) in enumerate(_VGG_CFG):
+        if block:
+            height, width = height // 2, width // 2
+        for _ in range(n_convs):
+            total += 2.0 * 9 * cin * cout * height * width
+            cin = cout
+    return total
+
+
+def phase19_doctor(card: str) -> None:
+    """``nerficg_torch.scripts.install.main([])``, the doctor, in this
+    process (its log read back): exit 0."""
+    import io
+
+    from nerficg_torch.core.logging import Logger
+    from nerficg_torch.scripts import install
+    start = time.perf_counter()
+    log, level = io.StringIO(), Logger.level
+    Logger.set_level('NORMAL')
+    try:
+        with contextlib.redirect_stderr(log):
+            code = install.main([])
+    except SystemExit as exc:
+        code = exc.code
+    finally:
+        Logger.level = level
+    lines = [line for line in log.getvalue().splitlines()
+             if any(key in line for key in ('torch ', 'card:', 'kernel '
+                                            'library', 'environment',
+                                            'dataset loaders', 'ERROR'))]
+    print(f'phase 19a: install (the doctor) returned {code} in '
+          f'{time.perf_counter() - start:.1f} s: ' + ' | '.join(lines) +
+          f' [{card}]', flush=True)
+    if code != 0:
+        print(log.getvalue()[-4000:])
+        fail('phase 19a: the doctor found a problem')
+
+
+def phase19_metrics(card: str, npz: Path) -> None:
+    """LPIPS (the weights file ``npz``), mSSIM and mPSNR of TOOLS_PAIRS
+    pairs at TOOLS_PAIR_SIZE on the card against the CPU; one mask empty,
+    one full, the rest discs."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.optim.lpips import load_weights, lpips_vgg
+    from nerficg_torch.optim.masked_metrics import masked_psnr, masked_ssim
+
+    rng = np.random.default_rng(19)
+    size = TOOLS_PAIR_SIZE
+    ys, xs = np.mgrid[0:size, 0:size] / size
+    pairs = []
+    for k in range(TOOLS_PAIRS):
+        # Smooth content plus fine noise, the target a perturbed copy.
+        base = 0.5 + 0.4 * np.sin(2 * np.pi * (xs * (k + 1) + ys * 2))
+        a = np.clip(base[..., None] * rng.uniform(0.5, 1.0, 3)
+                    + 0.05 * rng.standard_normal((size, size, 3)), 0, 1)
+        b = np.clip(a + 0.08 * rng.standard_normal(a.shape), 0, 1)
+        mask = ((ys - 0.5) ** 2 + (xs - 0.3 - 0.1 * k) ** 2 < 0.06)
+        mask = {0: np.zeros_like(mask), 1: np.ones_like(mask)}.get(k, mask)
+        pairs.append((a.astype(np.float32), b.astype(np.float32),
+                      mask.astype(np.float32)))
+    params = {'cuda': load_weights(npz, 'cuda'), 'cpu': load_weights(npz,
+                                                                     'cpu')}
+    lpips_vgg(*pairs[0][:2], params=params['cuda'], device='cuda')  # warm-up
+    values = {'cuda': [], 'cpu': []}
+    seconds = {'cuda': [], 'cpu': []}
+    for device in ('cuda', 'cpu'):
+        for a, b, mask in pairs:
+            start = time.perf_counter()
+            lp = lpips_vgg(a, b, params=params[device], device=device)
+            seconds[device].append(time.perf_counter() - start)
+            p, t, m = (torch.as_tensor(x, device=device) for x in (a, b, mask))
+            values[device].append((lp, float(masked_ssim(p, t, m)),
+                                   float(masked_psnr(p, t, m))))
+    # The card's time a pair, three more passes over the pairs.
+    passes = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for a, b, _ in pairs:
+            lpips_vgg(a, b, params=params['cuda'], device='cuda')
+        passes.append((time.perf_counter() - start) / len(pairs) * 1e3)
+    ms = sorted(passes)[1]
+    flops = 2 * vgg_flops(size, size)
+    worst = max(abs(g - w) / max(1.0, abs(w)) if j else abs(g - w) / abs(w)
+                for got, want in zip(values['cuda'], values['cpu'])
+                for j, (g, w) in enumerate(zip(got, want)))
+    for k, (got, want) in enumerate(zip(values['cuda'], values['cpu'])):
+        print(f'phase 19b: pair {k} ({size}x{size}, mask '
+              f'{["empty", "full"][k] if k < 2 else "disc"}): LPIPS card '
+              f'{got[0]:.6f} cpu {want[0]:.6f}; mSSIM card {got[1]:.6f} cpu '
+              f'{want[1]:.6f}; mPSNR card {got[2]:.4f} cpu {want[2]:.4f} dB')
+    print(f'phase 19b: LPIPS (VGG16, random weights from seed '
+          f'{TOOLS_LPIPS_SEED}) on the card: {ms:.3f} ms a {size}x{size} pair '
+          f'(median of 3 passes over {len(pairs)} pairs, each ending in a '
+          f'synchronize: {", ".join(f"{x:.3f}" for x in passes)}), the '
+          f'trunk\'s {flops / 1e9:.1f} GFLOP a pair at '
+          f'{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s (f32, TF32 off; the '
+          f'f32 peak is {F32_OPS_PER_S / 1e12:.0f}); the CPU '
+          f'{np.median(seconds["cpu"]) * 1e3:.1f} ms a pair; card against '
+          f'CPU worst {worst:.2e} relative (limit {TOOLS_RTOL:.0e}) '
+          f'[{card}]', flush=True)
+    if not worst <= TOOLS_RTOL:
+        fail('phase 19b: LPIPS or the masked metrics differ between the '
+             'card and the CPU')
+    if not all(np.isfinite(v).all() and v[0] > 0 for v in values['cuda']):
+        fail('phase 19b: a metric on the card is not finite or LPIPS is 0')
+
+
+def _mean_metrics(run_line: str) -> dict:
+    """'mean: PSNR=1.0 SSIM=...' -> {'PSNR': 1.0, ...}."""
+    return {k: float(v) for k, v in (item.split('=') for item in
+                                     run_line.split(': ', 1)[1].split())}
+
+
+def phase19_sweep(card: str, tmp: Path) -> dict:
+    """The dataset sweep on two textured scenes, sequential_train over the
+    first one's config, each run a child process on the card, from ``tmp``;
+    returns {scene: (run dir, scene dir)}."""
+    import math
+    import os
+
+    from nerficg_torch.core.config import load_config, save_config
+    from nerficg_torch.core.setup import Directories
+    from nerficg_torch.data.synthetic import make_textured_scene
+    from nerficg_torch.scripts import benchmark_sweep, sequential_train, train
+
+    data = tmp / 'data'
+    scenes = ('sphere_a', 'sphere_b')
+    for seed, scene in enumerate(scenes):
+        make_textured_scene(data / scene, image_size=TOOLS_SCENE_SIZE,
+                            n_train=20, n_test=2, seed=seed)
+    overrides = [*e2e_overrides(), f'TRAINING.NUM_ITERATIONS='
+                 f'{TOOLS_ITERATIONS}']
+    previous = (Path.cwd(), Directories.base)
+    os.chdir(tmp)
+    try:
+        # The untrained baselines, in this process: 0 iterations (carving
+        # and the warm-up grid), the test set scored.
+        untrained = {}
+        Directories.base = tmp / 'untrained'
+        for scene in scenes:
+            before = train.main([
+                '-c', str(ROOT / 'configs' / 'ingp_e2e_bench.yaml'),
+                *overrides, f'DATASET.PATH={data / scene}',
+                'TRAINING.RENDER_TESTSET=True', 'TRAINING.NUM_ITERATIONS=0',
+                'TRAINING.MODEL_NAME=untrained'])
+            untrained[scene] = float(before['metrics']['PSNR'])
+        start = time.perf_counter()
+        rows = benchmark_sweep.main(['-m', 'InstantNGP', '-d', 'NeRF', '-p',
+                                     str(data), '-o', 'output/benchmark',
+                                     *overrides])
+        sweep_s = time.perf_counter() - start
+        config = tmp / 'sequential.yaml'
+        save_config(load_config(tmp / 'output' / 'benchmark' /
+                                f'{scenes[0]}.yaml',
+                                overrides + ['TRAINING.MODEL_NAME='
+                                             'sequential']), config)
+        start = time.perf_counter()
+        results = sequential_train.main([str(config), '-o',
+                                         'output/summary.txt'])
+        sequential_s = time.perf_counter() - start
+    finally:
+        os.chdir(previous[0])
+        Directories.base = previous[1]
+    summary = (tmp / 'output' / 'benchmark' / 'summary.txt').read_text()
+    print(f'phase 19c: benchmark_sweep -m InstantNGP -d NeRF over 2 '
+          f'{TOOLS_SCENE_SIZE}x{TOOLS_SCENE_SIZE} textured scenes (20 train, '
+          f'2 test views), the e2e config at {TOOLS_ITERATIONS} iterations, '
+          f'in {sweep_s:.1f} s; untrained test PSNR '
+          f'{ {k: round(v, 3) for k, v in untrained.items()} }; summary.txt:\n'
+          + summary.rstrip() + f'\n[{card}]', flush=True)
+    runs = {}
+    for scene, info in rows:
+        if not info['metrics'].startswith('mean: '):
+            fail(f'phase 19c: the sweep\'s {scene} run has no metrics: '
+                 f'{info}')
+        metrics = _mean_metrics(info['metrics'])
+        if not math.isfinite(metrics.get('LPIPS', math.nan)):
+            fail(f'phase 19c: {scene}\'s metrics_8bit.txt has no finite '
+                 f'LPIPS: {info["metrics"]}')
+        if not metrics['PSNR'] > untrained[scene]:
+            fail(f'phase 19c: {scene}\'s test PSNR {metrics["PSNR"]:.3f} dB is '
+                 f'not above the untrained run\'s {untrained[scene]:.3f}')
+        if f'{scene}: {info["metrics"]} | time ' not in summary:
+            fail(f'phase 19c: summary.txt has no row for {scene}')
+        run_dir = sorted((tmp / 'output' / 'InstantNGPModel').glob(
+            f'{scene}_*'))[-1]
+        runs[scene] = (run_dir, data / scene)
+    line = (tmp / 'output' / 'summary.txt').read_text().strip()
+    print(f'phase 19c: sequential_train over {config.name} in '
+          f'{sequential_s:.1f} s: {line} [{card}]', flush=True)
+    if len(results) != 1 or 'LPIPS=' not in results[0][1]:
+        fail(f'phase 19c: sequential_train\'s summary is {results}')
+    return runs
+
+
+def phase19_tables(card: str, tmp: Path, runs: dict) -> None:
+    """generate_tables --mask-name over the sweep's test renders laid out as
+    root/scene/InstantNGP, beside gt/ (the test views composited as the
+    renderer scores them) and masks/ (their alpha), on the card; every
+    row's values recomputed on the CPU."""
+    import math
+
+    from nerficg_torch.core.config import load_config
+    from nerficg_torch.core.registry import Datasets
+    from nerficg_torch.data.io import save_image
+    from nerficg_torch.scripts import generate_tables
+
+    root = tmp / 'tables'
+    for scene, (run_dir, _) in runs.items():
+        config = load_config(run_dir / 'training_config.yaml')
+        views = Datasets.get_dataset(config).subsets['test']
+        for i, view in enumerate(views):
+            alpha = view.alpha
+            gt = view.rgb[..., :3] * alpha + \
+                view.camera.background_color * (1.0 - alpha)
+            save_image(gt, root / scene / 'gt' / f'{i:05d}.png')
+            save_image(alpha, root / scene / 'masks' / f'{i:05d}.png')
+            (root / scene / 'InstantNGP').mkdir(parents=True, exist_ok=True)
+            (root / scene / 'InstantNGP' / f'{i:05d}.png').write_bytes(
+                (run_dir / 'test' / 'rgb' / f'{i:05d}.png').read_bytes())
+    start = time.perf_counter()
+    rows = generate_tables.main(['-r', str(root), '-m', 'masks', '-o',
+                                 str(root / 'tables.txt')])
+    card_s = time.perf_counter() - start
+    cpu = generate_tables.collect_rows(root, 'gt', 'masks', device='cpu')
+    worst = 0.0
+    for (scene, method, got), (_, _, want) in zip(rows, cpu):
+        for key, value in want.items():
+            if not math.isfinite(got[key]):
+                fail(f'phase 19d: {scene} {method} {key} is {got[key]}')
+            worst = max(worst, abs(got[key] - value) / max(1.0, abs(value)))
+    print(f'phase 19d: generate_tables -m masks on the card in {card_s:.1f} '
+          f's, {len(rows)} rows:\n' +
+          (root / 'tables.txt').read_text().rstrip() +
+          f'\nagainst the rows recomputed on the CPU: worst {worst:.2e} '
+          f'relative (limit {TOOLS_RTOL:.0e}) [{card}]', flush=True)
+    if len(rows) != len(runs) or len(cpu) != len(rows) or \
+            any(len(r[2]) != 6 for r in rows):
+        fail(f'phase 19d: expected {len(runs)} rows of 6 metrics')
+    if not worst <= TOOLS_RTOL:
+        fail('phase 19d: the card\'s table differs from the CPU\'s')
+
+
+def phase19_tools(card: str) -> None:
+    """The doctor, LPIPS and the masked metrics card against CPU, the
+    dataset sweep with sequential_train, and generate_tables over its
+    renders. Their kernels (#1 stochastic and exact, #3, #4, #6, #7) run
+    in the sweep's child processes and are not counted here: phase 18
+    counts the same config's launches."""
+    import os
+
+    import numpy as np
+
+    from nerficg_torch.optim.lpips import init_random_weights
+    phase_start = time.perf_counter()
+    phase19_doctor(card)
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_tools_') as tmp:
+        tmp = Path(tmp)
+        npz = tmp / 'lpips_vgg.npz'
+        np.savez(npz, **init_random_weights(TOOLS_LPIPS_SEED))
+        phase19_metrics(card, npz)
+        # Every later score, in this process and the sweep's children,
+        # finds the weights where a user points both packages at them.
+        previous = os.environ.get('NERFICG_LPIPS_WEIGHTS')
+        os.environ['NERFICG_LPIPS_WEIGHTS'] = str(npz)
+        try:
+            runs = phase19_sweep(card, tmp)
+            phase19_tables(card, tmp, runs)
+        finally:
+            if previous is None:
+                os.environ.pop('NERFICG_LPIPS_WEIGHTS')
+            else:
+                os.environ['NERFICG_LPIPS_WEIGHTS'] = previous
+    print(f'phase 19: the phase took {time.perf_counter() - phase_start:.1f} '
+          f's [{card}]', flush=True)
+
+
 def _run_dir(work: Path, method: str) -> Path:
     """The trained run ('chip_smoke_*') that a phase left under ``work``."""
     return next((work / 'output' / method).glob('chip_smoke_*'))
@@ -3808,6 +4128,7 @@ def main() -> None:
     phase12_dnerf_step(card)
     launches.update(phase13_op_api(card))
     print_fwd_sizes()
+    phase19_tools(card)
     print(f'every phase passed in {time.perf_counter() - start:.1f} s '
           f'[{card}]', flush=True)
     kernels = [{'name': name, 'route': route, 'source': source,

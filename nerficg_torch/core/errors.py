@@ -16,7 +16,7 @@ from nerficg_torch.core.logging import Logger
 __all__ = [
     'FrameworkError', 'ConfigError', 'CheckpointError', 'DatasetError',
     'CameraError', 'ModelError', 'RendererError', 'TrainerError',
-    'MethodError',
+    'SamplerError', 'MethodError',
     'VisualizationError', 'KernelError', 'GuiError', 'catch',
 ]
 
@@ -56,6 +56,10 @@ class RendererError(FrameworkError):
 
 class TrainerError(FrameworkError):
     """Training-loop failure or an option the port does not have."""
+
+
+class SamplerError(FrameworkError):
+    """Ray/view sampler failure."""
 
 
 class MethodError(FrameworkError):

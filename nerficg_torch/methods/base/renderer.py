@@ -108,7 +108,10 @@ class BaseRenderer(Configurable):
                     continue
                 metrics[key] = float(np.nanmean(vals))
             for key in unavailable:
-                Logger.warning(f'metric {key!r} unavailable (no weights)')
+                Logger.warning(
+                    f'metric {key!r} unavailable'
+                    + (' (no LPIPS/VGG weights: set NERFICG_LPIPS_WEIGHTS, '
+                       'see optim/lpips.py)' if 'lpips' in key else ''))
             if output_dir is not None:
                 self._write_metrics_file(output_dir / 'metrics_8bit.txt',
                                          per_image_metrics, metrics,
@@ -125,7 +128,9 @@ class BaseRenderer(Configurable):
         path.parent.mkdir(parents=True, exist_ok=True)
         with open(path, 'w') as f:
             for key in unavailable:
-                f.write(f'# {key}: unavailable (no weights file)\n')
+                f.write(f'# {key}: unavailable'
+                        + (' (no weights file; set NERFICG_LPIPS_WEIGHTS)'
+                           if 'lpips' in key else '') + '\n')
             for i, m in enumerate(per_image):
                 f.write(f'{i:05d}: ' + ' '.join(f'{k}={v:.6f}' for k, v in m.items()) + '\n')
             f.write('mean: ' + ' '.join(f'{k}={v:.6f}' for k, v in mean.items()) + '\n')

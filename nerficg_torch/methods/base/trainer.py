@@ -306,14 +306,14 @@ class BaseTrainer(Configurable):
                        start_iteration='WANDB.SWEEP_MODE.START_ITERATION',
                        iteration_stride='WANDB.SWEEP_MODE.ITERATION_STRIDE')
     def _wandb_sweep_metrics(self, dataset, iteration: int) -> None:
-        """Test-set PSNR/SSIM and the MipNeRF geometric-mean combined
-        metric for hyperparameter sweeps (reference: Trainer.py:353-395).
-        The port has no LPIPS, so ``test_lpips`` is nan and the combined
-        metric takes PSNR and SSIM."""
+        """Test-set PSNR/SSIM(/LPIPS) and the MipNeRF geometric-mean
+        combined metric for hyperparameter sweeps (reference:
+        Trainer.py:353-395); LPIPS joins it where ``lpips_available``."""
         if self._wandb is None or not self._wandb.active:
             Logger.warning('sweep mode requires wandb; skipping test metrics')
             return
-        from nerficg_torch.optim.metrics import psnr, ssim
+        from nerficg_torch.optim.metrics import (lpips, lpips_available,
+                                                 psnr, ssim)
         views = dataset.subsets['test']
         if not views:
             return
@@ -321,7 +321,7 @@ class BaseTrainer(Configurable):
         cap = int(self.WANDB['SWEEP_MODE'].get('NUM_IMAGES', 0))
         if 0 < cap < len(indices):
             indices = random.sample(indices, k=cap)
-        psnrs, ssims = [], []
+        psnrs, ssims, lpipss = [], [], []
         for i in indices:
             view = views[i]
             pred = torch.clamp(self.renderer.render_image(view)['rgb'],
@@ -333,13 +333,18 @@ class BaseTrainer(Configurable):
             gt = torch.as_tensor(gt, dtype=torch.float32)
             psnrs.append(float(psnr(pred, gt)))
             ssims.append(float(ssim(pred, gt)))
+            if lpips_available():
+                lpipss.append(lpips(pred, gt, device=self.device))
         m_psnr = sum(psnrs) / len(psnrs)
         m_ssim = sum(ssims) / len(ssims)
+        m_lpips = sum(lpipss) / len(lpipss) if lpipss else float('nan')
         terms = [-0.1 * math.log(10.0) * m_psnr,
                  math.log(math.sqrt(max(1.0 - m_ssim, 1e-12)))]
+        if lpipss:
+            terms.append(math.log(max(m_lpips, 1e-12)))
         combined = math.exp(sum(terms) / len(terms))
         self._wandb.log({'test_psnr': m_psnr, 'test_ssim': m_ssim,
-                         'test_lpips': float('nan'),
+                         'test_lpips': m_lpips,
                          'combined_metrics': combined}, step=iteration)
 
     @post_training_callback(priority=100)
