@@ -73,7 +73,8 @@ Phases, each printing its own lines:
      threshold, which as published lies above the untrained density so
      that nothing trains from random weights), then served
      from the run directory through the inference entry point
-     (`python -m nerficg_torch.scripts.inference -d RUN -s test -m -b`);
+     (`python -m nerficg_torch.scripts.inference -d RUN -s test -m`; the
+     FPS pass `-b` left out since phase 20 came: phase 3 times serving);
   7. the crossbar encode: configs/ingp_e2e_bench.yaml with
      MODEL.ENCODING_BACKEND=xbar (2^14 entries, 4 stochastic corners in
      training), trained for 200 iterations and served the same way;
@@ -85,7 +86,7 @@ Phases, each printing its own lines:
      against the CPU on a small frame;
   9. 3DGS training: nerficg_torch/configs/gaussian_splatting.yaml (the
      library's defaults, 100k random points in the scene's box) through the
-     training entry point for 4500 of its 30,000 iterations (densification
+     training entry point for 3500 of its 30,000 iterations (densification
      every 100 from 600, the SH increases at 1000-3000, the first opacity
      reset at 3000), test PSNR against the untrained model's, a profile of
      one step, then served;
@@ -93,7 +94,7 @@ Phases, each printing its own lines:
  11. D-NeRF: nerficg_torch/configs/dnerf.yaml (16 levels x 2^14 on the
      crossbar, exact corners, a 48 -> 128 x 3 -> 3 deformation MLP, 262,144
      samples per step) on a 400x400 make_dynamic_textured_scene through the
-     training entry point for 500 of its 30,000 iterations (#11 and #12
+     training entry point for 300 of its 30,000 iterations (#11 and #12
      from one fused call per iteration, loss falls, the deformation
      trains, test PSNR at least 5 dB above the untrained model's), a
      profile of one step, served through the
@@ -112,13 +113,13 @@ Phases, each printing its own lines:
  14. vanilla NeRF: nerficg_torch/configs/nerf.yaml at the library's width
      (8 x 256 coarse and fine blocks, 256 samples per ray, 1024 rays per
      step) on the 400x400 textured scene through the training entry point
-     for 250 of its 500,000 iterations (loss falls, test PSNR at least 5
+     for 150 of its 500,000 iterations (loss falls, test PSNR at least 5
      dB above the untrained model's), a profile of one step with the
      GEMMs' share, served through the inference entry point, and the
      trained model's 32x32 render on the card against the CPU (>= 45 dB);
  15. the dense probe: configs/ingp_e2e_bench.yaml with
-     RENDERER.PROBE_MODE=dense trained 200 iterations and served, as phase
-     5 is: xbar_gather launched, block_probe_xyz and block_probe_cells
+     RENDERER.PROBE_MODE=dense trained 200 iterations and served as phase
+     6 is: xbar_gather launched, block_probe_xyz and block_probe_cells
      never.
  16. the COLMAP capture path of 3DGS: phases 5-9's scene written as a
      Mip-NeRF 360 capture (images_4 of 400x300, a 1600x1200 PINHOLE model,
@@ -133,7 +134,7 @@ Phases, each printing its own lines:
  17. the interactive viewer, each run as a user starts it
      (`python -m nerficg_torch.scripts.gui`) in a subprocess of its own,
      driven over HTTP on a free port at the viewer's 800x800: phase 16's
-     3DGS run (5 poses) and phase 5's Instant-NGP run (2 poses) viewed
+     3DGS run (5 poses) and phase 5's Instant-NGP run (1 pose) viewed
      with `-d RUN_DIR`, each pose posted to /camera until /frame.jpg
      shows it (held to this process's render of the pose, both JPEG at
      quality 90, >= 40 dB), /status's FPS, /terminate; the hand-off's
@@ -178,7 +179,34 @@ Phases, each printing its own lines:
      masks/ (the views' alpha), every value recomputed on the CPU (1e-4
      relative). Its kernels run in the children and are not counted:
      phase 18 counts the same config's.
-Every main path of phases 3-7, 11 and 18 must probe through
+ 20. the last two modules, after phase 17 on phase 5's scene: (a) the
+     native image decoder built from nerficg_torch/native/image_io.cpp
+     (where it does not build, the phase prints why and the port decodes
+     with PIL, as the JAX package would): known uint8/uint16 arrays
+     written as 8- and 16-bit RGB, RGBA, gray and gray + alpha PNGs, a
+     2-bit gray PNG and palette PNGs with and without tRNS decode to
+     exactly those arrays, RGB and gray JPEGs to PIL's decode / 255 within
+     one ulp; load_images_parallel of 100 800x800 RGBA PNGs on the native
+     thread pool against PIL's thread pool, in turns (host seconds);
+     (b) configs/ingp_e2e_bench.yaml trained 200
+     iterations (phase 5's) over two ranks of one gloo group on the one
+     card, started as a user starts them (`python -m
+     torch.distributed.run --standalone --nproc_per_node 2`, each rank
+     the training entry point through `chip_smoke.dp_rank`, which counts
+     its launches): rank 0 alone wrote one run directory, final.ckpt
+     loads, the test set rendered over both ranks gave every rank rank
+     0's metrics, every rank launched #1 stochastic, #3, the probe from world
+     planes, #6 and #7 and ends with parameters and grid bit-equal to
+     rank 0's, test PSNR within DP_PSNR_BAND_DB of phase 5's; each rank's
+     ms per step and the all-reduce ms of its gradient buffer; then one
+     two-shard step with exact corners (#1 exact and #2 on each rank)
+     against the same step in this process, both shards in turn (loss
+     1e-5, gradients and parameters after Adam 2e-2 relative Frobenius);
+     (c) NCCL at world size 1 on cuda:0, an all-reduce of (b)'s gradient
+     buffer's size.
+Phase 5x takes phase 5's untrained test PSNR (the same weights, grid and
+test render) instead of an untrained run of its own.
+Every main path of phases 3-7, 11, 18 and 20 must probe through
 block_probe_xyz alone, never through block_probe_cells or xbar_gather;
 phase 15 through xbar_gather alone.
 Every kernel's launch count is set to 0 just before the run that drives it
@@ -1725,10 +1753,11 @@ def _work_dir(work: Path | None, prefix: str):
 
 def phase_training(card: str, phase: int | str, scene: Path, config: str,
                    overrides: tuple, trained: tuple, served: tuple = (),
-                   iterations: int = 200, repeats: int = 1,
+                   iterations: int = 200, fps: bool = True,
                    profile_share: str | None = None,
                    probe: str = 'block_probe_xyz',
-                   work: Path | None = None) -> dict:
+                   work: Path | None = None,
+                   psnr_before: float | None = None) -> dict:
     """The port's training entry point on ``config`` with ``overrides`` for
     ``iterations`` iterations on the 400x400 textured ``scene``, after an
     untrained run (0 iterations: carving and the warm-up grid) for the
@@ -1740,9 +1769,14 @@ def phase_training(card: str, phase: int | str, scene: Path, config: str,
     finite, and that the marcher probed through ``probe`` alone
     (``probe_only``); profiles one warm training step (with
     ``profile_share``, the share of its busy time in the kernels so
-    named). Returns the launch counts of the kernels it checks, training
-    and serving runs summed. The run directories go under ``work`` when it
-    is given (and stay), else under a temporary directory."""
+    named). ``psnr_before``: the untrained model's PSNR of an earlier phase
+    whose untrained model is the same (the same weights, grid and test
+    render), instead of an untrained run. ``fps``: serve with ``-b
+    --repeats 1`` (the FPS benchmark: a warm-up render and one more pass
+    over the test set), else only ``-m``. Returns the launch counts of the
+    kernels it checks, training and serving runs summed, and the trained
+    model's test PSNR ('test_psnr'). The run directories go under ``work``
+    when it is given (and stay), else under a temporary directory."""
     import numpy as np
     import torch
 
@@ -1756,11 +1790,16 @@ def phase_training(card: str, phase: int | str, scene: Path, config: str,
         args = ['-c', str(ROOT / 'configs' / config), f'DATASET.PATH={scene}',
                 'TRAINING.RENDER_TESTSET=True', *overrides]
         shown = ' '.join(args[1:2] + list(overrides))
-        before = train.main(args + ['TRAINING.NUM_ITERATIONS=0',
-                                    'TRAINING.MODEL_NAME=untrained'])
-        psnr_before = float(before['metrics']['PSNR'])
-        print(f'{tag}: untrained model (carved, warm-up grid): test PSNR '
-              f'{psnr_before:.3f} dB [{card}]', flush=True)
+        if psnr_before is None:
+            before = train.main(args + ['TRAINING.NUM_ITERATIONS=0',
+                                        'TRAINING.MODEL_NAME=untrained'])
+            psnr_before = float(before['metrics']['PSNR'])
+            print(f'{tag}: untrained model (carved, warm-up grid): test '
+                  f'PSNR {psnr_before:.3f} dB [{card}]', flush=True)
+        else:
+            print(f'{tag}: untrained model: test PSNR {psnr_before:.3f} dB, '
+                  f'phase 5\'s (the same weights, grid and test render)',
+                  flush=True)
 
         torch.cuda.reset_peak_memory_stats()
         start = time.perf_counter()
@@ -1810,22 +1849,25 @@ def phase_training(card: str, phase: int | str, scene: Path, config: str,
                        f'{tag}: profile of one training step', card,
                        profile_share)
         counts = {k: launches[k] for k in trained}
+        counts['test_psnr'] = psnr
+        counts['untrained_psnr'] = psnr_before
         if not served:
             return counts
 
         run_dir = Path(result['output_dir'])
         torch.cuda.reset_peak_memory_stats()
         start = time.perf_counter()
+        flags = ['-m', '-b', '--repeats', '1'] if fps else ['-m']
         served_result, launches = _launches_of(lambda: inference.main(
-            ['-d', str(run_dir), '-s', 'test', '-m', '-b', '--repeats',
-             str(repeats)]), wrappers)
+            ['-d', str(run_dir), '-s', 'test', *flags]), wrappers)
         wall = time.perf_counter() - start
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
         metrics = served_result['metrics']['test']
-        print(f'{tag}: inference -d RUN -s test -m -b --repeats {repeats}: '
-              f'{served_result["fps"]:.3f} FPS at 400x400, whole run '
-              f'{wall:.1f} s, peak torch.cuda.max_memory_allocated '
-              f'{peak:.1f} MiB [{card}]')
+        served_fps = served_result['fps'] if fps else 0.0
+        print(f'{tag}: inference -d RUN -s test {" ".join(flags)}: '
+              + (f'{served_fps:.3f} FPS at 400x400, ' if fps else '')
+              + f'whole run {wall:.1f} s, peak '
+              f'torch.cuda.max_memory_allocated {peak:.1f} MiB [{card}]')
         print(f'{tag}: served test metrics: ' + ', '.join(
             f'{k}={v:.4f}' for k, v in metrics.items()) + f' [{card}]')
         print(f'{tag}: kernel launches in the serving run: '
@@ -1835,7 +1877,7 @@ def phase_training(card: str, phase: int | str, scene: Path, config: str,
             fail(f'{tag}: kernels never launched while serving: {missing}')
         probe_only(launches, f'{tag} serving', probe)
         if not all(np.isfinite(v) for v in (metrics['PSNR'], metrics['SSIM'],
-                                              served_result['fps'])):
+                                              served_fps)):
             fail(f'{tag}: non-finite served metrics or FPS: {metrics}')
         if not float(metrics['PSNR']) >= psnr_before + 5.0:
             fail(f'{tag}: the served test PSNR {metrics["PSNR"]:.3f} dB is '
@@ -1961,15 +2003,16 @@ def phase8_gs_serving(card: str, scene: Path) -> dict:
 
 
 def phase9_gs_training(card: str, scene: Path,
-                       iterations: int = 4500) -> dict:
+                       iterations: int = 3500) -> dict:
     """The GS config through the training entry point on the 400x400
     textured scene for ``iterations`` of its 30,000 iterations, after an
     untrained run (0 iterations: the random init) for the baseline PSNR;
     then a profile of one warm step and the run served through the
-    inference entry point. 4500 and not fewer: the random init fills the
-    cameras' whole box, and its floaters go only at the first opacity
-    reset (iteration 3000); on an H100, 1200 iterations raised the test
-    PSNR by 1.0 dB and 6000 by 8.4. Returns the GS kernels' launch counts
+    inference entry point. 3500 (4500 until phase 20 came) and not far
+    fewer: the random init fills the cameras' whole box, and its floaters
+    go only at the first opacity reset (iteration 3000); on an H100, 1200
+    iterations raised the test PSNR by 1.0 dB, 4000 by 6.8, 4500 by 7.1
+    and 6000 by 8.4. Returns the GS kernels' launch counts
     of the training run (forward and backward) and the serving run
     (packed)."""
     import numpy as np
@@ -2140,12 +2183,13 @@ def _dnerf_config_path() -> Path:
     return ROOT / 'nerficg_torch' / 'configs' / 'dnerf.yaml'
 
 
-# D-NeRF's iterations in phase 11 (and its static control's): 500 of the
+# D-NeRF's iterations in phase 11 (and its static control's): 300 of the
 # config's 30,000, for the time limit (2000 until phase 17 came, 1000
-# until phase 19 came; on an H100 2000 raised the test PSNR from 12.2 to
-# 23.8 dB and 1000 to 23.2, above the +5 dB checked, and 2000 moved the
-# deformation's offsets by up to 0.68).
-DNERF_ITERATIONS = 500
+# until phase 19 came, 500 until phase 20 came; on an H100 2000 raised the
+# test PSNR from 12.2 to 23.8 dB, 1000 to 23.2, 500 to 21.9 and 400 to
+# 20.9, above the +5 dB checked, and 2000 moved the deformation's offsets
+# by up to 0.68).
+DNERF_ITERATIONS = 300
 
 
 def phase11_dnerf(card: str, scene: Path,
@@ -2518,11 +2562,12 @@ def phase13_op_api(card: str) -> dict:
     return launches
 
 
-# NeRF's iterations in phase 14: 250 of the config's 500,000, for the time
-# limit (2000 until phase 17 came, 500 until phase 19 came; on an H100
-# 2000 raised the served test PSNR from 9.6 to 25.0 dB, 1000 to 24.1 and
-# 500 to 22.0, far above the +5 dB checked).
-NERF_ITERATIONS = 250
+# NeRF's iterations in phase 14: 150 of the config's 500,000, for the time
+# limit (2000 until phase 17 came, 500 until phase 19 came, 250 until
+# phase 20 came; on an H100 2000 raised the served test PSNR from 9.6 to
+# 25.0 dB, 1000 to 24.1, 500 to 22.0, 250 to 20.0 and 200 to 19.4, above
+# the +5 dB checked).
+NERF_ITERATIONS = 150
 
 
 def render_small(run_dir: Path, scene: Path, device: str) -> dict:
@@ -2928,11 +2973,12 @@ def phase16_capture(card: str, scene: Path,
 
 # Phase 17: the interactive viewer. Poses are posted as a browser would
 # (theta, phi) at the median distance of the run's training cameras from
-# the origin, which each scene's objects surround; 5 for 3DGS, 2 for
-# Instant-NGP, whose 800x800 frames take seconds each.
+# the origin, which each scene's objects surround; 5 for 3DGS, 1 for
+# Instant-NGP, whose 800x800 frames take seconds each (2 until phase 20
+# came: the second took ~20 s of the script, a frame and its reference).
 VIEWER_POSES = ((0.0, 0.25), (1.3, -0.2), (2.6, 0.35), (3.9, 0.1),
                 (5.2, -0.3))
-VIEWER_INGP_POSES = 2
+VIEWER_INGP_POSES = 1
 # A served frame shows a pose when its decoded JPEG is this close to the
 # JPEG of the smoke's own render of the pose (both PIL quality 90): #7's
 # atomic sums differ in their last bits between the two processes.
@@ -3994,6 +4040,456 @@ def phase19_tools(card: str) -> None:
           f's [{card}]', flush=True)
 
 
+# Phase 20: the native image decoder, ray-parallel training over two ranks
+# of a gloo group on the one card, and NCCL at world size 1.
+DP_RANKS = 2
+DP_ITERATIONS = 200          # phase 5's, for the PSNR band
+# The test PSNR of two ranks must lie this close to phase 5's one-process
+# run of the same config, scene and iterations: twice phase 5's own spread
+# over seeds (RANDOM_SEED 0-3 on an NVIDIA H100 80GB HBM3 at 700 W: 23.58,
+# 22.85, 22.96 and 23.84 dB, 0.99 dB); the ranks march with other seeds.
+DP_PSNR_BAND_DB = 2 * 0.99
+# One two-shard step with exact corners on the card against the same step
+# in one process, both shards in turn: the table gradient's atomic sums
+# differ from run to run, so the bound is tests/test_torch_training.py's
+# FROBENIUS_RTOL, and the loss's LOSS_RTOL.
+DP_FROBENIUS_RTOL = 2e-2
+DP_LOSS_RTOL = 1e-5
+DECODE_VIEWS = 100
+DECODE_SIZE = 800
+
+
+def phase20_decoder(card: str, tmp: Path) -> None:
+    """(a) Known arrays written as 8- and 16-bit RGB/RGBA/gray(+alpha),
+    2-bit gray and palette PNGs (with and without tRNS) decode natively to
+    exactly those arrays; RGB and gray JPEGs to PIL's decode / 255 within
+    one ulp. Then load_images_parallel of 100 800x800 RGBA PNGs, the
+    native thread pool against PIL's thread pool, in turns (host
+    seconds). Where the decoder does not build, prints why and times
+    PIL's pool alone: the port then decodes with PIL, as the JAX package
+    would."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from nerficg_torch import native
+    from nerficg_torch.data import io
+    sys.path.insert(0, str(ROOT / 'tests'))
+    from image_fixtures import write_fixtures
+    start = time.perf_counter()
+    path, what = native.build_library()
+    available = path is not None and native.native_io_available()
+    if available:
+        print(f'phase 20a: native decoder {path.name} ({what}) in '
+              f'{time.perf_counter() - start:.2f} s [{card}]', flush=True)
+    else:
+        print(f'phase 20a: the native decoder does not build here ({what});'
+              f' the port decodes with PIL, as the JAX package would '
+              f'[{card}]', flush=True)
+    for name, (file, want) in (write_fixtures(tmp / 'fixtures').items()
+                               if available else ()):
+        got = native.decode_image(file)
+        if want is None:
+            with Image.open(file) as img:
+                want = (np.asarray(img).astype(np.float32) / 255.0
+                        ).reshape(got.shape)
+            ulps = int(np.max(np.abs(got.view(np.int32).astype(np.int64) -
+                                     want.view(np.int32))))
+            ok = got.shape == want.shape and ulps <= 1
+        else:
+            ulps = None
+            ok = got.shape == want.shape and np.array_equal(got, want)
+        print(f'phase 20a: {name}: {got.shape} '
+              + (f'against PIL / 255, {ulps} ulp' if ulps is not None
+                 else 'equal to the known array' if ok else 'DIFFERS'))
+        if not ok:
+            fail(f'phase 20a: {name} decodes to {got.shape}, not the '
+                 f'known {want.shape} array')
+    rng = np.random.default_rng(0)
+    xs = np.linspace(0.0, 1.0, DECODE_SIZE, dtype=np.float32)
+    sources = []
+    for i in range(4):
+        base = np.stack([np.outer(xs, xs), np.outer(1 - xs, xs),
+                         np.outer(xs, 1 - xs), np.outer(1 - xs, 1 - xs)],
+                        -1) * 200 + rng.integers(0, 56, (DECODE_SIZE,
+                                                         DECODE_SIZE, 4))
+        sources.append(tmp / f'view_src{i}.png')
+        Image.fromarray(base.astype(np.uint8), 'RGBA').save(sources[-1])
+    paths = []
+    for i in range(DECODE_VIEWS):
+        paths.append(tmp / f'view{i:03d}.png')
+        os.link(sources[i % 4], paths[-1])
+    times = {'native': [], 'PIL': []}
+    for kind in ('native', 'PIL', 'PIL', 'native') if available else \
+            ('PIL', 'PIL'):
+        start = time.perf_counter()
+        images = io.load_images_parallel(
+            paths, load_fn=None if kind == 'native' else io._load_pil)
+        times[kind].append(time.perf_counter() - start)
+        if len(images) != DECODE_VIEWS or images[0].shape != (
+                DECODE_SIZE, DECODE_SIZE, 4):
+            fail(f'phase 20a: {kind} loaded {len(images)} images of '
+                 f'{images[0].shape}')
+        if kind == 'native':
+            decoded = images
+        else:
+            pil = images
+    if not available:
+        print(f'phase 20a: load_images_parallel of {DECODE_VIEWS} '
+              f'{DECODE_SIZE}x{DECODE_SIZE} RGBA PNGs (8 threads), PIL '
+              f'thread pool, host seconds: {times["PIL"][0]:.3f}, '
+              f'{times["PIL"][1]:.3f} [{card}]', flush=True)
+        return
+    ulps = max(int(np.max(np.abs(a.view(np.int32).astype(np.int64) -
+                                 b.view(np.int32))))
+               for a, b in zip(decoded, pil))
+    if ulps > 1:
+        fail(f'phase 20a: the native and PIL decodes of the 8-bit views '
+             f'differ by {ulps} ulp')
+    print(f'phase 20a: load_images_parallel of {DECODE_VIEWS} '
+          f'{DECODE_SIZE}x{DECODE_SIZE} RGBA PNGs (8 threads), host '
+          f'seconds in turns: native {times["native"][0]:.3f}, '
+          f'{times["native"][1]:.3f}; PIL thread pool {times["PIL"][0]:.3f}, '
+          f'{times["PIL"][1]:.3f}; the two within {ulps} ulp (the native '
+          f'decode multiplies by 1/255, PIL\'s path divides by 255) '
+          f'[{card}]', flush=True)
+
+
+def dp_rank(argv_json: str, result_dir: str) -> None:
+    """Phase 20's rank, run by torch.distributed.run. It joins the group
+    through ``setup`` (as ``train.main`` does, which then finds it up),
+    takes one two-shard step with exact corners on a fresh trainer of the
+    run's config (rank 0 writes the step's inputs and results to
+    ``result_dir`` for the parent's one-process version) and times the
+    all-reduce of its gradient buffer; then ``train.main`` with the given
+    arguments, as ``python -m nerficg_torch.scripts.train`` runs it, with
+    its kernel launches and a digest of the trained parameters and grid.
+    Writes ``result_dir/rank<r>.json``."""
+    import faulthandler
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    # A rank that waits on a collective past this dumps its stack and
+    # exits, so that torch.distributed.run ends and the phase fails.
+    faulthandler.dump_traceback_later(200, exit=True)
+    from nerficg_torch.core.config import load_config
+    from nerficg_torch.core.registry import Datasets, Methods
+    from nerficg_torch.core.setup import setup
+    from nerficg_torch.methods.instant_ngp.convert import params_to_numpy
+    from nerficg_torch.parallel.data_parallel import all_reduce_grads
+    from nerficg_torch.scripts import train
+    out = Path(result_dir)
+    argv = json.loads(argv_json)
+    config = load_config(argv[argv.index('-c') + 1],
+                         [a for a in argv if '=' in a])
+    config.MODEL.STOCHASTIC_CORNERS = 0
+    ctx = setup(config=config, device='cuda')
+    rank = ctx.rank
+    wrappers = _training_wrappers()
+    step_trainer = Methods.get_training_instance(config, device=ctx.device)
+    dataset = Datasets.get_dataset(config)
+    step_trainer._init_samplers(dataset)
+    step_trainer._carve_occupancy(dataset)
+    step_trainer._warmup_occupancy(dataset)
+    if rank == 0:
+        np.savez(out / 'step_init.npz', grid=step_trainer.model.buffers[
+            'density_grid'].cpu().numpy(), **{
+                f'p_{k}': v.copy() for k, v in _flat_tree(
+                    step_trainer.model.params_tree()).items()})
+    ids, bg = step_trainer._draw_batch(None)
+    seeds = (step_trainer.next_seed(), step_trainer.next_seed())
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    logs = step_trainer.train_step(ids, bg, *seeds)
+    torch.cuda.synchronize()
+    report = {'step_launches': {k: fn.launches for k, fn in
+                                wrappers.items()}}
+    print(f'phase 20b rank {rank}: stepped', flush=True)
+    if rank == 0:
+        grads = params_to_numpy({k: p.grad for k, p in
+                                 step_trainer.model.module.named_parameters()})
+        np.savez(out / 'step_result.npz', ids=ids.cpu().numpy(),
+                 bg=bg.cpu().numpy(), seeds=np.asarray(seeds, np.int64),
+                 total=float(logs['total']),
+                 num_samples=int(logs['num_samples']),
+                 **{f'g_{k}': v for k, v in _flat_tree(grads).items()},
+                 **{f'p_{k}': v.copy() for k, v in _flat_tree(
+                     step_trainer.model.params_tree()).items()})
+    params = list(step_trainer.model.module.parameters())
+    for _ in range(3):
+        all_reduce_grads(params, ctx.world_size)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(20):
+        all_reduce_grads(params, ctx.world_size)
+    torch.cuda.synchronize()
+    report['allreduce_ms'] = (time.perf_counter() - start) / 20 * 1e3
+    report['grad_floats'] = sum(p.numel() for p in params)
+    del step_trainer, dataset
+
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    result = train.main(argv)
+    torch.cuda.synchronize()
+    trainer = result['trainer']
+    state = [p.detach().cpu().numpy().tobytes()
+             for p in trainer.model.module.parameters()]
+    state.append(trainer.model.buffers['density_grid'].cpu().numpy()
+                 .tobytes())
+    report.update(
+        launches={k: fn.launches for k, fn in wrappers.items()},
+        step_ms=trainer.timers['training_iteration'].mean * 1e3,
+        render_s=trainer.timers['_render_testset'].total,
+        rank=trainer.rank, world=trainer.world_size,
+        metrics=result['metrics'],
+        output_dir=str(Path(trainer.output_dir).resolve()),
+        digest=hashlib.sha256(b''.join(state)).hexdigest())
+    (out / f'rank{rank}.json').write_text(json.dumps(report))
+
+
+def _flat_tree(tree: dict) -> dict:
+    """{'hash_table': a, 'mlp': [w0, w1]} -> {'hash_table': a, 'mlp.0': w0,
+    'mlp.1': w1}."""
+    flat = {}
+    for key, value in tree.items():
+        if isinstance(value, (list, tuple)):
+            flat.update({f'{key}.{i}': v for i, v in enumerate(value)})
+        else:
+            flat[key] = value
+    return flat
+
+
+def phase20_one_process_step(card: str, result: Path) -> None:
+    """The two-shard step of ``dp_rank`` in this process: the same initial
+    parameters, grid, ids, background and seeds, each shard's
+    ``loss_and_grads`` in turn with its rank's folded seeds, the gradients
+    averaged, then the trainer's Adam update; held to the ranks' step."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.core.config import load_config
+    from nerficg_torch.core.registry import Datasets, Methods
+    from nerficg_torch.parallel.data_parallel import fold_seed
+    init = dict(np.load(result / 'step_init.npz'))
+    got = dict(np.load(result / 'step_result.npz'))
+    run_dir = Path(json.loads((result / 'rank0.json').read_text())
+                   ['output_dir'])
+    config = load_config(str(run_dir / 'training_config.yaml'))
+    config.MODEL.STOCHASTIC_CORNERS = 0
+    config.GLOBAL.NUM_DEVICES = 1
+    one = Methods.get_training_instance(config, device='cuda')
+    tree = one.model.params_tree()
+    for key, value in list(tree.items()):
+        tree[key] = [init[f'p_{key}.{i}'] for i in range(len(value))] \
+            if isinstance(value, (list, tuple)) else init[f'p_{key}']
+    one.model.load_params_tree(tree)
+    one.model.buffers['density_grid'] = torch.from_numpy(
+        init['grid']).cuda()
+    one._init_samplers(Datasets.get_dataset(config))
+    # The two-shard step's sample budget is the whole batch's.
+    one.num_devices = DP_RANKS
+    ids = torch.from_numpy(got['ids']).cuda()
+    bg = torch.from_numpy(got['bg']).cuda()
+    local = ids.shape[0] // DP_RANKS
+    sums, totals = None, []
+    for r in range(DP_RANKS):
+        logs = one.loss_and_grads(ids[r * local:(r + 1) * local], bg,
+                                  *(fold_seed(int(s), r)
+                                    for s in got['seeds']))
+        totals.append(float(logs['total']))
+        grads = [p.grad.clone() for p in one.model.module.parameters()]
+        sums = grads if sums is None else [a + b for a, b in zip(sums,
+                                                                 grads)]
+    for p, g in zip(one.model.module.parameters(), sums):
+        p.grad = g / DP_RANKS
+    from nerficg_torch.methods.instant_ngp.convert import params_to_numpy
+    want_grads = _flat_tree(params_to_numpy({
+        k: p.grad for k, p in one.model.module.named_parameters()}))
+    one.apply_update()
+    want_params = _flat_tree(one.model.params_tree())
+    loss = sum(totals) / DP_RANKS
+    loss_err = abs(float(got['total']) - loss) / abs(loss)
+    worst = {}
+    for prefix, want in (('g', want_grads), ('p', want_params)):
+        for key, w in want.items():
+            norm = max(float(np.linalg.norm(w)), 1e-30)
+            worst[f'{prefix}_{key}'] = float(
+                np.linalg.norm(got[f'{prefix}_{key}'] - w)) / norm
+    grad_err = max(v for k, v in worst.items() if k.startswith('g_'))
+    param_err = max(v for k, v in worst.items() if k.startswith('p_'))
+    print(f'phase 20b: one two-shard step, exact corners, on the card: loss '
+          f'{float(got["total"]):.6f} against one process\'s {loss:.6f} '
+          f'({loss_err:.2e} relative, limit {DP_LOSS_RTOL:g}); gradients '
+          f'within {grad_err:.2e}, parameters after Adam within '
+          f'{param_err:.2e} relative Frobenius (limit {DP_FROBENIUS_RTOL:g})'
+          f'; {int(got["num_samples"])} samples over both ranks [{card}]',
+          flush=True)
+    if not (loss_err <= DP_LOSS_RTOL and grad_err <= DP_FROBENIUS_RTOL and
+            param_err <= DP_FROBENIUS_RTOL):
+        fail(f'phase 20b: the two-rank step differs from the one-process '
+             f'step: {worst}')
+
+
+def phase20_ranks(card: str, scene: Path, phase5_psnr: float,
+                  tmp: Path) -> dict:
+    """(b) configs/ingp_e2e_bench.yaml on phase 5's scene for
+    DP_ITERATIONS iterations over DP_RANKS ranks of one gloo group on the
+    one card, started as a user starts them (``python -m
+    torch.distributed.run --standalone --nproc_per_node 2``, each rank
+    ``train.main`` through ``dp_rank``): rank 0 alone wrote one run
+    directory, final.ckpt loads, parameters and grid bit-equal on every
+    rank, every rank's test metrics rank 0's (the test set is rendered
+    over the ranks), test PSNR within DP_PSNR_BAND_DB of phase 5's, every rank
+    launched the path's kernels; then the two-shard step against one
+    process. Returns the kernel launches of both ranks' training runs and
+    step, summed, and the number of gradient floats."""
+    import os
+
+    import numpy as np
+
+    from nerficg_torch.core.registry import Methods
+    from nerficg_torch.core.config import load_config
+    result = tmp / 'ranks'
+    result.mkdir()
+    work = tmp / 'work'
+    work.mkdir()
+    argv = ['-c', str(ROOT / 'configs' / 'ingp_e2e_bench.yaml'),
+            f'DATASET.PATH={scene}', 'TRAINING.RENDER_TESTSET=True',
+            f'TRAINING.NUM_ITERATIONS={DP_ITERATIONS}',
+            f'GLOBAL.NUM_DEVICES={DP_RANKS}',
+            'TRAINING.MODEL_NAME=chip_smoke_dp']
+    env = {k: v for k, v in os.environ.items()
+           if k not in ('WORLD_SIZE', 'RANK', 'LOCAL_RANK', 'MASTER_ADDR',
+                        'MASTER_PORT')}
+    env.update(PYTHONUNBUFFERED='1', PYTHONPATH=str(ROOT))
+    start = time.perf_counter()
+    log = tmp / 'ranks.log'
+    with open(log, 'w') as out:
+        try:
+            code = subprocess.run(
+                [sys.executable, '-m', 'torch.distributed.run',
+                 '--standalone', '--nproc_per_node', str(DP_RANKS),
+                 str(ROOT / 'chip_smoke.py'), '--dp-rank', json.dumps(argv),
+                 str(result)], cwd=work, env=env, stdout=out,
+                stderr=subprocess.STDOUT, timeout=240).returncode
+        except subprocess.TimeoutExpired:
+            code = 'a timeout after 240 s'
+    wall = time.perf_counter() - start
+    if code != 0:
+        print(log.read_text()[-8000:])
+        fail(f'phase 20b: torch.distributed.run ended with {code}')
+    reports = [json.loads((result / f'rank{r}.json').read_text())
+               for r in range(DP_RANKS)]
+    runs = list((work / 'output' / 'InstantNGPModel').iterdir())
+    if len(runs) != 1 or any(r['output_dir'] != str(runs[0].resolve())
+                             for r in reports):
+        fail(f'phase 20b: run directories {runs}, not rank 0\'s one')
+    model = Methods.get_model(load_config(str(runs[0] /
+                                              'training_config.yaml')),
+                              checkpoint=str(runs[0] / 'checkpoints' /
+                                             'final.ckpt'), device='cuda')
+    psnr = float(reports[0]['metrics']['PSNR'])
+    trained = ('hash_window_fwd_stoch', 'hash_window_bwd_cached',
+               'block_probe_xyz', 'seg_gather', 'seg_scatter_add')
+    stepped = ('hash_window_fwd', 'hash_window_bwd', 'block_probe_xyz',
+               'seg_gather', 'seg_scatter_add')
+    for r, report in enumerate(reports):
+        print(f'phase 20b: rank {r} of {report["world"]}: '
+              f'{report["step_ms"]:.2f} ms per training_iteration, '
+              f'all-reduce of the {report["grad_floats"]:,} gradient floats '
+              f'over gloo (host-staged) {report["allreduce_ms"]:.3f} ms, '
+              f'parameters and grid bit-equal to rank 0\'s: '
+              f'{report["digest"] == reports[0]["digest"]}; its share of '
+              f'the test render {report["render_s"]:.2f} s; launches '
+              f'training '
+              f'{ {k: report["launches"][k] for k in trained} }, the step '
+              f'{ {k: report["step_launches"][k] for k in stepped} } '
+              f'[{card}]')
+        missing = [k for k in trained if report['launches'][k] <= 0] + \
+            [k for k in stepped if report['step_launches'][k] <= 0]
+        if missing:
+            fail(f'phase 20b: rank {r} never launched {missing}')
+        if report['digest'] != reports[0]['digest']:
+            fail(f'phase 20b: rank {r}\'s parameters or grid differ from '
+                 f'rank 0\'s')
+        if report['metrics'] != reports[0]['metrics']:
+            fail(f'phase 20b: rank {r}\'s test metrics {report["metrics"]} '
+                 f'are not rank 0\'s')
+        probe_only(report['launches'], f'phase 20b rank {r}')
+    print(f'phase 20b: {DP_RANKS} ranks over gloo on one card, '
+          f'{DP_ITERATIONS} iterations: whole run {wall:.1f} s; test '
+          f'metrics ' + ', '.join(f'{k}={v:.4f}' for k, v in
+                                  reports[0]['metrics'].items())
+          + f' (phase 5, one process: {phase5_psnr:.3f} dB; band '
+          f'{DP_PSNR_BAND_DB:g} dB); final.ckpt loads '
+          f'({model.num_iterations_trained} iterations) [{card}]',
+          flush=True)
+    if not (np.isfinite(psnr) and abs(psnr - phase5_psnr) <=
+            DP_PSNR_BAND_DB):
+        fail(f'phase 20b: test PSNR {psnr:.3f} dB is not within '
+             f'{DP_PSNR_BAND_DB} dB of phase 5\'s {phase5_psnr:.3f} dB')
+    if model.num_iterations_trained != DP_ITERATIONS:
+        fail('phase 20b: final.ckpt does not hold the trained iterations')
+    phase20_one_process_step(card, result)
+    launches = collections.Counter()
+    for report in reports:
+        launches.update(report['launches'])
+        launches.update(report['step_launches'])
+    return dict(launches), reports[0]['grad_floats']
+
+
+def phase20_nccl(card: str, tmp: Path, numel: int) -> None:
+    """(c) NCCL, the backend of ranks with a card each, at world size 1 on
+    cuda:0: the all-reduce of a buffer of ``numel`` floats (the gradient
+    buffer of phase 20b) leaves it as it was, and its ms."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group('nccl', init_method=f'file://{tmp / "nccl"}',
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        buf = torch.randn(numel, device='cuda:0')
+        want = buf.clone()
+        for _ in range(3):
+            dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(20):
+            dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - start) / 20 * 1e3
+        same = torch.equal(buf, want)
+    finally:
+        dist.destroy_process_group()
+    print(f'phase 20c: NCCL at world size 1 on cuda:0: all-reduce of '
+          f'{buf.numel():,} floats {ms:.3f} ms, the buffer unchanged: '
+          f'{same} [{card}]', flush=True)
+    if not same:
+        fail('phase 20c: a one-rank NCCL all-reduce changed the buffer')
+
+
+def phase20(card: str, scene: Path, phase5_psnr: float) -> dict:
+    """The decoder, two ranks on the card, NCCL; returns the ranks'
+    kernel launches."""
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_dp_') as tmp:
+        tmp = Path(tmp)
+        (tmp / 'decode').mkdir()
+        phase20_decoder(card, tmp / 'decode')
+        launches, grad_floats = phase20_ranks(card, scene, phase5_psnr, tmp)
+        phase20_nccl(card, tmp, grad_floats)
+    print(f'phase 20: the phase took {time.perf_counter() - start:.1f} s '
+          f'[{card}]', flush=True)
+    return launches
+
+
 def _run_dir(work: Path, method: str) -> Path:
     """The trained run ('chip_smoke_*') that a phase left under ``work``."""
     return next((work / 'output' / method).glob('chip_smoke_*'))
@@ -4034,7 +4530,8 @@ def main_paths(card: str) -> dict:
                 card, '5x', scene, 'ingp_e2e_bench.yaml',
                 ('MODEL.STOCHASTIC_CORNERS=0',),
                 ('hash_window_fwd', 'hash_window_bwd', *marcher),
-                profile_share='PositionCorners')
+                profile_share='PositionCorners',
+                psnr_before=phase5['untrained_psnr'])
         for name in ('hash_window_fwd', 'hash_window_bwd'):
             launches[name] += phase5x[name]
         # The parity config at its 2^19 table; its lego scene is not in the
@@ -4052,7 +4549,7 @@ def main_paths(card: str) -> dict:
                 card, 6, scene, 'ingp_parity.yaml',
                 ('MODEL.SCALE=1.0', 'RENDERER.MAX_SAMPLES=256'),
                 ('hash_cell_fwd', 'hash_cell_bwd', *marcher),
-                ('hash_cell_fwd', *marcher))
+                ('hash_cell_fwd', *marcher), fps=False)
         launches.update({k: phase6[k] for k in ('hash_cell_fwd',
                                                 'hash_cell_bwd')})
         with fwd_sizes('phase 7 (crossbar Instant-NGP, trained and '
@@ -4061,7 +4558,7 @@ def main_paths(card: str) -> dict:
                 card, 7, scene, 'ingp_e2e_bench.yaml',
                 ('MODEL.ENCODING_BACKEND=xbar',),
                 ('hash_xbar_fwd', 'hash_xbar_bwd', *marcher),
-                ('hash_xbar_fwd', *marcher))
+                ('hash_xbar_fwd', *marcher), fps=False)
         launches.update({k: phase7[k] for k in ('hash_xbar_fwd',
                                                 'hash_xbar_bwd')})
         served = phase8_gs_serving(card, scene)
@@ -4088,7 +4585,7 @@ def main_paths(card: str) -> dict:
                 ('hash_window_fwd_stoch', 'hash_window_bwd_cached',
                  'xbar_gather', 'seg_gather', 'seg_scatter_add'),
                 ('hash_window_fwd', 'xbar_gather', 'seg_gather',
-                 'seg_scatter_add'), probe='xbar_gather')
+                 'seg_scatter_add'), probe='xbar_gather', fps=False)
         launches['xbar_gather'] = phase15['xbar_gather']
         phase14_nerf(card, scene)
         # The viewers: #1 exact, #4, #6 and #7 serve Instant-NGP, the
@@ -4099,6 +4596,10 @@ def main_paths(card: str) -> dict:
                 _run_dir(kept / 'phase16', 'GaussianSplattingModel')).items():
             if name in launches:
                 launches[name] += count
+        # Ray-parallel training: two ranks on the card, held to phase 5.
+        for name, count in phase20(card, scene,
+                                   phase5['test_psnr']).items():
+            launches[name] = launches.get(name, 0) + count
     phase10_gs_step(card)
     with tempfile.TemporaryDirectory(prefix='chip_smoke_dynamic_') as tmp:
         start = time.perf_counter()
@@ -4142,4 +4643,7 @@ def main() -> None:
 
 
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:2] == ['--dp-rank']:
+        dp_rank(*sys.argv[2:])
+    else:
+        main()

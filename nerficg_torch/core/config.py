@@ -100,10 +100,11 @@ def recursive_update(base: ConfigNode, update: Mapping, warn_unknown: bool = Fal
 
 def default_global_config() -> ConfigNode:
     """Global defaults (reference: Framework.py:202-212), the JAX package's
-    keys, so that both packages write the same config files. The port runs
-    on one card: the Instant-NGP trainer refuses NUM_DEVICES > 1 and setup
-    refuses ANOMALY_DETECTION; MESH_AXES (the JAX device mesh) and the two
-    dtypes, which neither package reads, are carried as they are."""
+    keys, so that both packages write the same config files. NUM_DEVICES
+    is the number of ranks Instant-NGP and D-NeRF train over (at most the
+    process group's world size; torchrun starts the ranks); setup refuses
+    ANOMALY_DETECTION; MESH_AXES (the JAX device mesh) and the two dtypes,
+    which neither package reads, are carried as they are."""
     return ConfigNode({
         'LOG_LEVEL': 'NORMAL',
         'RANDOM_SEED': 42,

@@ -17,7 +17,8 @@ __all__ = [
     'FrameworkError', 'ConfigError', 'CheckpointError', 'DatasetError',
     'CameraError', 'ModelError', 'RendererError', 'TrainerError',
     'SamplerError', 'MethodError',
-    'VisualizationError', 'KernelError', 'GuiError', 'catch',
+    'VisualizationError', 'KernelError', 'GuiError', 'ShardingError',
+    'catch',
 ]
 
 
@@ -76,6 +77,10 @@ class KernelError(FrameworkError):
 
 class GuiError(FrameworkError):
     """Viewer process or shared-state failure."""
+
+
+class ShardingError(FrameworkError):
+    """Process-group, device-mesh or batch-layout failure."""
 
 
 # Every traceback ``catch`` has logged in this process, so that a callback

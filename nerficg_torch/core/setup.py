@@ -1,13 +1,15 @@
 """Framework setup / teardown.
 
 Port of nerficg_tpu/core/setup.py (reference: ``Framework.setup``,
-src/Framework.py:120-160): seeds the python, numpy and torch generators,
-chooses the device, pins the float32 matmul precision and configures logging.
+src/Framework.py:120-160): joins the process group of a data-parallel run,
+seeds the python, numpy and torch generators, chooses the device, pins the
+float32 matmul precision and configures logging.
 """
 
 from __future__ import annotations
 
 import datetime
+import os
 import random
 import warnings
 from dataclasses import dataclass
@@ -55,11 +57,15 @@ def resolve_device(device: torch.device | str,
 
 @dataclass
 class FrameworkContext:
-    """Everything ``setup`` provides: explicit, no globals."""
+    """Everything ``setup`` provides: explicit, no globals. ``rank`` and
+    ``world_size`` are this process's place in the process group (0 and 1
+    in one process)."""
 
     config: ConfigNode
     generator: torch.Generator
     device: torch.device
+    rank: int = 0
+    world_size: int = 1
 
 
 def setup(config_path: str | None = None, overrides=(), *,
@@ -69,12 +75,31 @@ def setup(config_path: str | None = None, overrides=(), *,
 
     ``device`` defaults to the first CUDA card. Without one, setup raises
     rather than carry on on the CPU: the CPU runs the kernels' plain
-    versions and must be asked for (``--device cpu``)."""
+    versions and must be asked for (``--device cpu``).
+
+    Under ``GLOBAL.DISTRIBUTED`` (with ``COORDINATOR_ADDRESS``,
+    ``NUM_PROCESSES`` and ``PROCESS_ID``, as the JAX package's setup takes
+    them) or in a process that torchrun started with a world size above 1,
+    the process joins the group first (``parallel.initialize_distributed``)
+    and a rank of it computes on card ``LOCAL_RANK % device_count``."""
+    # parallel/ imports core/, so it is imported here, not with this module.
+    from nerficg_torch.parallel.mesh import (initialize_distributed,
+                                             process_count, process_index)
     device = resolve_device(device)
     if config is None:
         config = load_config(config_path, overrides)
     g = config.GLOBAL
     Logger.set_level(g.get('LOG_LEVEL', 'NORMAL'))
+    if g.get('DISTRIBUTED', False) or int(os.environ.get('WORLD_SIZE',
+                                                         1)) > 1:
+        world = initialize_distributed(
+            coordinator_address=g.get('COORDINATOR_ADDRESS'),
+            num_processes=g.get('NUM_PROCESSES'),
+            process_id=g.get('PROCESS_ID'), device_type=device.type)
+        if world > 1 and device.type == 'cuda':
+            local = int(os.environ.get('LOCAL_RANK', process_index()))
+            device = torch.device('cuda', local % torch.cuda.device_count())
+        Logger.info(f'distributed: rank {process_index()} of {world}')
     if g.get('FILTER_WARNINGS', True):
         warnings.filterwarnings('ignore', category=UserWarning)
     # The JAX package multiplies in bf16 with f32 accumulation and never in
@@ -91,10 +116,15 @@ def setup(config_path: str | None = None, overrides=(), *,
     generator = torch.Generator().manual_seed(seed)
     name = torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'
     Logger.info(f'framework setup: device {device} [{name}], seed={seed}')
-    return FrameworkContext(config=config, generator=generator, device=device)
+    return FrameworkContext(config=config, generator=generator, device=device,
+                            rank=process_index(), world_size=process_count())
 
 
 def teardown(ctx: FrameworkContext | None = None) -> None:
-    """Wait for pending device work (reference: Framework.teardown, :311-320)."""
+    """Wait for pending device work (reference: Framework.teardown,
+    :311-320) and leave the process group, if the process joined one."""
     if ctx is not None and ctx.device.type == 'cuda':
         torch.cuda.synchronize(ctx.device)
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()

@@ -1,8 +1,12 @@
 """Image, optical-flow and color-space IO, ported from nerficg_tpu/data/io.py
 (reference: src/Datasets/utils.py: load_images :134-149, save_image
 :207-225, Middlebury .flo IO :82-99,228-278, sRGB conversions :38-47, flow
-visualization :281-297). Decoding and encoding go through PIL; parallel
-decoding uses a thread pool (PIL releases the GIL while it decodes)."""
+visualization :281-297). PNG and JPEG decode through the native decoder
+(``nerficg_torch/native``: libpng/libjpeg outside the GIL, the JAX
+package's arrays bit for bit), anything else, or everything where that
+decoder is unavailable, through PIL; encoding goes through PIL. Parallel
+decoding uses the native decoder's thread pool, or a thread pool of PIL
+decodes (PIL releases the GIL while it decodes)."""
 
 from __future__ import annotations
 
@@ -14,17 +18,42 @@ from typing import Callable, Sequence
 import numpy as np
 from PIL import Image
 
+from nerficg_torch.native import decode_batch, decode_image
+
 __all__ = ['load_image', 'save_image', 'resize_image', 'load_images_parallel',
            'read_flow', 'write_flow', 'flow_to_color',
            'srgb_to_linear', 'linear_to_srgb']
 
 _FLO_MAGIC = 202021.25
+_NATIVE_SUFFIXES = {'png', 'jpg', 'jpeg'}
 
 
 def load_image(path: str | Path, scale_factor: float | None = None) -> np.ndarray:
     """Decode an image file -> float32 HWC array in [0, 1]; an alpha channel
-    is kept; 16-bit PNGs are scaled by 65535, 8-bit by 255."""
+    is kept; 16-bit PNGs are scaled by 65535, 8-bit by 255.
+
+    In the JAX package's order: a .png/.jpg/.jpeg through the native
+    decoder where it is available, resized by ``resize_image`` for a scale
+    factor; anything else through PIL."""
+    if str(path).lower().rsplit('.', 1)[-1] in _NATIVE_SUFFIXES:
+        arr = decode_image(path)
+        if arr is not None:
+            if scale_factor is not None and scale_factor != 1.0:
+                arr = resize_image(arr, scale_factor)
+            return arr
+    return _load_pil(path, scale_factor)
+
+
+def _load_pil(path: str | Path, scale_factor: float | None = None
+              ) -> np.ndarray:
+    """``load_image`` through PIL (resized by PIL for a scale factor): a
+    16-bit colour PNG comes back as 8 bits. A palette image comes back as
+    its colours, RGBA where it has transparency, as the native decoder
+    expands it (the JAX package's PIL path returns the indices / 255)."""
     with Image.open(path) as img:
+        if img.mode == 'P':
+            img = img.convert('RGBA' if 'transparency' in img.info
+                              else 'RGB')
         if scale_factor is not None and scale_factor != 1.0:
             new_size = (max(int(round(img.width * scale_factor)), 1),
                         max(int(round(img.height * scale_factor)), 1))
@@ -79,9 +108,17 @@ def load_images_parallel(paths: Sequence[str | Path],
                          scale_factor: float | None = None,
                          load_fn: Callable | None = None,
                          max_workers: int = 8) -> list[np.ndarray]:
-    """Decode ``paths`` on a thread pool, in order (reference: load_images,
-    Datasets/utils.py:134-149)."""
+    """Decode ``paths`` in order (reference: load_images,
+    Datasets/utils.py:134-149): at scale 1 with the default ``load_fn``, PNG
+    and JPEG files on the native decoder's thread pool where it is
+    available, else ``load_fn`` on a thread pool."""
     fn = load_fn if load_fn is not None else load_image
+    if load_fn is None and (scale_factor is None or scale_factor == 1.0) \
+            and {str(p).lower().rsplit('.', 1)[-1] for p in paths} \
+            <= _NATIVE_SUFFIXES:
+        out = decode_batch(list(paths), n_threads=max_workers)
+        if out is not None:
+            return out
     with ThreadPoolExecutor(max_workers=max_workers) as pool:
         return list(pool.map(lambda p: fn(p, scale_factor), paths))
 

@@ -1,8 +1,12 @@
 """Renderer base class: postprocessing, subset rendering and metrics.
 
 Port of nerficg_tpu/methods/base/renderer.py (reference: src/Methods/Base/
-Renderer.py:41-271). The JAX renderer shards ray batches over a device mesh
-(``RenderMesh``); the port renders on the model's single device.
+Renderer.py:41-271). Every renderer holds a ``RenderMesh``, the
+data-parallel layout of its session, as the JAX renderer does (default:
+every rank of the process group, one process without a group). In a
+data-parallel run ``render_subset`` splits the views over the ranks and
+gathers each round's images and metrics to every rank; the caller that
+passes ``output_dir`` (rank 0) writes them.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from nerficg_torch.data.io import save_image
 from nerficg_torch.data.types import View
 from nerficg_torch.methods.base.model import BaseModel
 from nerficg_torch.optim.metrics import compute_all_metrics
+from nerficg_torch.parallel.mesh import RenderMesh
 from nerficg_torch.visual.colormaps import apply_color_map
 
 __all__ = ['BaseRenderer']
@@ -29,13 +34,15 @@ class BaseRenderer(Configurable):
     # Subclasses set this to validate the model type (reference: Renderer.py:44-50).
     MODEL_CLASS: type = BaseModel
 
-    def __init__(self, config: ConfigNode | None, model: BaseModel):
+    def __init__(self, config: ConfigNode | None, model: BaseModel,
+                 mesh: RenderMesh | None = None):
         super().__init__(config, 'RENDERER')
         if not isinstance(model, self.MODEL_CLASS):
             raise RendererError(
                 f'{type(self).__name__} requires a {self.MODEL_CLASS.__name__}, '
                 f'got {type(model).__name__}')
         self.model = model
+        self.mesh = mesh if mesh is not None else RenderMesh()
 
     def render_image(self, view: View,
                      benchmark: bool = False) -> dict[str, torch.Tensor]:
@@ -69,14 +76,17 @@ class BaseRenderer(Configurable):
                       visualize_errors: bool = False) -> dict[str, float]:
         """Render a dataset split to per-output-key image dirs + metrics
         (reference: Renderer.py:206-271); with ``visualize_errors``, each
-        view's L1 error map under ``error/``."""
+        view's L1 error map under ``error/``. Over the ranks of ``mesh``,
+        each rank renders and scores its share of the views
+        (``RenderMesh.gather_map``) and every rank returns the same
+        metrics; only a rank given ``output_dir`` writes."""
         views = dataset.subsets[subset]
         if not views:
             Logger.warning(f'render_subset: no views in {subset!r}')
             return {}
         output_dir = None if output_dir is None else Path(output_dir)
-        per_image_metrics: list[dict[str, float]] = []
-        for i, view in enumerate(Logger.progress(views, desc=f'rendering {subset}')):
+
+        def score(i: int, view: View):
             processed = self.postprocess_outputs(self.render_image(view), view)
             gt = view.rgb
             if gt is not None and view.alpha_data.exists():
@@ -85,19 +95,29 @@ class BaseRenderer(Configurable):
                 alpha = view.alpha
                 gt = gt[..., :3] * alpha + \
                     view.camera.background_color * (1.0 - alpha)
-            if output_dir is not None:
-                for key, img in processed.items():
-                    save_image(img, output_dir / key / f'{i:05d}.png')
-                if visualize_errors and gt is not None:
-                    save_image(self.visualize_error(processed['rgb'], gt),
-                               output_dir / 'error' / f'{i:05d}.png')
+            error = self.visualize_error(processed['rgb'], gt) \
+                if visualize_errors and gt is not None else None
+            scores = None
             if compute_metrics and gt is not None:
                 # The reference's 8-bit protocol: quantize both images first
                 # (Renderer.py:103-161).
                 pred8 = np.round(np.clip(processed['rgb'], 0, 1) * 255) / 255
                 gt8 = np.round(np.clip(gt[..., :3], 0, 1) * 255) / 255
-                per_image_metrics.append(
-                    compute_all_metrics(pred8, gt8, device=self.model.device))
+                scores = compute_all_metrics(pred8, gt8,
+                                             device=self.model.device)
+            return processed, error, scores
+
+        per_image_metrics: list[dict[str, float]] = []
+        for i, (processed, error, scores) in enumerate(Logger.progress(
+                self.mesh.gather_map(score, views),
+                desc=f'rendering {subset}', total=len(views))):
+            if output_dir is not None:
+                for key, img in processed.items():
+                    save_image(img, output_dir / key / f'{i:05d}.png')
+                if error is not None:
+                    save_image(error, output_dir / 'error' / f'{i:05d}.png')
+            if scores is not None:
+                per_image_metrics.append(scores)
         metrics: dict[str, float] = {}
         if per_image_metrics:
             unavailable = []

@@ -9,6 +9,16 @@ the npz checkpoint container with the optimizer state as numpy arrays.
 ``TIMING.PROFILE`` traces a window of iterations with ``torch.profiler``
 into ``<output_dir>/profile/trace.json``; ``WANDB.ACTIVATE`` logs losses,
 render grids and sweep metrics through ``core/wandb_utils.py``.
+
+In a data-parallel run (``parallel/``; trainers with ``DATA_PARALLEL``)
+every rank runs the same callbacks on the same schedule, and rank 0 alone
+writes: it chooses the output directory (broadcast to the others) and
+writes the config, checkpoints, the resume file, timings, memory stats, the
+profile trace, wandb, and the test renders with their metrics. The test
+set, and the wandb sweep's test metrics, are rendered over every rank,
+each rank its share of the views (``RenderMesh.gather_map``), so no rank
+waits on a collective for longer than one view's render. Every rank meets
+the others at a barrier after the post-training callbacks.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nerficg_torch.core.checkpoint import load_checkpoint, save_checkpoint
 from nerficg_torch.core.config import ConfigNode, Configurable, save_config
@@ -34,6 +45,7 @@ from nerficg_torch.methods.base.callbacks import (MAIN, POST, PRE,
                                                   training_callback)
 from nerficg_torch.methods.base.model import BaseModel
 from nerficg_torch.methods.base.renderer import BaseRenderer
+from nerficg_torch.parallel.mesh import process_count, process_index
 
 __all__ = ['BaseTrainer', 'adam_state_to_numpy', 'adam_state_from_numpy']
 
@@ -57,9 +69,18 @@ __all__ = ['BaseTrainer', 'adam_state_to_numpy', 'adam_state_from_numpy']
 )
 class BaseTrainer(Configurable):
 
+    # Whether the method trains over the ranks of a process group.
+    DATA_PARALLEL = False
+
     def __init__(self, config: ConfigNode | None, model: BaseModel,
                  renderer: BaseRenderer):
         super().__init__(config, 'TRAINING')
+        self.rank, self.world_size = process_index(), process_count()
+        if self.world_size > 1 and not self.DATA_PARALLEL:
+            raise TrainerError(f'{type(self).__name__} trains in one process; '
+                               f'this one is rank {self.rank} of '
+                               f'{self.world_size} (launch it without '
+                               f'torchrun)')
         self._config = config
         self.model = model
         self.renderer = renderer
@@ -75,6 +96,11 @@ class BaseTrainer(Configurable):
         self.test_metrics: dict[str, float] = {}
         self._wandb = None
 
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes the run's files (rank 0)."""
+        return self.rank == 0
+
     def next_seed(self) -> int:
         """A fresh uint32 seed from the trainer's generator."""
         return int(torch.randint(0, 2 ** 32, (1,), generator=self.generator))
@@ -82,15 +108,21 @@ class BaseTrainer(Configurable):
     # -- run ----------------------------------------------------------------------
     def run(self, dataset) -> None:
         """Main entry (reference: Trainer.py:225-259)."""
-        if self.output_dir is None:
+        if self.output_dir is None and self.is_writer:
             self.output_dir = Directories.output_dir(type(self.model).__name__,
                                                      self.MODEL_NAME)
+        if self.world_size > 1:
+            chosen = [None if self.output_dir is None
+                      else str(self.output_dir)]
+            dist.broadcast_object_list(chosen, src=0)
+            self.output_dir = Path(chosen[0])
         Logger.info(f'training output dir: {self.output_dir}')
-        if self._config is not None:
+        if self._config is not None and self.is_writer:
             save_config(self._config, self.output_dir / 'training_config.yaml')
         if self.device.type == 'cuda':
             torch.cuda.reset_peak_memory_stats(self.device)
-        if self.WANDB.get('ACTIVATE', False) and self._wandb is None:
+        if self.WANDB.get('ACTIVATE', False) and self._wandb is None \
+                and self.is_writer:
             from nerficg_torch.core.wandb_utils import WandbSession
             self._wandb = WandbSession(
                 config=self._config.to_dict() if self._config else {},
@@ -111,7 +143,8 @@ class BaseTrainer(Configurable):
         num_iterations = int(self.NUM_ITERATIONS)
         # TIMING.PROFILE: the first traced iteration; the trace covers
         # PROFILE_STEPS iterations or ends with the loop.
-        profile_at = self.TIMING.get('PROFILE', None)
+        profile_at = self.TIMING.get('PROFILE', None) \
+            if self.is_writer else None
         profile_end = None if profile_at is None else \
             int(profile_at) + int(self.TIMING.get('PROFILE_STEPS', 5))
         profiler = None
@@ -136,12 +169,15 @@ class BaseTrainer(Configurable):
         if profiler is not None:
             self._stop_profile(profiler)
 
-        self._log_memory_stats()
+        if self.is_writer:
+            self._log_memory_stats()
         for _, callback in gather_callbacks(self, POST):
             with self._timer(callback.__name__):
                 callback(dataset)
-        if self.TIMING.get('ACTIVATE', True):
+        if self.TIMING.get('ACTIVATE', True) and self.is_writer:
             self._write_timings()
+        if self.world_size > 1:
+            dist.barrier()
 
     # -- profile -------------------------------------------------------------------------
     def _start_profile(self):
@@ -309,21 +345,28 @@ class BaseTrainer(Configurable):
         """Test-set PSNR/SSIM(/LPIPS) and the MipNeRF geometric-mean
         combined metric for hyperparameter sweeps (reference:
         Trainer.py:353-395); LPIPS joins it where ``lpips_available``."""
-        if self._wandb is None or not self._wandb.active:
-            Logger.warning('sweep mode requires wandb; skipping test metrics')
+        views = dataset.subsets['test']
+        writer, world = process_index() == 0, process_count()
+        indices = None
+        if writer:
+            if self._wandb is None or not self._wandb.active:
+                Logger.warning('sweep mode requires wandb; skipping test '
+                               'metrics')
+            elif views:
+                indices = list(range(len(views)))
+                cap = int(self.WANDB['SWEEP_MODE'].get('NUM_IMAGES', 0))
+                if 0 < cap < len(indices):
+                    indices = random.sample(indices, k=cap)
+        if world > 1:
+            chosen = [indices]
+            dist.broadcast_object_list(chosen, src=0)
+            indices = chosen[0]
+        if indices is None:
             return
         from nerficg_torch.optim.metrics import (lpips, lpips_available,
                                                  psnr, ssim)
-        views = dataset.subsets['test']
-        if not views:
-            return
-        indices = list(range(len(views)))
-        cap = int(self.WANDB['SWEEP_MODE'].get('NUM_IMAGES', 0))
-        if 0 < cap < len(indices):
-            indices = random.sample(indices, k=cap)
-        psnrs, ssims, lpipss = [], [], []
-        for i in indices:
-            view = views[i]
+
+        def score(i, view):
             pred = torch.clamp(self.renderer.render_image(view)['rgb'],
                                0.0, 1.0).cpu()
             gt = view.rgb
@@ -331,10 +374,17 @@ class BaseTrainer(Configurable):
                 alpha = view.alpha
                 gt = gt * alpha + view.camera.background_color * (1.0 - alpha)
             gt = torch.as_tensor(gt, dtype=torch.float32)
-            psnrs.append(float(psnr(pred, gt)))
-            ssims.append(float(ssim(pred, gt)))
-            if lpips_available():
-                lpipss.append(lpips(pred, gt, device=self.device))
+            return (float(psnr(pred, gt)), float(ssim(pred, gt)),
+                    lpips(pred, gt, device=self.device)
+                    if lpips_available() else None)
+
+        scores = list(self.renderer.mesh.gather_map(
+            score, [views[i] for i in indices]))
+        if not writer:
+            return
+        psnrs = [p for p, _, _ in scores]
+        ssims = [s for _, s, _ in scores]
+        lpipss = [x for _, _, x in scores if x is not None]
         m_psnr = sum(psnrs) / len(psnrs)
         m_ssim = sum(ssims) / len(ssims)
         m_lpips = sum(lpipss) / len(lpipss) if lpipss else float('nan')
@@ -357,7 +407,9 @@ class BaseTrainer(Configurable):
                        iteration_stride='CHECKPOINT.INTERVAL')
     def _periodic_checkpoint(self, dataset, iteration: int) -> None:
         """Intermediate model checkpoints (reference: Trainer.py:163-171)."""
-        self.model.save(self.output_dir / 'checkpoints' / f'{iteration:07d}.ckpt')
+        if self.is_writer:
+            self.model.save(self.output_dir / 'checkpoints' /
+                            f'{iteration:07d}.ckpt')
 
     @training_callback(priority=5, active='BACKUP.INTERVAL',
                        start_iteration='BACKUP.INTERVAL',
@@ -366,13 +418,14 @@ class BaseTrainer(Configurable):
         """Whole-training-state backup for lossless resume (reference:
         Trainer.py:94-111, 172-180). This iteration's step already ran
         (priority 100 > 5), so resume starts at the next one."""
-        self.save_training_state(self.output_dir / 'latest.train',
-                                 iteration=iteration + 1)
+        if self.is_writer:
+            self.save_training_state(self.output_dir / 'latest.train',
+                                     iteration=iteration + 1)
 
     @post_training_callback(priority=1000)
     def _save_final_checkpoint(self, dataset) -> None:
         """(reference: Trainer.py:163-180)"""
-        if self.CHECKPOINT.get('FINAL', True):
+        if self.CHECKPOINT.get('FINAL', True) and self.is_writer:
             self.model.save(self.output_dir / 'checkpoints' / 'final.ckpt')
             Logger.info('saved final checkpoint')
 
@@ -381,8 +434,9 @@ class BaseTrainer(Configurable):
         """Render and score the test set (reference: Trainer.py:379-394)."""
         if self.RENDER_TESTSET and dataset.subsets['test']:
             self.test_metrics = self.renderer.render_subset(
-                dataset, 'test', output_dir=self.output_dir / 'test',
-                compute_metrics=True)
+                dataset, 'test', compute_metrics=True,
+                output_dir=self.output_dir / 'test' if self.is_writer
+                else None)
 
 
 def adam_state_to_numpy(optimizer: torch.optim.Adam, named_params,

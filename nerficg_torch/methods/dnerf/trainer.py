@@ -8,7 +8,10 @@ on DEFORM_LR decaying exponentially to DEFORM_LR * DEFORM_LR_FINAL_FACTOR
 over NUM_ITERATIONS. The offset prior adds OFFSET_REG_WEIGHT * mean
 |deform(x, t) - x|^2 over OFFSET_REG_POINTS uniform points of the scene box
 and times, drawn each step from the trainer's generator (the JAX trainer
-draws them from its step key, so the two see different points).
+draws them from its step key, so the two see different points). In a
+data-parallel run each rank draws its own points, from a generator seeded
+with RANDOM_SEED folded with its rank, as the JAX step folds the device
+index into the key the prior draws from.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from nerficg_torch.core.config import Configurable
 from nerficg_torch.methods.instant_ngp.trainer import InstantNGPTrainer
 from nerficg_torch.optim.lr import optax_exponential_decay
+from nerficg_torch.parallel.data_parallel import fold_seed
 
 __all__ = ['DNeRFTrainer']
 
@@ -44,6 +48,9 @@ class DNeRFTrainer(InstantNGPTrainer):
         self.deform_schedule = optax_exponential_decay(
             float(self.DEFORM_LR), max(int(self.NUM_ITERATIONS), 1),
             float(self.DEFORM_LR_FINAL_FACTOR))
+        self.offset_generator = self.generator if self.num_devices == 1 \
+            else torch.Generator().manual_seed(fold_seed(self.seed,
+                                                         self.rank))
 
     def apply_update(self) -> None:
         """Adam with each group's rate at the step count before the
@@ -63,8 +70,9 @@ class DNeRFTrainer(InstantNGPTrainer):
     def _draw_offset_points(self, n: int):
         """n uniform points of the scene box and times in [0, 1)."""
         model = self.model
-        u = torch.rand((n, 3), generator=self.generator).to(self.device)
-        t = torch.rand((n,), generator=self.generator).to(self.device)
+        u = torch.rand((n, 3), generator=self.offset_generator).to(
+            self.device)
+        t = torch.rand((n,), generator=self.offset_generator).to(self.device)
         return model.aabb_min + u * (model.aabb_max - model.aabb_min), t
 
     def _loss_extras(self) -> tuple:

@@ -78,8 +78,8 @@ class InstantNGPRenderer(BaseRenderer):
     # Whether the field reads the rays' timestamps (methods/dnerf).
     TIME_CONDITIONED = False
 
-    def __init__(self, config, model):
-        super().__init__(config, model)
+    def __init__(self, config, model, mesh=None):
+        super().__init__(config, model, mesh)
         if str(self.PROBE_MODE) not in ('block', 'dense'):
             raise RendererError(f'unknown PROBE_MODE {self.PROBE_MODE!r}; '
                                 "one of 'block', 'dense'")

@@ -13,6 +13,19 @@ Ray ids and backgrounds are drawn from ``np.random.default_rng(RANDOM_SEED)``
 in the JAX trainer's order, so both trainers see the same batches; the march
 jitter and encode seeds (uint32) come from the trainer's CPU generator. One
 host sync per resize interval reads the previous interval's statistics.
+
+With ``GLOBAL.NUM_DEVICES`` = N > 1 (N ranks of a process group, started by
+torchrun) every step is data-parallel, as the JAX trainer's ``shard_map``
+step (nerficg_tpu trainer.py:228-296, parallel/data_parallel.py): every
+rank draws the same global ids and background from its identically seeded
+generator, takes its contiguous block of the ids, marches with its seeds
+folded with its rank, and the gradients are averaged over the ranks before
+every rank's Adam step; ``samples_per_ray`` comes from the global ray
+count and SCAN_STEPS is ignored. Every rank refreshes the occupancy grid
+from the same generator and takes the same resize, refresh and checkpoint
+decisions, so parameters and grid stay bit-equal on every rank. The sample
+and block counts are summed over the ranks (the JAX step returns device
+0's), so the resizer sees the global count, as in one process.
 """
 
 from __future__ import annotations
@@ -30,6 +43,9 @@ from nerficg_torch.methods.base.trainer import (BaseTrainer,
                                                 adam_state_to_numpy)
 from nerficg_torch.optim.lr import multistep_lr
 from nerficg_torch.optim.metrics import mse_to_psnr
+from nerficg_torch.parallel.data_parallel import (fold_seed,
+                                                  make_data_parallel_train_step)
+from nerficg_torch.parallel.mesh import RenderMesh
 
 __all__ = ['InstantNGPTrainer']
 
@@ -52,13 +68,13 @@ __all__ = ['InstantNGPTrainer']
 )
 class InstantNGPTrainer(BaseTrainer):
 
+    DATA_PARALLEL = True
+
     def __init__(self, config, model, renderer):
         super().__init__(config, model, renderer)
-        devices = config.get_path('GLOBAL.NUM_DEVICES') \
-            if config is not None else None
-        if devices is not None and int(devices) > 1:
-            raise TrainerError('GLOBAL.NUM_DEVICES > 1 needs the data-parallel '
-                               'step, which is not ported yet')
+        self.num_devices = self._num_devices()
+        self.mesh = RenderMesh(self.num_devices)
+        self._dp_step = None
         self.schedule = multistep_lr(float(self.LR), list(self.LR_MILESTONES),
                                      float(self.LR_GAMMA))
         self.optimizer = torch.optim.Adam(model.module.parameters(),
@@ -70,6 +86,23 @@ class InstantNGPTrainer(BaseTrainer):
         self._pending_stats = None
         self.losses: list[torch.Tensor] = []    # per-step loss, on the card
         self._last_logs: dict = {}
+
+    def _num_devices(self) -> int:
+        """``GLOBAL.NUM_DEVICES`` capped at the group's ranks (all of them
+        when unset), as the JAX trainer caps it at its devices; a count
+        below the group's would leave ranks out of the step, and
+        raises."""
+        configured = self._config.get_path('GLOBAL.NUM_DEVICES') \
+            if self._config is not None else None
+        n = min(int(configured), self.world_size) if configured \
+            else self.world_size
+        if n < self.world_size:
+            raise TrainerError(
+                f'GLOBAL.NUM_DEVICES={configured} is below the '
+                f'{self.world_size} ranks of this run: launch with '
+                f'python -m torch.distributed.run --nproc_per_node '
+                f'{configured} ... GLOBAL.NUM_DEVICES={configured}')
+        return n
 
     # -- optimizer state ----------------------------------------------------------
     def _named_params(self):
@@ -105,6 +138,8 @@ class InstantNGPTrainer(BaseTrainer):
         self._bg_static = torch.as_tensor(
             dataset.camera_settings.background_color, dtype=torch.float32,
             device=self.device)
+        # The ranks start from rank 0's parameters.
+        self.mesh.replicate([p.data for p in self.model.module.parameters()])
 
     @pre_training_callback(priority=3500)
     def _carve_occupancy(self, dataset) -> None:
@@ -135,12 +170,13 @@ class InstantNGPTrainer(BaseTrainer):
         if pool['alpha'] is not None:
             alpha = pool['alpha'][ids]
             target = target * alpha + background * (1.0 - alpha)
-        n = ids.shape[0]
         times = pool['timestamps'][ids] \
             if self.renderer.TIME_CONDITIONED else None
+        # The sample budget is the whole batch's (over every rank).
+        spr = self.samples_per_ray(ids.shape[0] * self.num_devices)
         out = self.renderer._render_rays_impl(
             self.renderer.grid_binary(), pool['origins'][ids],
-            pool['directions'][ids], background, self.samples_per_ray(n),
+            pool['directions'][ids], background, spr,
             jitter_seed=jitter_seed, encode_seed=encode_seed,
             timestamps=times)
         # Rays whose samples the budget truncated are left out: they would
@@ -175,9 +211,33 @@ class InstantNGPTrainer(BaseTrainer):
 
     def train_step(self, ids: torch.Tensor, background: torch.Tensor,
                    jitter_seed: int, encode_seed: int) -> dict:
+        """One step on the whole batch ``ids``: on more than one device,
+        the data-parallel step over this rank's block."""
+        if self.num_devices > 1:
+            return self._data_parallel_step()(
+                {'ids': ids, 'bg': background.expand(self.num_devices, 3)},
+                (jitter_seed, encode_seed))
         logs = self.loss_and_grads(ids, background, jitter_seed, encode_seed)
         self.apply_update()
         return logs
+
+    def _fold_seed(self, seed: int, rank: int) -> int:
+        """This rank's seed of a step's ``seed`` (the JAX step folds the
+        device index into its key)."""
+        return fold_seed(seed, rank)
+
+    def _data_parallel_step(self):
+        """The step of ``parallel.make_data_parallel_train_step`` over
+        ``loss_and_grads`` and ``apply_update``, built at first use (D-NeRF
+        replaces the optimizer after this constructor)."""
+        if self._dp_step is None:
+            def grad_fn(batch, seeds):
+                return self.loss_and_grads(batch['ids'], batch['bg'][0],
+                                           *seeds)
+            self._dp_step = make_data_parallel_train_step(
+                self.mesh, grad_fn, self.optimizer, update=self.apply_update,
+                fold=self._fold_seed)
+        return self._dp_step
 
     def _draw_batch(self, k: int | None):
         """Ray ids and backgrounds from the numpy generator, in the JAX
@@ -213,9 +273,10 @@ class InstantNGPTrainer(BaseTrainer):
         # SCAN_STEPS = K: K steps run back to back on window boundaries; the
         # iteration counter still advances one by one, so the checkpoint,
         # backup and occupancy schedules keep their semantics, quantized to
-        # the window (nerficg_tpu trainer.py:306-334).
+        # the window (nerficg_tpu trainer.py:306-334). Data-parallel steps
+        # ignore it, as the JAX trainer's do.
         k = max(int(self.SCAN_STEPS), 1)
-        if k > 1:
+        if k > 1 and self.num_devices == 1:
             if iteration % k != 0:
                 return
             ids, bg = self._draw_batch(k)

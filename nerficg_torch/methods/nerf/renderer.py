@@ -40,8 +40,8 @@ class NeRFRenderer(BaseRenderer):
 
     MODEL_CLASS = NeRFModel
 
-    def __init__(self, config, model):
-        super().__init__(config, model)
+    def __init__(self, config, model, mesh=None):
+        super().__init__(config, model, mesh)
         self.num_coarse = max(int(int(self.N_SAMPLES) *
                                   float(self.COARSE_RATIO)), 1)
         self.num_fine = int(self.N_SAMPLES) - self.num_coarse

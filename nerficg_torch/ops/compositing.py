@@ -1,5 +1,5 @@
-"""Volume-rendering integration on a dense (rays, samples) layout, ported
-from nerficg_tpu/ops/compositing.py (reference: NeRF/utils.py:112-136 and
+"""Volume-rendering integration on a dense (rays, samples) layout, the
+port of nerficg_tpu/ops/compositing.py (reference: NeRF/utils.py:112-136 and
 the CUDA composite kernels, VolumeRenderingV2/csrc/volumerendering.cu).
 Transmittance is an exclusive cumulative product; early termination is a
 mask on it. Plain PyTorch; gradients come from autograd."""

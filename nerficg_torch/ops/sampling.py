@@ -1,5 +1,5 @@
-"""Ray sample generation, stratified and hierarchical (inverse CDF), ported
-from nerficg_tpu/ops/sampling.py (reference: NeRF/utils.py:57-110).
+"""Ray sample generation, stratified and hierarchical (inverse CDF), the
+port of nerficg_tpu/ops/sampling.py (reference: NeRF/utils.py:57-110).
 Batched over rays in plain PyTorch, no kernel.
 
 Uniform draws come from an explicit ``torch.Generator`` on the rays'

@@ -1,5 +1,5 @@
-"""Masked image metrics for dynamic scenes: mPSNR, mSSIM and mLPIPS, ported
-from nerficg_tpu/optim/masked_metrics.py (reference:
+"""Masked image metrics for dynamic scenes: mPSNR, mSSIM and mLPIPS, the
+port of nerficg_tpu/optim/masked_metrics.py (reference:
 src/Optim/MaskedMetrics.py:36-215, itself adapted from dycheck): PSNR over
 the masked pixels, and SSIM from partial-convolution windows whose
 statistics never mix masked and unmasked pixels. mLPIPS scores both images

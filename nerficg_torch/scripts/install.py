@@ -5,10 +5,13 @@ Port of scripts/install.py (reference: scripts/install.py:42-87, which
 builds each method's CUDA extensions by importing it). The port's kernels
 are one library that ``ops/_kernels.py`` builds with ``nvcc`` at first
 use, so the doctor reports torch and its CUDA, the card (``nvidia-smi``'s
-name and power limit), builds or loads the kernel library, imports every
-registered method and dataset, and names each missing optional piece with
-how to get it. It exits 1 on a problem, and without a card unless
-``--device cpu`` asks for a check of the CPU alone.
+name and power limit), builds or loads the kernel library, builds or loads
+the native image decoder (``native/``: g++ with libpng and libjpeg; PIL
+without it), lists the backends ``torch.distributed`` offers for
+data-parallel training, imports every registered method and dataset, and
+names each missing optional piece with how to get it. It exits 1 on a
+problem, and without a card unless ``--device cpu`` asks for a check of
+the CPU alone.
 
   python -m nerficg_torch.scripts.install [-m METHOD] [--device cpu]
 """
@@ -25,8 +28,8 @@ import torch
 
 from nerficg_torch.core.logging import Logger
 
-__all__ = ['OPTIONAL', 'check_device', 'check_methods', 'check_optional',
-           'main']
+__all__ = ['OPTIONAL', 'check_device', 'check_methods', 'check_native',
+           'check_distributed', 'check_optional', 'main']
 
 # Optional integrations: (module, what needs it, how to get it).
 OPTIONAL = [
@@ -76,6 +79,36 @@ def check_device(device: str) -> bool:
         Logger.error(f'kernel library failed to build or load: {exc}')
         ok = False
     return ok
+
+
+def check_native() -> None:
+    """Whether the native image decoder builds (else PNG and JPEG decode
+    with PIL: palette images as indices, 16-bit colour as 8 bits)."""
+    from nerficg_torch import native
+    start = time.perf_counter()
+    path, what = native.build_library()
+    if path is None:
+        Logger.warning(f'image decoder: PIL; the native decoder does not '
+                       f'build ({what}): install g++ with the libpng and '
+                       f'libjpeg headers')
+    else:
+        Logger.info(f'image decoder: native, {path.name} ({what} in '
+                    f'{time.perf_counter() - start:.1f} s)')
+
+
+def check_distributed() -> None:
+    """The backends torch.distributed offers (gloo: the CPU and ranks
+    sharing a card; nccl: a card per rank)."""
+    import torch.distributed as dist
+    if not dist.is_available():
+        Logger.warning('distributed backends: none (torch.distributed is '
+                       'not built in); data-parallel training needs it')
+        return
+    offered = [name for name, ok in (('gloo', dist.is_gloo_available()),
+                                     ('nccl', dist.is_nccl_available()),
+                                     ('mpi', dist.is_mpi_available()))
+               if ok]
+    Logger.info(f'distributed backends: {", ".join(offered) or "none"}')
 
 
 def check_methods(only: str | None) -> bool:
@@ -130,6 +163,8 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     ok = check_device(args.device)
     ok = check_methods(args.method) and ok
+    check_native()
+    check_distributed()
     check_optional()
     if not ok:
         Logger.error('environment has problems (see above)')

@@ -11,6 +11,17 @@ timings.txt and vram_stats.txt.
 
 It runs on the first CUDA card and refuses to start without one, unless
 ``--device cpu`` asks for the CPU (the kernels' plain versions).
+
+Instant-NGP and D-NeRF train data-parallel over N processes, each started
+by torchrun, the same command otherwise:
+
+  python -m torch.distributed.run --standalone --nproc_per_node N \
+      -m nerficg_torch.scripts.train -c CFG GLOBAL.NUM_DEVICES=N [--device cpu]
+
+Each rank computes on card ``LOCAL_RANK % device_count`` (NCCL where each
+has a card of its own, gloo where they share one or run on the CPU), and
+rank 0 alone writes the run directory. The test set is rendered over the
+ranks, and ``main`` returns the same test metrics on every rank.
 """
 
 from __future__ import annotations

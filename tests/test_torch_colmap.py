@@ -33,6 +33,7 @@ from PIL import Image
 from nerficg_torch.cameras.pose import rotation_matrix_to_quaternion
 from nerficg_torch.core.config import ConfigNode as TConfig
 from nerficg_torch.core.logging import Logger as TLogger
+from nerficg_torch import native as tnative
 from nerficg_torch.core.registry import Datasets as TDatasets
 from nerficg_torch.data.colmap_model import \
     read_colmap_model as t_read_colmap_model
@@ -40,6 +41,7 @@ from nerficg_torch.data.loaders.nerf import (BLENDER_TO_COLMAP_WORLD,
                                              opengl_to_colmap)
 from nerficg_torch.data.synthetic import make_textured_scene
 from nerficg_tpu.core.config import ConfigNode as JConfig
+from nerficg_tpu import native as jnative
 from nerficg_tpu.core.registry import Datasets as JDatasets
 from nerficg_tpu.data.colmap_model import \
     read_colmap_model as j_read_colmap_model
@@ -52,9 +54,13 @@ TLogger.set_level('SILENT')
 # camera at distance 4 moves by ~1e-11.
 C2W_ATOL = 1e-12 * 16
 
-# The JAX package decodes PNGs natively and multiplies by 1/255; the port
-# decodes them with PIL and divides by 255: one ulp apart below 1.
-DECODE_ATOL = 2.0 ** -24
+# Both packages decode PNG and JPEG through the same native decoder (each
+# its own copy of image_io.cpp), or both through PIL where it does not
+# build: the same arrays. Where only one of them has it (the JAX package
+# builds into ~/.cache, the port into build/), the native decode
+# multiplies by 1/255 and PIL's path divides by 255: one ulp apart below 1.
+DECODE_ATOL = 0.0 if tnative.native_io_available() == \
+    jnative.native_io_available() else 2.0 ** -24
 
 _MODEL_IDS = {'SIMPLE_PINHOLE': 0, 'PINHOLE': 1, 'SIMPLE_RADIAL': 2,
               'RADIAL': 3, 'OPENCV': 4, 'OPENCV_FISHEYE': 5,

@@ -8,8 +8,8 @@ JAX package.
 * ``resize_image`` of a 2-channel flow (per channel, float, bilinear) and of
   1, 3 and 4 channels: bit-identical.
 * ``load_images_parallel`` on 8-bit PNGs: the same images in the same
-  order as JAX's, within DECODE_ATOL (JAX decodes PNGs natively where its
-  library is built).
+  order as JAX's, within DECODE_ATOL (0 where both packages decode
+  natively, or neither does).
 * ``make_synthetic_scene`` and ``make_dynamic_scene``: the same files, byte
   for byte, as JAX's for the same arguments.
 """

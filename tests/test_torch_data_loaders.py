@@ -42,10 +42,12 @@ from nerficg_tpu.core.registry import Datasets as JDatasets
 from test_torch_colmap import DECODE_ATOL, _assert_datasets_equal, _dataset
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-# Blender depth is 8 - 8 * red: the decoders' one-ulp difference in red
-# (DECODE_ATOL) becomes 8 x that, and each package's rounding of a result
-# in [4, 8) adds up to half an ulp there (2^-22).
-DEPTH_ATOL = 8 * DECODE_ATOL + 2 * 2.0 ** -22
+# Blender depth is 8 - 8 * red, the same float32 operations in both
+# packages: equal reds give equal depths. Reds DECODE_ATOL apart give
+# depths 8 x that apart, and each package's rounding of a result in
+# [4, 8) adds up to half an ulp there (2^-22).
+DEPTH_ATOL = 0.0 if DECODE_ATOL == 0.0 else \
+    8 * DECODE_ATOL + 2 * 2.0 ** -22
 
 
 # -- fixture writers (test code, not an API of the package) -----------------

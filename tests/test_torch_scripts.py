@@ -370,3 +370,7 @@ def test_install_doctor(capsys, monkeypatch):
     assert 'method GaussianSplatting: model=' in err
     assert '13 dataset loaders importable' in err
     assert 'optional LPIPS weights' in err and 'environment OK' in err
+    import nerficg_torch.native as native
+    assert ('image decoder: native' if native.native_io_available()
+            else 'image decoder: PIL') in err
+    assert 'distributed backends: gloo' in err
