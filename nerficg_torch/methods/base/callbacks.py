@@ -3,16 +3,20 @@
 Port of nerficg_tpu/methods/base/callbacks.py (reference:
 src/Methods/Base/utils.py:12-92 and the gating in
 src/Methods/Base/Trainer.py:261-291). Callbacks decide on the host when work
-runs; ``CallbackTimer`` waits for the card with ``torch.cuda.synchronize``.
+runs; ``CallbackTimer`` times each call on the card with CUDA events and
+never waits for it inside the loop.
 """
 
 from __future__ import annotations
 
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
+
+from nerficg_torch.core.tracing import span
 
 __all__ = ['pre_training_callback', 'training_callback',
            'post_training_callback', 'CallbackTimer', 'gather_callbacks',
@@ -101,32 +105,69 @@ def gather_callbacks(trainer, callback_type: int
 
 
 class CallbackTimer:
-    """Accumulating wall-time timer (reference: Methods/Base/utils.py:12-33).
+    """Accumulating timer of one callback (reference:
+    Methods/Base/utils.py:12-33), and its ``trainer/<name>`` span.
 
-    On every ``sample_every``-th exit it waits for the card, so the totals
-    include the device work the timed calls queued; the calls in between
-    are timed at enqueue and the sampled waits absorb their device time."""
+    On the card each call records a pair of CUDA events, and nothing
+    waits: a pair whose end has completed is added at the next call, the
+    rest when ``total`` is read (after the run's last synchronise, that
+    waits for nothing). A pair spans the call's work on the card's clock,
+    from where the stream reached its start to the end of what it queued;
+    a callback whose host work overlaps work queued before it reads only
+    what it holds the stream for. Added pairs are recorded again, as
+    making and freeing events costs the host more than recording them.
+    Elsewhere the host's clock around the call."""
 
-    def __init__(self, name: str = '', sample_every: int = 1,
-                 device: torch.device | str = 'cpu'):
+    def __init__(self, name: str = '', device: torch.device | str = 'cpu'):
         self.name = name
-        self.total = 0.0
         self.count = 0
-        self._start = 0.0
-        self._sample_every = max(int(sample_every), 1)
+        self._span_name = 'trainer/' + name
+        self._total = 0.0
         self._device = torch.device(device)
+        self._cuda = self._device.type == 'cuda'
+        self._pending: deque = deque()
+        self._free: list = []
+        self._start = self._span = self._stream = None
 
     def __enter__(self):
-        self._start = time.perf_counter()
+        self._span = span(self._span_name)
+        self._span.__enter__()
+        if self._cuda:
+            self._collect(wait=False)
+            self._stream = torch.cuda.current_stream(self._device)
+            self._start = self._event()
+            self._start.record(self._stream)
+        else:
+            self._start = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        if self._device.type == 'cuda' and \
-                self.count % self._sample_every == 0:
-            torch.cuda.synchronize(self._device)
-        self.total += time.perf_counter() - self._start
+        if self._cuda:
+            end = self._event()
+            end.record(self._stream)
+            self._pending.append((self._start, end))
+        else:
+            self._total += time.perf_counter() - self._start
         self.count += 1
+        self._span.__exit__(*exc)
         return False
+
+    def _event(self):
+        return self._free.pop() if self._free else \
+            torch.cuda.Event(enable_timing=True)
+
+    def _collect(self, wait: bool) -> None:
+        while self._pending and (wait or self._pending[0][1].query()):
+            start, end = self._pending.popleft()
+            end.synchronize()
+            self._total += start.elapsed_time(end) / 1e3
+            self._free += (start, end)
+
+    @property
+    def total(self) -> float:
+        """Seconds over every call; waits for calls still on the card."""
+        self._collect(wait=True)
+        return self._total
 
     @property
     def mean(self) -> float:

@@ -4,11 +4,14 @@ Port of nerficg_tpu/methods/base/trainer.py (reference: ``BaseTrainer``,
 src/Methods/Base/Trainer.py:31-395). Pre-training callbacks set up, one
 training callback per iteration steps the model, post-training callbacks save
 the final checkpoint and render the test set. Every callback is timed into
-``timings.txt``; device memory goes to ``vram_stats.txt``. The resume file is
-the npz checkpoint container with the optimizer state as numpy arrays.
-``TIMING.PROFILE`` traces a window of iterations with ``torch.profiler``
-into ``<output_dir>/profile/trace.json``; ``WANDB.ACTIVATE`` logs losses,
-render grids and sweep metrics through ``core/wandb_utils.py``.
+``timings.txt`` and runs in its ``trainer/<callback>`` span
+(``core/tracing.py``); device memory goes to ``vram_stats.txt``. The resume
+file is the npz checkpoint container with the optimizer state as numpy
+arrays. ``TIMING.PROFILE`` traces a window of iterations with
+``torch.profiler``, the program's spans included, into
+``<output_dir>/profile/trace.json``, and the window's counters into
+``profile/counters.json``; ``WANDB.ACTIVATE`` logs losses, render grids and
+sweep metrics through ``core/wandb_utils.py``.
 
 In a data-parallel run (``parallel/``; trainers with ``DATA_PARALLEL``)
 every rank runs the same callbacks on the same schedule, and rank 0 alone
@@ -23,6 +26,7 @@ the others at a barrier after the post-training callbacks.
 
 from __future__ import annotations
 
+import json
 import math
 import random
 from pathlib import Path
@@ -37,6 +41,7 @@ from nerficg_torch.core.config import ConfigNode, Configurable, save_config
 from nerficg_torch.core.errors import TrainerError
 from nerficg_torch.core.logging import Logger
 from nerficg_torch.core.setup import Directories
+from nerficg_torch.core.tracing import counters, reset_counters, span
 from nerficg_torch.methods.base.callbacks import (MAIN, POST, PRE,
                                                   CallbackTimer,
                                                   gather_callbacks,
@@ -56,6 +61,10 @@ __all__ = ['BaseTrainer', 'adam_state_to_numpy', 'adam_state_from_numpy']
     LOAD_CHECKPOINT=None,
     CHECKPOINT={'INTERVAL': None, 'FINAL': True},
     BACKUP={'INTERVAL': None},
+    # TIMING.SAMPLE_EVERY is the JAX trainer's timer sampling, which the
+    # port's timer (CUDA events, no waits) does not read. It stays in the
+    # defaults because scripts/create_config writes them, and its files
+    # are held to the JAX package's (tests/test_torch_create_config.py).
     TIMING={'ACTIVATE': True, 'SAMPLE_EVERY': 16,
             'PROFILE': None, 'PROFILE_STEPS': 5},
     WANDB={'ACTIVATE': False, 'INTERVAL': 100, 'PROJECT': 'nerficg_tpu',
@@ -192,27 +201,36 @@ class BaseTrainer(Configurable):
                                    'build cannot trace the card')
             activities.append(ProfilerActivity.CUDA)
         profiler = profile(activities=activities)
+        reset_counters()
+        self._profile_from = self.iteration
         profiler.start()
         return profiler
 
     def _stop_profile(self, profiler) -> None:
-        """End the window and write its Chrome trace."""
+        """End the window and write its Chrome trace, and its counters
+        (totals and per iteration) beside it."""
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         profiler.stop()
         path = self.output_dir / 'profile' / 'trace.json'
         path.parent.mkdir(parents=True, exist_ok=True)
         profiler.export_chrome_trace(str(path))
+        iterations = self.model.num_iterations_trained - self._profile_from
+        totals = counters()
+        (path.parent / 'counters.json').write_text(json.dumps(
+            {'iterations': iterations, 'totals': totals,
+             'per_iteration': {k: v / max(iterations, 1)
+                               for k, v in totals.items()}}, indent=1))
         Logger.info(f'wrote profiler trace to {path}')
 
     # -- timing / memory ---------------------------------------------------------------
     def _timer(self, name: str):
+        """The callback's timer, which opens its ``trainer/<name>`` span;
+        the span alone with ``TIMING.ACTIVATE`` off."""
         if not self.TIMING.get('ACTIVATE', True):
-            return _NullTimer()
+            return span('trainer/' + name)
         if name not in self.timers:
-            self.timers[name] = CallbackTimer(
-                name, sample_every=int(self.TIMING.get('SAMPLE_EVERY', 16)),
-                device=self.device)
+            self.timers[name] = CallbackTimer(name, device=self.device)
         return self.timers[name]
 
     def _write_timings(self) -> None:
@@ -468,10 +486,3 @@ def adam_state_from_numpy(optimizer: torch.optim.Adam, named_params,
                                               device=p.device)}
     return step
 
-
-class _NullTimer:
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False

@@ -5,7 +5,8 @@ src/Methods/GaussianSplatting/Renderer.py:27-188). ``render_impl`` is one
 differentiable render; its zero (N, 2) ``means2d_offset`` input stands for
 the reference's retained viewspace points, and its gradient is the
 densification statistic. ``render_image`` serves through the packed
-stream (``gs_composite_fwd_packed``).
+stream (``gs_composite_fwd_packed``). The spans ``render_image`` and
+``frontend`` open here (``core/tracing.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from nerficg_torch.core.config import Configurable
+from nerficg_torch.core.tracing import traced
 from nerficg_torch.data.types import View
 from nerficg_torch.methods.base.renderer import BaseRenderer
 from nerficg_torch.methods.gaussian_splatting.model import \
@@ -40,6 +42,7 @@ class GaussianSplattingRenderer(BaseRenderer):
 
     MODEL_CLASS = GaussianSplattingModel
 
+    @traced('frontend')
     def frontend(self, params: dict, w2c: torch.Tensor,
                  cam_pos: torch.Tensor, intrinsics: tuple,
                  sh_degree: int) -> dict:
@@ -96,6 +99,7 @@ class GaussianSplattingRenderer(BaseRenderer):
                                   device=device)
         return intrinsics, w2c, cam_pos
 
+    @traced('render_image')
     def render_image(self, view: View,
                      benchmark: bool = False) -> dict[str, torch.Tensor]:
         """Serve one view through the packed stream (nerficg_tpu :141-155)."""

@@ -16,7 +16,8 @@ The training view comes from ``np.random.default_rng(RANDOM_SEED)`` as in
 the JAX trainer, so both trainers see the same views. The densification
 statistics stay on the model's device; densification itself runs on the
 host. With wandb active, the primitive count and the Gaussians' means are
-logged (``_wandb_log_primitives``).
+logged (``_wandb_log_primitives``). The loss and Adam run in the ``loss``
+and ``optimizer`` spans (``core/tracing.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from nerficg_torch.core.config import Configurable
 from nerficg_torch.core.logging import Logger
+from nerficg_torch.core.tracing import span, traced
 from nerficg_torch.data.types import BasicPointCloud
 from nerficg_torch.methods.base.callbacks import (post_training_callback,
                                                   pre_training_callback,
@@ -167,10 +169,11 @@ class GaussianSplattingTrainer(BaseTrainer):
             params, offset, w2c, cam_pos, intrinsics, background,
             int(self.model.active_sh_degree))
         rgb = out['rgb']
-        loss_l1 = l1(rgb, target)
-        loss_dssim = dssim(rgb, target)
-        lam = float(self.LAMBDA_DSSIM)
-        loss = (1.0 - lam) * loss_l1 + lam * loss_dssim
+        with span('loss'):
+            loss_l1 = l1(rgb, target)
+            loss_dssim = dssim(rgb, target)
+            lam = float(self.LAMBDA_DSSIM)
+            loss = (1.0 - lam) * loss_l1 + lam * loss_dssim
         for p in params.values():
             p.grad = None
         loss.backward()
@@ -187,6 +190,7 @@ class GaussianSplattingTrainer(BaseTrainer):
                 'overflow_gaussians': out['overflow_gaussians'],
                 'overflow_entries': out['overflow_entries']}
 
+    @traced('optimizer')
     def apply_update(self) -> None:
         """Adam, with the position rate at the step count before the update
         (optax's convention)."""

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from nerficg_torch.core.config import Configurable
+from nerficg_torch.core.tracing import traced
 from nerficg_torch.methods.base.model import BaseModel
 from nerficg_torch.methods.nerf.convert import params_from_numpy, \
     params_to_numpy
@@ -132,6 +133,7 @@ class NeRFModel(BaseModel):
     def load_params_tree(self, tree: dict) -> None:
         self.module.load_state_dict(params_from_numpy(tree))
 
+    @traced('field')
     def apply(self, block: str, positions: torch.Tensor,
               directions: torch.Tensor,
               noise_generator: Optional[torch.Generator] = None

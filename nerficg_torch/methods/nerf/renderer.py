@@ -12,6 +12,9 @@ merged in. Each pass composites with the last interval ending at ``far``.
 
 The JAX renderer pads the last chunk to keep one compiled shape; here the
 last chunk is shorter, which changes no result (every output is per ray).
+The spans ``render_image``, ``sampler`` and ``compositor`` open here (the
+``field`` span in ``NeRFModel.apply``), and each block's field evaluations
+count as ``nerf/samples`` (``core/tracing.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Optional
 import torch
 
 from nerficg_torch.core.config import Configurable
+from nerficg_torch.core.tracing import count, span, traced
 from nerficg_torch.data.types import RayBatch, View
 from nerficg_torch.methods.base.renderer import BaseRenderer
 from nerficg_torch.methods.nerf.model import NeRFModel
@@ -61,9 +65,11 @@ class NeRFRenderer(BaseRenderer):
         device = origins.device
         draws = draws or {}
         noise_generator = generator if randomized else None
-        t_coarse = stratified_samples(generator, num_rays, self.num_coarse,
-                                      near, far, randomized,
-                                      u=draws.get('coarse'), device=device)
+        with span('sampler'):
+            t_coarse = stratified_samples(generator, num_rays,
+                                          self.num_coarse, near, far,
+                                          randomized, u=draws.get('coarse'),
+                                          device=device)
         dirs_n = directions / torch.linalg.norm(directions, dim=-1,
                                                 keepdim=True)
 
@@ -71,29 +77,35 @@ class NeRFRenderer(BaseRenderer):
             s = t.shape[1]
             positions = origins[:, None, :] + dirs_n[:, None, :] * t[..., None]
             flat_dir = dirs_n[:, None, :].expand(num_rays, s, 3).reshape(-1, 3)
+            count('nerf/samples', num_rays * s)
             density, rgb = self.model.apply(block, positions.reshape(-1, 3),
                                             flat_dir, noise_generator)
             deltas = torch.diff(t, dim=-1,
                                 append=far * torch.ones_like(t[:, :1]))
-            return composite_rays(rgb.reshape(num_rays, s, 3),
-                                  density.reshape(num_rays, s), t, deltas,
-                                  background=background)
+            with span('compositor'):
+                return composite_rays(rgb.reshape(num_rays, s, 3),
+                                      density.reshape(num_rays, s), t,
+                                      deltas, background=background)
 
         outputs = {}
         if 'coarse' in self.model.module:
             coarse = eval_block('coarse', t_coarse)
             mids = 0.5 * (t_coarse[:, 1:] + t_coarse[:, :-1])
             bins = torch.cat([t_coarse[:, :1], mids, t_coarse[:, -1:]], -1)
-            t_fine = sample_pdf(generator, bins, coarse['weights'].detach(),
-                                self.num_fine, randomized,
-                                u=draws.get('fine'))
-            t_all = merge_sorted_samples(t_coarse, t_fine)
+            with span('sampler'):
+                t_fine = sample_pdf(generator, bins,
+                                    coarse['weights'].detach(),
+                                    self.num_fine, randomized,
+                                    u=draws.get('fine'))
+                t_all = merge_sorted_samples(t_coarse, t_fine)
             outputs['coarse_rgb'] = coarse['rgb']
         else:
-            t_extra = stratified_samples(generator, num_rays, self.num_fine,
-                                         near, far, randomized,
-                                         u=draws.get('fine'), device=device)
-            t_all = merge_sorted_samples(t_coarse, t_extra)
+            with span('sampler'):
+                t_extra = stratified_samples(generator, num_rays,
+                                             self.num_fine, near, far,
+                                             randomized, u=draws.get('fine'),
+                                             device=device)
+                t_all = merge_sorted_samples(t_coarse, t_extra)
         fine = eval_block('fine', t_all)
         outputs.update(rgb=fine['rgb'], depth=fine['depth'],
                        alpha=fine['alpha'])
@@ -125,6 +137,7 @@ class NeRFRenderer(BaseRenderer):
             for i in range(0, len(rays), chunk)]
         return {k: torch.cat([o[k] for o in outputs], 0) for k in outputs[0]}
 
+    @traced('render_image')
     def render_image(self, view: View,
                      benchmark: bool = False) -> dict[str, torch.Tensor]:
         """(reference: Renderer.py:132-140)"""

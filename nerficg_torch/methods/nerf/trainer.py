@@ -12,7 +12,8 @@ MSE), with the PSNR logged.
 
 Ray ids come from ``np.random.default_rng(RANDOM_SEED)``, as in the JAX
 trainer, so both pick the same rays; the sample draws come from a
-generator on the model's device, seeded from RANDOM_SEED.
+generator on the model's device, seeded from RANDOM_SEED. The loss and Adam
+run in the ``loss`` and ``optimizer`` spans (``core/tracing.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from nerficg_torch.core.config import Configurable
 from nerficg_torch.core.logging import Logger
+from nerficg_torch.core.tracing import span, traced
 from nerficg_torch.methods.base.callbacks import (pre_training_callback,
                                                   training_callback)
 from nerficg_torch.methods.base.trainer import (BaseTrainer,
@@ -119,13 +121,15 @@ class NeRFTrainer(BaseTrainer):
             terms['coarse'] = {'pred': out['coarse_rgb'], 'target': target}
         if 'alpha' in self.loss_container.terms and alpha is not None:
             terms['alpha'] = {'pred': out['alpha'], 'target': alpha}
-        loss, logs = self.loss_container(**terms)
+        with span('loss'):
+            loss, logs = self.loss_container(**terms)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         logs = {k: v.detach() for k, v in logs.items()}
         logs['psnr'] = mse_to_psnr(logs['color'])
         return logs
 
+    @traced('optimizer')
     def apply_update(self) -> None:
         """Adam with the schedule's rate at the step count before the
         update (optax's convention)."""

@@ -13,7 +13,9 @@ sorts on one fused key whose depth keeps only the top 32 - bit_length(T+1)
 bits of the depth's f32 pattern (19 at 1080p), so ties are common there and
 their order decides the composite. The sort, the segment search and the
 permutation's backward are plain PyTorch, as they are XLA ops in the JAX
-package.
+package. ``rasterize_gaussians`` opens the ``rasterizer`` span, the
+compositor's call the ``composite`` span, and it counts ``gs/entries``,
+``gs/entries_past_k`` and ``gs/gaussians_past_d`` (``core/tracing.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from nerficg_torch.core.tracing import count, span, traced
 from nerficg_torch.ops.gs_tiles_kernel import (MEANS_FP_BIAS, MEANS_FP_SCALE,
                                                TILE, _as_f32,
                                                composite_sorted)
@@ -194,6 +197,7 @@ def entry_stream(means2d: torch.Tensor, depths: torch.Tensor,
                                    & visible & (rad > 0)).sum()}
 
 
+@traced('rasterizer')
 def rasterize_gaussians(means2d: torch.Tensor, depths: torch.Tensor,
                         conics: torch.Tensor, radii: torch.Tensor,
                         colors: torch.Tensor, opacities: torch.Tensor,
@@ -212,12 +216,16 @@ def rasterize_gaussians(means2d: torch.Tensor, depths: torch.Tensor,
                           visible, width, height, max_tiles_per_gaussian,
                           max_per_tile, packed_inference)
     counts = stream['counts']
-    out = composite_sorted(stream['sorted_mat'], stream['starts'], counts,
-                           stream['tiles_x'], stream['num_tiles'],
-                           max_per_tile)
+    with span('composite'):
+        out = composite_sorted(stream['sorted_mat'], stream['starts'],
+                               counts, stream['tiles_x'],
+                               stream['num_tiles'], max_per_tile)
     result = _assemble_tiles(out, width, height, background)
     result['overflow_gaussians'] = stream['overflow_gaussians']
     result['overflow_entries'] = torch.clamp(counts - max_per_tile,
                                              min=0).sum()
     result['counts'] = counts
+    count('gs/entries', counts)
+    count('gs/entries_past_k', result['overflow_entries'])
+    count('gs/gaussians_past_d', result['overflow_gaussians'])
     return result

@@ -6,7 +6,8 @@
   JAX package's within 1e-6 on the same inputs.
 * ``View.to_simple`` and ``catch`` as in the JAX package.
 * ``TRAINING.TIMING.PROFILE``: a window of iterations traced by
-  ``torch.profiler`` into ``<output_dir>/profile/trace.json``.
+  ``torch.profiler`` into ``<output_dir>/profile/trace.json``, with the
+  program's spans, and the window's counters in ``profile/counters.json``.
 * ``TRAINING.WANDB``: a fake ``wandb`` module, and both packages' 3DGS
   trainers on the same short run with losses, image grids, sweep metrics
   and the primitives panel on: the same keys at the same steps; every
@@ -218,7 +219,9 @@ def _nerf_config(scene, iterations, **training):
 def test_profile_writes_a_trace(scene, tmp_path, monkeypatch, start, steps):
     """PROFILE=3, PROFILE_STEPS=2 traces iterations 3-4 of 6; a window
     past the loop's end stops with the loop. The trace is Chrome JSON
-    with the host's operations (the CPU is the only activity here)."""
+    with the host's operations (the CPU is the only activity here) and
+    the program's spans; counters.json holds the window's field samples,
+    128 rays of 12 coarse, then 24 merged samples, an iteration."""
     monkeypatch.setattr(TDirectories, 'base', tmp_path)
     cfg = TConfig(_nerf_config(scene, 6, TIMING={'PROFILE': start,
                                                  'PROFILE_STEPS': steps}))
@@ -232,6 +235,14 @@ def test_profile_writes_a_trace(scene, tmp_path, monkeypatch, start, steps):
     assert any(n.startswith('aten::') for n in names)
     assert not any('cuda' in n.lower() and 'kernel' in n.lower()
                    for n in names)
+    assert {'nerficg/trainer/training_iteration', 'nerficg/sampler',
+            'nerficg/field', 'nerficg/compositor', 'nerficg/loss',
+            'nerficg/optimizer'} <= names
+    counted = json.loads((trainer.output_dir / 'profile' / 'counters.json')
+                         .read_text())
+    assert counted == {'iterations': 2,
+                       'totals': {'nerf/samples': 2 * 128 * 36},
+                       'per_iteration': {'nerf/samples': 128 * 36}}
 
 
 # -- WANDB -------------------------------------------------------------------
