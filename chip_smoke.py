@@ -289,6 +289,9 @@ KERNELS = {
                      'nerficg_tpu/ops/xbar_gather.py:88'),
     'xbar_gather': ('cuda', 'nerficg_torch/csrc/block_probe.cu',
                     'nerficg_tpu/ops/xbar_gather.py:36'),
+    # No TPU kernel: the JAX frontend is jnp code that XLA fuses.
+    'gs_frontend_fwd': ('cuda', 'nerficg_torch/csrc/gs_frontend.cu', 'none'),
+    'gs_frontend_bwd': ('cuda', 'nerficg_torch/csrc/gs_frontend.cu', 'none'),
 }
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32
@@ -1134,8 +1137,9 @@ def phase2_gs_kernels(record, rng) -> dict:
     orbit pose 0, 1920x1080 (8160 tiles, k = 256, D = 6), SH degree 1 as
     bench.py renders it; a random d out for the backward. #15 (16-wide)
     and #16 again on a 400x400 frame of the same model (625 tiles), the GS
-    training config's image size. Returns the report's lines of #15 and
-    #16 (each with its 400x400 sub-entry)."""
+    training config's image size. Then the frontend pair
+    (``phase2_gs_frontend``). Returns the report's lines of #15 and #16
+    (each with its 400x400 sub-entry) and of the frontend pair."""
     import torch
 
     from nerficg_torch.ops import gs_tiles_kernel as gtk
@@ -1209,6 +1213,116 @@ def phase2_gs_kernels(record, rng) -> dict:
            slot_in + out_bytes + nbytes(got), GS_BWD_OPS * passing,
            sfu=passing, plain_iters=3)
     lines['gs_composite_bwd'] = {**line_1080, 'frame_400x400': line_400}
+    lines.update(phase2_gs_frontend(record))
+    return lines
+
+
+# The Mip-NeRF 360 cell's Gaussians (734 MB / 236 B) and its views.
+GS360_GAUSSIANS = 3112960
+GS360_VIEW = (1237, 822)
+
+
+def gs360_frontend_inputs(width: int, height: int, seed: int = 0):
+    """The frontend's inputs at the Mip-NeRF 360 cell's size: 3,112,960
+    Gaussians in U(-2, 2)^3 with log scales U(-6, -2), random quaternions,
+    opacities and 16 SH coefficients, the last 1% padding rows, seen from
+    an orbit pose at width x height: (params, w2c, cam_pos, intrinsics)."""
+    import numpy as np
+    import torch
+
+    from nerficg_torch.scripts.kernel_timing import orbit_view
+    n, dev = GS360_GAUSSIANS, torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = {
+        'positions': torch.rand(n, 3, generator=g, device=dev) * 4 - 2,
+        'scales': torch.rand(n, 3, generator=g, device=dev) * 4 - 6,
+        'rotations': torch.randn(n, 4, generator=g, device=dev),
+        'opacities': torch.randn(n, 1, generator=g, device=dev),
+        'features_dc': 0.5 * torch.randn(n, 1, 3, generator=g, device=dev),
+        'features_rest': 0.2 * torch.randn(n, 15, 3, generator=g,
+                                           device=dev)}
+    pad = n - n // 100
+    params['positions'][pad:] = 0.0
+    params['scales'][pad:] = -10.0
+    params['rotations'][pad:] = 0.0
+    params['opacities'][pad:] = -15.0
+    view = orbit_view(0.3, width, height)
+    cam = view.camera
+    intrinsics = (float(cam.focal_x), float(cam.focal_y), float(cam.center_x),
+                  float(cam.center_y), int(cam.width), int(cam.height))
+    w2c = torch.as_tensor(np.asarray(view.w2c, np.float32), device=dev)
+    cam_pos = torch.as_tensor(np.asarray(view.position, np.float32),
+                              device=dev)
+    return params, w2c, cam_pos, intrinsics
+
+
+def phase2_gs_frontend(record) -> dict:
+    """The frontend pair at the Mip-NeRF 360 cell's 3,112,960 Gaussians
+    and 4 SH bands: the forward on a 1920x1080 orbit view, held bit for bit
+    to the plain version; the backward on a 1237x822 view, output gradients
+    random on the visible Gaussians (zero elsewhere, as the rasterizer
+    gives them), within 1e-4 relative Frobenius of autograd of the plain
+    version in every parameter. Bytes: the 236 B of raw parameters a
+    Gaussian, and the 45 B of outputs (forward) or the 40 B of output
+    gradients and 236 B of parameter gradients (backward); operations
+    ~420 and ~840 a Gaussian (nerfbench/roofline.py GS_FRONTEND_*)."""
+    import torch
+
+    from nerficg_torch.ops import gaussian as gsf
+    n = GS360_GAUSSIANS
+    params, w2c, cam_pos, intrinsics = gs360_frontend_inputs(1920, 1080)
+    args = (params, w2c, cam_pos, intrinsics, 4)
+    got = gsf.gs_frontend_fwd(*args)
+    want = gsf.gs_frontend_plain(*args)
+
+    def flat(out):
+        return torch.cat([out[k].float().reshape(-1)
+                          for k in gsf.FRONTEND_OUTPUTS])
+
+    def plain_fwd():
+        with torch.no_grad():
+            return gsf.gs_frontend_plain(*args)
+    lines = {'gs_frontend_fwd': dict(record(
+        'gs_frontend_fwd', flat(got), flat(want),
+        lambda a, b: all(torch.equal(got[k], want[k])
+                         for k in gsf.FRONTEND_OUTPUTS),
+        lambda: gsf.gs_frontend_fwd(*args), plain_fwd,
+        f'{n} Gaussians, 4 bands -> the rasterizer inputs at 1920x1080',
+        n * (236 + 45), n * 420))}
+    del got, want
+
+    params, w2c, cam_pos, intrinsics = gs360_frontend_inputs(*GS360_VIEW, 1)
+    args = (params, w2c, cam_pos, intrinsics, 4)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    out = gsf.gs_frontend_plain(leaves, *args[1:])
+    vis = out['visible'].float()
+    g = torch.Generator(device='cuda').manual_seed(2)
+    grads = {k: torch.randn(out[k].shape, generator=g, device='cuda') *
+             (vis if out[k].ndim == 1 else vis[:, None])
+             for k in ('means2d', 'depths', 'conics', 'colors', 'opacities')}
+    loss = sum((out[k] * grads[k]).sum() for k in grads)
+    want = dict(zip(leaves, torch.autograd.grad(loss,
+                                                list(leaves.values()))))
+    del out, loss
+    got = gsf.gs_frontend_bwd(*args, grads)
+
+    def close(a, b):
+        return all(float((got[k] - want[k]).norm()) <=
+                   1e-4 * float(want[k].norm())
+                   for k in gsf.FRONTEND_PARAMS)
+
+    def plain_bwd():
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        out = gsf.gs_frontend_plain(leaves, *args[1:])
+        torch.autograd.grad(sum((out[k] * grads[k]).sum() for k in grads),
+                            list(leaves.values()))
+    lines['gs_frontend_bwd'] = dict(record(
+        'gs_frontend_bwd', torch.cat([got[k].reshape(-1) for k in got]),
+        torch.cat([want[k].reshape(-1) for k in got]), close,
+        lambda: gsf.gs_frontend_bwd(*args, grads), plain_bwd,
+        f'{n} Gaussians, 4 bands, d outputs at 1237x822 -> d parameters',
+        n * (236 + 40 + 236), n * 840, plain_iters=3))
     return lines
 
 
@@ -1888,12 +2002,29 @@ def phase_training(card: str, phase: int | str, scene: Path, config: str,
 
 
 def _gs_wrappers() -> dict:
+    from nerficg_torch.ops.gaussian import gs_frontend_bwd, gs_frontend_fwd
     from nerficg_torch.ops.gs_tiles_kernel import (gs_composite_bwd,
                                                    gs_composite_fwd,
                                                    gs_composite_fwd_packed)
     return {'gs_composite_fwd': gs_composite_fwd,
             'gs_composite_fwd_packed': gs_composite_fwd_packed,
-            'gs_composite_bwd': gs_composite_bwd}
+            'gs_composite_bwd': gs_composite_bwd,
+            'gs_frontend_fwd': gs_frontend_fwd,
+            'gs_frontend_bwd': gs_frontend_bwd}
+
+
+def check_frontend_launches(tag: str, launches: dict) -> None:
+    """Every rasterization (#15, 16-wide or packed) ran the frontend's
+    forward kernel once, and every backward (#16) its backward kernel
+    once."""
+    composites = launches['gs_composite_fwd'] + \
+        launches['gs_composite_fwd_packed']
+    if launches['gs_frontend_fwd'] != composites or \
+            launches['gs_frontend_bwd'] != launches['gs_composite_bwd']:
+        fail(f'{tag}: the frontend kernels launched '
+             f'{launches["gs_frontend_fwd"]} and '
+             f'{launches["gs_frontend_bwd"]} times for {composites} '
+             f'composites and {launches["gs_composite_bwd"]} backwards')
 
 
 def _gs_config_path() -> Path:
@@ -1952,6 +2083,7 @@ def phase8_gs_serving(card: str, scene: Path) -> dict:
         print(f'phase 8: kernel launches in that run: {launches}', flush=True)
         if launches['gs_composite_fwd_packed'] <= 0:
             fail('phase 8: gs_composite_fwd_packed never launched')
+        check_frontend_launches('phase 8', launches)
         if not all(np.isfinite(v) for v in (metrics['PSNR'], metrics['SSIM'],
                                               result['fps'])):
             fail(f'phase 8: non-finite served metrics: {metrics}')
@@ -2069,6 +2201,7 @@ def phase9_gs_training(card: str, scene: Path,
             if launches[name] != iterations:
                 fail(f'phase 9: {name} launched {launches[name]} times in '
                      f'{iterations} iterations')
+        check_frontend_launches('phase 9', launches)
         if len(losses) != iterations or not np.isfinite(losses).all():
             fail('phase 9: training loss is missing or not finite')
         if not losses[-50:].mean() < losses[:50].mean():
@@ -2096,6 +2229,7 @@ def phase9_gs_training(card: str, scene: Path,
               f'; launches {served_launches} [{card}]', flush=True)
         if served_launches['gs_composite_fwd_packed'] <= 0:
             fail('phase 9: serving never launched gs_composite_fwd_packed')
+        check_frontend_launches('phase 9 (serving)', served_launches)
         if not float(metrics['PSNR']) >= psnr_before + 5.0:
             fail(f'phase 9: the served test PSNR {metrics["PSNR"]:.3f} dB is '
                  f'not 5 dB above the untrained model\'s '
@@ -2103,7 +2237,10 @@ def phase9_gs_training(card: str, scene: Path,
     return {'gs_composite_fwd': launches['gs_composite_fwd'],
             'gs_composite_bwd': launches['gs_composite_bwd'],
             'gs_composite_fwd_packed':
-                served_launches['gs_composite_fwd_packed']}
+                served_launches['gs_composite_fwd_packed'],
+            'gs_frontend_fwd': launches['gs_frontend_fwd'] +
+                served_launches['gs_frontend_fwd'],
+            'gs_frontend_bwd': launches['gs_frontend_bwd']}
 
 
 def _rel_frobenius(got, want) -> float:
@@ -2172,6 +2309,7 @@ def phase10_gs_step(card: str) -> None:
     if launches['gs_composite_fwd'] != 1 or launches['gs_composite_bwd'] != 1:
         fail(f'phase 10: the step did not launch #15 and #16 once each: '
              f'{launches}')
+    check_frontend_launches('phase 10', launches)
     if not loss_err <= 1e-5:
         fail(f'phase 10: card and CPU losses differ by {loss_err:.2e}')
     bad = {k: v for k, v in errors.items() if not v <= 1e-3}
@@ -2880,6 +3018,7 @@ def phase16_capture(card: str, scene: Path,
             if launches[name] != iterations:
                 fail(f'{tag}: {name} launched {launches[name]} times in '
                      f'{iterations} steps')
+        check_frontend_launches(tag, launches)
         if len(losses) != iterations or not np.isfinite(losses).all():
             fail(f'{tag}: training loss is missing or not finite')
         if not losses[-50:].mean() < losses[:50].mean():
@@ -2943,6 +3082,7 @@ def phase16_capture(card: str, scene: Path,
                 served_launches['gs_composite_bwd']:
             fail(f'{tag}: serving should launch the packed #15 once per '
                  f'frame ({expected}) and nothing else: {served_launches}')
+        check_frontend_launches(tag, served_launches)
         if not abs(float(metrics['PSNR']) - psnr) <= 0.05:
             fail(f'{tag}: the served test PSNR {metrics["PSNR"]:.3f} dB is '
                  f'not the trainer\'s {psnr:.3f} dB')
@@ -2968,7 +3108,10 @@ def phase16_capture(card: str, scene: Path,
     return {'gs_composite_fwd': launches['gs_composite_fwd'],
             'gs_composite_bwd': launches['gs_composite_bwd'],
             'gs_composite_fwd_packed':
-                served_launches['gs_composite_fwd_packed']}
+                served_launches['gs_composite_fwd_packed'],
+            'gs_frontend_fwd': launches['gs_frontend_fwd'] +
+                served_launches['gs_frontend_fwd'],
+            'gs_frontend_bwd': launches['gs_frontend_bwd']}
 
 
 # Phase 17: the interactive viewer. Poses are posted as a browser would

@@ -30,6 +30,7 @@ from nerficg_torch.methods.base.model import BaseModel
 from nerficg_torch.methods.gaussian_splatting.convert import (
     PARAM_KEYS, params_from_numpy, params_to_numpy)
 from nerficg_torch.ops.encoding import SH_C0
+from nerficg_torch.ops.gaussian import activate_opacities
 from nerficg_torch.ops.knn import knn_mean_sq_distance
 from nerficg_torch.ops.morton import morton_encode_positions
 from nerficg_torch.optim.state_surgery import apply_row_surgery
@@ -171,26 +172,8 @@ class GaussianSplattingModel(BaseModel):
 
     # -- activations -----------------------------------------------------------
     @staticmethod
-    def get_scales(params) -> torch.Tensor:
-        # Clamped so that a runaway raw scale cannot give inf covariances.
-        return torch.exp(torch.clamp(params['scales'], -15.0, 10.0))
-
-    @staticmethod
-    def get_rotations(params) -> torch.Tensor:
-        # rsqrt(max(.)) keeps the gradient finite at the zero quaternions of
-        # padding rows, where a norm would give NaN.
-        q = params['rotations']
-        return q * torch.rsqrt(torch.clamp((q * q).sum(-1, keepdim=True),
-                                           min=1e-12))
-
-    @staticmethod
     def get_opacities(params) -> torch.Tensor:
-        return torch.sigmoid(params['opacities'])[:, 0]
-
-    @staticmethod
-    def get_features(params) -> torch.Tensor:
-        return torch.cat([params['features_dc'], params['features_rest']],
-                         dim=1)                                # (N, K, 3)
+        return activate_opacities(params['opacities'])
 
     # -- densification (host side; reference: Model.py:202-259) -------------
     def densify_and_prune(self, optimizer: torch.optim.Optimizer,

@@ -20,8 +20,7 @@ from nerficg_torch.data.types import View
 from nerficg_torch.methods.base.renderer import BaseRenderer
 from nerficg_torch.methods.gaussian_splatting.model import \
     GaussianSplattingModel
-from nerficg_torch.ops.encoding import eval_sh
-from nerficg_torch.ops.gaussian import build_covariance_3d, project_gaussians
+from nerficg_torch.ops.gaussian import gs_frontend
 from nerficg_torch.ops.gs_rasterize import rasterize_gaussians
 
 __all__ = ['GaussianSplattingRenderer']
@@ -47,26 +46,11 @@ class GaussianSplattingRenderer(BaseRenderer):
                  cam_pos: torch.Tensor, intrinsics: tuple,
                  sh_degree: int) -> dict:
         """Covariances, EWA projection and view-dependent SH color of every
-        Gaussian: the rasterizer's inputs (nerficg_tpu :65-85). intrinsics:
+        Gaussian: the rasterizer's inputs (nerficg_tpu :65-85), by
+        ``gs_frontend`` (the fused kernels on the card). intrinsics:
         (focal_x, focal_y, center_x, center_y, W, H)."""
-        model = self.model
-        focal_x, focal_y, center_x, center_y, width, height = intrinsics
-        positions = params['positions']
-        cov3d = build_covariance_3d(model.get_scales(params),
-                                    model.get_rotations(params))
-        proj = project_gaussians(positions, cov3d, w2c, focal_x, focal_y,
-                                 center_x, center_y, width, height,
-                                 low_pass=float(self.LOW_PASS_FILTER))
-        # View-dependent SH color (reference: utils.py:21-59).
-        directions = positions - cam_pos
-        directions = directions / torch.clamp(
-            torch.linalg.norm(directions, dim=-1, keepdim=True), min=1e-8)
-        colors = eval_sh(model.get_features(params), directions, sh_degree)
-        return {'means2d': proj['means2d'], 'depths': proj['depths'],
-                'conics': proj['conics'], 'radii': proj['radii'],
-                'colors': torch.clamp(colors + 0.5, min=0.0),
-                'opacities': model.get_opacities(params),
-                'visible': proj['in_frustum']}
+        return gs_frontend(params, w2c, cam_pos, intrinsics, sh_degree,
+                           low_pass=float(self.LOW_PASS_FILTER))
 
     def render_impl(self, params: dict, means2d_offset: torch.Tensor,
                     w2c: torch.Tensor, cam_pos: torch.Tensor,

@@ -48,6 +48,7 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
 _L = ctypes.c_int64
+_FP = ctypes.POINTER(ctypes.c_float)
 # C signature of every entry point (all return int = cudaError_t).
 _SIGNATURES = {
     'nerficg_hash_window_fwd': [_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -72,6 +73,9 @@ _SIGNATURES = {
     'nerficg_gs_tiles_bwd': [_P] * 6 + [_I, _I, _P],
     'nerficg_xbar_permute': [_P] * 3 + [_I, _I, _P],
     'nerficg_xbar_gather': [_P] * 3 + [_I, _L, _P],
+    'nerficg_gs_frontend_fwd': [_P] * 8 + [_FP] + [_P] * 7 + [_I] * 3 + [_P],
+    'nerficg_gs_frontend_bwd': [_P] * 8 + [_FP] + [_P] * 11 + [_I] * 3 +
+                               [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

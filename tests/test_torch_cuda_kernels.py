@@ -11,8 +11,9 @@ import pytest
 import torch
 
 from nerficg_torch.core.errors import KernelError
-from nerficg_torch.ops import (gs_rasterize, gs_tiles_kernel, hash_cell,
-                               hash_mxu, hash_window, hash_xbar, xbar_gather)
+from nerficg_torch.ops import (gaussian, gs_rasterize, gs_tiles_kernel,
+                               hash_cell, hash_mxu, hash_window, hash_xbar,
+                               xbar_gather)
 from nerficg_torch.ops.hashgrid import HashGridConfig
 from nerficg_torch.scripts.kernel_timing import boundary_values
 
@@ -962,3 +963,173 @@ def test_xbar_permute(cuda, dtype):
     got = xbar_gather.xbar_permute(mat, idx)
     want = xbar_gather.xbar_permute_plain(mat, idx)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# The Mip-NeRF 360 cell's Gaussian count (734 MB / 236 B).
+GS360_GAUSSIANS = 3112960
+
+
+def _frontend_inputs(cuda, n, stored=16, seed=0):
+    """n Gaussians in U(-2, 2)^3 seen from an orbit pose at 1237 x 822 (the
+    Mip-NeRF 360 cell's views), log scales U(-6, -2), random quaternions,
+    opacities and SH features (``stored`` coefficients), the last 1% as
+    padding rows (zero quaternions, scale -10, opacity -15)."""
+    from nerficg_torch.scripts.kernel_timing import orbit_view
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    params = {
+        'positions': torch.rand(n, 3, generator=g, device=cuda) * 4 - 2,
+        'scales': torch.rand(n, 3, generator=g, device=cuda) * 4 - 6,
+        'rotations': torch.randn(n, 4, generator=g, device=cuda),
+        'opacities': torch.randn(n, 1, generator=g, device=cuda),
+        'features_dc': 0.5 * torch.randn(n, 1, 3, generator=g, device=cuda),
+        'features_rest': 0.2 * torch.randn(n, stored - 1, 3, generator=g,
+                                           device=cuda)}
+    pad = n - n // 100
+    params['positions'][pad:] = 0.0
+    params['scales'][pad:] = -10.0
+    params['rotations'][pad:] = 0.0
+    params['opacities'][pad:] = -15.0
+    view = orbit_view(0.3, 1237, 822)
+    cam = view.camera
+    intrinsics = (float(cam.focal_x), float(cam.focal_y), float(cam.center_x),
+                  float(cam.center_y), int(cam.width), int(cam.height))
+    w2c = torch.as_tensor(np.asarray(view.w2c, np.float32), device=cuda)
+    cam_pos = torch.as_tensor(np.asarray(view.position, np.float32),
+                              device=cuda)
+    return params, w2c, cam_pos, intrinsics
+
+
+@pytest.mark.parametrize('n,degree,stored', [
+    (4099, 1, 16), (4099, 2, 16), (4099, 3, 9), (4099, 4, 16), (4099, 1, 1),
+    (GS360_GAUSSIANS, 4, 16)])
+def test_gs_frontend_fwd(cuda, n, degree, stored):
+    """The forward kernel against the plain version on the card: every
+    output bit for bit (the kernel rounds in the plain version's order and
+    sums its products in cuBLAS's), but the colours away from the cells'
+    batch: cuBLAS picks its batched gemv's summation order by the batch
+    size, and the kernel takes the one of a scene's (3,112,960 Gaussians;
+    also 16,384), so at 4,099 the colours may differ by 4 ulps of 1.0."""
+    params, w2c, cam_pos, intrinsics = _frontend_inputs(cuda, n, stored)
+    want = gaussian.gs_frontend_plain(params, w2c, cam_pos, intrinsics,
+                                      degree)
+    got = gaussian.gs_frontend_fwd(params, w2c, cam_pos, intrinsics, degree)
+    for key in ('depths', 'means2d', 'conics', 'radii', 'opacities',
+                'visible'):
+        assert torch.equal(got[key], want[key]), key
+    tol = 0.0 if n == GS360_GAUSSIANS else 4 * 2.0 ** -23
+    assert float((got['colors'] - want['colors']).abs().max()) <= tol
+    assert int(want['visible'].sum()) > n // 10
+
+
+@pytest.mark.parametrize('n,degree,stored', [
+    (4099, 1, 16), (4099, 2, 4), (4099, 3, 16), (4099, 4, 16),
+    (GS360_GAUSSIANS, 4, 16)])
+def test_gs_frontend_bwd(cuda, n, degree, stored):
+    """The backward kernel against autograd of the plain version on the
+    card, output gradients random on the visible Gaussians and zero on the
+    others (as the rasterizer gives them): each parameter's gradient within
+    1e-4 relative Frobenius, and elementwise rtol 1e-3 with atol 1e-4 of
+    its largest entry (f32 sums in another order than autograd's, through
+    1 / det); every row written, the inactive SH coefficients' zero."""
+    params, w2c, cam_pos, intrinsics = _frontend_inputs(cuda, n, stored, 1)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    out = gaussian.gs_frontend_plain(leaves, w2c, cam_pos, intrinsics,
+                                     degree)
+    vis = out['visible'].float()
+    g = torch.Generator(device=cuda).manual_seed(2)
+    grads = {k: torch.randn(out[k].shape, generator=g, device=cuda) *
+             (vis if out[k].ndim == 1 else vis[:, None])
+             for k in ('means2d', 'depths', 'conics', 'colors', 'opacities')}
+    loss = sum((out[k] * grads[k]).sum() for k in grads)
+    want = dict(zip(leaves, torch.autograd.grad(loss,
+                                                list(leaves.values()))))
+    got = gaussian.gs_frontend_bwd(params, w2c, cam_pos, intrinsics, degree,
+                                   grads)
+    for key in gaussian.FRONTEND_PARAMS:
+        assert bool(torch.isfinite(got[key]).all()), key
+        rel = float((got[key] - want[key]).norm() /
+                    want[key].norm().clamp(min=1e-30))
+        assert rel <= 1e-4, (key, rel)
+        torch.testing.assert_close(
+            got[key], want[key], rtol=1e-3,
+            atol=1e-4 * float(want[key].abs().max()), msg=key)
+    assert not got['features_rest'][:, degree * degree - 1:].any()
+
+
+def test_gs_frontend_missing_gradients_and_refusals(cuda):
+    """Output gradients that are None count as zero; the wrappers refuse
+    f64, non-contiguous and misshapen parameters and SH bands past the
+    stored coefficients."""
+    params, w2c, cam_pos, intrinsics = _frontend_inputs(cuda, 1000, 4)
+    g = torch.randn(1000, 3, device=cuda)
+    some = gaussian.gs_frontend_bwd(params, w2c, cam_pos, intrinsics, 2,
+                                    {'colors': g})
+    full = gaussian.gs_frontend_bwd(
+        params, w2c, cam_pos, intrinsics, 2,
+        {'colors': g, 'means2d': torch.zeros(1000, 2, device=cuda),
+         'depths': torch.zeros(1000, device=cuda),
+         'conics': torch.zeros(1000, 3, device=cuda),
+         'opacities': torch.zeros(1000, device=cuda)})
+    for key in gaussian.FRONTEND_PARAMS:
+        assert torch.equal(some[key], full[key]), key
+    for key, bad in (('scales', params['scales'].double()),
+                     ('positions', params['positions'].T.contiguous().T),
+                     ('rotations', params['rotations'][:, :3].contiguous())):
+        with pytest.raises(KernelError):
+            gaussian.gs_frontend_fwd({**params, key: bad}, w2c, cam_pos,
+                                     intrinsics, 1)
+    with pytest.raises(KernelError):
+        gaussian.gs_frontend_fwd(params, w2c, cam_pos, intrinsics, 3)
+
+
+def test_gs_training_step_launches_the_frontend_kernels(cuda, tmp_path):
+    """One 3DGS training step through the trainer's own code launches the
+    forward and the backward kernel once each, and the parameters' .grad
+    are the backward kernel's outputs, in the parameters' shapes."""
+    from nerficg_torch.core.config import ConfigNode
+    from nerficg_torch.core.logging import Logger
+    from nerficg_torch.core.registry import Datasets, Methods
+    from nerficg_torch.data.synthetic import make_textured_scene
+
+    scene = make_textured_scene(tmp_path / 'scene', image_size=64,
+                                n_train=2, n_test=1)
+    config = ConfigNode({
+        'GLOBAL': {'METHOD_TYPE': 'GaussianSplatting',
+                   'DATASET_TYPE': 'NeRF', 'RANDOM_SEED': 0,
+                   'LOG_LEVEL': 'SILENT'},
+        'DATASET': {'PATH': str(scene)},
+        'TRAINING': {'RANDOM_POINTS': 2000}})
+    Logger.set_level('SILENT')
+    trainer = Methods.get_training_instance(config, device='cuda')
+    dataset = Datasets.get_dataset(config)
+    trainer._setup_gaussians(dataset)
+    Logger.set_level('NORMAL')
+    before = (gaussian.gs_frontend_fwd.launches,
+              gaussian.gs_frontend_bwd.launches)
+    trainer.training_iteration(dataset, 1)
+    torch.cuda.synchronize()
+    assert (gaussian.gs_frontend_fwd.launches,
+            gaussian.gs_frontend_bwd.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    for key, p in trainer.model.params.items():
+        assert p.grad is not None and p.grad.shape == p.shape, key
+        assert bool(torch.isfinite(p.grad).all()), key
+
+
+def test_gs_frontend_bwd_isotropic_rotations_have_no_gradient(cuda):
+    """Isotropic Gaussians at the identity rotation (the kNN init's): the
+    backward kernel's rotation gradient is exactly zero, as autograd's is
+    (the covariance's gradient symmetric to the bit)."""
+    params, w2c, cam_pos, intrinsics = _frontend_inputs(cuda, 4099)
+    params['scales'] = params['scales'][:, :1].repeat(1, 3).contiguous()
+    params['rotations'] = torch.tensor([1.0, 0.0, 0.0, 0.0],
+                                       device=cuda).repeat(4099, 1)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    grads = {k: torch.randn(shape, generator=g, device=cuda) for k, shape in
+             (('means2d', (4099, 2)), ('depths', (4099,)),
+              ('conics', (4099, 3)), ('colors', (4099, 3)),
+              ('opacities', (4099,)))}
+    got = gaussian.gs_frontend_bwd(params, w2c, cam_pos, intrinsics, 4,
+                                   grads)
+    assert not got['rotations'].any()
+    assert bool(got['scales'].abs().max() > 0)
