@@ -84,6 +84,26 @@ class BaseCamera:
                 pixels, torch.ones(pixels.shape[0], device=device))
         return self._ray_direction_cache[key]
 
+    def local_ray_radii(self, device: torch.device | str = 'cpu'
+                        ) -> torch.Tensor:
+        """(H*W,) float32 base radii of the pixels' cones, row-major
+        (Mip-NeRF 360): 2/sqrt(12) times the mean distance from each
+        pixel's unit direction to those of its neighbours one pixel right
+        and one pixel down, unprojected as the pixel itself is. Rotations
+        keep distances, so the camera-space value is the world's."""
+        pixels = self.pixel_grid(device)
+        depth = torch.ones(pixels.shape[0], device=device)
+
+        def unit(p):
+            d = self.screen_to_cam(p, depth)
+            return d / torch.linalg.norm(d, dim=-1, keepdim=True)
+
+        here = unit(pixels)
+        step = torch.eye(2, dtype=torch.float32, device=device)
+        dx = torch.linalg.norm(unit(pixels + step[0]) - here, dim=-1)
+        dy = torch.linalg.norm(unit(pixels + step[1]) - here, dim=-1)
+        return 0.5 * (dx + dy) * (2.0 / 12.0 ** 0.5)
+
     def pixel_grid(self, device: torch.device | str = 'cpu') -> torch.Tensor:
         """(H*W, 2) float32 pixel-center coordinates (x, y), row-major."""
         x = torch.arange(self.width, dtype=torch.float32, device=device) + 0.5

@@ -32,6 +32,7 @@ _BUILTIN_METHOD_MODULES = {
     'InstantNGP': 'nerficg_torch.methods.instant_ngp',
     'GaussianSplatting': 'nerficg_torch.methods.gaussian_splatting',
     'DNeRF': 'nerficg_torch.methods.dnerf',
+    'MipNeRF360': 'nerficg_torch.methods.mipnerf360',
 }
 _BUILTIN_DATASET_MODULES = {
     'NeRF': 'nerficg_torch.data.loaders.nerf',

@@ -157,14 +157,17 @@ class BaseDataset(Configurable):
             view.prefetch()
 
     def precompute_rays(self, subset: str = 'train',
-                        device: torch.device | str = 'cpu') -> RayCollection:
+                        device: torch.device | str = 'cpu',
+                        radii: bool = False) -> RayCollection:
         """All rays of a subset in one RayBatch pool on ``device``, in view
         order, each view's slice in ``view_slices`` (reference:
         Datasets/Base.py:172-216; nerficg_tpu/data/base.py:161-227). Views
         that share a camera are generated in one batched rotation over
         their stacked c2w matrices (``_shared_camera_rays``); views with
         different cameras, one such rotation per camera, then one gather
-        per field into view order (``_grouped_rays``)."""
+        per field into view order (``_grouped_rays``). With ``radii`` the
+        pool also holds each ray's cone base radius
+        (``BaseCamera.local_ray_radii``), which Mip-NeRF 360 reads."""
         views = self.subsets[subset]
         if not views:
             raise DatasetError(f'no views in subset {subset!r}')
@@ -172,16 +175,17 @@ class BaseDataset(Configurable):
         for i, view in enumerate(views):
             groups.setdefault(id(view.camera), []).append(i)
         if len(groups) == 1:
-            rays = self._shared_camera_rays(views, device)
+            rays = self._shared_camera_rays(views, device, radii)
         else:
-            rays = self._grouped_rays(views, list(groups.values()), device)
+            rays = self._grouped_rays(views, list(groups.values()), device,
+                                      radii)
         bounds = np.cumsum([0] + [v.camera.width * v.camera.height
                                   for v in views]).tolist()
         return RayCollection(rays, list(zip(bounds[:-1], bounds[1:])))
 
     @staticmethod
-    def _shared_camera_rays(views: list[View],
-                            device: torch.device | str) -> RayBatch:
+    def _shared_camera_rays(views: list[View], device: torch.device | str,
+                            radii: bool = False) -> RayBatch:
         """The rays of ``views``, which share one camera, in their order."""
         camera = views[0].camera
         local = camera.local_ray_directions(device)             # (N, 3)
@@ -213,17 +217,20 @@ class BaseDataset(Configurable):
             pixel_ids=torch.arange(n, dtype=torch.int32,
                                    device=device).repeat(v)[:, None],
             view_ids=per_view([view.global_frame_idx for view in views],
-                              torch.int32))
+                              torch.int32),
+            radii=camera.local_ray_radii(device).repeat(v)[:, None]
+            if radii else None)
 
     @classmethod
     def _grouped_rays(cls, views: list[View], groups: list[list[int]],
-                      device: torch.device | str) -> RayBatch:
+                      device: torch.device | str,
+                      radii: bool = False) -> RayBatch:
         """The rays of ``views`` with different cameras: each group of view
         indices (one camera) through ``_shared_camera_rays``, the groups
         concatenated, then gathered into view order. A field is None unless
         every view has it."""
         rays = RayBatch.cat([cls._shared_camera_rays(
-            [views[i] for i in group], device) for group in groups])
+            [views[i] for i in group], device, radii) for group in groups])
         counts = [v.camera.width * v.camera.height for v in views]
         starts, offset = [0] * len(views), 0
         for group in groups:

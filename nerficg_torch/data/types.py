@@ -82,7 +82,7 @@ class ImageData:
 
 
 _RAY_FIELDS = ('origins', 'directions', 'view_directions', 'rgb', 'alpha',
-               'depth', 'timestamps', 'pixel_ids', 'view_ids')
+               'depth', 'timestamps', 'pixel_ids', 'view_ids', 'radii')
 
 
 @dataclass(frozen=True)
@@ -99,6 +99,7 @@ class RayBatch:
     timestamps: Optional[torch.Tensor] = None
     pixel_ids: Optional[torch.Tensor] = None
     view_ids: Optional[torch.Tensor] = None
+    radii: Optional[torch.Tensor] = None    # (N, 1) cone base radii
 
     def __post_init__(self):
         n = self.origins.shape[0]

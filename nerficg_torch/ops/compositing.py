@@ -2,7 +2,8 @@
 port of nerficg_tpu/ops/compositing.py (reference: NeRF/utils.py:112-136 and
 the CUDA composite kernels, VolumeRenderingV2/csrc/volumerendering.cu).
 Transmittance is an exclusive cumulative product; early termination is a
-mask on it. Plain PyTorch; gradients come from autograd."""
+mask on it. Mip-NeRF 360's interlevel loss binds a proposal histogram to
+the NeRF one. Plain PyTorch; gradients come from autograd."""
 
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ['densities_to_weights', 'composite_rays', 'distortion_loss']
+__all__ = ['densities_to_weights', 'composite_rays', 'distortion_loss',
+           'interlevel_bound', 'interlevel_loss']
 
 
 def densities_to_weights(densities: torch.Tensor, deltas: torch.Tensor,
@@ -69,3 +71,35 @@ def distortion_loss(weights: torch.Tensor, depths: torch.Tensor,
     loss_bi = 2.0 * (weights * (mids * w_prev - wm_prev)).sum(-1)
     loss_uni = (1.0 / 3.0) * (weights * weights * deltas).sum(-1)
     return loss_bi + loss_uni
+
+
+def interlevel_bound(edges: torch.Tensor, env_edges: torch.Tensor,
+                     env_weights: torch.Tensor) -> torch.Tensor:
+    """For each interval of ``edges`` (R, S+1), the sum of the weights
+    ``env_weights`` (R, M) of the intervals of ``env_edges`` (R, M+1)
+    that overlap it: [a_j, a_j+1) overlaps [c_i, c_i+1] where
+    a_j <= c_i+1 and a_j+1 > c_i (Mip-NeRF 360's outer measure, eq. 13).
+    Returns (R, S)."""
+    cum = torch.cat([torch.zeros_like(env_weights[:, :1]),
+                     torch.cumsum(env_weights, -1)], -1)          # (R, M+1)
+    last = env_edges.shape[-1] - 1
+    above = torch.searchsorted(env_edges.contiguous(), edges.contiguous(),
+                               right=True)
+    lo = torch.clamp(above - 1, 0, last)
+    hi = torch.clamp(above, 0, last)
+    return torch.gather(cum, -1, hi[:, 1:]) - torch.gather(cum, -1, lo[:, :-1])
+
+
+def interlevel_loss(edges: torch.Tensor, weights: torch.Tensor,
+                    env_edges: torch.Tensor, env_weights: torch.Tensor
+                    ) -> torch.Tensor:
+    """Per ray, sum_i max(0, w_i - bound_i)^2 / (w_i + eps) with bound_i
+    the proposal weights over NeRF interval i (``interlevel_bound``); the
+    NeRF's ``edges`` and ``weights`` are held fixed (stop-gradient), so
+    the loss trains the proposal alone. eps: float32's machine epsilon.
+    Returns (R,)."""
+    edges, weights = edges.detach(), weights.detach()
+    bound = interlevel_bound(edges, env_edges, env_weights)
+    eps = torch.finfo(torch.float32).eps
+    return (torch.clamp(weights - bound, min=0.0) ** 2 /
+            (weights + eps)).sum(-1)

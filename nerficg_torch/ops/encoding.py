@@ -1,7 +1,8 @@
 """Input encodings, ported from nerficg_tpu/ops/encoding.py: the NeRF
 frequency encoding (reference: NeRF/utils.py:12-37), real spherical harmonics
 and the 3DGS SH color (tcnn / 3DGS convention, reference:
-GaussianSplatting/utils.py:21-59). Elementwise PyTorch, no kernel."""
+GaussianSplatting/utils.py:21-59), and Mip-NeRF 360's integrated
+positional encoding of Gaussians. Elementwise PyTorch, no kernel."""
 
 from __future__ import annotations
 
@@ -9,8 +10,8 @@ import math
 
 import torch
 
-__all__ = ['frequency_encode', 'frequency_encoding_dim', 'sh_encode',
-           'eval_sh', 'SH_C0']
+__all__ = ['frequency_encode', 'frequency_encoding_dim',
+           'integrated_pos_encode', 'sh_encode', 'eval_sh', 'SH_C0']
 
 SH_C0 = 0.28209479177387814
 _SH_C1 = 0.4886025119029199
@@ -41,6 +42,22 @@ def frequency_encode(x: torch.Tensor, num_frequencies: int,
 def frequency_encoding_dim(input_dim: int, num_frequencies: int,
                            include_input: bool = True) -> int:
     return input_dim * (2 * num_frequencies + (1 if include_input else 0))
+
+
+def integrated_pos_encode(means: torch.Tensor, variances: torch.Tensor,
+                          num_degrees: int) -> torch.Tensor:
+    """The expected sines of Gaussians with axis-aligned ``variances``
+    (mip-NeRF's IPE): (..., D) means and variances -> (..., 2 L D),
+    sin(2^l mu) exp(-2^(2l-1) var) for l = 0..L-1 (degree-major, the D
+    axes inner), then the same with cos."""
+    scales = 2.0 ** torch.arange(num_degrees, dtype=torch.float32,
+                                 device=means.device)
+    shape = means.shape[:-1] + (-1,)
+    scaled = (means[..., None, :] * scales[:, None]).reshape(shape)
+    damp = torch.exp(-0.5 * (variances[..., None, :] *
+                             (scales * scales)[:, None])).reshape(shape)
+    return torch.cat([torch.sin(scaled) * damp, torch.cos(scaled) * damp],
+                     dim=-1)
 
 
 def sh_encode(directions: torch.Tensor, degree: int = 4) -> torch.Tensor:

@@ -1,6 +1,8 @@
 """Ray sample generation, stratified and hierarchical (inverse CDF), the
-port of nerficg_tpu/ops/sampling.py (reference: NeRF/utils.py:57-110).
-Batched over rays in plain PyTorch, no kernel.
+port of nerficg_tpu/ops/sampling.py (reference: NeRF/utils.py:57-110),
+and Mip-NeRF 360's resampling of intervals in normalised s-space
+(``s_to_t``, ``sample_intervals``). Batched over rays in plain PyTorch, no
+kernel.
 
 Uniform draws come from an explicit ``torch.Generator`` on the rays'
 device, or the caller hands them in as ``u`` (the tests pass JAX's draws).
@@ -12,7 +14,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ['stratified_samples', 'sample_pdf', 'merge_sorted_samples']
+__all__ = ['stratified_samples', 'sample_pdf', 'merge_sorted_samples',
+           's_to_t', 'sample_intervals']
 
 
 def _uniform(generator: Optional[torch.Generator], shape: tuple,
@@ -87,3 +90,54 @@ def merge_sorted_samples(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Both per-ray sample sets, sorted ascending (the coarse + fine merge,
     reference: NeRF/Renderer.py:60-70)."""
     return torch.sort(torch.cat([a, b], -1), -1).values
+
+
+def s_to_t(s: torch.Tensor, near: float, far: float) -> torch.Tensor:
+    """Distances of normalised s in [0, 1] under g(x) = 1/x:
+    s = (g(t) - g(near)) / (g(far) - g(near)), so
+    t = 1 / (s / far + (1 - s) / near)."""
+    return 1.0 / (s / far + (1.0 - s) / near)
+
+
+def sample_intervals(generator: Optional[torch.Generator],
+                     edges: torch.Tensor, weights: torch.Tensor,
+                     num_samples: int, randomized: bool = True,
+                     u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """New intervals from a piecewise-constant histogram: ``edges``
+    (R, M+1) ascending in [0, 1], ``weights`` (R, M) non-negative ->
+    (R, num_samples + 1) edges, detached.
+
+    ``num_samples`` centres at the stratified quantiles (i + j) / n of
+    the normalised histogram, one jitter j ~ U(0, 1) per ray (``u``, (R,),
+    or drawn from ``generator``; 0.5 when not randomized), by the inverse
+    of its piecewise-linear CDF; the new edges lie at the midpoints
+    between neighbouring centres, the outer two mirrored about the outer
+    centres and clamped to [0, 1]."""
+    edges, weights = edges.detach(), weights.detach()
+    num_rays = edges.shape[0]
+    if u is None:
+        u = _uniform(generator, (num_rays,), edges.device) if randomized \
+            else torch.full((num_rays,), 0.5, device=edges.device)
+    steps = torch.arange(num_samples, dtype=torch.float32,
+                         device=edges.device)
+    q = (steps[None, :] + u[:, None]) / num_samples                # (R, n)
+    pdf = weights / torch.clamp(weights.sum(-1, keepdim=True),
+                                min=torch.finfo(torch.float32).tiny)
+    cdf = torch.clamp(torch.cumsum(pdf[:, :-1], -1), max=1.0)
+    end = torch.ones_like(pdf[:, :1])
+    cdf = torch.cat([torch.zeros_like(end), cdf, end], -1)         # (R, M+1)
+    last = cdf.shape[-1] - 1
+    idx = torch.clamp(torch.searchsorted(cdf.contiguous(), q.contiguous(),
+                                         right=True), 1, last)
+    cdf_lo = torch.gather(cdf, -1, idx - 1)
+    cdf_hi = torch.gather(cdf, -1, idx)
+    s_lo = torch.gather(edges, -1, idx - 1)
+    s_hi = torch.gather(edges, -1, idx)
+    span = cdf_hi - cdf_lo
+    frac = torch.clamp((q - cdf_lo) / torch.where(span > 0, span, 1.0),
+                       0.0, 1.0)
+    centres = s_lo + frac * (s_hi - s_lo)
+    mids = 0.5 * (centres[:, 1:] + centres[:, :-1])
+    first = torch.clamp(2.0 * centres[:, :1] - mids[:, :1], min=0.0)
+    last_edge = torch.clamp(2.0 * centres[:, -1:] - mids[:, -1:], max=1.0)
+    return torch.cat([first, mids, last_edge], -1)

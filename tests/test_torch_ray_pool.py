@@ -107,9 +107,9 @@ def grouped_calls(monkeypatch):
     calls = []
     original = BaseDataset._grouped_rays.__func__
 
-    def counted(cls, views, groups, device):
+    def counted(cls, views, groups, device, *rest):
         calls.append(len(groups))
-        return original(cls, views, groups, device)
+        return original(cls, views, groups, device, *rest)
     monkeypatch.setattr(BaseDataset, '_grouped_rays', classmethod(counted))
     return calls
 

@@ -7,9 +7,11 @@ the trainer's timer, on the CPU.
 * ``BaseTrainer._timer`` opens the ``trainer/<callback>`` span, with and
   without ``TIMING.ACTIVATE``; ``CallbackTimer`` on the CPU keeps the
   host's clock and its ``timings.txt`` line.
-* A 3DGS training step, a 3DGS served frame and a NeRF training step open
-  their layers' spans under the callback's, and count what their
-  rasterizer or sampler made: equal to the same call's own outputs.
+* A 3DGS training step, a 3DGS served frame, a NeRF and a Mip-NeRF 360
+  training step open their layers' spans under the callback's, and count
+  what their rasterizer or sampler made: equal to the same call's own
+  outputs. Without a profiler Mip-NeRF 360's step hands its counters no
+  tensor to reduce.
 * Marked ``cuda``: on a card ``CallbackTimer`` waits for it at no call,
   and its total is the card's time over the calls. Without a card it
   skips; on one (no JAX needed):
@@ -238,6 +240,72 @@ def test_nerf_training_step_spans_and_samples(scene):
                             'optimizer': step}
     # 6 coarse samples a ray, then the 6 merged with 18 fine ones
     assert tracing.counters() == {'nerf/samples': 64 * (6 + 24)}
+
+
+def _mip(scene):
+    cfg = ConfigNode({
+        'GLOBAL': {'METHOD_TYPE': 'MipNeRF360', 'DATASET_TYPE': 'NeRF',
+                   'RANDOM_SEED': 0, 'LOG_LEVEL': 'SILENT'},
+        'DATASET': {'PATH': str(scene)},
+        'MODEL': {'PROPOSAL_LAYERS': 2, 'PROPOSAL_WIDTH': 16,
+                  'NUM_LAYERS': 3, 'WIDTH': 32, 'SKIP_LAYER': 2,
+                  'BOTTLENECK_WIDTH': 16, 'VIEW_WIDTH': 16},
+        'RENDERER': {'PROPOSAL_SAMPLES': [8, 8], 'NERF_SAMPLES': 4},
+        'TRAINING': {'RAYS_PER_BATCH': 64, 'RENDER_TESTSET': False}})
+    dataset = Datasets.get_dataset(cfg)
+    trainer = Methods.get_training_instance(cfg, device='cpu')
+    for _, callback in gather_callbacks(trainer, PRE):
+        callback(dataset)
+    return trainer, dataset
+
+
+def test_mipnerf360_training_step_spans_and_counters(scene):
+    """The step opens every layer's span under the callback's; the NeRF
+    samples outside the unit ball count as the same step's frustum means,
+    made again with tracing off, put them."""
+    from nerficg_torch.ops.frustum import conical_frustum_gaussians
+    from nerficg_torch.ops.sampling import s_to_t
+    trainer, dataset = _mip(scene)
+    renderer, pool = trainer.renderer, trainer._pool
+    ids = torch.arange(0, 64 * 61, 61)
+    draws = [torch.rand(64, generator=torch.Generator().manual_seed(k))
+             for k in range(3)]
+    rays = (pool['origins'][ids], pool['directions'][ids], pool['radii'][ids])
+    with torch.no_grad():
+        out = renderer._render_rays_impl(*rays, draws=draws)
+    s = out['rounds'][-1]['edges']
+    t = s_to_t(s, renderer.NEAR_PLANE, renderer.FAR_PLANE)
+    means, _ = conical_frustum_gaussians(*rays, t[:, :-1], t[:, 1:])
+    outside = int(((means * means).sum(-1) > 1.0).sum())
+    assert tracing.counters() == {}
+    with profile() as prof:
+        with trainer._timer('training_iteration'):
+            trainer.train_step(ids, draws)
+    step = ['trainer/training_iteration']
+    assert _spans(prof) == {'trainer/training_iteration': [],
+                            'sampler': step, 'encoding': step,
+                            'proposal': step, 'compositor': step,
+                            'field': step, 'loss': step, 'optimizer': step}
+    assert tracing.counters() == {'mip/samples': 64 * (8 + 8 + 4),
+                                  'mip/contracted': outside}
+    assert 0 < outside < 64 * 4
+
+
+def test_mipnerf360_step_without_a_profiler_reduces_nothing(scene,
+                                                            monkeypatch):
+    """With tracing off no span enters ``record_function`` and no counter
+    is handed a tensor, so nothing is reduced or read for them."""
+    from nerficg_torch.methods.mipnerf360 import renderer as mip_renderer
+    trainer, dataset = _mip(scene)
+    handed = []
+    monkeypatch.setattr(tracing, 'record_function', None)
+    monkeypatch.setattr(mip_renderer, 'count',
+                        lambda name, value: handed.append((name, value)))
+    with trainer._timer('training_iteration'):
+        trainer.training_iteration(dataset, 0)
+    assert [name for name, _ in handed] == ['mip/samples'] * 3
+    assert all(type(value) is int for _, value in handed)
+    assert tracing.counters() == {}
 
 
 # -- on the card -----------------------------------------------------------------
