@@ -12,9 +12,12 @@ Phases, each printing its own lines:
      both: the kernel (and the library call) on the card's own clock, a CUDA
      graph of 50 calls, and on the host's, 50 calls ending in a synchronize;
      the 3DGS stream forward (#15) and backward on the 1080p frame and on a
-     400x400 one; the crossbar forward (#10) at 65,536, a serving chunk's
-     196,608, D-NeRF's 262,144 and the occupancy grid's warm-up 4,194,304
-     samples, each line naming its path; the
+     400x400 one; the 3DGS frontend pair and the entry gather pair at the
+     Mip-NeRF 360 cell's 3,112,960 Gaussians, the gather beside the
+     parent's composition (stack, expand, gather, pad; autograd's
+     index_put_ backward); the crossbar forward (#10) at 65,536, a
+     serving chunk's 196,608, D-NeRF's 262,144 and the occupancy grid's
+     warm-up 4,194,304 samples, each line naming its path; the
      crossbar backward (#11, #12 and both from one call) at the Instant-NGP
      step's 65,536 and D-NeRF's 262,144 samples on the level-resident path,
      and on a 2^16-entry table, past a block's shared memory, on the gather
@@ -292,6 +295,10 @@ KERNELS = {
     # No TPU kernel: the JAX frontend is jnp code that XLA fuses.
     'gs_frontend_fwd': ('cuda', 'nerficg_torch/csrc/gs_frontend.cu', 'none'),
     'gs_frontend_bwd': ('cuda', 'nerficg_torch/csrc/gs_frontend.cu', 'none'),
+    # No TPU kernel: the JAX package gathers the stream with XLA ops.
+    'gs_stream_gather': ('cuda', 'nerficg_torch/csrc/gs_gather.cu', 'none'),
+    'gs_stream_gather_bwd': ('cuda', 'nerficg_torch/csrc/gs_gather.cu',
+                             'none'),
 }
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32
@@ -1138,8 +1145,9 @@ def phase2_gs_kernels(record, rng) -> dict:
     bench.py renders it; a random d out for the backward. #15 (16-wide)
     and #16 again on a 400x400 frame of the same model (625 tiles), the GS
     training config's image size. Then the frontend pair
-    (``phase2_gs_frontend``). Returns the report's lines of #15 and #16
-    (each with its 400x400 sub-entry) and of the frontend pair."""
+    (``phase2_gs_frontend``) and the entry gather's pair
+    (``phase2_gs_gather``). Returns the report's lines of #15 and #16
+    (each with its 400x400 sub-entry) and of both pairs."""
     import torch
 
     from nerficg_torch.ops import gs_tiles_kernel as gtk
@@ -1214,6 +1222,7 @@ def phase2_gs_kernels(record, rng) -> dict:
            sfu=passing, plain_iters=3)
     lines['gs_composite_bwd'] = {**line_1080, 'frame_400x400': line_400}
     lines.update(phase2_gs_frontend(record))
+    lines.update(phase2_gs_gather(record))
     return lines
 
 
@@ -1323,6 +1332,125 @@ def phase2_gs_frontend(record) -> dict:
         lambda: gsf.gs_frontend_bwd(*args, grads), plain_bwd,
         f'{n} Gaussians, 4 bands, d outputs at 1237x822 -> d parameters',
         n * (236 + 40 + 236), n * 840, plain_iters=3))
+    return lines
+
+
+def _parent_stream(attrs, perm, e_pad: int):
+    """The 16-wide stream as the port composed it before the gather
+    kernels: the ten attribute rows stacked, expanded D times, gathered by
+    ``perm`` and padded; autograd's backward of it is index_put_ with
+    accumulate."""
+    import torch
+    means2d, conics, opacities, colors, depths = attrs
+    rows = torch.stack([means2d[:, 0], means2d[:, 1], conics[:, 0],
+                        conics[:, 1], conics[:, 2], opacities, colors[:, 0],
+                        colors[:, 1], colors[:, 2], depths])
+    dup = perm.shape[0] // rows.shape[1]
+    channels = rows[:, None, :].expand(-1, dup, -1).reshape(10, -1)
+    return torch.nn.functional.pad(channels[:, perm],
+                                   (0, e_pad - perm.shape[0], 0, 6))
+
+
+def phase2_gs_gather(record) -> dict:
+    """The entry gather's pair at the Mip-NeRF 360 cell's 3,112,960
+    Gaussians, D = 6, k = 256, on a 1237x822 view (78 x 52 tiles) of
+    ``gs360_frontend_inputs``: the forward (stream and inv over the live
+    entries) bit for bit the plain version's, its stream the parent's
+    composition's; the backward, from #16's stream gradient for a random d
+    out, within 1e-6 relative Frobenius of the plain version and of
+    autograd through the composition, in each attribute. Beside each, the
+    parent's composition on the card (CUDA events, eager: the forward, or
+    autograd's backward of it). Bytes, each read or written once: perm
+    and the sorted tiles (12 B an entry), the attributes (40 B a
+    Gaussian), the stream (64 B a column) and inv (4 B an entry) forward;
+    inv (4 B an entry), ten 32 B sectors of the stream's gradient for each
+    live entry and the gradients (40 B a Gaussian) backward."""
+    from unittest import mock
+
+    import torch
+
+    from nerficg_torch.ops import gaussian as gsf
+    from nerficg_torch.ops import gs_gather as gg
+    from nerficg_torch.ops import gs_rasterize as gr
+    from nerficg_torch.ops import gs_tiles_kernel as gtk
+    from nerficg_torch.scripts.kernel_timing import events_ms
+    n, (width, height), k = GS360_GAUSSIANS, GS360_VIEW, 256
+    params, w2c, cam_pos, intrinsics = gs360_frontend_inputs(width, height,
+                                                             3)
+    inputs = gsf.gs_frontend_fwd(params, w2c, cam_pos, intrinsics, 4)
+    del params
+    seen = {}
+
+    def capture(*args):
+        seen['args'] = args
+        return gg.stream_gather(*args)
+    with mock.patch.object(gr, 'stream_gather', capture), torch.no_grad():
+        s = gr.entry_stream(**inputs, width=width, height=height,
+                            max_tiles_per_gaussian=6, max_per_tile=k)
+    *attrs, perm, sorted_tile, starts, _, e_pad = seen['args']
+    counts, num_tiles = s['counts'], s['num_tiles']
+    e = perm.shape[0]
+    live = int(torch.clamp(counts, max=k).sum())
+    print(f'phase 2: entry gather at {width}x{height}: {n} Gaussians, '
+          f'{e} entries, {int(counts.sum())} in {num_tiles} tiles, {live} '
+          f'live (within k = {k}), E_pad {e_pad}', flush=True)
+
+    fwd = (*attrs, perm, e_pad, sorted_tile, starts, k)
+    got, inv = gg.gs_stream_gather(*fwd)
+    want, inv_p = gg.gs_stream_gather_plain(*fwd)
+    parent = _parent_stream(attrs, perm, e_pad)
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32)) and \
+            torch.equal(a.view(torch.int32), parent.view(torch.int32)) and \
+            torch.equal(inv, inv_p) and int((inv >= 0).sum()) == live
+    lines = {'gs_stream_gather': dict(record(
+        'gs_stream_gather', got, want, same,
+        lambda: gg.gs_stream_gather(*fwd),
+        lambda: gg.gs_stream_gather_plain(*fwd),
+        f'{n} Gaussians x 6 -> the (16,{e_pad}) stream and inv',
+        e * 8 + e * 4 + n * 40 + 16 * e_pad * 4 + e * 4, 0,
+        plain_iters=5))}
+    with torch.no_grad():
+        lines['gs_stream_gather']['parent_ms'] = events_ms(
+            lambda: _parent_stream(attrs, perm, e_pad), 5)
+    del want, inv_p, parent
+
+    out, tacc = gtk.gs_composite_fwd(got, starts, counts, s['tiles_x'],
+                                     num_tiles, k)
+    g = torch.Generator(device=out.device).manual_seed(4)
+    dout = torch.randn(out.shape, generator=g, device=out.device)
+    d_sorted = gtk.gs_composite_bwd(got, starts, counts, tacc, dout,
+                                    s['tiles_x'], num_tiles, k)
+    del got, out, tacc
+    bwd = (d_sorted, inv, n)
+    grads = gg.gs_stream_gather_bwd(*bwd)
+    plain = gg.gs_stream_gather_bwd_plain(*bwd)
+    leaves = [a.detach().clone().requires_grad_(True) for a in attrs]
+    composed = _parent_stream(leaves, perm, e_pad)
+    autograd = torch.autograd.grad(composed, leaves, d_sorted,
+                                   retain_graph=True)
+
+    def close(a, b):
+        return all(float((x - y).norm()) <= 1e-6 * float(y.norm())
+                   for ref in (plain, autograd)
+                   for x, y in zip(grads, ref))
+    lines['gs_stream_gather_bwd'] = dict(record(
+        'gs_stream_gather_bwd', torch.cat([x.reshape(-1) for x in grads]),
+        torch.cat([x.reshape(-1) for x in plain]), close,
+        lambda: gg.gs_stream_gather_bwd(*bwd),
+        lambda: gg.gs_stream_gather_bwd_plain(*bwd),
+        f'd stream (16,{e_pad}), {live} live entries -> d attributes of '
+        f'{n} Gaussians', e * 4 + live * 10 * 32 + n * 40, 0,
+        plain_iters=3))
+    lines['gs_stream_gather_bwd']['parent_ms'] = events_ms(
+        lambda: torch.autograd.grad(composed, leaves, d_sorted,
+                                    retain_graph=True), 3)
+    print(f'phase 2: the parent\'s composition at the same shapes: '
+          f'forward {lines["gs_stream_gather"]["parent_ms"]:.4f} ms, '
+          f'autograd\'s backward '
+          f'{lines["gs_stream_gather_bwd"]["parent_ms"]:.4f} ms (CUDA '
+          f'events, eager)', flush=True)
     return lines
 
 
@@ -2003,6 +2131,8 @@ def phase_training(card: str, phase: int | str, scene: Path, config: str,
 
 def _gs_wrappers() -> dict:
     from nerficg_torch.ops.gaussian import gs_frontend_bwd, gs_frontend_fwd
+    from nerficg_torch.ops.gs_gather import (gs_stream_gather,
+                                             gs_stream_gather_bwd)
     from nerficg_torch.ops.gs_tiles_kernel import (gs_composite_bwd,
                                                    gs_composite_fwd,
                                                    gs_composite_fwd_packed)
@@ -2010,13 +2140,16 @@ def _gs_wrappers() -> dict:
             'gs_composite_fwd_packed': gs_composite_fwd_packed,
             'gs_composite_bwd': gs_composite_bwd,
             'gs_frontend_fwd': gs_frontend_fwd,
-            'gs_frontend_bwd': gs_frontend_bwd}
+            'gs_frontend_bwd': gs_frontend_bwd,
+            'gs_stream_gather': gs_stream_gather,
+            'gs_stream_gather_bwd': gs_stream_gather_bwd}
 
 
 def check_frontend_launches(tag: str, launches: dict) -> None:
     """Every rasterization (#15, 16-wide or packed) ran the frontend's
     forward kernel once, and every backward (#16) its backward kernel
-    once."""
+    once; every 16-wide one the entry gather's forward kernel once, and
+    every backward its backward kernel once."""
     composites = launches['gs_composite_fwd'] + \
         launches['gs_composite_fwd_packed']
     if launches['gs_frontend_fwd'] != composites or \
@@ -2025,6 +2158,13 @@ def check_frontend_launches(tag: str, launches: dict) -> None:
              f'{launches["gs_frontend_fwd"]} and '
              f'{launches["gs_frontend_bwd"]} times for {composites} '
              f'composites and {launches["gs_composite_bwd"]} backwards')
+    if launches['gs_stream_gather'] != launches['gs_composite_fwd'] or \
+            launches['gs_stream_gather_bwd'] != launches['gs_composite_bwd']:
+        fail(f'{tag}: the entry gather kernels launched '
+             f'{launches["gs_stream_gather"]} and '
+             f'{launches["gs_stream_gather_bwd"]} times for '
+             f'{launches["gs_composite_fwd"]} 16-wide composites and '
+             f'{launches["gs_composite_bwd"]} backwards')
 
 
 def _gs_config_path() -> Path:
@@ -2240,7 +2380,10 @@ def phase9_gs_training(card: str, scene: Path,
                 served_launches['gs_composite_fwd_packed'],
             'gs_frontend_fwd': launches['gs_frontend_fwd'] +
                 served_launches['gs_frontend_fwd'],
-            'gs_frontend_bwd': launches['gs_frontend_bwd']}
+            'gs_frontend_bwd': launches['gs_frontend_bwd'],
+            'gs_stream_gather': launches['gs_stream_gather'] +
+                served_launches['gs_stream_gather'],
+            'gs_stream_gather_bwd': launches['gs_stream_gather_bwd']}
 
 
 def _rel_frobenius(got, want) -> float:
@@ -3111,7 +3254,10 @@ def phase16_capture(card: str, scene: Path,
                 served_launches['gs_composite_fwd_packed'],
             'gs_frontend_fwd': launches['gs_frontend_fwd'] +
                 served_launches['gs_frontend_fwd'],
-            'gs_frontend_bwd': launches['gs_frontend_bwd']}
+            'gs_frontend_bwd': launches['gs_frontend_bwd'],
+            'gs_stream_gather': launches['gs_stream_gather'] +
+                served_launches['gs_stream_gather'],
+            'gs_stream_gather_bwd': launches['gs_stream_gather_bwd']}
 
 
 # Phase 17: the interactive viewer. Poses are posted as a browser would
@@ -3639,13 +3785,13 @@ def ray_pool_paths():
     grouped = BaseDataset._grouped_rays.__func__
     calls = {'shared': 0, 'grouped': []}
 
-    def count_shared(views, device):
+    def count_shared(views, device, *args):
         calls['shared'] += 1
-        return shared(views, device)
+        return shared(views, device, *args)
 
-    def count_grouped(cls, views, groups, device):
+    def count_grouped(cls, views, groups, device, *args):
         calls['grouped'].append(len(groups))
-        return grouped(cls, views, groups, device)
+        return grouped(cls, views, groups, device, *args)
 
     BaseDataset._shared_camera_rays = staticmethod(count_shared)
     BaseDataset._grouped_rays = classmethod(count_grouped)

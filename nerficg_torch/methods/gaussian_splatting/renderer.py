@@ -23,7 +23,18 @@ from nerficg_torch.methods.gaussian_splatting.model import \
 from nerficg_torch.ops.gaussian import gs_frontend
 from nerficg_torch.ops.gs_rasterize import rasterize_gaussians
 
-__all__ = ['GaussianSplattingRenderer']
+__all__ = ['GaussianSplattingRenderer', 'to_device']
+
+
+def to_device(values, device: torch.device) -> torch.Tensor:
+    """A small host array as an f32 tensor on ``device``. On CUDA it is
+    staged through pinned memory and copied in stream order: a copy from
+    pageable memory would synchronise the stream, and the host would lose
+    its lead over the card at every view."""
+    host = torch.as_tensor(np.asarray(values, np.float32))
+    if torch.device(device).type != 'cuda':
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 @Configurable.configure(
@@ -78,10 +89,8 @@ class GaussianSplattingRenderer(BaseRenderer):
                       float(cam.center_x), float(cam.center_y),
                       int(cam.width), int(cam.height))
         device = self.model.device
-        w2c = torch.as_tensor(np.asarray(view.w2c, np.float32), device=device)
-        cam_pos = torch.as_tensor(np.asarray(view.position, np.float32),
-                                  device=device)
-        return intrinsics, w2c, cam_pos
+        return (intrinsics, to_device(view.w2c, device),
+                to_device(view.position, device))
 
     @traced('render_image')
     def render_image(self, view: View,
@@ -90,9 +99,7 @@ class GaussianSplattingRenderer(BaseRenderer):
         intrinsics, w2c, cam_pos = self.view_constants(view)
         device = self.model.device
         params = self.model.params
-        background = torch.as_tensor(
-            np.asarray(view.camera.background_color, np.float32),
-            device=device)
+        background = to_device(view.camera.background_color, device)
         with torch.no_grad():
             out = self.render_impl(
                 params, torch.zeros((self.model.capacity, 2), device=device),

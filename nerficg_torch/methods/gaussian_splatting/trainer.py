@@ -36,6 +36,7 @@ from nerficg_torch.methods.base.trainer import (BaseTrainer,
                                                 adam_state_from_numpy,
                                                 adam_state_to_numpy)
 from nerficg_torch.methods.gaussian_splatting.convert import PARAM_KEYS
+from nerficg_torch.methods.gaussian_splatting.renderer import to_device
 from nerficg_torch.ops.encoding import SH_C0
 from nerficg_torch.optim.losses import dssim, l1
 from nerficg_torch.optim.lr import lr_decay_policy
@@ -177,8 +178,8 @@ class GaussianSplattingTrainer(BaseTrainer):
         for p in params.values():
             p.grad = None
         loss.backward()
-        ndc = torch.tensor([0.5 * intrinsics[4], 0.5 * intrinsics[5]],
-                           device=self.device)
+        ndc = to_device((0.5 * intrinsics[4], 0.5 * intrinsics[5]),
+                        self.device)
         with torch.no_grad():
             return {
                 'l1': loss_l1.detach(), 'dssim': loss_dssim.detach(),
@@ -219,9 +220,7 @@ class GaussianSplattingTrainer(BaseTrainer):
         index = int(self._np_rng.integers(len(views)))
         view = views[index]
         intrinsics, w2c, cam_pos = self.renderer.view_constants(view)
-        background = torch.as_tensor(
-            np.asarray(view.camera.background_color, np.float32),
-            device=self.device)
+        background = to_device(view.camera.background_color, self.device)
         logs = self.loss_and_grads(w2c, cam_pos, intrinsics, background,
                                    self._target(index, view))
         self.apply_update()

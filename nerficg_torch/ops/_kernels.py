@@ -76,6 +76,8 @@ _SIGNATURES = {
     'nerficg_gs_frontend_fwd': [_P] * 8 + [_FP] + [_P] * 7 + [_I] * 3 + [_P],
     'nerficg_gs_frontend_bwd': [_P] * 8 + [_FP] + [_P] * 11 + [_I] * 3 +
                                [_P],
+    'nerficg_gs_stream_gather': [_P] * 10 + [_I] * 3 + [_L, _L, _P],
+    'nerficg_gs_stream_gather_bwd': [_P] * 7 + [_I, _I, _L, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

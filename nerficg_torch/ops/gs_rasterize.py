@@ -11,10 +11,13 @@ The entry order is the JAX package's, exactly: the same keys over the same
 flat (D, N) order, sorted stably (``jax.lax.sort`` is stable). Serving
 sorts on one fused key whose depth keeps only the top 32 - bit_length(T+1)
 bits of the depth's f32 pattern (19 at 1080p), so ties are common there and
-their order decides the composite. The sort, the segment search and the
-permutation's backward are plain PyTorch, as they are XLA ops in the JAX
-package. ``rasterize_gaussians`` opens the ``rasterizer`` span, the
-compositor's call the ``composite`` span, and it counts ``gs/entries``,
+their order decides the composite. The sort and the segment search are
+plain PyTorch, as they are XLA ops in the JAX package; the 16-wide stream
+is written from the Gaussians by ``ops/gs_gather.stream_gather`` (on the
+card the kernel pair of ``csrc/gs_gather.cu``, whose backward reads only
+the entries the compositor keeps), the packed one gathered in PyTorch.
+``rasterize_gaussians`` opens the ``rasterizer`` span, the compositor's
+call the ``composite`` span, and it counts ``gs/entries``,
 ``gs/entries_past_k`` and ``gs/gaussians_past_d`` (``core/tracing.py``).
 """
 
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from nerficg_torch.core.tracing import count, span, traced
+from nerficg_torch.ops.gs_gather import stream_gather
 from nerficg_torch.ops.gs_tiles_kernel import (MEANS_FP_BIAS, MEANS_FP_SCALE,
                                                TILE, _as_f32,
                                                composite_sorted)
@@ -165,32 +169,28 @@ def entry_stream(means2d: torch.Tensor, depths: torch.Tensor,
     tile_of_entry = torch.where(dup_valid, ty * tiles_x + tx,
                                 torch.full_like(tx, num_tiles))
 
+    e = tile_of_entry.numel()
+    e_pad = -(-(e + 3 * k) // k) * k
     if packed_inference:
         sorted_ch, starts, counts = _sort_entries_packed(
             m2d, conics, opacities, colors, depths, tile_of_entry, tx, ty,
             num_tiles)
-        width_rows = 8
+        sorted_mat = F.pad(sorted_ch, (0, e_pad - e, 0,
+                                       8 - sorted_ch.shape[0]))
     else:
-        attrs = torch.stack([
-            means2d[:, 0], means2d[:, 1], conics[:, 0], conics[:, 1],
-            conics[:, 2], opacities, colors[:, 0], colors[:, 1],
-            colors[:, 2], depths], dim=0)                          # (10, N)
         dup = tile_of_entry.shape[0]
-        channels = attrs[:, None, :].expand(-1, dup, -1).reshape(
-            attrs.shape[0], -1)
         entry_tile = tile_of_entry.reshape(-1)
         entry_depth = depths.detach()[None, :].expand(dup, -1).reshape(-1)
         # One stable sort: ties in input order, as jax.lax.sort's.
         perm = torch.sort(_tile_depth_key(entry_tile, entry_depth),
                           stable=True).indices
-        sorted_ch = channels[:, perm]
-        starts, counts = _segments(entry_tile[perm], num_tiles)
-        width_rows = 16
-    n_ch, e = sorted_ch.shape
-    e_pad = -(-(e + 3 * k) // k) * k
+        sorted_tile = entry_tile[perm]
+        starts, counts = _segments(sorted_tile, num_tiles)
+        sorted_mat = stream_gather(means2d, conics, opacities, colors,
+                                   depths, perm, sorted_tile, starts, k,
+                                   e_pad)
     rect_h = t_max_y - t_min_y + 1
-    return {'sorted_mat': F.pad(sorted_ch, (0, e_pad - e, 0,
-                                            width_rows - n_ch)),
+    return {'sorted_mat': sorted_mat,
             'starts': starts, 'counts': counts,
             'tiles_x': tiles_x, 'num_tiles': num_tiles,
             'overflow_gaussians': ((rect_w * rect_h > max_tiles_per_gaussian)

@@ -5,15 +5,16 @@ with one: ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``
 
 import functools
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
 from nerficg_torch.core.errors import KernelError
-from nerficg_torch.ops import (gaussian, gs_rasterize, gs_tiles_kernel,
-                               hash_cell, hash_mxu, hash_window, hash_xbar,
-                               xbar_gather)
+from nerficg_torch.ops import (gaussian, gs_gather, gs_rasterize,
+                               gs_tiles_kernel, hash_cell, hash_mxu,
+                               hash_window, hash_xbar, xbar_gather)
 from nerficg_torch.ops.hashgrid import HashGridConfig
 from nerficg_torch.scripts.kernel_timing import boundary_values
 
@@ -733,6 +734,84 @@ def test_gs_composite_bwd(cuda):
         *args[:3], tacc, dout, *args[3:]))
 
 
+GATHER_ARGS = ('means2d', 'conics', 'opacities', 'colors', 'depths', 'perm',
+               'sorted_tile', 'starts', 'k', 'e_pad')
+
+
+def _gather_args(cuda, seed=4):
+    """``_gs_stream``'s 16-wide composite arguments, and the arguments
+    ``entry_stream`` handed ``stream_gather`` for them."""
+    seen = {}
+    orig = gs_rasterize.stream_gather
+
+    def capture(*args):
+        seen['args'] = args
+        return orig(*args)
+
+    with mock.patch.object(gs_rasterize, 'stream_gather', capture):
+        args = _gs_stream(cuda, packed=False, seed=seed)
+    return args, dict(zip(GATHER_ARGS, seen['args']))
+
+
+def test_gs_stream_gather(cuda):
+    """The forward kernel bit for bit the plain version's stream and inv,
+    with inv and without; its stream the one entry_stream composites."""
+    args, a = _gather_args(cuda)
+    fwd = [a[k] for k in GATHER_ARGS[:6]] + [a['e_pad']]
+    live = (a['sorted_tile'], a['starts'], a['k'])
+    before = gs_gather.gs_stream_gather.launches
+    for extra in (live, ()):
+        mat, inv = gs_gather.gs_stream_gather(*fwd, *extra)
+        mat_p, inv_p = gs_gather.gs_stream_gather_plain(*fwd, *extra)
+        assert torch.equal(mat.view(torch.int32), mat_p.view(torch.int32))
+        assert torch.equal(mat, args[0])
+        if extra:
+            assert inv.dtype == torch.int32 and torch.equal(inv, inv_p)
+            assert int((inv >= 0).sum()) == int(torch.clamp(
+                args[2], max=a['k']).sum())
+        else:
+            assert inv is None and inv_p is None
+    assert gs_gather.gs_stream_gather.launches == before + 2
+
+
+def test_gs_stream_gather_bwd(cuda):
+    """From the compositor kernel's stream gradient, the backward kernel
+    within 1e-6 relative Frobenius of the plain version in each attribute,
+    and bit-equal between two launches (no atomics)."""
+    args, a = _gather_args(cuda, seed=5)
+    _, tacc = gs_tiles_kernel.gs_composite_fwd(*args)
+    dout = torch.tensor(np.random.default_rng(6).normal(
+        size=(args[4], 5, 256)), dtype=torch.float32, device=cuda)
+    d_sorted = gs_tiles_kernel.gs_composite_bwd(*args[:3], tacc, dout,
+                                                *args[3:])
+    _, inv = gs_gather.gs_stream_gather(
+        *(a[k] for k in GATHER_ARGS[:6]), a['e_pad'], a['sorted_tile'],
+        a['starts'], a['k'])
+    bwd = (d_sorted, inv, a['means2d'].shape[0])
+    got = gs_gather.gs_stream_gather_bwd(*bwd)
+    want = gs_gather.gs_stream_gather_bwd_plain(*bwd)
+    for key, g, w in zip(GATHER_ARGS, got, want):
+        assert g.shape == a[key].shape, key
+        assert float(w.norm()) > 0, key
+        assert float((g - w).norm()) <= 1e-6 * float(w.norm()), key
+    for g, again in zip(got, gs_gather.gs_stream_gather_bwd(*bwd)):
+        assert torch.equal(g, again)
+
+
+def test_gs_stream_gather_refuses_2_31_entries(cuda):
+    """D x N >= 2^31 raises before the kernels launch."""
+    n = 2 ** 28
+    m2, m3 = (torch.zeros(1, c, device=cuda).expand(n, c) for c in (2, 3))
+    m1 = torch.zeros(1, device=cuda).expand(n)
+    perm = torch.zeros(1, dtype=torch.long, device=cuda).expand(8 * n)
+    with pytest.raises(KernelError, match='int32'):
+        gs_gather.gs_stream_gather(m2, m3, m1, m3, m1, perm, 8 * n + 768)
+    inv = torch.zeros(1, dtype=torch.int32, device=cuda).expand(8 * n)
+    with pytest.raises(KernelError, match='int32'):
+        gs_gather.gs_stream_gather_bwd(torch.zeros(16, 1, device=cuda), inv,
+                                       n)
+
+
 def _edge_tiles(device, k=64, seed=11):
     """A hand-built 16-wide stream over a 32x32 frame (2 x 2 tiles) whose
     tiles hold 0 entries, 45 (not a multiple of the 32-entry chunk), 100
@@ -1084,8 +1163,9 @@ def test_gs_frontend_missing_gradients_and_refusals(cuda):
 
 def test_gs_training_step_launches_the_frontend_kernels(cuda, tmp_path):
     """One 3DGS training step through the trainer's own code launches the
-    forward and the backward kernel once each, and the parameters' .grad
-    are the backward kernel's outputs, in the parameters' shapes."""
+    frontend's forward and backward kernel once each, and so the entry
+    gather's pair, and the parameters' .grad are the backward kernel's
+    outputs, in the parameters' shapes."""
     from nerficg_torch.core.config import ConfigNode
     from nerficg_torch.core.logging import Logger
     from nerficg_torch.core.registry import Datasets, Methods
@@ -1104,16 +1184,52 @@ def test_gs_training_step_launches_the_frontend_kernels(cuda, tmp_path):
     dataset = Datasets.get_dataset(config)
     trainer._setup_gaussians(dataset)
     Logger.set_level('NORMAL')
-    before = (gaussian.gs_frontend_fwd.launches,
-              gaussian.gs_frontend_bwd.launches)
+    kernels = (gaussian.gs_frontend_fwd, gaussian.gs_frontend_bwd,
+               gs_gather.gs_stream_gather, gs_gather.gs_stream_gather_bwd)
+    before = [fn.launches for fn in kernels]
     trainer.training_iteration(dataset, 1)
     torch.cuda.synchronize()
-    assert (gaussian.gs_frontend_fwd.launches,
-            gaussian.gs_frontend_bwd.launches) == (before[0] + 1,
-                                                   before[1] + 1)
+    assert [fn.launches for fn in kernels] == [b + 1 for b in before]
     for key, p in trainer.model.params.items():
         assert p.grad is not None and p.grad.shape == p.shape, key
         assert bool(torch.isfinite(p.grad).all()), key
+
+
+def test_gs_training_step_does_not_synchronise(cuda, tmp_path):
+    """Once every training view's image is on the card, a 3DGS training
+    step never waits for the card: no copy from pageable memory, no read
+    of a device value (torch's sync debug mode raises on any)."""
+    from nerficg_torch.core.config import ConfigNode
+    from nerficg_torch.core.logging import Logger
+    from nerficg_torch.core.registry import Datasets, Methods
+    from nerficg_torch.data.synthetic import make_textured_scene
+
+    scene = make_textured_scene(tmp_path / 'scene', image_size=64,
+                                n_train=2, n_test=1)
+    config = ConfigNode({
+        'GLOBAL': {'METHOD_TYPE': 'GaussianSplatting',
+                   'DATASET_TYPE': 'NeRF', 'RANDOM_SEED': 0,
+                   'LOG_LEVEL': 'SILENT'},
+        'DATASET': {'PATH': str(scene)},
+        'TRAINING': {'RANDOM_POINTS': 2000}})
+    Logger.set_level('SILENT')
+    trainer = Methods.get_training_instance(config, device='cuda')
+    dataset = Datasets.get_dataset(config)
+    trainer._setup_gaussians(dataset)
+    Logger.set_level('NORMAL')
+    for index, view in enumerate(dataset.subsets['train']):
+        trainer._target(index, view)
+    trainer.training_iteration(dataset, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        for iteration in range(2, 5):
+            trainer.training_iteration(dataset, iteration)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    assert len(trainer.losses) == 4
+    assert all(bool(torch.isfinite(v)) for v in trainer.losses)
 
 
 def test_gs_frontend_bwd_isotropic_rotations_have_no_gradient(cuda):
